@@ -1,0 +1,26 @@
+"""Architecture configs of the port.  Each module exposes ``config()`` (the
+published widths) and ``smoke_config()`` (a reduced same-family config)."""
+
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+ARCH_IDS: List[str] = ["granite_8b"]
+
+
+def _mod(arch: str):
+    arch = arch.replace("-", "_")
+    if arch not in ARCH_IDS:
+        raise ValueError(f"arch {arch!r} is not ported yet; ported: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _mod(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _mod(arch).smoke_config()

@@ -1,0 +1,117 @@
+"""Model configuration (port of ``repro.configs.base``, dense fields).
+
+A config carries its op contract as ``repro_torch.ops`` specs; the legacy
+loose fields (``softmax_kind``, ``attn_impl``, ...) stay as constructor
+inputs that the ``*_spec`` properties fold in, so the reference's
+``dataclasses.replace(cfg, attn_impl="pallas")`` idiom means the same here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.core.fixedpoint import FixedPointFormat
+from repro_torch.ops.specs import AttentionSpec, PagedAttentionSpec, SoftmaxSpec
+
+# legacy attn_impl names -> registry impls (new names pass through)
+_ATTN_IMPLS = {"naive": "reference", "blocked": "xla", "flash": "pallas"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense (the only family ported so far)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    mlp_type: str = "swiglu"  # swiglu | gelu
+    tie_embeddings: bool = False
+
+    softmax: Optional[SoftmaxSpec] = None
+    attention: Optional[AttentionSpec] = None
+    # Legacy loose fields (used when the specs above are None, and as
+    # overrides when moved off their defaults).
+    softmax_kind: str = "star"
+    softmax_int_bits: int = 6
+    softmax_frac_bits: int = 2
+    softmax_mode: str = "gather"
+    attn_impl: str = "blocked"
+    attn_block_size: int = 512
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding/unembedding width: vocab padded to a multiple of 512.
+        Padded logit columns are masked in ``unembed``."""
+        return -(-self.vocab_size // 512) * 512
+
+    @property
+    def softmax_spec(self) -> SoftmaxSpec:
+        base = self.softmax
+        if base is None and self.attention is not None:
+            base = self.attention.softmax
+        if base is None:
+            return SoftmaxSpec(
+                kind=self.softmax_kind, mode=self.softmax_mode,
+                precision=FixedPointFormat(self.softmax_int_bits, self.softmax_frac_bits),
+            )
+        updates = {}
+        if self.softmax_kind != "star":
+            updates["kind"] = self.softmax_kind
+        if self.softmax_mode != "gather":
+            updates["mode"] = self.softmax_mode
+        if (self.softmax_int_bits, self.softmax_frac_bits) != (6, 2):
+            updates["precision"] = FixedPointFormat(
+                self.softmax_int_bits, self.softmax_frac_bits
+            )
+        return dataclasses.replace(base, **updates) if updates else base
+
+    @property
+    def attention_spec(self) -> AttentionSpec:
+        if self.attention is None:
+            return AttentionSpec(
+                impl=_ATTN_IMPLS.get(self.attn_impl, self.attn_impl),
+                softmax=self.softmax_spec,
+                block_k=min(self.attn_block_size, 128),
+                block_kv=self.attn_block_size,
+            )
+        updates = {"softmax": self.softmax_spec}
+        if self.attn_impl != "blocked":
+            updates["impl"] = _ATTN_IMPLS.get(self.attn_impl, self.attn_impl)
+        if self.attn_block_size != 512:
+            updates["block_k"] = min(self.attn_block_size, 128)
+            updates["block_kv"] = self.attn_block_size
+        return dataclasses.replace(self.attention, **updates)
+
+    @property
+    def paged_attention_spec(self) -> PagedAttentionSpec:
+        """Paged decode contract: ``pallas`` maps to the gather-free
+        ``pallas_paged`` kernel, ``reference``/``xla`` keep their gather
+        adapters, anything else falls back to ``xla``."""
+        base = self.attention_spec
+        impl = {"reference": "reference", "xla": "xla",
+                "pallas": "pallas_paged"}.get(base.impl, "xla")
+        return PagedAttentionSpec(impl=impl, softmax=base.softmax, block_k=base.block_k)
+
+    def validate(self) -> "ModelConfig":
+        if self.num_heads % self.num_kv_heads != 0:
+            raise ValueError(
+                f"GQA needs num_heads % num_kv_heads == 0, got "
+                f"{self.num_heads} % {self.num_kv_heads}"
+            )
+        return self

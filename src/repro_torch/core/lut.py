@@ -1,0 +1,51 @@
+"""Exponential lookup tables — the LUT / VMM crossbar contents (port of
+``repro.core.lut``).
+
+``lut[k] = exp(-k / 2**frac_bits)`` is computed in float64 with numpy and
+rounded once to float32, exactly as the reference does, so a gathered entry
+is bit-identical to the reference's.  The Hopper kernels read the same table.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.fixedpoint import FixedPointFormat
+
+
+@functools.lru_cache(maxsize=64)
+def _exp_lut_np(int_bits: int, frac_bits: int) -> np.ndarray:
+    fmt = FixedPointFormat(int_bits, frac_bits)
+    k = np.arange(fmt.num_levels, dtype=np.float64)
+    return np.exp(-k / fmt.scale).astype(np.float32)
+
+
+def exp_lut(fmt: FixedPointFormat, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``lut[k] = exp(-k / 2**frac_bits)``, shape ``[num_levels]``."""
+    table = torch.from_numpy(_exp_lut_np(fmt.int_bits, fmt.frac_bits))
+    return table.to(device=device, dtype=dtype)
+
+
+def lookup_gather(k: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Digital shortcut: direct LUT gather."""
+    return lut[k.long()]
+
+
+def lookup_onehot(k: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Faithful crossbar dataflow: ``one_hot(k) @ lut``."""
+    onehot = torch.nn.functional.one_hot(k.long(), lut.shape[0]).to(lut.dtype)
+    return onehot @ lut
+
+
+def histogram_counts(k: torch.Tensor, num_levels: int, axis: int = -1) -> torch.Tensor:
+    """The counter: ``counts[..., j] = #{i : k[..., i] == j}`` along ``axis``."""
+    onehot = torch.nn.functional.one_hot(k.long(), num_levels).float()
+    return onehot.sum(dim=axis - 1 if axis < 0 else axis)
+
+
+def histogram_dot(counts: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """The VMM crossbar: ``sum_j counts[..., j] * lut[j]``."""
+    return counts @ lut.to(counts.dtype)

@@ -1,0 +1,165 @@
+"""Build and bind the CUDA C++ kernels: ``nvcc`` -> shared library -> ctypes.
+
+Each ``csrc/*.cu`` exposes a plain C entry point that launches its kernel on
+the stream it is given and returns ``cudaGetLastError()``.  Libraries are
+built at first use from the sources in the checkout into ``build/`` at the
+repository root, named by a hash of the source and flags, so an edited
+source is rebuilt and an unchanged one is reused.  ``build`` starts one
+``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+import torch
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+class LaunchCounter:
+    """A plain count of kernel launches, bumped by a wrapper where it
+    launches its kernel and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def add(self) -> None:
+        self.count += 1
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+_COUNTERS: Dict[str, LaunchCounter] = {}
+
+
+def launch_counter(name: str) -> LaunchCounter:
+    if name not in _COUNTERS:
+        _COUNTERS[name] = LaunchCounter(name)
+    return _COUNTERS[name]
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: c.count for name, c in sorted(_COUNTERS.items())}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS.values():
+        c.reset()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device is refused."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"kernels take CUDA or CPU tensors, got device {t.device}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                       "with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
+_BUILD_LOGS: Dict[Path, str] = {}
+
+
+def build(sources: Iterable[Path]) -> Dict[Path, str]:
+    """Compile every source not built yet, one ``nvcc`` each, all started
+    together.  Returns ``{source: nvcc/ptxas log}``; raises on a failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List[tuple] = []
+    for src in sources:
+        src = Path(src)
+        out = library_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        _BUILD_LOGS[src] = log
+        if proc.returncode != 0:
+            failures.append(f"{src.name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failures))
+    return dict(_BUILD_LOGS)
+
+
+_LIBS: Dict[Path, ctypes.CDLL] = {}
+
+
+def load(source: Path, bind) -> ctypes.CDLL:
+    """The built library of ``source`` (built now if missing), with
+    ``bind(lib)`` run once to declare argtypes/restype."""
+    source = Path(source)
+    if source not in _LIBS:
+        path = library_path(source)
+        if not path.exists():
+            build([source])
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        bind(lib)
+        _LIBS[source] = lib
+    return _LIBS[source]
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+_LUTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_lut(fmt, device: torch.device) -> torch.Tensor:
+    """The float32 exp LUT of ``fmt`` on ``device``, uploaded once."""
+    from repro_torch.core.lut import exp_lut
+
+    key = (fmt, str(device))
+    if key not in _LUTS:
+        _LUTS[key] = exp_lut(fmt, device=device).contiguous()
+    return _LUTS[key]

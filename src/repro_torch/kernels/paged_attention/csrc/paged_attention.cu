@@ -1,0 +1,257 @@
+// paged_attention: gather-free paged decode attention over a block-pool KV
+// cache, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py
+// (paged_flash_attention / _kernel, the fp-KV variant).  The TPU grid
+// (S, Hkv, W) walks one slot's pages in order through scalar-prefetched
+// block tables and carries (m, l, acc) in VMEM; here one CTA owns one
+// (slot, kv head), reads its own table row and walks only the
+// ceil(kv_valid / bs) live pages in a loop.  The GQA head group (the
+// Hq / Hkv query heads sharing the KV head) forms the rows of each score
+// tile, as on the TPU.  Table entries past the live prefix (scratch block)
+// are never read, and no gathered [S, W*bs, Hkv, D] copy exists anywhere.
+//
+// What bounds it on the H100: the bytes of the live K/V pages (one decode
+// token per slot does 4 FLOP per byte read).  This first version loads up to
+// 64 rows (whole pages) per step into shared memory with plain coalesced
+// loads and one CTA per (slot, kv head); with few slots it fills few SMs and
+// is latency-bound rather than bandwidth-bound.  Splitting a slot's pages
+// over several CTAs (flash-decoding) is later work.
+//
+// Softmax arithmetic is the flash_star online form: STAR snaps each score to
+// the int grid with rint (half to even), saturating to +-2^24 before the int
+// cast (NaN -> sentinel); the running max is an int32; the rescale factor and
+// probabilities are entries of the exp LUT passed in (nullptr = exact
+// softmax).  A slot with kv_valid == 0 emits zeros (den <= 0 -> 1).  Pools
+// and q are float32 or bfloat16; arithmetic is float32; output in q's type.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NTHREADS = 128;
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int MAXG = 16;       // largest GQA group
+constexpr int TILE_ROWS = 64;  // KV rows loaded per step (whole pages)
+constexpr int GRID_SENTINEL = -(1 << 24);
+constexpr float NEG_BIG = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ int snap(float s, float scale) {
+  float v = rintf(s * scale);
+  if (isnan(v)) v = (float)GRID_SENTINEL;
+  v = fminf(fmaxf(v, (float)GRID_SENTINEL), (float)(-GRID_SENTINEL));
+  return (int)v;
+}
+
+struct Params {
+  const void* q;        // [S, Hq, D]
+  const void* k;        // [N, bs, Hkv, D]
+  const void* v;        // [N, bs, Hkv, D]
+  void* o;              // [S, Hq, D]
+  const int32_t* tables;  // [S, W]
+  const int32_t* valid;   // [S]
+  const float* lut;       // [num_levels], nullptr = exact softmax
+  int S, Hq, Hkv, W, bs, pages_per_step;
+  float sm_scale, grid_scale;
+  int num_levels;
+};
+
+template <typename T, int D, bool STAR>
+__global__ void __launch_bounds__(NTHREADS) paged_kernel(Params p) {
+  constexpr int ACC = (MAXG * D + NTHREADS - 1) / NTHREADS;
+  extern __shared__ float smem[];
+  const int G = p.Hq / p.Hkv;
+  const int tile = p.pages_per_step * p.bs;
+  float* Qs = smem;                  // [G][D]
+  float* Ks = Qs + G * D;            // [tile][D + 1]
+  float* Vs = Ks + tile * (D + 1);   // [tile][D]
+  float* Ss = Vs + tile * D;         // [G][tile] scores, then probabilities
+  __shared__ int m_sh[MAXG];
+  __shared__ float mf_sh[MAXG], l_sh[MAXG], r_sh[MAXG];
+
+  const int s = blockIdx.x, hk = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qg = static_cast<const T*>(p.q) + ((long long)s * p.Hq + hk * G) * D;
+  for (int idx = tid; idx < G * D; idx += NTHREADS) Qs[idx] = to_f32(qg[idx]);
+  if (tid < G) {
+    m_sh[tid] = GRID_SENTINEL;
+    mf_sh[tid] = NEG_BIG;
+    l_sh[tid] = 0.f;
+  }
+  float acc[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+
+  const int kv_valid = max(p.valid[s], 0);
+  const int pages = min((kv_valid + p.bs - 1) / p.bs, p.W);
+  const int32_t* table = p.tables + (long long)s * p.W;
+  const T* kpool = static_cast<const T*>(p.k);
+  const T* vpool = static_cast<const T*>(p.v);
+  const long long row_stride = (long long)p.Hkv * D;  // one token row of the pool
+
+  for (int j0 = 0; j0 < pages; j0 += p.pages_per_step) {
+    const int np = min(p.pages_per_step, pages - j0);
+    const int rows = np * p.bs;
+    __syncthreads();  // Qs / state ready; previous tile consumed
+    for (int idx = tid; idx < rows * D; idx += NTHREADS) {
+      const int r = idx / D, c = idx % D;
+      const long long page = table[j0 + r / p.bs];
+      const long long off = (page * p.bs + r % p.bs) * row_stride + hk * D + c;
+      Ks[r * (D + 1) + c] = to_f32(kpool[off]);
+      Vs[r * D + c] = to_f32(vpool[off]);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < G * rows; idx += NTHREADS) {
+      const int g = idx / rows, r = idx % rows;
+      const float* qr = Qs + g * D;
+      const float* kr = Ks + r * (D + 1);
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+      Ss[g * tile + r] = dot * p.sm_scale;
+    }
+    __syncthreads();
+    // one warp per head row: online softmax update over this tile
+    for (int g = warp; g < G; g += NWARPS) {
+      float* srow = Ss + g * tile;
+      const int col0 = j0 * p.bs;
+      float psum = 0.f, r;
+      if constexpr (STAR) {
+        const int top = p.num_levels - 1;
+        int mb = GRID_SENTINEL;
+        for (int c = lane; c < rows; c += 32)
+          if (col0 + c < kv_valid) mb = max(mb, snap(srow[c], p.grid_scale));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+        const int m_old = m_sh[g];
+        const int m_new = max(m_old, mb);
+        r = __ldg(p.lut + min(max(m_new - m_old, 0), top));
+        for (int c = lane; c < rows; c += 32) {
+          const float pv = col0 + c < kv_valid
+              ? __ldg(p.lut + min(max(m_new - snap(srow[c], p.grid_scale), 0), top))
+              : 0.f;
+          srow[c] = pv;
+          psum += pv;
+        }
+        __syncwarp();
+        if (lane == 0) m_sh[g] = m_new;
+      } else {
+        float mb = NEG_BIG;
+        for (int c = lane; c < rows; c += 32)
+          mb = fmaxf(mb, col0 + c < kv_valid ? srow[c] : NEG_BIG);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+        const float m_old = mf_sh[g];
+        const float m_new = fmaxf(m_old, mb);
+        r = expf(m_old - m_new);
+        for (int c = lane; c < rows; c += 32) {
+          const float pv = col0 + c < kv_valid ? expf(srow[c] - m_new) : 0.f;
+          srow[c] = pv;
+          psum += pv;
+        }
+        __syncwarp();
+        if (lane == 0) mf_sh[g] = m_new;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+      if (lane == 0) {
+        l_sh[g] = l_sh[g] * r + psum;
+        r_sh[g] = r;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      const int idx = tid + i * NTHREADS;
+      if (idx < G * D) {
+        const int g = idx / D, d = idx % D;
+        const float* prow = Ss + g * tile;
+        float a = acc[i] * r_sh[g];
+        for (int r = 0; r < rows; ++r) a = fmaf(prow[r], Vs[r * D + d], a);
+        acc[i] = a;
+      }
+    }
+  }
+  __syncthreads();
+  T* og = static_cast<T*>(p.o) + ((long long)s * p.Hq + hk * G) * D;
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) {
+    const int idx = tid + i * NTHREADS;
+    if (idx < G * D) {
+      const float l = l_sh[idx / D];
+      og[idx] = from_f32<T>(acc[i] / (l <= 0.f ? 1.f : l));
+    }
+  }
+}
+
+template <typename T, int D, bool STAR>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  auto kernel = paged_kernel<T, D, STAR>;
+  const int G = p.Hq / p.Hkv;
+  const int tile = p.pages_per_step * p.bs;
+  const size_t bytes = sizeof(float) * (G * D + tile * (D + 1) + tile * D + G * tile);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.S, p.Hkv);
+  kernel<<<grid, NTHREADS, bytes, stream>>>(p);
+  return cudaSuccess;
+}
+
+template <typename T, bool STAR>
+cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<T, 16, STAR>(p, stream);
+    case 32: return launch<T, 32, STAR>(p, stream);
+    case 64: return launch<T, 64, STAR>(p, stream);
+    case 128: return launch<T, 128, STAR>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  q/o are contiguous [S, Hq, D], pools
+// contiguous [N, bs, Hkv, D], tables [S, W] and valid [S] int32.
+extern "C" int paged_attention_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const void* tables, const void* valid, const void* lut,
+    int S, int Hq, int Hkv, int W, int bs, int D, int dtype,
+    float sm_scale, float grid_scale, int num_levels, void* stream) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.tables = static_cast<const int32_t*>(tables);
+  p.valid = static_cast<const int32_t*>(valid);
+  p.lut = static_cast<const float*>(lut);
+  p.S = S; p.Hq = Hq; p.Hkv = Hkv; p.W = W; p.bs = bs;
+  p.pages_per_step = bs >= TILE_ROWS ? 1 : TILE_ROWS / bs;
+  p.sm_scale = sm_scale; p.grid_scale = grid_scale; p.num_levels = num_levels;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG) return (int)cudaErrorInvalidValue;
+  if (S <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool star = lut != nullptr;
+  cudaError_t err;
+  if (dtype == 0)
+    err = star ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
+  else if (dtype == 1)
+    err = star ? launch_d<__nv_bfloat16, true>(p, D, s)
+               : launch_d<__nv_bfloat16, false>(p, D, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

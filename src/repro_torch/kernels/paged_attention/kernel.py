@@ -1,0 +1,111 @@
+"""paged_flash — gather-free paged decode attention, the wrapper of the CUDA
+C++ kernel ``csrc/paged_attention.cu`` (port of
+``repro.kernels.paged_attention.kernel.paged_flash_attention``, fp-KV).
+
+Layout as in the reference: q ``[S, Hq, D]`` (one decode token per slot),
+pools ``[N, bs, Hkv, D]`` (block 0 is scratch), ``block_tables`` int32
+``[S, W]``, ``kv_valid`` int32 ``[S]``.  On a CUDA tensor the pools and
+tables go to the kernel untouched — the wrapper builds no gathered view.
+On a CPU tensor the plain gather version (``ref.paged_attention_ref``)
+runs instead.  Quantized (int8/fp8) pools wait for the ``kv_dtype`` slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.core.fixedpoint import FixedPointFormat
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+SOURCE = Path(__file__).parent / "csrc" / "paged_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 16
+MAX_BLOCK_SIZE = 128
+LAUNCHES = _cuda.launch_counter("paged_attention")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_attention_launch.argtypes = [p] * 7 + [i] * 7 + [f, f, i, p]
+    lib.paged_attention_launch.restype = i
+
+
+def paged_flash_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    kv_valid: torch.Tensor,
+    *,
+    fmt: Optional[FixedPointFormat],  # None -> exact online softmax
+    sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Gather-free paged decode attention.  Returns ``[S, Hq, D]``."""
+    if k_scale is not None or v_scale is not None:
+        from repro_torch.ops.registry import CapabilityError
+
+        raise CapabilityError(
+            "paged_attention: quantized (int8/fp8) page pools are not ported yet"
+        )
+    if q.shape[1] % k_pages.shape[2] != 0:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {q.shape[1]} % {k_pages.shape[2]}")
+    if not _cuda.on_card(q):
+        return paged_attention_ref(
+            q, k_pages, v_pages, block_tables, kv_valid, fmt=fmt, sm_scale=sm_scale
+        )
+    return _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale)
+
+
+def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale) -> torch.Tensor:
+    s, hq, d = q.shape
+    n, bs, hkv, _ = k_pages.shape
+    w = block_tables.shape[1]
+    if v_pages.shape != k_pages.shape or k_pages.shape[3] != d:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"paged kernel takes a GQA group of at most {MAX_GROUP}, got {hq // hkv}")
+    if bs > MAX_BLOCK_SIZE:
+        raise ValueError(f"paged kernel takes block_size <= {MAX_BLOCK_SIZE}, got {bs}")
+    if q.dtype not in DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(f"paged kernel takes float32/bfloat16 q and pools of one type, "
+                         f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if block_tables.shape != (s, w) or kv_valid.shape != (s,):
+        raise ValueError(f"tables {tuple(block_tables.shape)} / kv_valid "
+                         f"{tuple(kv_valid.shape)} do not match {s} slots")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), ("kv_valid", kv_valid)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged kernel needs a contiguous {name}")
+    if block_tables.dtype != torch.int32 or kv_valid.dtype != torch.int32:
+        raise ValueError("block_tables and kv_valid must be int32")
+    if not q.is_contiguous():
+        raise ValueError("paged kernel needs a contiguous q")
+    out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
+    lut = _cuda.device_lut(fmt, q.device) if fmt is not None else None
+    lib = _cuda.load(SOURCE, _bind)
+    rc = lib.paged_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), kv_valid.data_ptr(),
+        lut.data_ptr() if lut is not None else None,
+        s, hq, hkv, w, bs, d, DTYPES[q.dtype],
+        float(d ** -0.5 if sm_scale is None else sm_scale),
+        float(fmt.scale) if fmt is not None else 1.0,
+        fmt.num_levels if fmt is not None else 0,
+        _cuda.stream_handle(q.device),
+    )
+    _cuda.check(lib, rc, "paged_attention")
+    LAUNCHES.add()
+    return out

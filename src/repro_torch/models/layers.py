@@ -1,0 +1,201 @@
+"""Model building blocks (port of ``repro.models.layers``, dense subset).
+
+Functional style as in the reference: parameters are dicts of tensors,
+layers are functions.  Weights stay in ``param_dtype`` and are cast to
+``compute_dtype`` where they are used.  Projections are plain
+``torch.matmul``; attention goes through ``repro_torch.ops``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import ops
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.param import ParamSpec
+
+Params = Dict[str, Any]
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms, embedding
+
+
+def spec_rmsnorm(cfg: ModelConfig) -> Params:
+    return {"scale": ParamSpec((cfg.d_model,), pdtype(cfg), "ones")}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def spec_embedding(cfg: ModelConfig) -> Params:
+    return {"table": ParamSpec((cfg.padded_vocab, cfg.d_model), pdtype(cfg), "embed")}
+
+
+def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # gather then cast: the same values as casting the whole table first
+    return p["table"][tokens.long()].to(cdtype(cfg))
+
+
+def spec_unembed(cfg: ModelConfig) -> Params:
+    if cfg.tie_embeddings:
+        return {}
+    return {"kernel": ParamSpec((cfg.d_model, cfg.padded_vocab), pdtype(cfg), "fan_in")}
+
+
+def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig, embed_params: Params) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        kernel = embed_params["table"].to(cdtype(cfg)).T
+    else:
+        kernel = p["kernel"].to(cdtype(cfg))
+    logits = x @ kernel
+    if cfg.padded_vocab != cfg.vocab_size:  # mask padding columns
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x ``[B, T, H, D]`` rotated by positions ``[B, T]`` (half-split)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].float() * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def spec_attention(cfg: ModelConfig) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    pd = pdtype(cfg)
+    p: Params = {
+        "wq": ParamSpec((d, hq * hd), pd),
+        "wk": ParamSpec((d, hkv * hd), pd),
+        "wv": ParamSpec((d, hkv * hd), pd),
+        "wo": ParamSpec((hq * hd, d), pd),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ParamSpec((hq * hd,), pd, "zeros")
+        p["bk"] = ParamSpec((hkv * hd,), pd, "zeros")
+        p["bv"] = ParamSpec((hkv * hd,), pd, "zeros")
+    return p
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    dt = cdtype(cfg)
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    b, t = x.shape[0], x.shape[1]
+    return (q.reshape(b, t, cfg.num_heads, hd),
+            k.reshape(b, t, cfg.num_kv_heads, hd),
+            v.reshape(b, t, cfg.num_kv_heads, hd))
+
+
+def attention_block(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # [B, T]
+    cache: Optional[Params] = None,  # paged: {"k", "v", "len", "tables"}
+    paged_cache_t: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Params], Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal self-attention: the dense prefill branch (``cache=None``) or
+    the paged fp-KV decode branch.
+
+    The paged cache holds this layer's page pools ``[N, bs, Hkv, D]``, the
+    per-slot ``len`` ``[S]`` and block ``tables`` ``[S, W]``; the fresh
+    token's K/V row is written into the pools **in place** (the reference
+    returns new arrays) at ``(tables[s, len // bs], len % bs)``, then decode
+    attends over each slot's ``len + 1`` rows.  Free slots' tables point at
+    the scratch block, so their writes land there.
+
+    Returns ``(out [B, T, Hq*D], cache', (k, v))``."""
+    b, tq, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=True,
+                            sliding_window=cfg.sliding_window)
+        return ctx.reshape(b, tq, -1), None, (k, v)
+
+    if "tables" not in cache or tq != 1 or paged_cache_t is None:
+        raise ValueError("the port's cached attention is the paged 1-token decode")
+    if cfg.sliding_window is not None and paged_cache_t <= cfg.sliding_window:
+        raise NotImplementedError("sliding-window ring caches are not ported yet")
+    ck, cv, tables = cache["k"], cache["v"], cache["tables"]
+    bs = ck.shape[1]
+    idx = cache["len"].long()
+    col = torch.clamp(idx // bs, 0, tables.shape[1] - 1)
+    blk = tables.gather(1, col[:, None])[:, 0].long()
+    row = idx % bs
+    ck[blk, row] = k[:, 0].to(ck.dtype)
+    cv[blk, row] = v[:, 0].to(cv.dtype)
+    new_len = cache["len"] + 1
+    spec = dataclasses.replace(cfg.paged_attention_spec, block_size=bs)
+    ctx = ops.paged_attention(q, ck, cv, tables, spec, kv_valid_len=new_len,
+                              kv_len=paged_cache_t)
+    return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": new_len}, (k, v)
+
+
+def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return ctx @ p["wo"].to(cdtype(cfg))
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def spec_mlp(cfg: ModelConfig) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    pd = pdtype(cfg)
+    if cfg.mlp_type == "swiglu":
+        return {"wi": ParamSpec((d, f), pd), "wg": ParamSpec((d, f), pd),
+                "wo": ParamSpec((f, d), pd)}
+    return {"wi": ParamSpec((d, f), pd), "wo": ParamSpec((f, d), pd)}
+
+
+def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cdtype(cfg)
+    h = x @ p["wi"].to(dt)
+    if cfg.mlp_type == "swiglu":
+        h = torch.nn.functional.silu(x @ p["wg"].to(dt)) * h
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu default
+    return h @ p["wo"].to(dt)

@@ -1,0 +1,89 @@
+"""Parameters: declared shapes + init rules, realized as nested dicts of
+tensors with the per-layer blocks stacked on a leading ``[L]`` axis — the
+same tree the JAX reference builds, so a reference pytree converts leaf by
+leaf (:func:`from_reference`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.ops.platform import Device, resolve_device
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """A parameter declaration: shape, dtype and initializer."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | small
+    scale: float = 1.0
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts (and parallel trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    """The reference's init rules (``param._init_one``), drawn from ``gen``."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "fan_in":
+        fan_in = spec.shape[0] if len(spec.shape) == 1 else int(np.prod(spec.shape[:-1]))
+        std = spec.scale / math.sqrt(max(fan_in, 1))
+    elif spec.init == "embed":
+        std = spec.scale * 0.02
+    elif spec.init == "normal":
+        std = spec.scale
+    elif spec.init == "small":
+        std = spec.scale * 1e-2
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    out = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
+    return out.mul_(std).to(spec.dtype)
+
+
+def materialize(specs, seed: int = 0, device: Device = None) -> Params:
+    """Draw every leaf of a spec tree, in the tree's order, from one seeded
+    ``torch.Generator`` on ``device``.  These are not the JAX reference's
+    numbers; use :func:`from_reference` for those."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map(lambda s: _init_one(s, gen, dev), specs)
+
+
+def from_reference(np_params, cfg, device: Device = None) -> Params:
+    """The JAX reference's parameter pytree, given as nested dicts of numpy
+    arrays (stacked ``[L, ...]`` blocks), as the port's parameters on
+    ``device`` in ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype),
+        np_params,
+    )
+
+
+def count_params(specs) -> int:
+    return int(sum(int(np.prod(s.shape)) for _, s in _leaves(specs)))

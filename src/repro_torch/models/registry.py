@@ -1,0 +1,12 @@
+"""Model registry: family -> implementation class (dense only so far)."""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import DecoderLM
+
+
+def build_model(cfg: ModelConfig):
+    if cfg.family == "dense":
+        return DecoderLM(cfg)
+    raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")

@@ -1,0 +1,95 @@
+"""Dispatch: spec -> (call-site overrides, ``use()`` frames, validation) ->
+backend (port of ``repro.ops.dispatch``)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.ops import registry
+from repro_torch.ops.registry import Backend, OpDispatchError
+from repro_torch.ops.specs import AttentionSpec, PagedAttentionSpec, SoftmaxSpec
+
+DEFAULT_SOFTMAX = SoftmaxSpec()
+DEFAULT_ATTENTION = AttentionSpec()
+DEFAULT_PAGED_ATTENTION = PagedAttentionSpec()
+
+
+def resolve(spec, **overrides: Any) -> Tuple[Backend, Any]:
+    """Apply overrides and ``use()`` frames, pick and validate the backend."""
+    if overrides:
+        try:
+            spec = dataclasses.replace(spec, **overrides)
+        except TypeError as exc:
+            fields = [f.name for f in dataclasses.fields(spec)]
+            raise OpDispatchError(
+                f"invalid {type(spec).__name__} override(s) {sorted(overrides)}: "
+                f"valid fields are {fields}"
+            ) from exc
+    forced = registry.active_impl(spec.op)
+    if forced is not None:
+        spec = dataclasses.replace(spec, impl=forced)
+    backend = registry.get(spec.op, spec.impl)
+    registry.validate(backend, spec)
+    return backend, spec
+
+
+def validate(spec, **overrides: Any):
+    """Resolve and capability-check a spec without running anything."""
+    return resolve(spec, **overrides)[1]
+
+
+def softmax(
+    x: torch.Tensor,
+    spec: Optional[SoftmaxSpec] = None,
+    *,
+    where: Optional[torch.Tensor] = None,
+    axis: int = -1,
+    **overrides: Any,
+) -> torch.Tensor:
+    """Softmax over ``axis`` through the backend selected by ``spec``."""
+    backend, spec = resolve(spec if spec is not None else DEFAULT_SOFTMAX, **overrides)
+    return backend.fn(spec, x, where=where, axis=axis)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    spec: Optional[AttentionSpec] = None,
+    *,
+    q_offset: Any = 0,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    **overrides: Any,
+) -> torch.Tensor:
+    """Attention: q ``[B,Tq,Hq,D]``, k/v ``[B,Tk,Hkv,D]`` -> ``[B,Tq,Hq,D]``."""
+    backend, spec = resolve(spec if spec is not None else DEFAULT_ATTENTION, **overrides)
+    return backend.fn(
+        spec, q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale
+    )
+
+
+def paged_attention(
+    q: torch.Tensor,  # [S, Tq, Hq, D] (decode: Tq == 1)
+    k_pages: torch.Tensor,  # [N, bs, Hkv, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, W] int32
+    spec: Optional[PagedAttentionSpec] = None,
+    *,
+    kv_valid_len: torch.Tensor,  # [S]
+    kv_len: Optional[int] = None,
+    scale: Optional[float] = None,
+    **overrides: Any,
+) -> torch.Tensor:
+    """Paged-KV decode attention over each slot's ragged valid prefix.
+    Returns ``[S, Tq, Hq, D]``."""
+    backend, spec = resolve(
+        spec if spec is not None else DEFAULT_PAGED_ATTENTION, **overrides
+    )
+    return backend.fn(
+        spec, q, k_pages, v_pages, block_tables,
+        kv_valid_len=kv_valid_len, kv_len=kv_len, scale=scale,
+    )

@@ -1,0 +1,174 @@
+"""Built-in backends (port of ``repro.ops.impls``).
+
+Each backend adapts the spec contract to an engine: the plain versions in
+``repro_torch.core`` or one of the Hopper kernels in
+``repro_torch.kernels``.  Numerics live there; this file only routes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.attention import (
+    NEG_INF,
+    SoftmaxConfig,
+    attention as full_attention,
+    blocked_attention,
+)
+from repro_torch.core.star_softmax import exact_softmax, star_softmax
+from repro_torch.kernels.flash_star import flash_star_attention
+from repro_torch.kernels.paged_attention import paged_flash_attention
+from repro_torch.kernels.paged_attention.ref import gather_pages
+from repro_torch.kernels.star_softmax import star_softmax_kernel
+from repro_torch.ops.registry import CapabilityError, register
+from repro_torch.ops.specs import AttentionSpec, PagedAttentionSpec, SoftmaxSpec
+
+# ---------------------------------------------------------------------------
+# softmax
+
+
+def _masked(x: torch.Tensor, where: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if where is None else torch.where(where, x, torch.full_like(x, NEG_INF))
+
+
+def _softmax_reference(spec: SoftmaxSpec, x, *, where=None, axis=-1):
+    if spec.kind == "exact":
+        return exact_softmax(_masked(x, where), axis=axis)
+    return star_softmax(x, spec.fmt, axis=axis, mode=spec.mode, where=where)
+
+
+def _softmax_xla(spec: SoftmaxSpec, x, *, where=None, axis=-1):
+    return torch.softmax(_masked(x, where), dim=axis)
+
+
+def _softmax_pallas(spec: SoftmaxSpec, x, *, where=None, axis=-1):
+    if where is not None:
+        raise CapabilityError(
+            "softmax backend 'pallas' does not take a `where` mask (the kernel "
+            "streams dense rows); mask upstream or use impl='reference'"
+        )
+    out = star_softmax_kernel(torch.movedim(x, axis, -1), spec.fmt, mode=spec.mode)
+    return torch.movedim(out, -1, axis)
+
+
+register("softmax", "reference", _softmax_reference,
+         description="plain STAR engine / FP oracle (core.star_softmax)")
+register("softmax", "xla", _softmax_xla, capabilities={"kind": ("exact",)},
+         description="torch.softmax — the exact FP path")
+register("softmax", "pallas", _softmax_pallas,
+         capabilities={"kind": ("star",), "mode": ("gather",)},
+         description="Triton STAR row softmax (kernels.star_softmax)")
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def _attention_reference(spec: AttentionSpec, q, k, v, *, q_offset=0,
+                         kv_valid_len=None, scale=None):
+    return full_attention(
+        q, k, v, softmax=SoftmaxConfig.from_spec(spec.softmax),
+        causal=spec.causal, sliding_window=spec.sliding_window,
+        q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale,
+    )
+
+
+def _attention_xla(spec: AttentionSpec, q, k, v, *, q_offset=0,
+                   kv_valid_len=None, scale=None):
+    # short rows and single-token decode take the materialized path
+    if q.shape[1] == 1 or k.shape[1] <= spec.block_kv:
+        return _attention_reference(spec, q, k, v, q_offset=q_offset,
+                                    kv_valid_len=kv_valid_len, scale=scale)
+    return blocked_attention(
+        q, k, v, softmax=SoftmaxConfig.from_spec(spec.softmax),
+        causal=spec.causal, sliding_window=spec.sliding_window,
+        q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale,
+        block_size=spec.block_kv,
+    )
+
+
+def _attention_pallas(spec: AttentionSpec, q, k, v, *, q_offset=0,
+                      kv_valid_len=None, scale=None):
+    # [B, T, H, D] -> the kernel's heads-major views (no copy), with
+    # (q_offset, per-batch valid lengths) packed into the info vector
+    b, tk = q.shape[0], k.shape[1]
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((b,), tk, dtype=torch.int32, device=q.device)
+    info = torch.cat([
+        torch.as_tensor(q_offset, dtype=torch.int32, device=q.device).reshape(1),
+        torch.as_tensor(kv_valid_len, device=q.device).to(torch.int32).reshape(b),
+    ])
+    out = flash_star_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), info,
+        fmt=spec.softmax.fmt, causal=spec.causal,
+        sliding_window=spec.sliding_window, sm_scale=scale,
+        block_k=spec.block_k, pv_int8=spec.pv_int8,
+    )
+    return out.transpose(1, 2)
+
+
+register("attention", "reference", _attention_reference,
+         capabilities={"pv_int8": (False,)},
+         description="whole-operand attention, scores materialized (core.attention)")
+register("attention", "xla", _attention_xla, capabilities={"pv_int8": (False,)},
+         description="online-blocked loop over KV blocks (core.attention); "
+         "materialized for short rows / single-token decode")
+register("attention", "pallas", _attention_pallas,
+         capabilities={"softmax.kind": ("star", "exact")},
+         description="CUDA flash_star kernel (kernels.flash_star)")
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+
+
+def _paged_dense_spec(spec: PagedAttentionSpec, impl: str) -> AttentionSpec:
+    # ragged valid lengths subsume causality for decode
+    return AttentionSpec(impl=impl, softmax=spec.softmax, causal=False,
+                         block_k=spec.block_k)
+
+
+def _make_paged_backend(impl: str, dense_fn):
+    """Gather adapter: the dense view of every slot's table, then the
+    matching dense attention backend over the ragged valid lengths."""
+
+    def fn(spec: PagedAttentionSpec, q, k_pages, v_pages, block_tables, *,
+           kv_valid_len, kv_len=None, scale=None):
+        kd, vd = gather_pages(k_pages, v_pages, block_tables, kv_len)
+        return dense_fn(_paged_dense_spec(spec, impl), q, kd, vd,
+                        kv_valid_len=kv_valid_len, scale=scale)
+
+    return fn
+
+
+def _paged_pallas_paged(spec: PagedAttentionSpec, q, k_pages, v_pages,
+                        block_tables, *, kv_valid_len, kv_len=None, scale=None):
+    """Gather-free decode: the kernel walks the block tables in place."""
+    if q.shape[1] != 1:
+        raise CapabilityError(
+            "paged_attention backend 'pallas_paged' is a decode kernel (one query "
+            f"token per slot); got Tq={q.shape[1]}"
+        )
+    valid = kv_valid_len.to(torch.int32)
+    if kv_len is not None:
+        valid = torch.clamp(valid, max=kv_len)
+    out = paged_flash_attention(
+        q[:, 0], k_pages, v_pages, block_tables, valid,
+        fmt=spec.softmax.fmt, sm_scale=scale,
+    )
+    return out[:, None]
+
+
+register("paged_attention", "reference",
+         _make_paged_backend("reference", _attention_reference),
+         description="block-table gather + whole-operand ragged decode")
+register("paged_attention", "xla", _make_paged_backend("xla", _attention_xla),
+         description="block-table gather + the online-blocked dense loop")
+register("paged_attention", "pallas", _make_paged_backend("pallas", _attention_pallas),
+         capabilities={"softmax.kind": ("star", "exact")},
+         description="block-table gather + the CUDA flash_star kernel")
+register("paged_attention", "pallas_paged", _paged_pallas_paged,
+         capabilities={"softmax.kind": ("star", "exact")},
+         description="gather-free CUDA paged decode kernel (kernels.paged_attention)")

@@ -1,0 +1,95 @@
+"""Frozen, hashable op specs (port of ``repro.ops.specs``).
+
+A spec says *what* to compute and *which* backend family computes it
+(``impl``).  Impl names are the reference's, so a config means the same in
+both packages; see ``repro_torch.ops`` for what each name runs here.
+Fields of the reference that nothing in the port reads yet are left out
+(``interpret``: there is no interpret mode; ``fault`` and ``kv_dtype``: their
+slices; the Pallas tiles ``block_q`` / ``block_rows``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FixedPointFormat
+
+SOFTMAX_KINDS = ("star", "exact")
+SOFTMAX_MODES = ("gather", "onehot", "histogram")
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftmaxSpec:
+    """One softmax invocation: engine kind, dataflow mode, precision, impl."""
+
+    impl: str = "reference"
+    kind: str = "star"  # star | exact
+    mode: str = "gather"  # gather | onehot | histogram
+    precision: FixedPointFormat = DEFAULT_FORMAT
+
+    op = "softmax"
+
+    def __post_init__(self) -> None:
+        if self.kind not in SOFTMAX_KINDS:
+            raise ValueError(
+                f"softmax kind must be one of {SOFTMAX_KINDS}, got {self.kind!r}"
+            )
+        if self.mode not in SOFTMAX_MODES:
+            raise ValueError(
+                f"softmax mode must be one of {SOFTMAX_MODES}, got {self.mode!r}"
+            )
+        if not isinstance(self.precision, FixedPointFormat):
+            raise TypeError(
+                f"precision must be a FixedPointFormat, got {type(self.precision).__name__}"
+            )
+
+    @property
+    def fmt(self) -> Optional[FixedPointFormat]:
+        """Fixed-point format; ``None`` for the exact oracle."""
+        return None if self.kind == "exact" else self.precision
+
+    def tolerance(self) -> float:
+        """Max-abs-error bound vs the exact softmax: ``e^r - 1``."""
+        fmt = self.fmt
+        return 1e-6 if fmt is None else math.exp(fmt.resolution) - 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionSpec:
+    """One attention invocation: masking, blocking and the softmax engine."""
+
+    impl: str = "xla"
+    softmax: SoftmaxSpec = SoftmaxSpec()
+    causal: bool = False
+    sliding_window: Optional[int] = None
+    block_k: int = 128  # KV block of the pallas plain version's loop
+    block_kv: int = 512  # KV block of the xla loop
+    pv_int8: bool = False
+
+    op = "attention"
+
+    def __post_init__(self) -> None:
+        if self.sliding_window is not None and self.sliding_window <= 0:
+            raise ValueError(f"sliding_window must be > 0, got {self.sliding_window}")
+        for field in ("block_k", "block_kv"):
+            if getattr(self, field) <= 0:
+                raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedAttentionSpec:
+    """One paged decode invocation over a block-pool KV cache."""
+
+    impl: str = "xla"
+    softmax: SoftmaxSpec = SoftmaxSpec()
+    block_size: int = 16
+    block_k: int = 128
+
+    op = "paged_attention"
+
+    def __post_init__(self) -> None:
+        for field in ("block_size", "block_k"):
+            if getattr(self, field) <= 0:
+                raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")

@@ -1,0 +1,121 @@
+"""Structure of the PyTorch port: it stands alone beside the JAX reference.
+
+* importing ``repro_torch`` and every submodule loads neither ``jax`` nor
+  anything of ``repro`` (checked in a fresh interpreter);
+* no module of the port, nor ``chip_smoke.py``, imports them (AST scan);
+* ``triton`` is imported only by the Triton body, which the launching
+  function imports lazily, so the CPU can import every other module;
+* an entry point given no device runs on the card, and without CUDA it
+  raises instead of carrying on on the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+TRITON_BODY = PKG / "kernels" / "star_softmax" / "triton_kernel.py"
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or "", node
+
+
+def test_import_loads_neither_jax_nor_the_reference():
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(ROOT / 'src')!r})
+import repro_torch
+names = []
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    if info.name.endswith(".triton_kernel"):
+        continue  # needs triton: imported only where a kernel launches
+    importlib.import_module(info.name)
+    names.append(info.name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 30
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for name, _ in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_triton_only_in_its_body_module():
+    for path in _port_files():
+        names = [n for n, _ in _imports(path) if n.split(".")[0] == "triton"]
+        if path == TRITON_BODY:
+            assert names
+            continue
+        tree = ast.parse(path.read_text())
+        top_level = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert not any(
+            (a.name if isinstance(n, ast.Import) else (n.module or "")).startswith("triton")
+            for n in top_level for a in n.names
+        ), f"{path} imports triton at module level"
+
+
+def test_cuda_sources_build_for_sm90a_without_fast_math():
+    from repro_torch.kernels import _cuda
+
+    flags = " ".join(_cuda.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    for src in (PKG / "kernels").rglob("*.cu"):
+        text = src.read_text()
+        assert "rintf" in text and "roundf" not in text, src  # half to even
+        assert "cudaGetLastError" in text, src
+
+
+def test_entry_points_need_cuda_without_a_device(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.param import materialize
+    from repro_torch.models.registry import build_model
+    from repro_torch.ops import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    cfg = get_smoke_config("granite_8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        materialize(build_model(cfg).param_specs(), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg).init_paged_cache(4, 4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--arch", "granite_8b", "--smoke"])
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from repro_torch.kernels import _cuda
+
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        _cuda.on_card(torch.zeros(1, device="meta"))
