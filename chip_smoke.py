@@ -12,10 +12,16 @@ Phases (any failure exits non-zero before the result lines):
 3. parity at main-path shapes: each kernel against its plain PyTorch
    version on the same inputs on the card, bfloat16 and float32, with the
    tolerances below; kernel, plain and library times (CUDA events, median
-   of 20 launches, warm L2);
+   of 20 launches, warm L2).  flash_star also at the chunked-prefill append
+   shape (a 128-row chunk at q_offset 256 over a 512-row staging cache with
+   384 valid rows); the paged kernel also over int8 and fp8_e4m3 pools
+   (codes and scales from ``kvquant.quantize_blocks``), counted as its own
+   entry, ``paged_attention_quant``;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
-   must give the same tokens;
+   must give the same tokens: once over an fp32 pool, then over int8 and
+   fp8_e4m3 pools with the prefix cache, 8-token prefill chunks, prompts
+   sharing a prefix and a pool small enough to force a preemption;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed, the continuous-batching engine
    over the paged KV cache (block size 16), 8 requests on 4 slots, prompts
@@ -26,7 +32,17 @@ Phases (any failure exits non-zero before the result lines):
    held against the same prefill through the plain ``reference`` impls,
    and one decode tick is traced with ``torch.profiler`` (device time by
    kernel group);
-6. the ``{"kernels": [...]}`` line and, last, the device line.
+6. quantized serve: the same weights over an int8 page pool with the
+   prefix cache and 128-token prefill chunks, 8 requests of a common
+   256-token system prefix plus their own 64-256-token suffix, 16-32 new
+   tokens, temperature 0.8, on a pool sized to force preemption.  Counters
+   zeroed just before and read just after: the quantized paged kernel must
+   launch for every layer of every tick and flash_star for every layer of
+   every chunk; prefix hits and preemptions must both occur.  Then one
+   full-width decode step over the int8 pool through the kernel is held
+   against the same step through the ``reference`` paged impl, and one
+   int8 decode tick and one 128-token prefill chunk are traced;
+7. the ``{"kernels": [...]}`` line and, last, the device line.
 
 Tolerances.  float32 outputs: |kernel - plain| <= 5e-5 + 1e-4 |plain|;
 bfloat16 outputs: <= 1e-2 + 8e-3 |plain| (two bf16 ulps: both round one
@@ -128,12 +144,50 @@ def compare_rows(name, got, ref, dtype, scores64=None, live=None, scale=None):
 # phase 3: each kernel against its plain version
 
 
-def parity_flash(results):
+def _flash_variants(label, base, info, live, sdpa=None, shape=None):
+    """flash_star against its plain version on ``base`` (q, k, v float32)
+    in bf16 and f32, STAR and exact; ``sdpa`` times the library call for
+    the exact variant."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
     from repro_torch.kernels.flash_star import kernel as fk
+
+    hq, hkv, d = base[0].shape[1], base[1].shape[1], base[0].shape[3]
+    variants = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dtype) for x in base)
+        kr = k.double().repeat_interleave(hq // hkv, dim=1)
+        scores64 = (q.double() @ kr.transpose(-1, -2)) * d ** -0.5
+        for fmt in (FMT, None):
+            mode = "star" if fmt is not None else "exact"
+            name = f"{label} {mode} {dtype}"
+            kw = dict(fmt=fmt, causal=True)
+            got = fk.flash_star_attention(q, k, v, info, **kw)
+            ref = fk.flash_star_ref(q, k, v, info, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+            err, flips = compare_rows(name, got, ref, dtype, scores64, live,
+                                      fmt.scale if fmt else None)
+            ms = time_ms(lambda: fk.flash_star_attention(q, k, v, info, **kw))
+            plain_ms = time_ms(lambda: fk.flash_star_ref(q, k, v, info, **kw))
+            lib_ms = None
+            if fmt is None and sdpa is not None:  # SDPA computes the exact softmax
+                lib_ms = time_ms(lambda: sdpa(q, k, v))
+            variant = dict(dtype=str(dtype).split(".")[-1], mode=mode,
+                           max_abs_err=err, grid_flip_rows=flips, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms)
+            if shape is not None:
+                variant["shape"] = shape
+            variants.append(variant)
+            log(f"{name}: max_abs_err={err:.3e} grid_flip_rows={flips} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms}")
+    return variants
+
+
+def parity_flash(results):
+    import torch
+    import torch.nn.functional as F
 
     b, hq, hkv, t, d = 1, 32, 8, 512, 128
     dev = torch.device("cuda")
@@ -141,7 +195,6 @@ def parity_flash(results):
     base = [torch.randn(sh, device=dev, generator=gen) for sh in
             ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
     info = torch.tensor([0, t], dtype=torch.int32, device=dev)
-    sm_scale = d ** -0.5
     rows = torch.arange(t, device=dev)
     live = (rows[None, :] <= rows[:, None])[None, None].expand(b, hq, t, t)
     n_live = int(live[0, 0].sum()) * hq * b
@@ -154,30 +207,8 @@ def parity_flash(results):
             return F.scaled_dot_product_attention(
                 q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), is_causal=True)
 
-    variants = []
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (x.to(dtype) for x in base)
-        kr = k.double().repeat_interleave(hq // hkv, dim=1)
-        scores64 = (q.double() @ kr.transpose(-1, -2)) * sm_scale
-        for fmt in (FMT, None):
-            mode = "star" if fmt is not None else "exact"
-            kw = dict(fmt=fmt, causal=True)
-            got = fk.flash_star_attention(q, k, v, info, **kw)
-            ref = fk.flash_star_ref(q, k, v, info, **kw)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got.float()).all()), f"flash_star {mode} {dtype}: non-finite")
-            err, flips = compare_rows(f"flash_star {mode} {dtype}", got, ref, dtype,
-                                      scores64, live, fmt.scale if fmt else None)
-            ms = time_ms(lambda: fk.flash_star_attention(q, k, v, info, **kw))
-            plain_ms = time_ms(lambda: fk.flash_star_ref(q, k, v, info, **kw))
-            lib_ms = None
-            if fmt is None:  # SDPA computes the exact-softmax function
-                lib_ms = time_ms(lambda: sdpa(q, k, v))
-            variants.append(dict(dtype=str(dtype).split(".")[-1], mode=mode,
-                                 max_abs_err=err, grid_flip_rows=flips, ms=ms,
-                                 plain_ms=plain_ms, library_ms=lib_ms))
-            log(f"flash_star {mode:5s} {dtype}: max_abs_err={err:.3e} grid_flip_rows={flips} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms}")
+    variants = _flash_variants("flash_star", base, info, live, sdpa=sdpa)
+    variants += parity_flash_append()
     elem = 2  # bf16, the main path's type
     bytes_moved = (2 * b * hq * t * d + 2 * b * hkv * t * d) * elem + info.numel() * 4
     flops = 2 * 2 * n_live * d  # QK^T and P.V over the live (causal) scores
@@ -186,6 +217,29 @@ def parity_flash(results):
         "flash_star", "cuda", "src/repro_torch/kernels/flash_star/csrc/flash_star.cu",
         "src/repro/kernels/flash_star/kernel.py:216", main, bytes_moved, flops,
         H100_BF16_FLOPS, variants, shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal"))
+
+
+def parity_flash_append():
+    """flash_star at the chunked-prefill append shape: a 128-row q chunk at
+    q_offset 256 over a 512-row staging cache whose first 384 rows are
+    valid (the rest zero, as the staging buffer holds them)."""
+    import torch
+
+    b, hq, hkv, tq, tk, d, q_off, valid = 1, 32, 8, 128, 512, 128, 256, 384
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q0 = torch.randn((b, hq, tq, d), device=dev, generator=gen)
+    k0, v0 = (torch.randn((b, hkv, tk, d), device=dev, generator=gen) for _ in range(2))
+    k0[:, :, valid:] = 0
+    v0[:, :, valid:] = 0
+    info = torch.tensor([q_off, valid], dtype=torch.int32, device=dev)
+    rows = q_off + torch.arange(tq, device=dev)
+    cols = torch.arange(tk, device=dev)
+    live = ((cols[None, :] <= rows[:, None]) & (cols[None, :] < valid))[None, None]
+    return _flash_variants(
+        "flash_star append", (q0, k0, v0), info, live.expand(b, hq, tq, tk),
+        shape=f"append q[{b},{hq},{tq},{d}] at q_offset {q_off}, "
+              f"kv[{b},{hkv},{tk},{d}] valid {valid}")
 
 
 def parity_paged(results):
@@ -234,11 +288,55 @@ def parity_paged(results):
     live_rows = sum(lens)
     bytes_moved = (2 * live_rows * hkv * d + 2 * s * hq * d) * elem + (tables.numel() + s) * 4
     flops = 2 * 2 * live_rows * hq * d
+    shape = f"S={s} bs={bs} lens={lens} Hq={hq} Hkv={hkv} D={d}"
     results.append(_entry(
         "paged_attention", "cuda",
         "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/kernel.py:222", variants[0], bytes_moved, flops,
-        H100_BF16_FLOPS, variants, shape=f"S={s} bs={bs} lens={lens} Hq={hq} Hkv={hkv} D={d}"))
+        H100_BF16_FLOPS, variants, shape=shape))
+
+    # the quantized variant: int8 / fp8_e4m3 codes with [N, Hkv] scale pages
+    from repro_torch.core import kvquant
+
+    qvariants = []
+    for kv_dtype in ("int8", "fp8_e4m3"):
+        kc, ks = kvquant.quantize_blocks(base[1], kv_dtype)
+        vc, vs = kvquant.quantize_blocks(base[2], kv_dtype)
+        kdq = kvquant.decode(kc, ks[:, None, :, None])
+        vdq = kvquant.decode(vc, vs[:, None, :, None])
+        kd, _ = gather_pages(kdq, vdq, tables)
+        kd = kd.double().repeat_interleave(hq // hkv, dim=2)
+        kw_pages = dict(k_scale=ks, v_scale=vs)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = base[0].to(dtype)
+            scores64 = torch.einsum("shd,sthd->sht", q.double(), kd) * d ** -0.5
+            for fmt in (FMT, None):
+                mode = "star" if fmt is not None else "exact"
+                name = f"paged_quant {kv_dtype} {mode} {dtype}"
+                got = pk.paged_flash_attention(q, kc, vc, tables, valid, fmt=fmt, **kw_pages)
+                ref = pk.paged_attention_ref(q, kc, vc, tables, valid, fmt=fmt, **kw_pages)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+                check(not bool(got[0].any()), f"{name}: free slot not zero")
+                err, flips = compare_rows(name, got, ref, dtype, scores64, live,
+                                          fmt.scale if fmt else None)
+                ms = time_ms(lambda: pk.paged_flash_attention(
+                    q, kc, vc, tables, valid, fmt=fmt, **kw_pages))
+                plain_ms = time_ms(lambda: pk.paged_attention_ref(
+                    q, kc, vc, tables, valid, fmt=fmt, **kw_pages))
+                qvariants.append(dict(dtype=str(dtype).split(".")[-1], kv_dtype=kv_dtype,
+                                      mode=mode, max_abs_err=err, grid_flip_rows=flips,
+                                      ms=ms, plain_ms=plain_ms, library_ms=None))
+                log(f"{name}: max_abs_err={err:.3e} grid_flip_rows={flips} "
+                    f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    live_pages = sum(-(-n // bs) for n in lens)
+    bytes_moved = (2 * live_rows * hkv * d * 1 + 2 * s * hq * d * elem
+                   + 2 * live_pages * hkv * 4 + (tables.numel() + s) * 4)
+    results.append(_entry(
+        "paged_attention_quant", "cuda",
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/kernel.py:230", qvariants[0], bytes_moved, flops,
+        H100_BF16_FLOPS, qvariants, shape=f"{shape}, int8/fp8_e4m3 pages + [N,Hkv] scales"))
 
 
 def parity_softmax(results):
@@ -291,6 +389,7 @@ def _entry(name, route, source, replaces, main, bytes_moved, ops, peak, variants
 
 
 def small_reference():
+    import numpy as np
     import torch
 
     from repro_torch import ops
@@ -302,14 +401,14 @@ def small_reference():
     cfg = dataclasses.replace(get_smoke_config("granite_8b"), attn_impl="pallas")
     params_cpu = materialize(build_model(cfg).param_specs(), SEED, "cpu")
     params_gpu = tree_map(lambda x: x.cuda(), params_cpu)
-    import numpy as np
+    devices = (("cuda", params_gpu), ("cpu", params_cpu))
 
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 11, 8, 3, 19)]
     gens = [4, 2, 5, 3, 6]
     outs = {}
     with ops.use(softmax="pallas"):
-        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        for dev, params in devices:
             eng = ContinuousBatchingEngine(
                 cfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4),
                 device=dev)
@@ -318,6 +417,34 @@ def small_reference():
           f"smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
     log(f"small reference: greedy smoke tokens identical on card and cpu "
         f"({sum(gens)} tokens, 5 requests)")
+
+    # quantized pools, prefix cache, chunked prefill and preemption: prompts
+    # share a 9-token prefix; 7 blocks of 4 rows cannot hold both slots
+    rng = np.random.default_rng(SEED)
+    pre = rng.integers(0, cfg.vocab_size, (9,))
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, (n,))])
+               for n in (3, 7, 2, 11, 5)]
+    gens = [6, 4, 7, 5, 3]
+    for kv_dtype in ("int8", "fp8_e4m3"):
+        cb = ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4, kv_pool_blocks=7,
+                              kv_dtype=kv_dtype, prefix_cache=True, prefill_chunk_tokens=8)
+        outs, stats = {}, {}
+        with ops.use(softmax="pallas"):
+            for dev, params in devices:
+                eng = ContinuousBatchingEngine(cfg, params, cb, device=dev)
+                outs[dev] = eng.serve(prompts, gens)
+                stats[dev] = (eng.preemptions, eng.kv_stats()["prefix"]["hits"])
+        check(outs["cuda"] == outs["cpu"],
+              f"{kv_dtype} smoke greedy tokens differ card vs cpu: "
+              f"{outs['cuda']} vs {outs['cpu']}")
+        check(stats["cuda"] == stats["cpu"], f"{kv_dtype}: (preemptions, prefix hits) "
+              f"differ card vs cpu: {stats}")
+        preempted, hits = stats["cuda"]
+        check(preempted >= 1 and hits >= 1,
+              f"{kv_dtype}: expected a preemption and a prefix hit, got {stats['cuda']}")
+        log(f"small reference {kv_dtype}: greedy tokens identical on card and cpu "
+            f"({sum(gens)} tokens, prefix cache + 8-token chunks, {preempted} "
+            f"preemptions, {hits} prefix hits)")
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +501,8 @@ def serve(results):
         check(counts.get(name, 0) >= least,
               f"serve: {name} launched {counts.get(name, 0)} times, expected >= {least}")
     for entry in results:
-        entry["launches"] = counts[entry["name"]]
+        entry["launches"] = counts.get(entry["name"], 0)
+        entry["launches_by_path"] = {"serve_fp": entry["launches"]}
 
     # one full-width prefill through the kernels vs the plain reference impls
     tokens = torch.as_tensor(prompts[0][:128], device="cuda")[None]
@@ -391,33 +519,22 @@ def serve(results):
     profile_tick(cfg, params)
     return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
             "ticks": eng.ticks, "ttft_p50_s": ttft.percentile(50),
-            "max_memory_allocated": peak}
+            "max_memory_allocated": peak}, params
 
 
-def profile_tick(cfg, params) -> None:
-    """Device time of one full-width decode tick (4 active slots) by kernel
-    group, from ``torch.profiler``; where the profiler records no device
-    time the breakdown is reported as not measured."""
-    import numpy as np
+def profile_window(label, fn) -> None:
+    """Device time of ``fn`` by kernel group, from ``torch.profiler``;
+    where the profiler records no device time the breakdown is reported as
+    not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import ops
-    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
-
-    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16)
-    eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
-    rng = np.random.default_rng(SEED + 3)
-    for n in (512, 384, 256, 128):
-        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 4)
-    with ops.use(softmax="pallas"):
-        eng.step()  # admissions and the first tick, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     groups = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -428,6 +545,8 @@ def profile_tick(cfg, params) -> None:
         name = ev.key.lower()
         if "paged_kernel" in name:
             group = "paged_attention"
+        elif "flash_star_kernel" in name:
+            group = "flash_star"
         elif "star_softmax_rows" in name:
             group = "star_softmax"
         elif any(g in name for g in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
@@ -439,12 +558,164 @@ def profile_tick(cfg, params) -> None:
         groups[group] = groups.get(group, 0.0) + us
     busy = sum(groups.values())
     if busy <= 0:
-        log("profile: the profiler recorded no device time (breakdown not measured)")
+        log(f"profile: {label}: the profiler recorded no device time (breakdown not measured)")
         return
     shares = {g: round(us / busy, 4) for g, us in sorted(groups.items(), key=lambda x: -x[1])}
-    log(f"profile: one decode tick, 4 slots: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"profile: {label}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%} of wall); device time by group "
         f"(ms): { {g: round(us / 1e3, 3) for g, us in groups.items()} }; shares {shares}")
+
+
+def profile_tick(cfg, params, kv_dtype="fp32") -> None:
+    """One full-width decode tick with 4 active slots, traced."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16,
+                          kv_dtype=kv_dtype)
+    eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    for n in (512, 384, 256, 128):
+        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 4)
+    with ops.use(softmax="pallas"):
+        eng.step()  # admissions and the first tick, outside the trace
+        profile_window(f"one decode tick, 4 slots, {kv_dtype} pool", eng.step)
+
+
+def profile_chunk(cfg, model, params) -> None:
+    """One full-width 128-token ``prefill_extend`` chunk at q_offset 256,
+    traced: the unit of work chunked prefill repeats."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 6)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 384)), device="cuda")
+    with torch.no_grad():
+        _, cache = model.prefill(params, tokens[:, :256], 512)
+        profile_window("one 128-token prefill chunk at q_offset 256",
+                       lambda: model.prefill_extend(params, cache, tokens[:, 256:]))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: quantized serve at full width (int8 pool, prefix cache, chunks)
+
+QUANT_POOL_BLOCKS = 80  # forces preemptions for the plan below (4 slots want ~116)
+
+
+def quant_serve_plan(vocab):
+    """8 requests: a common 256-token system prefix (16 full blocks) plus
+    each request's own 64-256-token suffix, 16-32 new tokens.  Lengths are
+    drawn before tokens, so they do not depend on the vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    suffix = [int(n) for n in rng.integers(64, 257, 8)]
+    gens = [int(g) for g in rng.integers(16, 33, 8)]
+    system = rng.integers(0, vocab, (256,))
+    prompts = [np.concatenate([system, rng.integers(0, vocab, (n,))]) for n in suffix]
+    return prompts, gens
+
+
+def serve_quant(results, params):
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    cfg = dataclasses.replace(get_config("granite_8b"), attn_impl="pallas")
+    model = build_model(cfg)
+    prompts, gens = quant_serve_plan(cfg.vocab_size)
+    cb = ContinuousConfig(num_slots=4, max_len=256 + 256 + 32, temperature=0.8,
+                          kv_block_size=16, kv_pool_blocks=QUANT_POOL_BLOCKS,
+                          kv_dtype="int8", prefix_cache=True, prefill_chunk_tokens=128)
+    with ops.use(softmax="pallas"):
+        eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.serve(prompts, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    toks = [t for seq in out for t in seq]
+    check([len(s) for s in out] == gens,
+          f"serve int8: generated lengths {[len(s) for s in out]} != {gens}")
+    check(all(0 <= t < cfg.vocab_size for t in toks), "serve int8: a token outside the vocabulary")
+    st = eng.kv_stats()
+    prefills = int(eng.metrics.counter("serve.prefill.calls").value())
+    ttft = eng.metrics.histogram("serve.ttft_s")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve int8: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
+        f"{len(toks)} tokens in {wall:.3f}s = {len(toks) / wall:.2f} tok/s, "
+        f"{eng.ticks} decode ticks, {prefills} prefill chunks, "
+        f"ttft p50={1e3 * ttft.percentile(50):.1f}ms, max_memory_allocated={peak / 2**30:.2f} GiB, "
+        f"{eng.preemptions} preemptions, prefix {st['prefix']}, "
+        f"kv bytes/token {st['kv_bytes_per_token']:.1f}")
+    log(f"serve int8: launches {counts}")
+    check(st["prefix"]["hits"] >= 1, "serve int8: no prefix-cache hit")
+    check(eng.preemptions >= 1, "serve int8: the pool forced no preemption")
+    check(counts.get("paged_attention_quant", 0) >= cfg.num_layers * eng.ticks,
+          f"serve int8: paged_attention_quant launched {counts.get('paged_attention_quant', 0)} "
+          f"times, expected >= {cfg.num_layers * eng.ticks}")
+    check(counts.get("flash_star", 0) == cfg.num_layers * prefills,
+          f"serve int8: flash_star launched {counts.get('flash_star', 0)} times for "
+          f"{prefills} chunks of {cfg.num_layers} layers")
+    check(counts.get("star_softmax", 0) >= eng.ticks,
+          f"serve int8: star_softmax launched {counts.get('star_softmax', 0)} times")
+    check(counts.get("paged_attention", 0) == 0, "serve int8: the fp paged kernel ran")
+    for entry in results:
+        n = counts.get(entry["name"], 0)
+        entry["launches_by_path"]["serve_int8"] = n
+        if entry["name"] == "paged_attention_quant":
+            entry["launches"] = n
+    rel = quant_decode_step(cfg, model, params, prompts[:4])
+    profile_tick(cfg, params, kv_dtype="int8")
+    profile_chunk(cfg, model, params)
+    return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
+            "ticks": eng.ticks, "prefill_chunks": prefills,
+            "ttft_p50_s": ttft.percentile(50), "max_memory_allocated": peak,
+            "preemptions": eng.preemptions, "prefix": st["prefix"],
+            "decode_step_logits_rel_l2": rel}
+
+
+def quant_decode_step(cfg, model, params, prompts) -> float:
+    """One full-width decode step over an int8 pool through the kernel,
+    held against the same step through the ``reference`` paged impl (the
+    gather + dequant plain path) on a copy of the same pool."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.models.param import tree_map
+
+    bs, rows = 16, 256
+    w = rows // bs + 1
+    pool = model.init_paged_cache(len(prompts) * w + 1, bs, len(prompts), device="cuda",
+                                  kv_dtype="int8")
+    tables = torch.arange(1, len(prompts) * w + 1, dtype=torch.int32,
+                          device="cuda").reshape(len(prompts), w)
+    with torch.no_grad():
+        for slot, p in enumerate(prompts):
+            tokens = torch.as_tensor(p[:rows - 16 * slot], device="cuda")[None]
+            _, cache = model.prefill(params, tokens, w * bs)
+            model.write_slot_paged(pool, cache, slot, tables[slot])
+        nxt = torch.as_tensor([[int(p[-1])] for p in prompts], device="cuda")
+        pool_ref = tree_map(lambda t: t.clone(), pool)
+        got, _ = model.decode_step_paged(params, pool, nxt, tables, cache_t=w * bs)
+        with ops.use(paged_attention="reference"):
+            ref, _ = model.decode_step_paged(params, pool_ref, nxt, tables, cache_t=w * bs)
+    got, ref = got.float(), ref.float()
+    check(bool(torch.isfinite(got).all()), "int8 decode step: non-finite logits")
+    rel = float((got - ref).norm() / ref.norm())
+    log(f"full-width int8 decode step logits, kernel vs reference paged impl: rel_l2={rel:.3e} "
+        f"max_abs={float((got - ref).abs().max()):.3e}")
+    check(rel < 3e-2, f"int8 decode step logits differ from the reference: rel_l2={rel:.3e}")
+    return rel
 
 
 # ---------------------------------------------------------------------------
@@ -492,10 +763,12 @@ def main() -> int:
     parity_paged(results)
     parity_softmax(results)
     small_reference()
-    summary = serve(results)
+    summary, params = serve(results)
+    summary_quant = serve_quant(results, params)
+    del params
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
-    log(json.dumps({"serve": summary, "card": card}))
+    log(json.dumps({"serve": summary, "serve_int8": summary_quant, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

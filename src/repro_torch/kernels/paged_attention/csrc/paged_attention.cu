@@ -2,7 +2,8 @@
 // cache, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py
-// (paged_flash_attention / _kernel, the fp-KV variant).  The TPU grid
+// (paged_flash_attention / _kernel), both its fp-KV variant and its
+// quantized variant (k_scale / v_scale: int8 or fp8_e4m3 pages).  The TPU grid
 // (S, Hkv, W) walks one slot's pages in order through scalar-prefetched
 // block tables and carries (m, l, acc) in VMEM; here one CTA owns one
 // (slot, kv head), reads its own table row and walks only the
@@ -22,11 +23,22 @@
 // the int grid with rint (half to even), saturating to +-2^24 before the int
 // cast (NaN -> sentinel); the running max is an int32; the rescale factor and
 // probabilities are entries of the exp LUT passed in (nullptr = exact
-// softmax).  A slot with kv_valid == 0 emits zeros (den <= 0 -> 1).  Pools
-// and q are float32 or bfloat16; arithmetic is float32; output in q's type.
+// softmax).  A slot with kv_valid == 0 emits zeros (den <= 0 -> 1).  q is
+// float32 or bfloat16; arithmetic is float32; output in q's type.
+//
+// Pools hold q's type, or (quantized variant) 1-byte codes, int8 or
+// __nv_fp8_e4m3, with one float32 scale per (page, kv head) in [N, Hkv]
+// scale pages.  The dequant happens on the load into shared memory: the CTA
+// reads each step's page ids and their two scales once into shared memory
+// and stores float(code) * scale, kvquant.decode's expression, so the
+// operands equal the reference's dequantized K/V bit for bit (every int8
+// and e4m3 value converts to float exactly).  The 1-byte pools halve the
+// bytes read against bf16, which does not move this latency-bound first
+// version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -35,11 +47,18 @@ constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAXG = 16;       // largest GQA group
 constexpr int TILE_ROWS = 64;  // KV rows loaded per step (whole pages)
+constexpr int MAX_STEP_PAGES = TILE_ROWS;  // pages per step when bs == 1
 constexpr int GRID_SENTINEL = -(1 << 24);
 constexpr float NEG_BIG = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
+template <typename C> struct is_code { static constexpr bool value = false; };
+template <> struct is_code<int8_t> { static constexpr bool value = true; };
+template <> struct is_code<__nv_fp8_e4m3> { static constexpr bool value = true; };
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
@@ -61,13 +80,17 @@ struct Params {
   const int32_t* tables;  // [S, W]
   const int32_t* valid;   // [S]
   const float* lut;       // [num_levels], nullptr = exact softmax
+  const float* kscale;    // [N, Hkv] (quantized pools only)
+  const float* vscale;    // [N, Hkv]
   int S, Hq, Hkv, W, bs, pages_per_step;
   float sm_scale, grid_scale;
   int num_levels;
 };
 
-template <typename T, int D, bool STAR>
+// T: q / output type; C: pool element type (T, or an 8-bit code type).
+template <typename T, typename C, int D, bool STAR>
 __global__ void __launch_bounds__(NTHREADS) paged_kernel(Params p) {
+  constexpr bool QUANT = is_code<C>::value;
   constexpr int ACC = (MAXG * D + NTHREADS - 1) / NTHREADS;
   extern __shared__ float smem[];
   const int G = p.Hq / p.Hkv;
@@ -78,6 +101,8 @@ __global__ void __launch_bounds__(NTHREADS) paged_kernel(Params p) {
   float* Ss = Vs + tile * D;         // [G][tile] scores, then probabilities
   __shared__ int m_sh[MAXG];
   __shared__ float mf_sh[MAXG], l_sh[MAXG], r_sh[MAXG];
+  __shared__ int page_sh[MAX_STEP_PAGES];
+  __shared__ float ks_sh[MAX_STEP_PAGES], vs_sh[MAX_STEP_PAGES];
 
   const int s = blockIdx.x, hk = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -95,20 +120,34 @@ __global__ void __launch_bounds__(NTHREADS) paged_kernel(Params p) {
   const int kv_valid = max(p.valid[s], 0);
   const int pages = min((kv_valid + p.bs - 1) / p.bs, p.W);
   const int32_t* table = p.tables + (long long)s * p.W;
-  const T* kpool = static_cast<const T*>(p.k);
-  const T* vpool = static_cast<const T*>(p.v);
+  const C* kpool = static_cast<const C*>(p.k);
+  const C* vpool = static_cast<const C*>(p.v);
   const long long row_stride = (long long)p.Hkv * D;  // one token row of the pool
 
   for (int j0 = 0; j0 < pages; j0 += p.pages_per_step) {
     const int np = min(p.pages_per_step, pages - j0);
     const int rows = np * p.bs;
     __syncthreads();  // Qs / state ready; previous tile consumed
+    for (int i = tid; i < np; i += NTHREADS) {
+      const int page = table[j0 + i];
+      page_sh[i] = page;
+      if constexpr (QUANT) {
+        ks_sh[i] = p.kscale[(long long)page * p.Hkv + hk];
+        vs_sh[i] = p.vscale[(long long)page * p.Hkv + hk];
+      }
+    }
+    __syncthreads();
     for (int idx = tid; idx < rows * D; idx += NTHREADS) {
-      const int r = idx / D, c = idx % D;
-      const long long page = table[j0 + r / p.bs];
+      const int r = idx / D, c = idx % D, pi = r / p.bs;
+      const long long page = page_sh[pi];
       const long long off = (page * p.bs + r % p.bs) * row_stride + hk * D + c;
-      Ks[r * (D + 1) + c] = to_f32(kpool[off]);
-      Vs[r * D + c] = to_f32(vpool[off]);
+      if constexpr (QUANT) {
+        Ks[r * (D + 1) + c] = __fmul_rn(to_f32(kpool[off]), ks_sh[pi]);
+        Vs[r * D + c] = __fmul_rn(to_f32(vpool[off]), vs_sh[pi]);
+      } else {
+        Ks[r * (D + 1) + c] = to_f32(kpool[off]);
+        Vs[r * D + c] = to_f32(vpool[off]);
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < G * rows; idx += NTHREADS) {
@@ -194,9 +233,9 @@ __global__ void __launch_bounds__(NTHREADS) paged_kernel(Params p) {
   }
 }
 
-template <typename T, int D, bool STAR>
+template <typename T, typename C, int D, bool STAR>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = paged_kernel<T, D, STAR>;
+  auto kernel = paged_kernel<T, C, D, STAR>;
   const int G = p.Hq / p.Hkv;
   const int tile = p.pages_per_step * p.bs;
   const size_t bytes = sizeof(float) * (G * D + tile * (D + 1) + tile * D + G * tile);
@@ -208,15 +247,43 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <typename T, bool STAR>
+template <typename T, typename C, bool STAR>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16, STAR>(p, stream);
-    case 32: return launch<T, 32, STAR>(p, stream);
-    case 64: return launch<T, 64, STAR>(p, stream);
-    case 128: return launch<T, 128, STAR>(p, stream);
+    case 16: return launch<T, C, 16, STAR>(p, stream);
+    case 32: return launch<T, C, 32, STAR>(p, stream);
+    case 64: return launch<T, C, 64, STAR>(p, stream);
+    case 128: return launch<T, C, 128, STAR>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, typename C>
+cudaError_t launch_s(const Params& p, int d, cudaStream_t stream) {
+  return p.lut != nullptr ? launch_d<T, C, true>(p, d, stream)
+                          : launch_d<T, C, false>(p, d, stream);
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   const void* tables, const void* valid, const void* lut,
+                   const void* kscale, const void* vscale,
+                   int S, int Hq, int Hkv, int W, int bs,
+                   float sm_scale, float grid_scale, int num_levels) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.tables = static_cast<const int32_t*>(tables);
+  p.valid = static_cast<const int32_t*>(valid);
+  p.lut = static_cast<const float*>(lut);
+  p.kscale = static_cast<const float*>(kscale);
+  p.vscale = static_cast<const float*>(vscale);
+  p.S = S; p.Hq = Hq; p.Hkv = Hkv; p.W = W; p.bs = bs;
+  p.pages_per_step = bs >= TILE_ROWS ? 1 : TILE_ROWS / bs;
+  p.sm_scale = sm_scale; p.grid_scale = grid_scale; p.num_levels = num_levels;
+  return p;
+}
+
+bool bad_shape(int S, int Hq, int Hkv, int bs) {
+  return Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || bs <= 0 || S < 0;
 }
 
 }  // namespace
@@ -226,30 +293,51 @@ extern "C" const char* repro_cuda_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  q/o are contiguous [S, Hq, D], pools
-// contiguous [N, bs, Hkv, D], tables [S, W] and valid [S] int32.
+// contiguous [N, bs, Hkv, D] of q's type, tables [S, W] and valid [S] int32.
 extern "C" int paged_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     const void* tables, const void* valid, const void* lut,
     int S, int Hq, int Hkv, int W, int bs, int D, int dtype,
     float sm_scale, float grid_scale, int num_levels, void* stream) {
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.tables = static_cast<const int32_t*>(tables);
-  p.valid = static_cast<const int32_t*>(valid);
-  p.lut = static_cast<const float*>(lut);
-  p.S = S; p.Hq = Hq; p.Hkv = Hkv; p.W = W; p.bs = bs;
-  p.pages_per_step = bs >= TILE_ROWS ? 1 : TILE_ROWS / bs;
-  p.sm_scale = sm_scale; p.grid_scale = grid_scale; p.num_levels = num_levels;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG) return (int)cudaErrorInvalidValue;
-  if (S <= 0) return (int)cudaGetLastError();
+  if (bad_shape(S, Hq, Hkv, bs)) return (int)cudaErrorInvalidValue;
+  if (S == 0) return (int)cudaGetLastError();
+  const Params p = make_params(q, k, v, o, tables, valid, lut, nullptr, nullptr,
+                               S, Hq, Hkv, W, bs, sm_scale, grid_scale, num_levels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool star = lut != nullptr;
   cudaError_t err;
   if (dtype == 0)
-    err = star ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
+    err = launch_s<float, float>(p, D, s);
   else if (dtype == 1)
-    err = star ? launch_d<__nv_bfloat16, true>(p, D, s)
-               : launch_d<__nv_bfloat16, false>(p, D, s);
+    err = launch_s<__nv_bfloat16, __nv_bfloat16>(p, D, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The quantized variant: pools hold 1-byte codes (code: 0 = int8,
+// 1 = fp8 e4m3), kscale / vscale are contiguous float32 [N, Hkv].
+extern "C" int paged_attention_quant_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const void* tables, const void* valid, const void* lut,
+    const void* kscale, const void* vscale,
+    int S, int Hq, int Hkv, int W, int bs, int D, int dtype, int code,
+    float sm_scale, float grid_scale, int num_levels, void* stream) {
+  if (bad_shape(S, Hq, Hkv, bs) || kscale == nullptr || vscale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (S == 0) return (int)cudaGetLastError();
+  const Params p = make_params(q, k, v, o, tables, valid, lut, kscale, vscale,
+                               S, Hq, Hkv, W, bs, sm_scale, grid_scale, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0 && code == 0)
+    err = launch_s<float, int8_t>(p, D, s);
+  else if (dtype == 0 && code == 1)
+    err = launch_s<float, __nv_fp8_e4m3>(p, D, s);
+  else if (dtype == 1 && code == 0)
+    err = launch_s<__nv_bfloat16, int8_t>(p, D, s);
+  else if (dtype == 1 && code == 1)
+    err = launch_s<__nv_bfloat16, __nv_fp8_e4m3>(p, D, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -1,13 +1,18 @@
 """paged_flash — gather-free paged decode attention, the wrapper of the CUDA
 C++ kernel ``csrc/paged_attention.cu`` (port of
-``repro.kernels.paged_attention.kernel.paged_flash_attention``, fp-KV).
+``repro.kernels.paged_attention.kernel.paged_flash_attention``, fp-KV and
+quantized pools).
 
 Layout as in the reference: q ``[S, Hq, D]`` (one decode token per slot),
 pools ``[N, bs, Hkv, D]`` (block 0 is scratch), ``block_tables`` int32
-``[S, W]``, ``kv_valid`` int32 ``[S]``.  On a CUDA tensor the pools and
-tables go to the kernel untouched — the wrapper builds no gathered view.
-On a CPU tensor the plain gather version (``ref.paged_attention_ref``)
-runs instead.  Quantized (int8/fp8) pools wait for the ``kv_dtype`` slice.
+``[S, W]``, ``kv_valid`` int32 ``[S]``.  With ``k_scale`` / ``v_scale``
+(float32 ``[N, Hkv]``) the pools hold int8 or fp8_e4m3 codes and the kernel
+dequantizes each page as it loads it (``code * scale[page, head]``, the
+expression of ``core.kvquant.decode``).  On a CUDA tensor the pools, scale
+pages and tables go to the kernel untouched — the wrapper builds no gathered
+or dequantized view.  On a CPU tensor the plain gather version
+(``ref.paged_attention_ref``) runs instead.  The fp and quantized variants
+count their launches apart (``paged_attention``, ``paged_attention_quant``).
 """
 
 from __future__ import annotations
@@ -25,15 +30,19 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 SOURCE = Path(__file__).parent / "csrc" / "paged_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 MAX_GROUP = 16
 MAX_BLOCK_SIZE = 128
 LAUNCHES = _cuda.launch_counter("paged_attention")
+LAUNCHES_QUANT = _cuda.launch_counter("paged_attention_quant")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_attention_launch.argtypes = [p] * 7 + [i] * 7 + [f, f, i, p]
     lib.paged_attention_launch.restype = i
+    lib.paged_attention_quant_launch.argtypes = [p] * 9 + [i] * 8 + [f, f, i, p]
+    lib.paged_attention_quant_launch.restype = i
 
 
 def paged_flash_attention(
@@ -49,22 +58,21 @@ def paged_flash_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gather-free paged decode attention.  Returns ``[S, Hq, D]``."""
-    if k_scale is not None or v_scale is not None:
-        from repro_torch.ops.registry import CapabilityError
-
-        raise CapabilityError(
-            "paged_attention: quantized (int8/fp8) page pools are not ported yet"
-        )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
     if q.shape[1] % k_pages.shape[2] != 0:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got {q.shape[1]} % {k_pages.shape[2]}")
     if not _cuda.on_card(q):
         return paged_attention_ref(
-            q, k_pages, v_pages, block_tables, kv_valid, fmt=fmt, sm_scale=sm_scale
+            q, k_pages, v_pages, block_tables, kv_valid, fmt=fmt, sm_scale=sm_scale,
+            k_scale=k_scale, v_scale=v_scale,
         )
-    return _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale)
+    return _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
+                   k_scale, v_scale)
 
 
-def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale) -> torch.Tensor:
+def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
+            k_scale, v_scale) -> torch.Tensor:
     s, hq, d = q.shape
     n, bs, hkv, _ = k_pages.shape
     w = block_tables.shape[1]
@@ -77,14 +85,26 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale) -> torch
         raise ValueError(f"paged kernel takes a GQA group of at most {MAX_GROUP}, got {hq // hkv}")
     if bs > MAX_BLOCK_SIZE:
         raise ValueError(f"paged kernel takes block_size <= {MAX_BLOCK_SIZE}, got {bs}")
-    if q.dtype not in DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError(f"paged kernel takes float32/bfloat16 q and pools of one type, "
-                         f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    quant = k_scale is not None
+    if q.dtype not in DTYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"paged kernel takes float32/bfloat16 q and K/V pools of one "
+                         f"type, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if quant and k_pages.dtype not in CODE_DTYPES:
+        raise ValueError(f"scaled pools hold int8 or float8_e4m3fn codes, got {k_pages.dtype}")
+    if not quant and k_pages.dtype != q.dtype:
+        raise ValueError(f"unscaled pools hold q's type {q.dtype}, got {k_pages.dtype}")
+    scales = ()
+    if quant:
+        scales = (("k_scale", k_scale), ("v_scale", v_scale))
+        for name, t in scales:
+            if t.dtype != torch.float32 or t.shape != (n, hkv):
+                raise ValueError(f"{name} must be float32 [{n}, {hkv}], got "
+                                 f"{t.dtype} {tuple(t.shape)}")
     if block_tables.shape != (s, w) or kv_valid.shape != (s,):
         raise ValueError(f"tables {tuple(block_tables.shape)} / kv_valid "
                          f"{tuple(kv_valid.shape)} do not match {s} slots")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("kv_valid", kv_valid)):
+                    ("block_tables", block_tables), ("kv_valid", kv_valid), *scales):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -96,16 +116,24 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale) -> torch
     out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
     lut = _cuda.device_lut(fmt, q.device) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
-    rc = lib.paged_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), kv_valid.data_ptr(),
-        lut.data_ptr() if lut is not None else None,
-        s, hq, hkv, w, bs, d, DTYPES[q.dtype],
+    common = (
         float(d ** -0.5 if sm_scale is None else sm_scale),
         float(fmt.scale) if fmt is not None else 1.0,
         fmt.num_levels if fmt is not None else 0,
         _cuda.stream_handle(q.device),
     )
-    _cuda.check(lib, rc, "paged_attention")
-    LAUNCHES.add()
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+            block_tables.data_ptr(), kv_valid.data_ptr(),
+            lut.data_ptr() if lut is not None else None)
+    if quant:
+        rc = lib.paged_attention_quant_launch(
+            *ptrs, k_scale.data_ptr(), v_scale.data_ptr(),
+            s, hq, hkv, w, bs, d, DTYPES[q.dtype], CODE_DTYPES[k_pages.dtype], *common)
+        _cuda.check(lib, rc, "paged_attention_quant")
+        LAUNCHES_QUANT.add()
+    else:
+        rc = lib.paged_attention_launch(
+            *ptrs, s, hq, hkv, w, bs, d, DTYPES[q.dtype], *common)
+        _cuda.check(lib, rc, "paged_attention")
+        LAUNCHES.add()
     return out

@@ -10,9 +10,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
       --device cpu --engine continuous --attn-impl pallas --softmax-impl pallas
 
+  # quantized pages, shared-prefix cache, chunked prefill
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
+      --device cpu --attn-impl pallas --kv-dtype int8 --prefix-cache \\
+      --prefill-chunk-tokens 8
+
 ``--attn-impl`` sets the config's attention impl, so prefill and paged
 decode follow it (``pallas`` -> ``flash_star`` + ``pallas_paged``);
 ``--softmax-impl`` retargets every softmax dispatch via ``ops.use``.
+``--kv-dtype`` int8 / fp8_e4m3 stores the page pool as codes plus scale
+pages; ``--kv-pool-blocks`` bounds the pool (exhaustion preempts).
 Weights are random, drawn on the device from ``--seed``.
 """
 
@@ -40,6 +47,17 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--max-len", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--kv-pool-blocks", type=int, default=None,
+                    help="usable blocks in the pool (default: slots * ceil(max_len / "
+                    "block size)); exhaustion preempts the latest-admitted request")
+    ap.add_argument("--kv-dtype", choices=("fp32", "int8", "fp8_e4m3"), default="fp32",
+                    help="page-pool storage: int8/fp8_e4m3 codes + per-(block, head) "
+                    "scales, dequantized inside the paged decode kernel")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share KV blocks of common prompt prefixes (radix trie)")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                    help="prompt tokens prefilled per tick, in power-of-two chunks "
+                    "interleaved with decode")
     ap.add_argument("--attn-impl", default=None, metavar="IMPL",
                     help="attention impl of the config: reference|xla|pallas")
     ap.add_argument("--softmax-impl", default=None, metavar="IMPL",
@@ -58,7 +76,8 @@ def main(argv=None) -> int:
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     ops.validate(cfg.attention_spec)
-    ops.validate(cfg.paged_attention_spec)
+    # fail at config time if the paged backend cannot read this layout
+    ops.validate(cfg.paged_attention_spec, kv_dtype=args.kv_dtype)
     overrides = {"softmax": args.softmax_impl} if args.softmax_impl else {}
     with ops.use(**overrides):
         ops.validate(cfg.softmax_spec)
@@ -68,7 +87,10 @@ def main(argv=None) -> int:
             cfg, params,
             ContinuousConfig(num_slots=args.slots, max_len=max_len,
                              temperature=args.temperature,
-                             kv_block_size=args.kv_block_size),
+                             kv_block_size=args.kv_block_size,
+                             kv_pool_blocks=args.kv_pool_blocks,
+                             kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
+                             prefill_chunk_tokens=args.prefill_chunk_tokens),
             device=device, seed=args.seed,
         )
         rng = np.random.default_rng(args.seed)
@@ -89,8 +111,13 @@ def main(argv=None) -> int:
           f"({total / dt:.1f} tok/s on {device}) over {eng.ticks} decode ticks "
           f"({args.slots} slots, paged kv bs={args.kv_block_size})")
     st = eng.kv_stats()
-    print(f"paged kv: peak {st['peak_used_blocks']}/{st['total_blocks']} blocks "
-          f"({st['peak_kv_bytes'] / 1e6:.2f} MB)")
+    print(f"paged kv: kv_dtype={st['kv_dtype']}, peak {st['peak_used_blocks']}/"
+          f"{st['total_blocks']} blocks ({st['peak_kv_bytes'] / 1e6:.2f} MB), "
+          f"{st['preemptions']} preemptions")
+    if st["prefix"] is not None:
+        p = st["prefix"]
+        print(f"prefix cache: {p['hits']} hits, {p['tokens_saved']} prefill tokens saved, "
+              f"{p['evicted']} evicted ({p['nodes']} trie nodes)")
     ttft = eng.metrics.histogram("serve.ttft_s")
     if ttft.count():
         print(f"ttft p50={1e3 * ttft.percentile(50):.1f}ms (n={ttft.count()})")

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import ops
+from repro_torch.core import kvquant
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import ParamSpec
 
@@ -131,18 +132,25 @@ def attention_block(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,  # [B, T]
-    cache: Optional[Params] = None,  # paged: {"k", "v", "len", "tables"}
+    cache: Optional[Params] = None,
     paged_cache_t: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention: the dense prefill branch (``cache=None``) or
-    the paged fp-KV decode branch.
+    """Causal self-attention in one of three forms:
 
-    The paged cache holds this layer's page pools ``[N, bs, Hkv, D]``, the
-    per-slot ``len`` ``[S]`` and block ``tables`` ``[S, W]``; the fresh
-    token's K/V row is written into the pools **in place** (the reference
-    returns new arrays) at ``(tables[s, len // bs], len % bs)``, then decode
-    attends over each slot's ``len + 1`` rows.  Free slots' tables point at
-    the scratch block, so their writes land there.
+    * ``cache=None`` — dense prefill;
+    * a *linear staging* cache ``{"k", "v", "len"}`` (``[B, Ts, Hkv, D]``,
+      ``len`` a Python int) — chunked prefill: the ``tq`` fresh rows land at
+      ``[len, len + tq)`` and the queries attend at ``q_offset = len``,
+      causally, over ``len + tq`` valid rows;
+    * a *paged* cache ``{"k", "v", "len", "tables"}`` (+ ``k_scale`` /
+      ``v_scale`` for a quantized pool) — one decode token per slot,
+      written at ``(tables[s, len // bs], len % bs)``, then attention over
+      each slot's ``len + 1`` rows.
+
+    Cache writes are **in place** (the reference returns new arrays).  A
+    quantized pool stores codes: a block's scale is stamped from its first
+    row (``row == 0``) and later rows reuse it with a clipped encode, so a
+    block's codes always decode through the scale they were written with.
 
     Returns ``(out [B, T, Hq*D], cache', (k, v))``."""
     b, tq, _ = x.shape
@@ -155,8 +163,23 @@ def attention_block(
                             sliding_window=cfg.sliding_window)
         return ctx.reshape(b, tq, -1), None, (k, v)
 
-    if "tables" not in cache or tq != 1 or paged_cache_t is None:
-        raise ValueError("the port's cached attention is the paged 1-token decode")
+    if "tables" not in cache:
+        # linear staging cache (chunked prefill): append, then attend
+        start = int(cache["len"])
+        ck, cv = cache["k"], cache["v"]
+        if start + tq > ck.shape[1]:
+            raise ValueError(f"staging cache of {ck.shape[1]} rows cannot take "
+                             f"{tq} rows at {start}")
+        ck[:, start:start + tq] = k.to(ck.dtype)
+        cv[:, start:start + tq] = v.to(cv.dtype)
+        valid = torch.full((b,), start + tq, dtype=torch.int32, device=x.device)
+        ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=True,
+                            sliding_window=cfg.sliding_window, q_offset=start,
+                            kv_valid_len=valid)
+        return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": start + tq}, (k, v)
+
+    if tq != 1 or paged_cache_t is None:
+        raise ValueError("the paged cache takes one decode token per slot and paged_cache_t")
     if cfg.sliding_window is not None and paged_cache_t <= cfg.sliding_window:
         raise NotImplementedError("sliding-window ring caches are not ported yet")
     ck, cv, tables = cache["k"], cache["v"], cache["tables"]
@@ -165,13 +188,29 @@ def attention_block(
     col = torch.clamp(idx // bs, 0, tables.shape[1] - 1)
     blk = tables.gather(1, col[:, None])[:, 0].long()
     row = idx % bs
-    ck[blk, row] = k[:, 0].to(ck.dtype)
-    cv[blk, row] = v[:, 0].to(cv.dtype)
     new_len = cache["len"] + 1
-    spec = dataclasses.replace(cfg.paged_attention_spec, block_size=bs)
+    kv_dtype = kvquant.dtype_of(ck.dtype)
+    kv_scales = None
+    if kv_dtype != "fp32":
+        ks_pages, vs_pages = cache["k_scale"], cache["v_scale"]
+        fresh = (row == 0)[:, None]
+        for rows_f32, pages, scales in ((k[:, 0].float(), ck, ks_pages),
+                                        (v[:, 0].float(), cv, vs_pages)):
+            sc = torch.where(fresh, kvquant.row_scale(rows_f32, kv_dtype), scales[blk])
+            codes = kvquant.encode(rows_f32, sc[..., None], kv_dtype)
+            kvquant.indexable(pages)[blk, row] = kvquant.indexable(codes)
+            scales[blk] = sc
+        kv_scales = (ks_pages, vs_pages)
+    else:
+        ck[blk, row] = k[:, 0].to(ck.dtype)
+        cv[blk, row] = v[:, 0].to(cv.dtype)
+    spec = dataclasses.replace(cfg.paged_attention_spec, block_size=bs, kv_dtype=kv_dtype)
     ctx = ops.paged_attention(q, ck, cv, tables, spec, kv_valid_len=new_len,
-                              kv_len=paged_cache_t)
-    return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": new_len}, (k, v)
+                              kv_len=paged_cache_t, kv_scales=kv_scales)
+    new_cache = {"k": ck, "v": cv, "len": new_len}
+    if kv_scales is not None:
+        new_cache["k_scale"], new_cache["v_scale"] = kv_scales
+    return ctx.reshape(b, tq, -1), new_cache, (k, v)
 
 
 def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

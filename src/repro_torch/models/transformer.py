@@ -1,16 +1,18 @@
 """Decoder-only transformer LM, dense family (port of
-``repro.models.transformer.DecoderLM``: forward, prefill and the paged
-decode path).  The reference's ``scan`` over stacked layers is a Python
-loop over the ``[L]`` axis of the parameter tree.
+``repro.models.transformer.DecoderLM``: forward, prefill, chunked
+``prefill_extend``, and the paged decode path over fp32 or quantized page
+pools).  The reference's ``scan`` over stacked layers is a Python loop over
+the ``[L]`` axis of the parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kvquant
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, tree_map
 from repro_torch.ops.platform import Device, resolve_device
@@ -84,12 +86,15 @@ class DecoderLM:
             return min(max_len, self.cfg.sliding_window)
         return max_len
 
-    def prefill(self, params: Params, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Params]:
+    def prefill(self, params: Params, tokens: torch.Tensor, max_len: int, *,
+                cache_t: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
         """Process a prompt: (last-position logits ``[B, 1, V]``, cache with
-        K/V ``[L, B, cache_len(max_len), Hkv, D]``, zero past the prompt)."""
+        K/V ``[L, B, ct, Hkv, D]``, zero past the prompt).  ``ct`` is
+        ``cache_t`` when given (chunked prefill sizes its linear staging
+        buffer so later chunks can append), else ``cache_len(max_len)``."""
         cfg = self.cfg
         b, t = tokens.shape
-        ct = self.cache_len(max_len)
+        ct = cache_t if cache_t is not None else self.cache_len(max_len)
         if cfg.sliding_window is not None:
             raise NotImplementedError("sliding-window prefill caches are not ported yet")
         if t > ct:
@@ -109,20 +114,54 @@ class DecoderLM:
         seq = torch.tensor(t, dtype=torch.int32, device=tokens.device)
         return logits, {"layers": {"k": ks, "v": vs}, "len": seq, "pos": seq.clone()}
 
+    def prefill_extend(self, params: Params, cache: Params,
+                       tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+        """Append a prompt chunk to a linear staging cache, in place.
+
+        tokens ``[1, c]`` land at rows ``[len, len + c)`` (queries at offset
+        ``len``, causal against every cached row), so ``prefill`` plus
+        ``prefill_extend`` chunks give the KV rows and final logits of one
+        monolithic ``prefill``.  Returns (last-position logits, cache')."""
+        cfg = self.cfg
+        b, c = tokens.shape
+        start = int(cache["len"])
+        h = L.embed(params["embed"], tokens, cfg)
+        pos = (int(cache["pos"]) + torch.arange(c, dtype=torch.int32, device=tokens.device))
+        pos = pos[None].expand(b, c)
+        layers = cache["layers"]
+        for i in range(cfg.num_layers):
+            layer_cache = {"k": layers["k"][i], "v": layers["v"][i], "len": start}
+            h, _, _ = self._block(_layer(params["blocks"], i), h, pos, cache=layer_cache)
+        # rmsnorm is positionwise: norming the last row alone matches the
+        # monolithic norm-then-slice
+        h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+        logits = L.unembed(params["unembed"], h, cfg, params["embed"])
+        return logits, {"layers": layers, "len": cache["len"] + c, "pos": cache["pos"] + c}
+
     # -- paged slot pool --------------------------------------------------------
 
     def init_paged_cache(
-        self, num_blocks: int, block_size: int, num_slots: int, device: Device = None
+        self, num_blocks: int, block_size: int, num_slots: int, device: Device = None,
+        kv_dtype: str = "fp32",
     ) -> Params:
-        """Zeroed page pool: K/V ``[L, N, bs, Hkv, D]`` in ``compute_dtype``,
-        per-slot ``len``/``pos``.  Block 0 is the scratch block."""
+        """Zeroed page pool: K/V ``[L, N, bs, Hkv, D]``, per-slot
+        ``len``/``pos``.  Block 0 is the scratch block.  ``kv_dtype`` fp32
+        stores values in ``compute_dtype``; int8 / fp8_e4m3 store codes and
+        add ``k_scale`` / ``v_scale`` ``[L, N, Hkv]`` float32 leaves set to
+        ones, so never-written pages decode to zeros."""
         cfg = self.cfg
         dev = resolve_device(device)
+        kvquant.validate_kv_dtype(kv_dtype)
         kv = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim)
-        dt = L.cdtype(cfg)
+        dt = L.cdtype(cfg) if kv_dtype == "fp32" else kvquant.storage_dtype(kv_dtype)
+        leaves = {"k": torch.zeros(kv, dtype=dt, device=dev),
+                  "v": torch.zeros(kv, dtype=dt, device=dev)}
+        if kv_dtype != "fp32":
+            sc = (cfg.num_layers, num_blocks, cfg.num_kv_heads)
+            leaves["k_scale"] = torch.ones(sc, dtype=torch.float32, device=dev)
+            leaves["v_scale"] = torch.ones(sc, dtype=torch.float32, device=dev)
         return {
-            "layers": {"k": torch.zeros(kv, dtype=dt, device=dev),
-                       "v": torch.zeros(kv, dtype=dt, device=dev)},
+            "layers": leaves,
             "len": torch.zeros(num_slots, dtype=torch.int32, device=dev),
             "pos": torch.zeros(num_slots, dtype=torch.int32, device=dev),
         }
@@ -131,7 +170,9 @@ class DecoderLM:
                          table: torch.Tensor) -> Params:
         """Scatter a batch-1 prefill cache into the blocks of ``table``
         (``[W]`` block ids), in place.  Rows past the prefill are written as
-        zeros, so a recycled block keeps nothing of its previous owner."""
+        zeros, so a recycled block keeps nothing of its previous owner.  A
+        quantized pool quantizes whole blocks (each block's scale is the
+        absmax over its rows: no clipping on this path)."""
         k1, pk = cache["layers"]["k"], pool["layers"]["k"]
         if k1.shape[1] != 1:
             raise ValueError(f"write_slot_paged expects a batch-1 cache, got {tuple(k1.shape)}")
@@ -141,14 +182,56 @@ class DecoderLM:
             raise ValueError(f"prefill cache has {t1} rows but the table holds "
                              f"{w} blocks x {bs} = {w * bs}")
         idx = table.long()
+        kv_dtype = kvquant.dtype_of(pk.dtype)
+        layers = pool["layers"]
         for name in ("k", "v"):
             src = cache["layers"][name][:, 0]
-            blocks = torch.zeros((nl, w * bs, h, d), dtype=pk.dtype, device=pk.device)
+            blocks = torch.zeros((nl, w * bs, h, d), dtype=src.dtype, device=pk.device)
             blocks[:, :t1] = src
-            pool["layers"][name][:, idx] = blocks.reshape(nl, w, bs, h, d)
+            blocks = blocks.reshape(nl, w, bs, h, d)
+            if kv_dtype == "fp32":
+                layers[name][:, idx] = blocks.to(pk.dtype)
+            else:
+                codes, scale = kvquant.quantize_blocks(blocks, kv_dtype)
+                kvquant.indexable(layers[name])[:, idx] = kvquant.indexable(codes)
+                layers[f"{name}_scale"][:, idx] = scale
         pool["len"][slot] = cache["len"]
         pool["pos"][slot] = cache["pos"]
         return pool
+
+    def copy_block(self, pool: Params, src: int, dst: int) -> Params:
+        """Copy one KV block, all layers, in place — the device half of the
+        allocator's copy-on-write (``BlockPool.ensure_writable``); a
+        quantized pool's scale rows move with their block."""
+        for leaf in pool["layers"].values():
+            leaf[:, dst] = leaf[:, src]
+        return pool
+
+    def gather_prefix_cache(self, pool: Params, blocks: Sequence[int], rows: int,
+                            capacity: int) -> Params:
+        """Batch-1 linear staging cache ``[L, 1, capacity, Hkv, D]`` seeded
+        from the cached prefix ``blocks`` (``rows == len(blocks) * bs``), in
+        ``compute_dtype``; a quantized pool's blocks are dequantized through
+        their own scale rows (``kvquant.decode``).  Rows past ``rows`` are
+        zero until ``prefill_extend`` writes them."""
+        layers = pool["layers"]
+        pk = layers["k"]
+        bs = pk.shape[2]
+        if rows != len(blocks) * bs:
+            raise ValueError(f"prefix rows {rows} != {len(blocks)} blocks x {bs}")
+        tab = torch.as_tensor(list(blocks), dtype=torch.long, device=pk.device)
+        dt = L.cdtype(self.cfg)
+        out = {}
+        for name in ("k", "v"):
+            g = kvquant.indexable(layers[name])[:, tab].view(pk.dtype)
+            if f"{name}_scale" in layers:
+                g = kvquant.decode(g, layers[f"{name}_scale"][:, tab][:, :, None, :, None])
+            nl, nb, _, hh, dd = g.shape
+            buf = torch.zeros((nl, 1, capacity, hh, dd), dtype=dt, device=pk.device)
+            buf[:, 0, :rows] = g.reshape(nl, nb * bs, hh, dd).to(dt)
+            out[name] = buf
+        seq = torch.tensor(rows, dtype=torch.int32, device=pk.device)
+        return {"layers": out, "len": seq, "pos": seq.clone()}
 
     def reset_slot(self, pool: Params, slot: int) -> Params:
         """Retire ``slot``: zero its counters (its table goes to scratch on
@@ -169,8 +252,8 @@ class DecoderLM:
         pos = cache["pos"][:, None]
         layers = cache["layers"]
         for i in range(cfg.num_layers):
-            layer_cache = {"k": layers["k"][i], "v": layers["v"][i],
-                           "len": cache["len"], "tables": block_tables}
+            layer_cache = {name: leaf[i] for name, leaf in layers.items()}
+            layer_cache.update(len=cache["len"], tables=block_tables)
             h, _, _ = self._block(_layer(params["blocks"], i), h, pos,
                                   cache=layer_cache, paged_cache_t=cache_t)
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)

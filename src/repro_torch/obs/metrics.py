@@ -1,4 +1,4 @@
-"""Counters and histograms behind a registry — the part of the
+"""Counters, gauges and histograms behind a registry — the part of the
 reference's ``repro.obs.metrics`` the serve stack uses (own copy: the port
 imports nothing of ``repro``).  Histograms keep every observation, so
 percentiles are exact (nearest rank)."""
@@ -17,6 +17,22 @@ class Counter:
 
     def inc(self, amount: float = 1.0) -> None:
         self._value += amount
+
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"value": self._value}
+
+
+class Gauge:
+    kind = "gauge"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name, self.help, self._value = name, help, 0.0
+
+    def set(self, value: float) -> None:
+        self._value = float(value)
 
     def value(self) -> float:
         return self._value
@@ -76,6 +92,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, help: str = "") -> Counter:
         return self._get_or_create(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_create(Gauge, name, help)
 
     def histogram(self, name: str, help: str = "") -> Histogram:
         return self._get_or_create(Histogram, name, help)

@@ -82,14 +82,26 @@ def paged_attention(
     kv_valid_len: torch.Tensor,  # [S]
     kv_len: Optional[int] = None,
     scale: Optional[float] = None,
+    kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # ([N,H], [N,H])
     **overrides: Any,
 ) -> torch.Tensor:
     """Paged-KV decode attention over each slot's ragged valid prefix.
-    Returns ``[S, Tq, Hq, D]``."""
+    Returns ``[S, Tq, Hq, D]``.
+
+    ``kv_scales`` carries the per-(block, head) dequant scale pages
+    ``(k_scale, v_scale)`` of a quantized pool: required when
+    ``spec.kv_dtype != "fp32"``, refused otherwise, so a layout / spec
+    mismatch fails here instead of decoding garbage."""
     backend, spec = resolve(
         spec if spec is not None else DEFAULT_PAGED_ATTENTION, **overrides
     )
+    if (spec.kv_dtype != "fp32") != (kv_scales is not None):
+        raise OpDispatchError(
+            f"kv_dtype={spec.kv_dtype!r} but kv_scales "
+            f"{'missing' if kv_scales is None else 'supplied'}: quantized page "
+            "pools must pass their (k_scale, v_scale) pages and fp32 pools must not"
+        )
     return backend.fn(
         spec, q, k_pages, v_pages, block_tables,
-        kv_valid_len=kv_valid_len, kv_len=kv_len, scale=scale,
+        kv_valid_len=kv_valid_len, kv_len=kv_len, scale=scale, kv_scales=kv_scales,
     )

@@ -17,6 +17,7 @@ from repro_torch.core.attention import (
     attention as full_attention,
     blocked_attention,
 )
+from repro_torch.core.kvquant import KV_DTYPES
 from repro_torch.core.star_softmax import exact_softmax, star_softmax
 from repro_torch.kernels.flash_star import flash_star_attention
 from repro_torch.kernels.paged_attention import paged_flash_attention
@@ -131,12 +132,13 @@ def _paged_dense_spec(spec: PagedAttentionSpec, impl: str) -> AttentionSpec:
 
 
 def _make_paged_backend(impl: str, dense_fn):
-    """Gather adapter: the dense view of every slot's table, then the
-    matching dense attention backend over the ragged valid lengths."""
+    """Gather adapter: the dense view of every slot's table (dequantized
+    through the scale pages of a quantized pool), then the matching dense
+    attention backend over the ragged valid lengths."""
 
     def fn(spec: PagedAttentionSpec, q, k_pages, v_pages, block_tables, *,
-           kv_valid_len, kv_len=None, scale=None):
-        kd, vd = gather_pages(k_pages, v_pages, block_tables, kv_len)
+           kv_valid_len, kv_len=None, scale=None, kv_scales=None):
+        kd, vd = gather_pages(k_pages, v_pages, block_tables, kv_len, kv_scales)
         return dense_fn(_paged_dense_spec(spec, impl), q, kd, vd,
                         kv_valid_len=kv_valid_len, scale=scale)
 
@@ -144,8 +146,10 @@ def _make_paged_backend(impl: str, dense_fn):
 
 
 def _paged_pallas_paged(spec: PagedAttentionSpec, q, k_pages, v_pages,
-                        block_tables, *, kv_valid_len, kv_len=None, scale=None):
-    """Gather-free decode: the kernel walks the block tables in place."""
+                        block_tables, *, kv_valid_len, kv_len=None, scale=None,
+                        kv_scales=None):
+    """Gather-free decode: the kernel walks the block tables in place (and
+    dequantizes a quantized pool's pages as it loads them)."""
     if q.shape[1] != 1:
         raise CapabilityError(
             "paged_attention backend 'pallas_paged' is a decode kernel (one query "
@@ -154,21 +158,26 @@ def _paged_pallas_paged(spec: PagedAttentionSpec, q, k_pages, v_pages,
     valid = kv_valid_len.to(torch.int32)
     if kv_len is not None:
         valid = torch.clamp(valid, max=kv_len)
+    k_scale, v_scale = kv_scales if kv_scales is not None else (None, None)
     out = paged_flash_attention(
         q[:, 0], k_pages, v_pages, block_tables, valid,
-        fmt=spec.softmax.fmt, sm_scale=scale,
+        fmt=spec.softmax.fmt, sm_scale=scale, k_scale=k_scale, v_scale=v_scale,
     )
     return out[:, None]
 
 
+_KINDS = ("star", "exact")
 register("paged_attention", "reference",
          _make_paged_backend("reference", _attention_reference),
-         description="block-table gather + whole-operand ragged decode")
+         capabilities={"kv_dtype": KV_DTYPES},
+         description="block-table gather (+ dequant) + whole-operand ragged decode")
 register("paged_attention", "xla", _make_paged_backend("xla", _attention_xla),
-         description="block-table gather + the online-blocked dense loop")
+         capabilities={"kv_dtype": KV_DTYPES},
+         description="block-table gather (+ dequant) + the online-blocked dense loop")
 register("paged_attention", "pallas", _make_paged_backend("pallas", _attention_pallas),
-         capabilities={"softmax.kind": ("star", "exact")},
-         description="block-table gather + the CUDA flash_star kernel")
+         capabilities={"softmax.kind": _KINDS, "kv_dtype": KV_DTYPES},
+         description="block-table gather (+ dequant) + the CUDA flash_star kernel")
 register("paged_attention", "pallas_paged", _paged_pallas_paged,
-         capabilities={"softmax.kind": ("star", "exact")},
-         description="gather-free CUDA paged decode kernel (kernels.paged_attention)")
+         capabilities={"softmax.kind": _KINDS, "kv_dtype": KV_DTYPES},
+         description="gather-free CUDA paged decode kernel, in-kernel dequant of "
+         "int8/fp8 pages (kernels.paged_attention)")

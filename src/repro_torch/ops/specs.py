@@ -4,8 +4,8 @@ A spec says *what* to compute and *which* backend family computes it
 (``impl``).  Impl names are the reference's, so a config means the same in
 both packages; see ``repro_torch.ops`` for what each name runs here.
 Fields of the reference that nothing in the port reads yet are left out
-(``interpret``: there is no interpret mode; ``fault`` and ``kv_dtype``: their
-slices; the Pallas tiles ``block_q`` / ``block_rows``).
+(``interpret``: there is no interpret mode; ``fault``: its slice; the Pallas
+tiles ``block_q`` / ``block_rows``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import math
 from typing import Optional
 
 from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FixedPointFormat
+from repro_torch.core.kvquant import KV_DTYPES
 
 SOFTMAX_KINDS = ("star", "exact")
 SOFTMAX_MODES = ("gather", "onehot", "histogram")
@@ -80,12 +81,17 @@ class AttentionSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PagedAttentionSpec:
-    """One paged decode invocation over a block-pool KV cache."""
+    """One paged decode invocation over a block-pool KV cache.
+
+    ``kv_dtype`` declares the page-pool storage layout: ``"fp32"`` stores
+    values; ``"int8"`` / ``"fp8_e4m3"`` store codes plus per-(block, head)
+    scale pages that every call must pass as ``kv_scales``."""
 
     impl: str = "xla"
     softmax: SoftmaxSpec = SoftmaxSpec()
     block_size: int = 16
     block_k: int = 128
+    kv_dtype: str = "fp32"  # fp32 | int8 | fp8_e4m3 (core.kvquant)
 
     op = "paged_attention"
 
@@ -93,3 +99,5 @@ class PagedAttentionSpec:
         for field in ("block_size", "block_k"):
             if getattr(self, field) <= 0:
                 raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {self.kv_dtype!r}")

@@ -1,26 +1,37 @@
 """Continuous-batching serving over the paged KV cache (port of the
 reference's ``repro.serve.engine``: ``sample_token`` and
-``ContinuousBatchingEngine`` on the paged layout).
+``ContinuousBatchingEngine`` on the paged layout, with quantized page pools,
+the shared-prefix cache, chunked prefill and preemption).
 
 One ``step()`` tick::
 
-    admit:   pending -> free slot: allocate blocks, prefill(batch=1),
-             write_slot_paged into the page pool, sample token 0
-    decode:  grow tables that cross a block boundary, one
-             decode_step_paged over all S slots [S, 1] -> [S, 1, V],
-             sample one token per active slot
-    retire:  finished slots release their blocks; their tables go back to
-             the scratch block and their counters to 0
+    admit:    pending -> free slot.  Monolithic: allocate blocks, prefill
+              (batch 1), write_slot_paged, sample token 0.  Chunked (a
+              prefix cache or a chunk budget): adopt the trie's cached
+              prefix blocks and queue the rest of the prompt for staging
+    prefill:  chunked only — this tick's prompt-token budget flows through
+              the staging slots in power-of-two chunks (``prefill`` then
+              ``prefill_extend`` into a linear staging cache); a finished
+              prompt gets fresh blocks, is written into the pool, indexed
+              in the trie, and samples token 0
+    upkeep:   every active slot whose next KV row opens a block gets one;
+              on exhaustion cold trie leaves are evicted first, then the
+              latest-admitted slot is preempted (requeued at the front
+              with its tokens kept)
+    decode:   one decode_step_paged over all S slots [S, 1] -> [S, 1, V],
+              sample one token per active slot
+    retire:   finished slots release their blocks; their tables go back to
+              the scratch block and their counters to 0
 
 Sampling at temperature > 0 runs the STAR softmax through
 ``ops.softmax`` (``ops.use(softmax="pallas")`` selects the Triton kernel),
 then a categorical draw from the request's own seeded ``torch.Generator``,
-so a request's draws do not depend on its co-tenants.  The draws are not
-the reference's ``jax.random`` draws.
+so a request's draws depend neither on its co-tenants nor on preemption.
+The draws are not the reference's ``jax.random`` draws.
 
-Not ported yet: the dense per-slot layout and the lockstep engine, prefix
-cache and chunked prefill, quantized KV, the accuracy guard and preemption
-— pool exhaustion raises :class:`PoolExhausted` instead of preempting.
+Not ported yet: the dense per-slot layout and the lockstep engine, ring
+(sliding-window) caches, the accuracy guard, tracing and the transfer
+counters.
 """
 
 from __future__ import annotations
@@ -34,10 +45,11 @@ import torch
 
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kvquant import validate_kv_dtype
 from repro_torch.models.registry import build_model
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.ops.platform import Device, resolve_device
-from repro_torch.serve.paged import SCRATCH_BLOCK, BlockPool, bucket_blocks
+from repro_torch.serve.paged import SCRATCH_BLOCK, BlockPool, PrefixCache, bucket_blocks
 from repro_torch.serve.scheduler import Request, Slot, SlotScheduler
 
 
@@ -75,6 +87,12 @@ class ContinuousConfig:
     kv_block_size: int = 16
     # usable blocks (scratch excluded); None = num_slots * ceil(cache_len / bs)
     kv_pool_blocks: Optional[int] = None
+    # shared-prefix KV cache: a radix trie over block-size token chunks
+    prefix_cache: bool = False
+    # chunked prefill: prompt tokens prefilled per tick (None: monolithic)
+    prefill_chunk_tokens: Optional[int] = None
+    # page-pool storage: fp32 (compute dtype) | int8 | fp8_e4m3
+    kv_dtype: str = "fp32"
 
 
 @dataclasses.dataclass
@@ -102,6 +120,10 @@ class ContinuousBatchingEngine:
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params are on {table.device}, the engine on {self.device}")
+        validate_kv_dtype(cb_cfg.kv_dtype)
+        if cb_cfg.prefill_chunk_tokens is not None and cb_cfg.prefill_chunk_tokens < 1:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 1, got {cb_cfg.prefill_chunk_tokens}")
         self.cfg = model_cfg
         self.params = params
         self.cb = cb_cfg
@@ -110,9 +132,13 @@ class ContinuousBatchingEngine:
         reg = self.metrics
         self._m_tokens = reg.counter("serve.tokens.generated")
         self._m_finished = reg.counter("serve.requests.finished")
+        self._m_prefills = reg.counter(
+            "serve.prefill.calls", "model prefill / prefill_extend calls (one per chunk)")
+        self._m_preempted = reg.counter(
+            "serve.requests.preempted", "requests evicted on pool exhaustion and requeued")
         self._h_ttft = reg.histogram("serve.ttft_s", "submit -> first token")
         self._h_itl = reg.histogram("serve.itl_s", "inter-token latency")
-        self._h_queue = reg.histogram("serve.queue_wait_s", "pending-queue wait")
+        self._h_queue = reg.histogram("serve.queue_wait_s", "pending-queue wait per stint")
         self.scheduler = SlotScheduler(cb_cfg.num_slots)
         self._cache_t = self.model.cache_len(cb_cfg.max_len)
         bs = cb_cfg.kv_block_size
@@ -120,15 +146,22 @@ class ContinuousBatchingEngine:
         usable = cb_cfg.kv_pool_blocks
         if usable is None:
             usable = cb_cfg.num_slots * self._slot_blocks
-        self.block_pool = BlockPool(usable + 1, bs)
+        self.block_pool = BlockPool(usable + 1, bs, kv_dtype=cb_cfg.kv_dtype,
+                                    metrics=self.metrics)
         self.pool = self.model.init_paged_cache(usable + 1, bs, cb_cfg.num_slots,
-                                                device=self.device)
+                                                device=self.device, kv_dtype=cb_cfg.kv_dtype)
+        self.prefix = (PrefixCache(self.block_pool, metrics=self.metrics)
+                       if cb_cfg.prefix_cache else None)
+        # either flag routes admission through the staging path
+        self._chunked = cb_cfg.prefill_chunk_tokens is not None or cb_cfg.prefix_cache
+        self._staging: Dict[int, Dict[str, Any]] = {}
         self._tables = np.full((cb_cfg.num_slots, self._slot_blocks), SCRATCH_BLOCK, np.int32)
         self._rows = np.zeros(cb_cfg.num_slots, np.int64)  # KV rows written per slot
         self._inputs = np.zeros((cb_cfg.num_slots, 1), np.int32)  # next token per slot
         self._seed = seed
         self._generators: Dict[int, torch.Generator] = {}
         self.ticks = 0
+        self.preemptions = 0
         self.peak_used_blocks = 0
 
     # -- submission -------------------------------------------------------------
@@ -144,6 +177,7 @@ class ContinuousBatchingEngine:
             )
         blocks = self.block_pool.blocks_for_tokens(need)
         if blocks > self.block_pool.usable_blocks:
+            # larger than the whole pool: no preemption could ever fit it
             raise ValueError(
                 f"request needs {blocks} KV blocks but the pool only has "
                 f"{self.block_pool.usable_blocks}; raise kv_pool_blocks"
@@ -156,7 +190,8 @@ class ContinuousBatchingEngine:
     # -- helpers ----------------------------------------------------------------
 
     def _generator(self, req: Request) -> torch.Generator:
-        # per-request stream, independent of slot placement and co-tenants
+        # per-request stream, independent of slot placement, co-tenants and
+        # preemption (it lives until the request finishes)
         g = self._generators.get(req.uid)
         if g is None:
             g = torch.Generator(device=self.device)
@@ -166,7 +201,8 @@ class ContinuousBatchingEngine:
 
     def _emit(self, slot: Slot, token: int, finished: bool) -> TokenEvent:
         req = slot.request
-        ev = TokenEvent(req.uid, token, len(slot.generated) - 1, finished)
+        index = len(req.generated_prefix) + len(slot.generated) - 1
+        ev = TokenEvent(req.uid, token, index, finished)
         now = time.perf_counter()
         if req.first_token_time is None:
             self._h_ttft.observe(now - req.submit_time)
@@ -184,63 +220,256 @@ class ContinuousBatchingEngine:
         if finished:
             self._finish(slot)
 
+    def _sample_first(self, slot: Slot, logits: torch.Tensor, events: List[TokenEvent]) -> None:
+        tok = sample_token(logits[0, -1], [self._generator(slot.request)], self.cfg,
+                           self.cb.temperature)
+        self._record(slot, int(tok), events)
+
+    def _observe_queue_wait(self, req: Request) -> None:
+        # consume the stamp: a later preemption opens a new stint
+        if req.enqueued_at is not None:
+            self._h_queue.observe(time.perf_counter() - req.enqueued_at)
+            req.enqueued_at = None
+
+    def _clear_slot(self, slot: Slot) -> None:
+        self._tables[slot.index, :] = SCRATCH_BLOCK
+        self.model.reset_slot(self.pool, slot.index)
+
     def _finish(self, slot: Slot) -> None:
         req = self.scheduler.retire(slot)
         self._generators.pop(req.uid, None)
         self.block_pool.release(req.uid)
-        self._tables[slot.index, :] = SCRATCH_BLOCK
-        self.model.reset_slot(self.pool, slot.index)
+        self._clear_slot(slot)
         self._m_finished.inc()
 
     def _note_peak(self) -> None:
         self.peak_used_blocks = max(self.peak_used_blocks, self.block_pool.used_blocks)
 
-    def _admit(self, slot: Slot, events: List[TokenEvent]) -> None:
-        """Allocate the slot's blocks, prefill its prompt, write the KV rows
-        into the pool and sample the first token."""
+    def _tokens(self, req: Request) -> np.ndarray:
+        """What a (re-)admission prefills: the prompt plus any tokens the
+        request generated before a preemption."""
+        if req.generated_prefix:
+            return np.concatenate([req.prompt, np.asarray(req.generated_prefix, np.int32)])
+        return np.asarray(req.prompt, np.int32)
+
+    # -- block management and preemption ------------------------------------------
+
+    def _preempt(self, slot: Slot) -> None:
+        """Evict ``slot``'s request: release its blocks and requeue it at
+        the front with its generated tokens; on re-admission it re-prefills
+        ``prompt + generated_prefix`` and resumes."""
+        self._staging.pop(slot.index, None)
+        req = self.scheduler.preempt(slot)
+        if req.uid in self.block_pool.owners():  # a staging slot may own none yet
+            self.block_pool.release(req.uid)
+        self._clear_slot(slot)
+        self.preemptions += 1
+        self._m_preempted.inc()
+        if req.enqueued_at is None:  # the previous stint was observed
+            req.enqueued_at = time.perf_counter()
+
+    def _lowest_priority_victim(self, min_uid: int) -> Optional[Slot]:
+        """The occupied slot with the largest uid above ``min_uid``: the
+        latest-admitted work is evicted first (FIFO priority)."""
+        victims = [s for s in self.scheduler.occupied_slots if s.request.uid > min_uid]
+        return max(victims, key=lambda s: s.request.uid) if victims else None
+
+    def _reclaim_blocks(self, n: int, min_uid: int) -> bool:
+        """Make ``n`` blocks allocatable: evict cold trie leaves first, then
+        preempt later-admitted slots.  False when neither frees enough."""
+        while not self.block_pool.can_allocate(n):
+            if self.prefix is not None and self.prefix.evict_one():
+                continue
+            victim = self._lowest_priority_victim(min_uid)
+            if victim is None:
+                return False
+            self._preempt(victim)
+        return True
+
+    def _admit_blocks(self, slot: Slot, rows: int) -> bool:
+        """Allocate the admission table for ``rows`` prefill rows,
+        preempting on exhaustion; False (request requeued) if it cannot fit."""
         req = slot.request
-        bp = self.block_pool
-        rows = len(req.prompt)
-        n = bp.blocks_for_tokens(rows)
-        blocks = bp.allocate(req.uid, n)  # PoolExhausted: no preemption yet
+        n = self.block_pool.blocks_for_tokens(rows)
+        if not self._reclaim_blocks(n, req.uid):
+            self.scheduler.pending.appendleft(slot.release())
+            return False
+        blocks = self.block_pool.allocate(req.uid, n)
         self._tables[slot.index, :] = SCRATCH_BLOCK
         self._tables[slot.index, :n] = blocks
         self._note_peak()
-        now = time.perf_counter()
-        self._h_queue.observe(now - req.enqueued_at)
+        return True
+
+    def _ensure_decode_block(self, slot: Slot) -> bool:
+        """Grow the slot's table when this tick's KV write opens a block;
+        preempt on exhaustion (the slot itself when it is the
+        lowest-priority occupant).  False if the slot was evicted."""
+        rows = int(self._rows[slot.index])
+        bs = self.block_pool.block_size
+        if rows % bs != 0:
+            return True
+        while not self.block_pool.can_allocate(1):
+            if self.prefix is not None and self.prefix.evict_one():
+                continue
+            victim = self._lowest_priority_victim(-1)
+            if victim is None or victim is slot:
+                self._preempt(slot)
+                return False
+            self._preempt(victim)
+        self._tables[slot.index, rows // bs] = self.block_pool.append(slot.request.uid)
+        self._note_peak()
+        return True
+
+    # -- monolithic admission -----------------------------------------------------
+
+    def _admit(self, slot: Slot, events: List[TokenEvent]) -> None:
+        """Allocate the slot's blocks, prefill its prompt, write the KV rows
+        into the pool and sample the next token."""
+        req = slot.request
+        tokens = self._tokens(req)
+        rows = len(tokens)
+        if not self._admit_blocks(slot, rows):
+            return  # pool full even after preemption: wait in line
+        self._observe_queue_wait(req)
+        bs = self.block_pool.block_size
         # the prefill cache spans the bucketed block grid; grid rows past
         # the allocated blocks land in the scratch block
-        width = bucket_blocks(n, self._slot_blocks)
-        tokens = torch.as_tensor(req.prompt, dtype=torch.int64, device=self.device)[None]
-        logits, cache1 = self.model.prefill(self.params, tokens, width * bp.block_size)
+        width = bucket_blocks(self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
+        t = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)[None]
+        logits, cache1 = self.model.prefill(self.params, t, width * bs)
+        self._m_prefills.inc()
         table = torch.as_tensor(self._tables[slot.index, :width], device=self.device)
         self.model.write_slot_paged(self.pool, cache1, slot.index, table)
         self._rows[slot.index] = rows
-        tok = sample_token(logits[0, -1], [self._generator(req)], self.cfg, self.cb.temperature)
-        self._record(slot, int(tok), events)
+        self._sample_first(slot, logits, events)
 
-    def _ensure_decode_block(self, slot: Slot) -> None:
-        """Grow the slot's table when this tick's KV write opens a block."""
-        rows = int(self._rows[slot.index])
-        bs = self.block_pool.block_size
-        if rows % bs == 0:
-            blk = self.block_pool.append(slot.request.uid)  # PoolExhausted
-            self._tables[slot.index, rows // bs] = blk
-            self._note_peak()
+    # -- chunked prefill and the prefix cache -------------------------------------
+
+    def _staging_rows(self, rows: int) -> int:
+        """Linear staging-cache capacity: the bucketed admission block grid
+        (the same widths as the monolithic write)."""
+        nb = bucket_blocks(self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
+        return nb * self.block_pool.block_size
+
+    def _admit_staging(self, slot: Slot) -> None:
+        """Bind an admitted request to the chunked path: adopt any cached
+        prefix blocks (their prefill is skipped) and queue the rest of the
+        prompt for ``_run_prefill_chunks``."""
+        req = slot.request
+        tokens = self._tokens(req)
+        p0, shared = 0, []
+        if self.prefix is not None:
+            shared, p0 = self.prefix.lookup(tokens)
+            if shared:
+                self.block_pool.adopt(req.uid, shared)
+        self._staging[slot.index] = {
+            "req": req, "tokens": tokens, "rows": len(tokens), "p0": p0,
+            "shared": list(shared), "suffix": tokens[p0:], "done": 0,
+            "cache": None, "logits": None, "Ts": self._staging_rows(len(tokens)),
+        }
+        slot.prefilling = True
+        self._observe_queue_wait(req)
+
+    def _run_prefill_chunks(self) -> List[TokenEvent]:
+        """Feed this tick's prompt-token budget through the staging slots
+        (FIFO by uid, power-of-two chunks); finished prefills are written
+        into the pool and sample their first token."""
+        events: List[TokenEvent] = []
+        budget = self.cb.prefill_chunk_tokens or (1 << 30)
+        for idx in sorted(self._staging, key=lambda i: self._staging[i]["req"].uid):
+            if budget <= 0:
+                break
+            st = self._staging.get(idx)
+            if st is None:
+                continue  # preempted by an earlier completion this tick
+            suffix = st["suffix"]
+            while budget > 0 and st["done"] < len(suffix):
+                c = min(len(suffix) - st["done"], budget)
+                c = 1 << (int(c).bit_length() - 1)  # power of two
+                chunk = torch.as_tensor(suffix[st["done"]:st["done"] + c],
+                                        dtype=torch.int64, device=self.device)[None]
+                if st["cache"] is None and st["p0"]:
+                    # seed the staging buffer with the cached prefix rows
+                    st["cache"] = self.model.gather_prefix_cache(
+                        self.pool, st["shared"], st["p0"], st["Ts"])
+                if st["cache"] is None:
+                    st["logits"], st["cache"] = self.model.prefill(
+                        self.params, chunk, self.cb.max_len, cache_t=st["Ts"])
+                else:
+                    st["logits"], st["cache"] = self.model.prefill_extend(
+                        self.params, st["cache"], chunk)
+                self._m_prefills.inc()
+                st["done"] += c
+                budget -= c
+            if st["done"] == len(suffix):
+                self._finish_prefill(idx, events)
+        return events
+
+    def _finish_prefill(self, idx: int, events: List[TokenEvent]) -> None:
+        """Write a finished staging prefill into fresh blocks of the pool,
+        index its full blocks in the trie and sample the first token; if the
+        pool cannot fit the fresh blocks even after eviction and preemption,
+        the request goes back to the front of the queue."""
+        st = self._staging.pop(idx)
+        slot = self.scheduler.slots[idx]
+        req, rows = st["req"], st["rows"]
+        bp = self.block_pool
+        n_real = bp.blocks_for_tokens(rows)
+        n_fresh = n_real - len(st["shared"])
+        if not self._reclaim_blocks(n_fresh, req.uid):
+            self._requeue_staging(slot, st)
+            return
+        if req.uid in bp.owners():  # adopted a prefix at admission
+            fresh = [bp.append(req.uid) for _ in range(n_fresh)]
+        else:
+            fresh = bp.allocate(req.uid, n_fresh)
+        table_row = st["shared"] + fresh
+        self._tables[idx, :] = SCRATCH_BLOCK
+        self._tables[idx, :n_real] = table_row
+        self._note_peak()
+        # the adopted prefix rows already live in the pool: their write goes
+        # to scratch so shared blocks stay untouched; pad to the bucketed grid
+        width = st["Ts"] // bp.block_size
+        write_table = ([SCRATCH_BLOCK] * len(st["shared"]) + fresh
+                       + [SCRATCH_BLOCK] * (width - n_real))
+        self.model.write_slot_paged(
+            self.pool, st["cache"], idx,
+            torch.as_tensor(write_table, dtype=torch.int32, device=self.device))
+        self._rows[idx] = rows
+        if self.prefix is not None:
+            self.prefix.insert(st["tokens"], table_row)
+        slot.prefilling = False
+        self._sample_first(slot, st["logits"], events)
+
+    def _requeue_staging(self, slot: Slot, st: Dict[str, Any]) -> None:
+        req = st["req"]
+        if req.uid in self.block_pool.owners():
+            self.block_pool.release(req.uid)  # return adopted prefix blocks
+        req.enqueued_at = time.perf_counter()  # admission observed: new stint
+        self.scheduler.pending.appendleft(slot.release())
+        self._clear_slot(slot)
 
     # -- the tick -----------------------------------------------------------------
 
     def step(self) -> List[TokenEvent]:
-        """One engine tick: admit + prefill, then one decode over the pool.
-        Returns the tokens emitted."""
+        """One engine tick: admissions, prefill chunks, block upkeep, then
+        one decode over the pool.  Returns the tokens emitted."""
         events: List[TokenEvent] = []
         for slot in self.scheduler.admit():
-            self._admit(slot, events)
+            if slot.free:
+                continue  # preempted by an earlier admission this tick
+            if self._chunked:
+                self._admit_staging(slot)
+            else:
+                self._admit(slot, events)
+        if self._staging:
+            events.extend(self._run_prefill_chunks())
+        for slot in sorted(self.scheduler.active_slots, key=lambda s: s.request.uid):
+            if not slot.free:
+                self._ensure_decode_block(slot)
         active = self.scheduler.active_slots
         if not active:
             return events
-        for slot in active:
-            self._ensure_decode_block(slot)
         tables = torch.as_tensor(self._tables, device=self.device)
         inputs = torch.as_tensor(self._inputs, dtype=torch.int64, device=self.device)
         logits, self.pool = self.model.decode_step_paged(
@@ -281,25 +510,43 @@ class ContinuousBatchingEngine:
     # -- accounting ---------------------------------------------------------------
 
     def kv_row_bytes(self) -> int:
-        """Bytes one token row costs across all layers (K + V)."""
-        k = self.pool["layers"]["k"]
-        return 2 * k.shape[0] * k.shape[3] * k.shape[4] * k.element_size()
+        """Bytes one KV token row costs across all layers (K + V), from the
+        leaves' actual dtypes (one byte per code in a quantized pool)."""
+        layers = self.pool["layers"]
+        k, v = layers["k"], layers["v"]
+        return k.shape[0] * k.shape[3] * k.shape[4] * (k.element_size() + v.element_size())
+
+    def kv_scale_bytes_per_block(self) -> int:
+        """Scale-page bytes per block across all layers (0 at fp32)."""
+        layers = self.pool["layers"]
+        if "k_scale" not in layers:
+            return 0
+        ks, vs = layers["k_scale"], layers["v_scale"]
+        return ks.shape[0] * ks.shape[2] * (ks.element_size() + vs.element_size())
 
     def kv_stats(self) -> Dict[str, Any]:
-        bs = self.block_pool.block_size
-        block_bytes = bs * self.kv_row_bytes()
+        bp = self.block_pool
+        bs = bp.block_size
+        prefix = None
+        if self.prefix is not None:
+            p = self.prefix
+            prefix = {"hits": p.hits, "tokens_saved": p.tokens_saved,
+                      "evicted": p.evicted, "nodes": len(p)}
+        # a block's footprint: its token rows plus its scale rows
+        block_bytes = bs * self.kv_row_bytes() + self.kv_scale_bytes_per_block()
         return {
+            "prefix": prefix,
             "layout": "paged",
-            "kv_dtype": "fp32",
-            "used_blocks": self.block_pool.used_blocks,
-            "free_blocks": self.block_pool.free_blocks,
-            "total_blocks": self.block_pool.usable_blocks,
-            "kv_bytes_per_token": float(self.kv_row_bytes()),
-            "kv_bytes_in_use": self.block_pool.used_blocks * block_bytes,
-            "kv_bytes_capacity": self.block_pool.usable_blocks * block_bytes,
-            "peak_used_blocks": self.peak_used_blocks,
+            "kv_dtype": bp.kv_dtype,
+            "used_blocks": bp.used_blocks,
+            "free_blocks": bp.free_blocks,
+            "total_blocks": bp.usable_blocks,
+            "kv_bytes_per_token": block_bytes / bs,
+            "kv_bytes_in_use": bp.used_blocks * block_bytes,
+            "kv_bytes_capacity": bp.usable_blocks * block_bytes,
             "peak_kv_bytes": self.peak_used_blocks * block_bytes,
-            "preemptions": 0,
+            "preemptions": self.preemptions,
+            "peak_used_blocks": self.peak_used_blocks,
         }
 
     def stats(self) -> Dict[str, Any]:

@@ -1,10 +1,13 @@
 """Slot scheduler for continuous batching (own copy of the reference's
-``repro.serve.scheduler``, without preemption and chunked prefill).
+``repro.serve.scheduler``).
 
-A fixed set of slots; each walks FREE -> ACTIVE -> FREE.  ``submit``
-appends to a FIFO pending queue (never blocks); ``admit`` binds pending
-requests to free slots; ``retire`` frees a slot for immediate reuse.  Pure
-host-side bookkeeping.
+A fixed set of slots; each walks FREE -> [PREFILLING ->] ACTIVE -> FREE
+(PREFILLING only under chunked prefill: bound and holding blocks, not yet
+decoding).  ``submit`` appends to a FIFO pending queue (never blocks);
+``admit`` binds pending requests to free slots; ``retire`` frees a slot for
+immediate reuse; ``preempt`` evicts an unfinished request, keeps what it
+generated (``Request.generated_prefix``) and requeues it at the *front*, so
+it keeps its FIFO priority.  Pure host-side bookkeeping.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ class Request:
     uid: int
     prompt: np.ndarray
     max_new_tokens: int
+    # tokens generated before a preemption: re-admission re-prefills
+    # prompt + generated_prefix and resumes; the budget counts them
+    generated_prefix: List[int] = dataclasses.field(default_factory=list)
     submit_time: Optional[float] = None
     enqueued_at: Optional[float] = None
     first_token_time: Optional[float] = None
@@ -39,6 +45,8 @@ class Slot:
     index: int
     request: Optional[Request] = None
     generated: List[int] = dataclasses.field(default_factory=list)
+    # True while chunked prefill streams the prompt into the slot's blocks
+    prefilling: bool = False
 
     @property
     def free(self) -> bool:
@@ -49,9 +57,11 @@ class Slot:
             raise RuntimeError(f"slot {self.index} is busy")
         self.request = request
         self.generated = []
+        self.prefilling = False
 
     def release(self) -> Request:
         req, self.request = self.request, None
+        self.prefilling = False
         return req
 
 
@@ -84,16 +94,41 @@ class SlotScheduler:
         return admitted
 
     def record_token(self, slot: Slot, token: int) -> bool:
-        """Append a token; True when the request just finished its budget."""
+        """Append a token; True when the request just finished its budget
+        (tokens generated before a preemption count)."""
+        req = slot.request
         slot.generated.append(int(token))
-        return len(slot.generated) >= slot.request.max_new_tokens
+        return len(req.generated_prefix) + len(slot.generated) >= req.max_new_tokens
 
     def retire(self, slot: Slot) -> Request:
-        self.finished[slot.request.uid] = list(slot.generated)
+        req = slot.request
+        self.finished[req.uid] = list(req.generated_prefix) + list(slot.generated)
         return slot.release()
+
+    def preempt(self, slot: Slot) -> Request:
+        """Evict an unfinished request: fold its tokens into
+        ``generated_prefix`` and requeue it at the front of the pending
+        queue.  The engine picks the victim and releases its KV blocks."""
+        req = slot.request
+        req.generated_prefix = list(req.generated_prefix) + list(slot.generated)
+        slot.release()
+        self.pending.appendleft(req)
+        return req
 
     @property
     def active_slots(self) -> List[Slot]:
+        """Slots in the decode batch (bound and done prefilling)."""
+        return [s for s in self.slots if not s.free and not s.prefilling]
+
+    @property
+    def prefilling_slots(self) -> List[Slot]:
+        """Bound slots still streaming prompt chunks."""
+        return [s for s in self.slots if not s.free and s.prefilling]
+
+    @property
+    def occupied_slots(self) -> List[Slot]:
+        """Every bound slot, decoding or prefilling: the preemption
+        candidates (both hold KV blocks)."""
         return [s for s in self.slots if not s.free]
 
     def done(self) -> bool:

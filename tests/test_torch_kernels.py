@@ -184,12 +184,15 @@ def test_paged_wrapper_builds_no_gathered_window(monkeypatch):
 
 
 def test_paged_quantized_pools_wait_for_their_port():
-    z = torch.zeros(2, 2, 16)
-    with pytest.raises(CapabilityError, match="quantized"):
-        paged_mod.paged_flash_attention(
-            z, torch.zeros(3, 4, 2, 16), torch.zeros(3, 4, 2, 16),
-            torch.ones(2, 1, dtype=torch.int32), torch.ones(2, dtype=torch.int32),
-            fmt=FMT, k_scale=torch.ones(3, 2), v_scale=torch.ones(3, 2))
+    """Their port has landed: scaled int8 pools no longer raise
+    CapabilityError; on the CPU they run the dequantizing plain version
+    (the JAX comparison is in tests/test_torch_kvquant.py)."""
+    q = torch.ones(2, 2, 16)
+    codes = torch.full((3, 4, 2, 16), 4, dtype=torch.int8)
+    out = paged_mod.paged_flash_attention(
+        q, codes, codes, torch.ones(2, 1, dtype=torch.int32), torch.ones(2, dtype=torch.int32),
+        fmt=FMT, k_scale=torch.ones(3, 2), v_scale=torch.full((3, 2), 0.5))
+    assert torch.equal(out, torch.full((2, 2, 16), 2.0))  # one valid row: 4 * 0.5
 
 
 # ---------------------------------------------------------------------------

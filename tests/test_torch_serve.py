@@ -25,7 +25,6 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as launcher
 from repro_torch.models.param import from_reference
 from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
-from repro_torch.serve.paged import PoolExhausted
 
 MAX_LEN = 40
 
@@ -105,12 +104,21 @@ def test_seeded_sampling_is_reproducible_and_cotenant_independent(pair):
 
 
 def test_pool_exhaustion_raises_instead_of_hanging(pair):
+    """Exhaustion no longer raises: the engine preempts the latest-admitted
+    request and drains with the tokens of an uncontended run.  A request no
+    preemption could fit still raises, at submit, instead of hanging."""
     _, _, cfg_t, params_t = pair
+    prompts, gens = [np.arange(7), np.arange(3, 10)], [6, 6]
+    alone = [_engine(cfg_t, params_t).serve([p], [g])[0] for p, g in zip(prompts, gens)]
     eng = _engine(cfg_t, params_t, kv_pool_blocks=4)
-    eng.submit(np.arange(10), 4)  # 3 blocks at admission, a 4th at row 12
-    eng.submit(np.arange(9), 2)
-    with pytest.raises(PoolExhausted, match="preemption is not ported"):
-        eng.run(max_ticks=20)
+    # 2 + 2 blocks at admission; the first decode append finds none free
+    uids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    done = eng.run(max_ticks=20)
+    assert [done[u] for u in uids] == alone
+    assert eng.preemptions >= 1 and eng.kv_stats()["preemptions"] == eng.preemptions
+    assert eng.block_pool.used_blocks == 0
+    with pytest.raises(ValueError, match="raise kv_pool_blocks"):
+        eng.submit(np.arange(12), 8)  # 19 rows: 5 blocks > the pool's 4
 
 
 def test_engine_without_device_needs_cuda(pair, monkeypatch):
