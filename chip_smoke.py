@@ -16,12 +16,21 @@ Phases (any failure exits non-zero before the result lines):
    shape (a 128-row chunk at q_offset 256 over a 512-row staging cache with
    384 valid rows); the paged kernel also over int8 and fp8_e4m3 pools
    (codes and scales from ``kvquant.quantize_blocks``), counted as its own
-   entry, ``paged_attention_quant``;
+   entry, ``paged_attention_quant``.  The STAR softmax: the Triton kernel in
+   ``gather`` mode, ``onehot`` bit-equal to it, and the CUDA LUT kernel
+   (``star_softmax_lut``) in clean ``histogram`` mode and under the mild
+   fault in every mode, at the sampling shape [4, 49152]; the fault
+   realization's bits on the card equal the CPU's;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens: once over an fp32 pool, then over int8 and
    fp8_e4m3 pools with the prefix cache, 8-token prefill chunks, prompts
-   sharing a prefix and a pool small enough to force a preemption;
+   sharing a prefix and a pool small enough to force a preemption, then
+   under the mild fault (histogram mode, faulty attention on the
+   materialized ``reference`` path).  Then the smoke config at temperature
+   0.8 on the card in clean ``onehot`` and ``histogram`` mode: that mode's
+   softmax kernel launches for every sampled batch, and the probabilities of
+   the first request's first sample equal the CPU plain version's;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed, the continuous-batching engine
    over the paged KV cache (block size 16), 8 requests on 4 slots, prompts
@@ -42,7 +51,22 @@ Phases (any failure exits non-zero before the result lines):
    full-width decode step over the int8 pool through the kernel is held
    against the same step through the ``reference`` paged impl, and one
    int8 decode tick and one 128-token prefill chunk are traced;
-7. the ``{"kernels": [...]}`` line and, last, the device line.
+7. degraded-RRAM serve: the same weights with a seeded ``FaultModel`` in
+   the config's softmax spec (attention ``xla``, so faulty rows take the
+   materialized ``reference`` path; sampling softmax ``pallas``), 4 requests
+   on 4 slots, prompts of 128-256 tokens, 16 new tokens, temperature 0.8,
+   under the accuracy guard.  7a: the mild fault in ``histogram`` mode with
+   a non-latching guard: the LUT kernel launches for every sampled batch and
+   the guard checks every one.  7b: a severe fault in ``gather`` mode with
+   a latching guard: it trips, falls back and latches; the kernel
+   ran before the trip and not after (its budget: twice the clean engine's
+   error on the same traffic, logged).  Then ``ops.matmul(impl="hwmodel")``
+   at granite-8b's q and MLP-up projection widths (layer 0's weights) under
+   a guard, clean and under the mild fault (the crossbar kernel must
+   launch), and the crossbar kernel against its plain version at those
+   shapes (clean bit-exact; faulty equal but for ADC codes within 1e-3 LSB
+   of a half-step, at most 1e-4 of the outputs);
+8. the ``{"kernels": [...]}`` line and, last, the device line.
 
 Tolerances.  float32 outputs: |kernel - plain| <= 5e-5 + 1e-4 |plain|;
 bfloat16 outputs: <= 1e-2 + 8e-3 |plain| (two bf16 ulps: both round one
@@ -51,8 +75,10 @@ within float32 summation error of a grid half-step may snap to the
 neighbouring level in one of the two; a row outside tolerance passes only
 if it holds such an ambiguous score (within 1e-3 grid units of a half-step,
 from a float64 recomputation), and such rows must stay below 1e-4 of the
-live scores.  The star softmax snaps its input itself, so its indices are
-identical and it holds to 1e-5 |plain| + 1e-9.
+live scores.  The star softmax kernels snap their input themselves, so
+their indices are identical and they hold to 1e-5 |plain| + 1e-9 (the LUT
+kernel's faulty histogram divides by the ADC gain after the row, the plain
+version before: an ulp).
 """
 
 from __future__ import annotations
@@ -70,8 +96,12 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12
-FLIP_DELTA = 1e-3  # grid units
-FLIP_BOUND = 1e-4  # flipped rows per live score
+H100_INT8_OPS = 1979e12
+FLIP_DELTA = 1e-3  # grid units (and ADC LSBs)
+FLIP_BOUND = 1e-4  # flipped rows per live score (and ADC flips per output)
+MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
+            adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
+SEVERE = dict(stuck_on_rate=0.6, stuck_off_rate=0.2, seed=3)
 
 
 class SmokeFailure(RuntimeError):
@@ -359,6 +389,9 @@ def parity_softmax(results):
     gi = sk.star_softmax_kernel(xi, FMT)
     check(bool(torch.allclose(gi, sk.star_softmax_ref(xi, FMT), rtol=1e-5, atol=1e-9)),
           "star_softmax: -inf columns disagree with the plain version")
+    onehot = sk.star_softmax_kernel(x, FMT, mode="onehot")
+    check(torch.equal(onehot, got), "star_softmax: onehot mode is not bit-equal to gather")
+    log("star_softmax onehot [4, 49152] f32: bit-equal to gather (the same function)")
     ms = time_ms(lambda: sk.star_softmax_kernel(x, FMT))
     plain_ms = time_ms(lambda: sk.star_softmax_ref(x, FMT))
     log(f"star_softmax [4, 49152] f32: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
@@ -370,6 +403,79 @@ def parity_softmax(results):
         "star_softmax", "triton", "src/repro_torch/kernels/star_softmax/triton_kernel.py",
         "src/repro/kernels/star_softmax/kernel.py:177", variant, bytes_moved,
         ops, H100_FP32_FLOPS, [variant], shape="[4, 49152] f32"))
+
+
+def parity_softmax_lut(results):
+    """The CUDA LUT softmax at the sampling shape [4, 49152]: clean
+    histogram and the mild fault in every mode, float32 and bfloat16, against
+    the plain version (the reference engine with the same realization)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.hwmodel.faults import FaultModel
+    from repro_torch.kernels.star_softmax import kernel as sk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    base = torch.randn(4, 49152, device=dev, generator=gen) * 4
+    mild = FaultModel(**MILD)
+    variants = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = base.to(dtype)
+        for mode, fault in (("histogram", None), ("histogram", mild), ("gather", mild),
+                            ("onehot", mild)):
+            name = f"star_softmax_lut {mode} {'mild fault' if fault else 'clean'} {dtype}"
+            got = sk.star_softmax_kernel(x, FMT, mode=mode, fault=fault)
+            ref = sk.star_softmax_ref(x, FMT, mode=mode, fault=fault)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+            err = float((got - ref).abs().max())
+            check(bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-9)),
+                  f"{name}: max err {err:.3e} out of tolerance")
+            ms = time_ms(lambda: sk.star_softmax_kernel(x, FMT, mode=mode, fault=fault))
+            plain_ms = time_ms(lambda: sk.star_softmax_ref(x, FMT, mode=mode, fault=fault))
+            variants.append(dict(dtype=str(dtype).split(".")[-1], mode=mode,
+                                 fault="mild" if fault else None, max_abs_err=err,
+                                 grid_flip_rows=0, ms=ms, plain_ms=plain_ms, library_ms=None))
+            log(f"{name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    levels = FMT.num_levels
+    bytes_moved = 2 * base.numel() * 4 + 3 * levels * 4  # x, out, three tables
+    ops = 16 * base.numel() + 2 * levels  # per element as star_softmax, plus the VMM
+    main = variants[1]  # the faulty histogram in float32: the degraded serve's call
+    results.append(_entry(
+        "star_softmax_lut", "cuda", "src/repro_torch/kernels/star_softmax/csrc/star_softmax_lut.cu",
+        "src/repro/kernels/star_softmax/kernel.py:201", main, bytes_moved, ops,
+        H100_FP32_FLOPS, variants, shape="[4, 49152]; main variant f32 histogram, mild fault"))
+    results[-1]["also_replaces"] = "src/repro/kernels/star_softmax/kernel.py:177 (use_histogram)"
+
+
+def realization_bits() -> None:
+    """A fault realization is the same bits on the card and on the CPU: the
+    softmax tables, the tile offsets, and the weight-cell factor and masks
+    (the first 64 rows of the q projection's [4096, 4096] realization against
+    a CPU draw of [64, 4096]: element i hashes counter i whatever the shape)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.hwmodel import faults as tf
+
+    mild = tf.FaultModel(**MILD)
+    for tag in ("softmax/lut", "softmax/vmm"):
+        check(torch.equal(tf.faulty_exp_lut(FMT, mild, tag, device="cuda").cpu(),
+                          tf.faulty_exp_lut(FMT, mild, tag, device="cpu")),
+              f"realization {tag}: card and cpu differ")
+    check(torch.equal(tf.cam_remap(FMT, mild, device="cuda").cpu(), tf.cam_remap(FMT, mild)),
+          "realization softmax/cam: card and cpu differ")
+    check(torch.equal(tf.adc_tile_offsets(mild, (32, 112), device="cuda").cpu(),
+                      tf.adc_tile_offsets(mild, (32, 112))),
+          "realization matmul/adc: card and cpu differ")
+    card = tf._cell_realization(mild, "matmul/w", (4096, 4096), "cuda:0")
+    cpu = tf._cell_realization(mild, "matmul/w", (64, 4096), "cpu")
+    for name, a, b in zip(("factor", "stuck_on", "stuck_off"), card, cpu):
+        check(torch.equal(a[:64].cpu(), b), f"realization matmul/w {name}: card and cpu differ "
+              f"in {int((a[:64].cpu() != b).sum())} of {b.numel()} elements")
+    log("fault realization: softmax/lut, softmax/vmm, softmax/cam, matmul/adc and matmul/w "
+        "bits identical on card and cpu")
 
 
 def _entry(name, route, source, replaces, main, bytes_moved, ops, peak, variants, shape):
@@ -394,6 +500,9 @@ def small_reference():
 
     from repro_torch import ops
     from repro_torch.configs import get_smoke_config
+    from repro_torch.hwmodel.faults import FaultModel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.star_softmax import kernel as sk
     from repro_torch.models.param import materialize, tree_map
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
@@ -445,6 +554,56 @@ def small_reference():
         log(f"small reference {kv_dtype}: greedy tokens identical on card and cpu "
             f"({sum(gens)} tokens, prefix cache + 8-token chunks, {preempted} "
             f"preemptions, {hits} prefix hits)")
+
+    # the mild fault in histogram mode: every attention row faulty (attention
+    # xla -> the materialized reference path), the realization made on each
+    # device; greedy decoding takes the argmax, so no sampling kernel runs
+    base = get_smoke_config("granite_8b")
+    fcfg = dataclasses.replace(base, softmax=dataclasses.replace(
+        base.softmax_spec, fault=FaultModel(**MILD), mode="histogram"))
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 11, 8, 3, 19)]
+    gens = [4, 2, 5, 3, 6]
+    outs = {}
+    for dev, params in devices:
+        eng = ContinuousBatchingEngine(
+            fcfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4), device=dev)
+        outs[dev] = eng.serve(prompts, gens)
+    check(outs["cuda"] == outs["cpu"],
+          f"mild-fault smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
+    log(f"small reference mild fault (histogram, faulty attention): greedy tokens identical on "
+        f"card and cpu ({sum(gens)} tokens)")
+
+    # temperature 0.8 on the card: the mode's sampling kernel launches for
+    # every sampled batch (an admission or a tick)
+    for mode, kernel, other in (("onehot", "star_softmax", "star_softmax_lut"),
+                                ("histogram", "star_softmax_lut", "star_softmax")):
+        mcfg = dataclasses.replace(cfg, softmax_mode=mode)
+        with ops.use(softmax="pallas"):
+            eng = ContinuousBatchingEngine(
+                mcfg, params_gpu, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4,
+                                                   temperature=0.8), device="cuda", seed=SEED)
+            reset_launch_counts()
+            out = eng.serve(prompts, gens)
+            counts = launch_counts()
+            tokens = torch.as_tensor(prompts[0], device="cuda")[None]
+            logits, _ = build_model(mcfg).prefill(params_gpu, tokens, 40)
+            scaled = logits[0, -1].float() / 0.8
+            probs = ops.softmax(scaled, mcfg.softmax_spec)
+        batches = len(prompts) + eng.ticks
+        check([len(o) for o in out] == gens and all(0 <= t < cfg.vocab_size for o in out for t in o),
+              f"smoke T=0.8 {mode}: bad output {out}")
+        check(counts.get(kernel, 0) == batches and counts.get(other, 0) == 0,
+              f"smoke T=0.8 {mode}: {kernel} launched {counts.get(kernel, 0)} times for "
+              f"{batches} sampled batches ({other}: {counts.get(other, 0)})")
+        plain = sk.star_softmax_ref(scaled.cpu(), mcfg.softmax_spec.fmt, mode=mode)
+        err = float((probs.cpu() - plain).abs().max())
+        check(bool(torch.allclose(probs.cpu(), plain, rtol=1e-5, atol=1e-9)),
+              f"smoke T=0.8 {mode}: first sample's probabilities differ from the cpu plain "
+              f"version (max err {err:.3e})")
+        log(f"small reference T=0.8 {mode}: {kernel} launched {counts[kernel]} times for "
+            f"{batches} sampled batches; first sample's probabilities vs cpu plain version "
+            f"max_abs_err={err:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -549,6 +708,10 @@ def profile_window(label, fn) -> None:
             group = "flash_star"
         elif "star_softmax_rows" in name:
             group = "star_softmax"
+        elif "star_softmax_lut_kernel" in name:
+            group = "star_softmax_lut"
+        elif "crossbar_kernel" in name:
+            group = "crossbar_matmul"
         elif any(g in name for g in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
             group = "gemm"
         elif "copy" in name or "cast" in name or "convert" in name:
@@ -566,7 +729,7 @@ def profile_window(label, fn) -> None:
         f"(ms): { {g: round(us / 1e3, 3) for g, us in groups.items()} }; shares {shares}")
 
 
-def profile_tick(cfg, params, kv_dtype="fp32") -> None:
+def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="") -> None:
     """One full-width decode tick with 4 active slots, traced."""
     import numpy as np
 
@@ -574,14 +737,14 @@ def profile_tick(cfg, params, kv_dtype="fp32") -> None:
     from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
 
     cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16,
-                          kv_dtype=kv_dtype)
+                          kv_dtype=kv_dtype, guard=guard)
     eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
     rng = np.random.default_rng(SEED + 3)
     for n in (512, 384, 256, 128):
         eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 4)
     with ops.use(softmax="pallas"):
         eng.step()  # admissions and the first tick, outside the trace
-        profile_window(f"one decode tick, 4 slots, {kv_dtype} pool", eng.step)
+        profile_window(f"one decode tick, 4 slots, {kv_dtype} pool{label}", eng.step)
 
 
 def profile_chunk(cfg, model, params) -> None:
@@ -719,6 +882,242 @@ def quant_decode_step(cfg, model, params, prompts) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: serve on a degraded RRAM device, the crossbar MatMul engine
+
+
+def _degraded_engine(params, fault_kw, mode, guard):
+    from repro_torch.configs import get_config
+    from repro_torch.hwmodel.faults import FaultModel
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    cfg = get_config("granite_8b")  # attention xla: faulty rows -> the reference path
+    cfg = dataclasses.replace(cfg, softmax=dataclasses.replace(
+        cfg.softmax_spec, fault=FaultModel(**fault_kw), mode=mode))
+    cb = ContinuousConfig(num_slots=4, max_len=256 + 16, temperature=0.8, kv_block_size=16,
+                          guard=guard)
+    return cfg, ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
+
+
+def degraded_serve(results, params):
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(SEED + 8)
+    lens = [int(n) for n in rng.integers(128, 257, 4)]
+    prompts = [rng.integers(0, get_config("granite_8b").vocab_size, (n,)) for n in lens]
+    gens = [16] * 4
+    by_name = {e["name"]: e for e in results}
+    summary = {}
+
+    # 7a: the mild fault, histogram mode, a guard that checks every call and
+    # never latches, so the LUT kernel serves every sampled batch
+    with ops.use(softmax="pallas"):
+        cfg, eng = _degraded_engine(params, MILD, "histogram", ops.GuardConfig(latch=False))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ops.GuardTripWarning)
+            out = eng.serve(prompts, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    toks = [t for o in out for t in o]
+    g = eng.stats()["guard"]
+    batches = len(prompts) + eng.ticks
+    ttft = eng.metrics.histogram("serve.ttft_s").percentile(50)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"degraded 7a (mild fault, histogram, guard latch=False): prompts {lens}, {len(toks)} "
+        f"tokens in {wall:.3f}s = {len(toks) / wall:.2f} tok/s, {eng.ticks} ticks, ttft "
+        f"p50={1e3 * ttft:.1f}ms, max_memory_allocated={peak / 2**30:.2f} GiB, guard {g}, "
+        f"launches {counts}")
+    check([len(o) for o in out] == gens and all(0 <= t < cfg.vocab_size for t in toks),
+          "degraded 7a: bad output")
+    check(g["calls"] == batches and g["checks"] == g["calls"],
+          f"degraded 7a: guard calls/checks {g['calls']}/{g['checks']}, {batches} sampled batches")
+    check(counts.get("star_softmax_lut", 0) == batches,
+          f"degraded 7a: star_softmax_lut launched {counts.get('star_softmax_lut', 0)} times for "
+          f"{batches} sampled batches")
+    check(counts.get("flash_star", 0) == 0 and counts.get("paged_attention", 0) == 0,
+          "degraded 7a: an attention kernel ran on a faulty spec")
+    by_name["star_softmax_lut"]["launches"] = counts["star_softmax_lut"]
+    for e in results:
+        e["launches_by_path"]["degraded_mild"] = counts.get(e["name"], 0)
+    summary["mild_histogram"] = {"tokens": len(toks), "wall_s": wall,
+                                 "tok_per_s": len(toks) / wall, "ticks": eng.ticks,
+                                 "ttft_p50_s": ttft, "max_memory_allocated": peak, "guard": g}
+    profile_tick(cfg, params, guard=ops.GuardConfig(latch=False), label=", mild fault")
+
+    # 7b: a severe fault, gather mode, a latching guard: the kernel runs until
+    # the first check trips, then the clean path serves.  The format's
+    # provable bound e^r - 1 (0.284) is absolute, and over a 49152-token
+    # vocabulary the sampling distribution of random weights is flat (largest
+    # probability ~1e-3 at T=0.8), so no fault can exceed it there; the
+    # budget is twice the clean engine's own error on the first prompt's
+    # sampling logits instead
+    from repro_torch.models.registry import build_model
+
+    clean_cfg = get_config("granite_8b")
+    with torch.no_grad():
+        tokens = torch.as_tensor(prompts[0], device="cuda")[None]
+        logits, _ = build_model(clean_cfg).prefill(params, tokens, 256 + 16)
+    scaled = logits[0, -1].float() / 0.8
+    clean_err = float((ops.softmax(scaled, ops.SoftmaxSpec(impl="pallas"))
+                       - torch.softmax(scaled, dim=-1)).abs().max())
+    budget = 2 * clean_err
+    log(f"degraded 7b: clean STAR sampling error on the first prompt {clean_err:.3e} "
+        f"(largest exact probability {float(torch.softmax(scaled, -1).max()):.3e}); "
+        f"guard tolerance {budget:.3e}")
+    with ops.use(softmax="pallas"):
+        cfg, eng = _degraded_engine(params, SEVERE, "gather", ops.GuardConfig(tolerance=budget))
+        for p in prompts:
+            eng.submit(p, 16)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        history = []
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            while not eng.scheduler.done():
+                eng.step()
+                history.append((launch_counts().get("star_softmax_lut", 0), eng.guard.tripped))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    g = eng.stats()["guard"]
+    trips = [w for w in rec if issubclass(w.category, ops.GuardTripWarning)]
+    toks = [t for o in eng.scheduler.finished.values() for t in o]
+    ttft = eng.metrics.histogram("serve.ttft_s").percentile(50)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"degraded 7b (severe fault, gather, latching guard): {len(toks)} tokens in {wall:.3f}s "
+        f"= {len(toks) / wall:.2f} tok/s, {eng.ticks} ticks, ttft p50={1e3 * ttft:.1f}ms, "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB, guard {g}, {len(trips)} GuardTripWarning, "
+        f"kernel launches by step {[n for n, _ in history]}")
+    check(g["trips"] >= 1 and g["tripped"] and g["fallbacks"] >= 1 and trips,
+          f"degraded 7b: the guard did not trip and latch: {g}")
+    first = next(i for i, (_, tripped) in enumerate(history) if tripped)
+    at_trip = history[first][0]
+    check(at_trip >= 1, "degraded 7b: the LUT kernel did not run before the trip")
+    check(all(n == at_trip for n, _ in history[first:]),
+          "degraded 7b: the LUT kernel launched after the guard latched")
+    check(counts["star_softmax_lut"] == g["calls"] - g["fallbacks"] + g["trips"],
+          f"degraded 7b: {counts['star_softmax_lut']} launches for guard {g}")
+    check(all(0 <= t < cfg.vocab_size for t in toks) and len(toks) == sum(gens),
+          "degraded 7b: bad output")
+    for e in results:
+        e["launches_by_path"]["degraded_severe"] = counts.get(e["name"], 0)
+    summary["severe_gather"] = {"tokens": len(toks), "wall_s": wall,
+                                "tok_per_s": len(toks) / wall, "ticks": eng.ticks,
+                                "ttft_p50_s": ttft, "max_memory_allocated": peak, "guard": g,
+                                "lut_launches": counts["star_softmax_lut"]}
+
+    # the crossbar MatMul engine at granite-8b's q and MLP-up projection
+    # widths (layer 0's weights), under a guard that checks every call
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = torch.randn(256, 4096, device="cuda", generator=gen)
+    weights = {"q_proj": params["blocks"]["attn"]["wq"][0],
+               "mlp_up": params["blocks"]["mlp"]["wi"][0]}
+    guard = ops.AccuracyGuard(ops.GuardConfig(latch=False))
+    mm = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ops.GuardTripWarning)
+        for name, w in weights.items():
+            for label, fault in (("clean", None), ("mild", ops.FaultModel(**MILD))):
+                t0 = time.perf_counter()
+                out = ops.matmul(x, w, ops.MatmulSpec(impl="hwmodel", fault=fault), guard=guard)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out).all()), f"matmul {name} {label}: non-finite")
+                mm[f"{name} {label}"] = {"rel_max_abs_err": guard.last_error,
+                                         "wall_s": time.perf_counter() - t0}
+    counts = launch_counts()
+    log(f"matmul hwmodel [256, 4096] @ layer 0 q_proj [4096, 4096] / mlp_up [4096, 14336]: "
+        f"{mm}; guard {guard.stats()}; launches {counts}")
+    check(counts.get("crossbar_matmul", 0) == 4,
+          f"matmul hwmodel: crossbar_matmul launched {counts.get('crossbar_matmul', 0)} times, "
+          "expected 4")
+    summary["matmul_hwmodel"] = {"calls": mm, "guard": guard.stats()}
+    parity_crossbar(results, x, weights, counts["crossbar_matmul"])
+    return summary
+
+
+def parity_crossbar(results, x, weights, launches):
+    """The crossbar kernel against its plain version at the projection
+    shapes: clean outputs bit-exact; faulty ones equal but for ADC codes
+    within FLIP_DELTA LSB of a half-step, at most FLIP_BOUND of the outputs."""
+    import torch
+
+    from repro_torch.hwmodel import faults as tf
+    from repro_torch.kernels.crossbar_matmul import kernel as xk
+    from repro_torch.kernels.crossbar_matmul import ref as xr
+
+    variants = []
+    for name, w in weights.items():
+        for label, fault in (("clean", None), ("mild", tf.FaultModel(**MILD))):
+            xq, wq, step, off, _ = xr.prepare_operands(x, w, fault=fault)
+            got = xk.crossbar_matmul(xq, wq, step, off)
+            ref = xr.crossbar_accumulate_ref(xq, wq, step, off)
+            torch.cuda.synchronize()
+            tag = f"crossbar {name} {label}"
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+            differ = got != ref
+            flips = int(differ.sum())
+            if fault is None:
+                check(flips == 0, f"{tag}: {flips} outputs differ from the plain version")
+            elif flips:
+                kt = xq.shape[1] // 128
+                xd, wd = xq.double(), wq.double()
+                near = torch.zeros_like(differ)
+                for i in range(kt):
+                    code = (xd[:, i * 128:(i + 1) * 128] @ wd[i * 128:(i + 1) * 128]) / \
+                        step[i].double().repeat_interleave(128)
+                    if off is not None:
+                        code = code + off[i].double().repeat_interleave(128)
+                    near |= (code - code.floor() - 0.5).abs() < FLIP_DELTA
+                check(not bool((differ & ~near).any()),
+                      f"{tag}: outputs differ with no ADC code near a half-step")
+                check(flips <= FLIP_BOUND * got.numel(),
+                      f"{tag}: {flips} ADC flips exceed {FLIP_BOUND} of {got.numel()} outputs")
+            err = float((got - ref).abs()[~differ].max()) if bool((~differ).any()) else 0.0
+            ms = time_ms(lambda: xk.crossbar_matmul(xq, wq, step, off))
+            plain_ms = time_ms(lambda: xr.crossbar_accumulate_ref(xq, wq, step, off))
+            m, k = xq.shape
+            n = wq.shape[1]
+            # the kernel reads int8 codes, and float32 weights under a fault
+            bytes_moved = (m * k + k * n * (4 if fault is not None else 1)
+                           + step.numel() * 4 * (1 if off is None else 2) + m * n * 4)
+            peak = H100_INT8_OPS if fault is None else H100_FP32_FLOPS
+            t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+            t_ops = 2 * m * n * k / peak * 1e3
+            variants.append(dict(
+                shape=f"[{m}, {k}] @ {name} [{k}, {n}]", fault=label, max_abs_err=err,
+                adc_flips=flips, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=bytes_moved, ops=2 * m * n * k, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations"))
+            log(f"{tag}: [{m}, {k}] @ [{k}, {n}] max_abs_err={err:.3e} adc_flips={flips} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.5f}")
+    main = variants[2]  # mlp_up, clean
+    entry = _entry("crossbar_matmul", "cuda",
+                   "src/repro_torch/kernels/crossbar_matmul/csrc/crossbar_matmul.cu",
+                   "src/repro/kernels/crossbar_matmul/kernel.py:69", main, main["bytes"],
+                   main["ops"], H100_INT8_OPS, variants,
+                   shape=f"{main['shape']}, clean int8 (main); faulty float32 weights in variants")
+    entry["launches"] = launches
+    entry["launches_by_path"] = {"matmul_hwmodel": launches}
+    results.append(entry)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -747,12 +1146,14 @@ def main() -> int:
         f"triton {triton.__version__} device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels.crossbar_matmul import kernel as xk
     from repro_torch.kernels.flash_star import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.star_softmax import kernel as sk
 
     t0 = time.perf_counter()
-    logs = _cuda.build([fk.SOURCE, pk.SOURCE])
-    log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, both sources at once)")
+    logs = _cuda.build([fk.SOURCE, pk.SOURCE, sk.LUT_SOURCE, xk.SOURCE])
+    log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, all four sources at once)")
     for path, text in logs.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
@@ -762,13 +1163,17 @@ def main() -> int:
     parity_flash(results)
     parity_paged(results)
     parity_softmax(results)
+    parity_softmax_lut(results)
+    realization_bits()
     small_reference()
     summary, params = serve(results)
     summary_quant = serve_quant(results, params)
+    summary_degraded = degraded_serve(results, params)
     del params
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
-    log(json.dumps({"serve": summary, "serve_int8": summary_quant, "card": card}))
+    log(json.dumps({"serve": summary, "serve_int8": summary_quant,
+                    "serve_degraded": summary_degraded, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

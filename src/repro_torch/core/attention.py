@@ -27,6 +27,7 @@ from repro_torch.core.fixedpoint import (
     quantize_logits,
 )
 from repro_torch.core.star_softmax import exact_softmax, star_softmax
+from repro_torch.hwmodel.faults import FaultModel, is_null
 
 NEG_INF = -1e30  # finite mask value: keeps the index math NaN-free
 
@@ -38,6 +39,7 @@ class SoftmaxConfig:
     kind: str = "star"
     fmt: FixedPointFormat = DEFAULT_FORMAT
     mode: str = "gather"
+    fault: Optional[FaultModel] = None  # device non-idealities of the STAR arrays
 
     def __post_init__(self):
         if self.kind not in ("exact", "star"):
@@ -47,14 +49,15 @@ class SoftmaxConfig:
     def from_spec(cls, spec) -> "SoftmaxConfig":
         if spec.kind == "exact":
             return cls(kind="exact")
-        return cls(kind=spec.kind, fmt=spec.fmt, mode=spec.mode)
+        return cls(kind=spec.kind, fmt=spec.fmt, mode=spec.mode, fault=spec.fault)
 
     def apply(self, scores: torch.Tensor, where: Optional[torch.Tensor] = None):
         if self.kind == "exact":
             if where is not None:
                 scores = torch.where(where, scores, torch.full_like(scores, NEG_INF))
             return exact_softmax(scores, axis=-1)
-        return star_softmax(scores, self.fmt, axis=-1, mode=self.mode, where=where)
+        return star_softmax(scores, self.fmt, axis=-1, mode=self.mode, where=where,
+                            fault=self.fault)
 
 
 STAR_SOFTMAX = SoftmaxConfig(kind="star")
@@ -133,7 +136,16 @@ def blocked_attention(
     block_size: int = 512,
 ) -> torch.Tensor:
     """Online blocked attention: a Python loop over KV blocks carrying the
-    running (max, denominator, accumulator)."""
+    running (max, denominator, accumulator).  Refuses a fault: the online
+    rescale identity ``lut[a] * lut[b] == lut[a + b]`` does not hold for a
+    faulty LUT, so the pipeline would model no physical engine."""
+    if not is_null(softmax.fault):
+        raise ValueError(
+            "blocked_attention cannot inject cell faults: the online rescale "
+            "identity lut[a] * lut[b] == lut[a + b] does not hold for a faulty LUT. "
+            "Use the whole-operand attention() (the dispatch layer routes faulty "
+            "specs there)."
+        )
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

@@ -9,6 +9,7 @@ is bit-identical to the reference's.  The Hopper kernels read the same table.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,10 +41,21 @@ def lookup_onehot(k: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return onehot @ lut
 
 
-def histogram_counts(k: torch.Tensor, num_levels: int, axis: int = -1) -> torch.Tensor:
-    """The counter: ``counts[..., j] = #{i : k[..., i] == j}`` along ``axis``."""
-    onehot = torch.nn.functional.one_hot(k.long(), num_levels).float()
-    return onehot.sum(dim=axis - 1 if axis < 0 else axis)
+def histogram_counts(
+    k: torch.Tensor, num_levels: int, axis: int = -1, weight: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The counter: ``counts[..., j] = #{i : k[..., i] == j}`` along ``axis``
+    (float32), each entry weighted by ``weight`` (a mask of ``k``'s shape)
+    when given.
+
+    Counted with ``scatter_add_`` into ``[..., num_levels]``: memory
+    ``O(rows * num_levels)``, where the reference's one-hot sum builds
+    ``[..., d, num_levels]``.  The counts are exact integers either way."""
+    k = torch.movedim(k, axis, -1).long()
+    w = torch.ones(k.shape, device=k.device) if weight is None else (
+        torch.movedim(weight, axis, -1).float())
+    counts = torch.zeros(k.shape[:-1] + (num_levels,), device=k.device)
+    return counts.scatter_add_(-1, k, w)
 
 
 def histogram_dot(counts: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

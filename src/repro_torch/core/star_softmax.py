@@ -6,8 +6,15 @@ Pipeline: snap logits to the integer grid, integer row max, codebook index
 denominator as a row sum or ``histogram(k) @ lut`` (``histogram`` mode).
 The three modes agree up to float summation order.
 
-``star_softmax_ste`` (the training VJP) and the ``fault`` argument belong to
-later slices of the port.
+``fault`` injects a seeded :class:`~repro_torch.hwmodel.faults.FaultModel`
+into the arrays each stage reads: the CAM match (broken rows remap to the
+nearest working row), the numerator LUT, and in ``histogram`` mode the
+denominator VMM crossbar (an independent realization of the same contents)
+and the shared ADC (a gain on the denominator).  ``gather`` / ``onehot``
+sum the faulty numerators digitally, so under faults the modes deliberately
+differ, as the hardware paths they model do.
+
+``star_softmax_ste`` (the training VJP) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from repro_torch.core.fixedpoint import (
     grid_index,
     quantize_logits,
 )
+from repro_torch.hwmodel import faults as faults_lib
+from repro_torch.hwmodel.faults import FaultModel
 
 Modes = ("gather", "onehot", "histogram")
 
@@ -41,15 +50,19 @@ def star_softmax(
     mode: str = "histogram",
     where: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
+    fault: Optional[FaultModel] = None,
 ) -> torch.Tensor:
     """Quantized LUT softmax along ``axis``.
 
     ``where`` masks entries out (probability 0, not counted in the
-    denominator); fully masked rows come out as zeros.
+    denominator); fully masked rows come out as zeros.  ``fault`` injects
+    the seeded device non-idealities (``None``: ideal device).
     """
     if mode not in Modes:
         raise ValueError(f"mode must be one of {Modes}, got {mode!r}")
     out_dtype = dtype or (x.dtype if x.is_floating_point() else torch.float32)
+    faulty = not faults_lib.is_null(fault)
+    dev = x.device
     moved = torch.movedim(x.float(), axis, -1)
     wmask = None
     if where is not None:
@@ -61,7 +74,13 @@ def star_softmax(
     m = j.amax(dim=-1, keepdim=True)
     k = grid_index(j, m, fmt)
 
-    table = lut_lib.exp_lut(fmt, device=x.device)
+    if faulty:
+        remap = faults_lib.cam_remap(fmt, fault, device=dev)
+        if remap is not None:
+            k = lut_lib.lookup_gather(k, remap)  # broken CAM rows: nearest working row
+        table = faults_lib.faulty_exp_lut(fmt, fault, tag="softmax/lut", device=dev)
+    else:
+        table = lut_lib.exp_lut(fmt, device=dev)
     if mode == "onehot":
         num = lut_lib.lookup_onehot(k, table)
     else:
@@ -70,11 +89,24 @@ def star_softmax(
         num = torch.where(wmask, num, torch.zeros_like(num))
 
     if mode == "histogram":
-        onehot = torch.nn.functional.one_hot(k.long(), fmt.num_levels).float()
-        if wmask is not None:
-            onehot = onehot * wmask.float()[..., None]
-        den = lut_lib.histogram_dot(onehot.sum(dim=-2), table)[..., None]
+        if wmask is None:
+            counts = lut_lib.histogram_counts(k, fmt.num_levels)
+        else:
+            counts = _weighted_histogram(k, wmask, fmt.num_levels)
+        # the denominator VMM crossbar holds its own copy of the LUT contents
+        vmm_table = (faults_lib.faulty_exp_lut(fmt, fault, tag="softmax/vmm", device=dev)
+                     if faulty else table)
+        den = lut_lib.histogram_dot(counts, vmm_table)[..., None]
+        if faulty:
+            gain = faults_lib.adc_gain(fault)
+            if gain is not None:
+                den = den * gain
     else:
         den = num.sum(dim=-1, keepdim=True)
     den = torch.where(den <= 0.0, torch.ones_like(den), den)
     return torch.movedim(num / den, -1, axis).to(out_dtype)
+
+
+def _weighted_histogram(k: torch.Tensor, weight_mask: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """Counts of ``k`` over the last axis, masked entries not counted."""
+    return lut_lib.histogram_counts(k, num_levels, weight=weight_mask)

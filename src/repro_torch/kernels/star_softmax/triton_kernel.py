@@ -1,7 +1,9 @@
-"""The Triton body of the STAR row softmax (``gather`` mode).
+"""The Triton body of the STAR row softmax (``gather`` and ``onehot`` modes).
 
 Replaces the TPU kernel ``src/repro/kernels/star_softmax/kernel.py``
-(``star_softmax_pallas`` / ``_kernel``, gather mode).  Imported only by the
+(``star_softmax_pallas`` / ``_kernel``, gather mode, and its ``use_mxu_lut``
+one-hot @ LUT form: a one-hot row with a single nonzero reproduces the
+gathered entry bit for bit, so the function is the same).  Imported only by the
 launching function in ``kernel.py``: this module needs ``triton``, which
 exists only on a machine with the card.
 

@@ -1,28 +1,47 @@
 """Counters, gauges and histograms behind a registry — the part of the
-reference's ``repro.obs.metrics`` the serve stack uses (own copy: the port
-imports nothing of ``repro``).  Histograms keep every observation, so
-percentiles are exact (nearest rank)."""
+reference's ``repro.obs.metrics`` the serve stack and the accuracy guard use
+(own copy: the port imports nothing of ``repro``).  Counters keep one value
+per label set; histograms keep every observation, so percentiles are exact
+(nearest rank).  :func:`default_registry` is the process-global registry
+that module-level producers (the accuracy guard's mirror) write to."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+LabelKey = Tuple[Tuple[str, Any], ...]
+
+
+def _lkey(labels: Dict[str, Any]) -> LabelKey:
+    return tuple(sorted(labels.items()))
 
 
 class Counter:
+    """Monotonic counter, one value per label set."""
+
     kind = "counter"
 
     def __init__(self, name: str, help: str = ""):
-        self.name, self.help, self._value = name, help, 0.0
+        self.name, self.help = name, help
+        self._values: Dict[LabelKey, float] = {}
 
-    def inc(self, amount: float = 1.0) -> None:
-        self._value += amount
+    def inc(self, amount: float = 1.0, **labels: Any) -> None:
+        if amount < 0:
+            raise ValueError(f"counter {self.name} cannot decrease ({amount})")
+        key = _lkey(labels)
+        self._values[key] = self._values.get(key, 0.0) + amount
 
-    def value(self) -> float:
-        return self._value
+    def value(self, **labels: Any) -> float:
+        return self._values.get(_lkey(labels), 0.0)
 
     def snapshot(self) -> Dict[str, Any]:
-        return {"value": self._value}
+        out: Dict[str, Any] = {"value": self.value()}
+        labelled = [{"labels": dict(k), "value": v}
+                    for k, v in sorted(self._values.items()) if k]
+        if labelled:
+            out["labelled"] = labelled
+        return out
 
 
 class Gauge:
@@ -102,3 +121,18 @@ class MetricsRegistry:
     def snapshot(self) -> Dict[str, Any]:
         return {name: {"kind": m.kind, **m.snapshot()}
                 for name, m in sorted(self._metrics.items())}
+
+
+_DEFAULT_REGISTRY = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-global registry (the accuracy guard's counters)."""
+    return _DEFAULT_REGISTRY
+
+
+def set_default_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    """Swap the global registry (tests); returns the previous one."""
+    global _DEFAULT_REGISTRY
+    prev, _DEFAULT_REGISTRY = _DEFAULT_REGISTRY, registry
+    return prev

@@ -1,10 +1,14 @@
 """``repro_torch.ops`` — the op dispatch layer of the port.
 
 Frozen specs (:class:`SoftmaxSpec`, :class:`AttentionSpec`,
-:class:`PagedAttentionSpec`) describe an invocation; a capability-checked
-registry maps ``(op, impl)`` to a backend; :func:`softmax`,
-:func:`attention` and :func:`paged_attention` dispatch through it, and
-:func:`use` retargets every dispatch in a block.
+:class:`PagedAttentionSpec`, :class:`MatmulSpec`) describe an invocation; a
+capability-checked registry maps ``(op, impl)`` to a backend;
+:func:`softmax`, :func:`attention`, :func:`paged_attention` and
+:func:`matmul` dispatch through it, and :func:`use` retargets every dispatch
+in a block.  A :class:`FaultModel` in a spec injects seeded RRAM
+non-idealities; an :class:`AccuracyGuard` (``guard=`` on :func:`softmax` and
+:func:`matmul`) holds a degraded backend to the exact oracle and falls back
+to a clean one.
 
 The impl names are the JAX reference's, so a config means the same in both
 packages.  What each runs here:
@@ -12,25 +16,40 @@ packages.  What each runs here:
 * ``reference`` — the plain PyTorch engines in ``core`` (materialized
   scores; paged: gather adapter + materialized attention).
 * ``xla`` — the plain online-blocked loop (paged: gather adapter + it);
-  softmax ``xla`` is ``torch.softmax`` (exact kind only).
-* ``pallas`` — the hand-written Hopper kernel: attention runs the CUDA
-  ``flash_star`` kernel, softmax the Triton STAR row softmax, paged
-  ``pallas`` the gather adapter + ``flash_star``.
+  a faulty attention call takes the materialized ``reference`` path;
+  softmax ``xla`` is ``torch.softmax`` (exact kind only); matmul ``xla``
+  is ``torch.matmul``.
+* ``pallas`` — the hand-written Hopper kernels: attention runs the CUDA
+  ``flash_star`` kernel, softmax the Triton STAR row softmax (``gather``,
+  ``onehot``) or the CUDA LUT softmax (``histogram``, any fault), paged
+  ``pallas`` the gather adapter + ``flash_star``.  The attention kernels
+  refuse a fault, as the reference's do.
 * ``pallas_paged`` — the gather-free CUDA paged decode kernel.
+* ``hwmodel`` (matmul) — the RRAM crossbar model through the CUDA crossbar
+  kernel.
 
 A kernel backend launches its kernel on CUDA tensors and runs the kernel's
 plain version on CPU tensors.
 """
 
+from repro_torch.hwmodel.faults import FaultModel  # noqa: F401
+from repro_torch.kernels.crossbar_matmul.ref import CrossbarSpec  # noqa: F401
 from repro_torch.ops.dispatch import (  # noqa: F401
     DEFAULT_ATTENTION,
+    DEFAULT_MATMUL,
     DEFAULT_PAGED_ATTENTION,
     DEFAULT_SOFTMAX,
     attention,
+    matmul,
     paged_attention,
     resolve,
     softmax,
     validate,
+)
+from repro_torch.ops.guard import (  # noqa: F401
+    AccuracyGuard,
+    GuardConfig,
+    GuardTripWarning,
 )
 from repro_torch.ops.platform import resolve_device  # noqa: F401
 from repro_torch.ops.registry import (  # noqa: F401
@@ -45,6 +64,7 @@ from repro_torch.ops.registry import (  # noqa: F401
 )
 from repro_torch.ops.specs import (  # noqa: F401
     AttentionSpec,
+    MatmulSpec,
     PagedAttentionSpec,
     SoftmaxSpec,
 )

@@ -9,12 +9,14 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.ops import registry
+from repro_torch.ops.guard import Guard, as_guard
 from repro_torch.ops.registry import Backend, OpDispatchError
-from repro_torch.ops.specs import AttentionSpec, PagedAttentionSpec, SoftmaxSpec
+from repro_torch.ops.specs import AttentionSpec, MatmulSpec, PagedAttentionSpec, SoftmaxSpec
 
 DEFAULT_SOFTMAX = SoftmaxSpec()
 DEFAULT_ATTENTION = AttentionSpec()
 DEFAULT_PAGED_ATTENTION = PagedAttentionSpec()
+DEFAULT_MATMUL = MatmulSpec()
 
 
 def resolve(spec, **overrides: Any) -> Tuple[Backend, Any]:
@@ -47,10 +49,18 @@ def softmax(
     *,
     where: Optional[torch.Tensor] = None,
     axis: int = -1,
+    guard: Optional[Guard] = None,
     **overrides: Any,
 ) -> torch.Tensor:
-    """Softmax over ``axis`` through the backend selected by ``spec``."""
+    """Softmax over ``axis`` through the backend selected by ``spec``.
+
+    ``guard`` (an :class:`AccuracyGuard` or :class:`GuardConfig`) wraps the
+    call in the accuracy guard: a sampled comparison against the exact
+    oracle, and a clean backend when the error exceeds the tolerance."""
     backend, spec = resolve(spec if spec is not None else DEFAULT_SOFTMAX, **overrides)
+    g = as_guard(guard)
+    if g is not None:
+        return g.softmax(backend, spec, x, where=where, axis=axis)
     return backend.fn(spec, x, where=where, axis=axis)
 
 
@@ -105,3 +115,21 @@ def paged_attention(
         spec, q, k_pages, v_pages, block_tables,
         kv_valid_len=kv_valid_len, kv_len=kv_len, scale=scale, kv_scales=kv_scales,
     )
+
+
+def matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    spec: Optional[MatmulSpec] = None,
+    *,
+    guard: Optional[Guard] = None,
+    **overrides: Any,
+) -> torch.Tensor:
+    """``x [M, K] @ w [K, N]`` through the backend selected by ``spec``;
+    ``guard`` as in :func:`softmax` (relative max-abs error against the
+    exact product)."""
+    backend, spec = resolve(spec if spec is not None else DEFAULT_MATMUL, **overrides)
+    g = as_guard(guard)
+    if g is not None:
+        return g.matmul(backend, spec, x, w)
+    return backend.fn(spec, x, w)

@@ -19,12 +19,14 @@ from repro_torch.core.attention import (
 )
 from repro_torch.core.kvquant import KV_DTYPES
 from repro_torch.core.star_softmax import exact_softmax, star_softmax
+from repro_torch.kernels.crossbar_matmul.kernel import crossbar_matmul
+from repro_torch.kernels.crossbar_matmul.ref import prepare_operands
 from repro_torch.kernels.flash_star import flash_star_attention
 from repro_torch.kernels.paged_attention import paged_flash_attention
 from repro_torch.kernels.paged_attention.ref import gather_pages
 from repro_torch.kernels.star_softmax import star_softmax_kernel
 from repro_torch.ops.registry import CapabilityError, register
-from repro_torch.ops.specs import AttentionSpec, PagedAttentionSpec, SoftmaxSpec
+from repro_torch.ops.specs import AttentionSpec, MatmulSpec, PagedAttentionSpec, SoftmaxSpec
 
 # ---------------------------------------------------------------------------
 # softmax
@@ -37,7 +39,8 @@ def _masked(x: torch.Tensor, where: Optional[torch.Tensor]) -> torch.Tensor:
 def _softmax_reference(spec: SoftmaxSpec, x, *, where=None, axis=-1):
     if spec.kind == "exact":
         return exact_softmax(_masked(x, where), axis=axis)
-    return star_softmax(x, spec.fmt, axis=axis, mode=spec.mode, where=where)
+    return star_softmax(x, spec.fmt, axis=axis, mode=spec.mode, where=where,
+                        fault=spec.fault)
 
 
 def _softmax_xla(spec: SoftmaxSpec, x, *, where=None, axis=-1):
@@ -50,17 +53,19 @@ def _softmax_pallas(spec: SoftmaxSpec, x, *, where=None, axis=-1):
             "softmax backend 'pallas' does not take a `where` mask (the kernel "
             "streams dense rows); mask upstream or use impl='reference'"
         )
-    out = star_softmax_kernel(torch.movedim(x, axis, -1), spec.fmt, mode=spec.mode)
+    out = star_softmax_kernel(torch.movedim(x, axis, -1), spec.fmt, mode=spec.mode,
+                              fault=spec.fault)
     return torch.movedim(out, -1, axis)
 
 
 register("softmax", "reference", _softmax_reference,
          description="plain STAR engine / FP oracle (core.star_softmax)")
-register("softmax", "xla", _softmax_xla, capabilities={"kind": ("exact",)},
+register("softmax", "xla", _softmax_xla,
+         capabilities={"kind": ("exact",), "fault": (None,)},
          description="torch.softmax — the exact FP path")
-register("softmax", "pallas", _softmax_pallas,
-         capabilities={"kind": ("star",), "mode": ("gather",)},
-         description="Triton STAR row softmax (kernels.star_softmax)")
+register("softmax", "pallas", _softmax_pallas, capabilities={"kind": ("star",)},
+         description="STAR row softmax kernels: Triton (gather, onehot), CUDA LUT "
+         "kernel (histogram, faults) (kernels.star_softmax)")
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +83,10 @@ def _attention_reference(spec: AttentionSpec, q, k, v, *, q_offset=0,
 
 def _attention_xla(spec: AttentionSpec, q, k, v, *, q_offset=0,
                    kv_valid_len=None, scale=None):
-    # short rows and single-token decode take the materialized path
-    if q.shape[1] == 1 or k.shape[1] <= spec.block_kv:
+    # short rows and single-token decode take the materialized path, and so
+    # does a faulty engine: the online rescale lut[a] * lut[b] == lut[a + b]
+    # fails for a faulty LUT (this keeps xla bit-identical to reference)
+    if q.shape[1] == 1 or k.shape[1] <= spec.block_kv or spec.softmax.fault is not None:
         return _attention_reference(spec, q, k, v, q_offset=q_offset,
                                     kv_valid_len=kv_valid_len, scale=scale)
     return blocked_attention(
@@ -117,7 +124,8 @@ register("attention", "xla", _attention_xla, capabilities={"pv_int8": (False,)},
          description="online-blocked loop over KV blocks (core.attention); "
          "materialized for short rows / single-token decode")
 register("attention", "pallas", _attention_pallas,
-         capabilities={"softmax.kind": ("star", "exact")},
+         # online-rescale kernel: no per-cell fault path
+         capabilities={"softmax.kind": ("star", "exact"), "softmax.fault": (None,)},
          description="CUDA flash_star kernel (kernels.flash_star)")
 
 
@@ -175,9 +183,38 @@ register("paged_attention", "xla", _make_paged_backend("xla", _attention_xla),
          capabilities={"kv_dtype": KV_DTYPES},
          description="block-table gather (+ dequant) + the online-blocked dense loop")
 register("paged_attention", "pallas", _make_paged_backend("pallas", _attention_pallas),
-         capabilities={"softmax.kind": _KINDS, "kv_dtype": KV_DTYPES},
+         capabilities={"softmax.kind": _KINDS, "softmax.fault": (None,),
+                       "kv_dtype": KV_DTYPES},
          description="block-table gather (+ dequant) + the CUDA flash_star kernel")
 register("paged_attention", "pallas_paged", _paged_pallas_paged,
-         capabilities={"softmax.kind": _KINDS, "kv_dtype": KV_DTYPES},
+         capabilities={"softmax.kind": _KINDS, "softmax.fault": (None,),
+                       "kv_dtype": KV_DTYPES},
          description="gather-free CUDA paged decode kernel, in-kernel dequant of "
          "int8/fp8 pages (kernels.paged_attention)")
+
+
+# ---------------------------------------------------------------------------
+# matmul
+
+
+def _matmul_xla(spec: MatmulSpec, x, w):
+    return torch.matmul(x, w)
+
+
+def _matmul_hwmodel(spec: MatmulSpec, x, w):
+    """``x [M, K] @ w [K, N]`` through the RRAM crossbar model: operands
+    quantized and padded, weight-cell faults and per-tile ADC offsets
+    injected and the ADC steps calibrated (on the faulty array) in plain
+    PyTorch, as the reference does outside its kernel; the tiled ADC
+    accumulation is the crossbar kernel."""
+    xq, wq, step, offsets, scale = prepare_operands(x, w, spec.crossbar, spec.ranging,
+                                                    spec.fault)
+    out = crossbar_matmul(xq, wq, step, offsets, spec=spec.crossbar)
+    return out[:, :w.shape[1]] * scale
+
+
+register("matmul", "xla", _matmul_xla, capabilities={"fault": (None,)},
+         description="torch.matmul — the performance path")
+register("matmul", "hwmodel", _matmul_hwmodel,
+         description="RRAM crossbar model: 8-bit operands on 128x128 crossbars through "
+         "a 5-bit ADC, CUDA crossbar kernel (kernels.crossbar_matmul)")

@@ -4,8 +4,8 @@ A spec says *what* to compute and *which* backend family computes it
 (``impl``).  Impl names are the reference's, so a config means the same in
 both packages; see ``repro_torch.ops`` for what each name runs here.
 Fields of the reference that nothing in the port reads yet are left out
-(``interpret``: there is no interpret mode; ``fault``: its slice; the Pallas
-tiles ``block_q`` / ``block_rows``).
+(``interpret``: there is no interpret mode; the Pallas tiles ``block_q`` /
+``block_rows`` / ``block_m``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import Optional
 
 from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FixedPointFormat
 from repro_torch.core.kvquant import KV_DTYPES
+from repro_torch.hwmodel.faults import FaultModel
+from repro_torch.kernels.crossbar_matmul.ref import DEFAULT_SPEC, CrossbarSpec
 
 SOFTMAX_KINDS = ("star", "exact")
 SOFTMAX_MODES = ("gather", "onehot", "histogram")
@@ -29,6 +31,8 @@ class SoftmaxSpec:
     kind: str = "star"  # star | exact
     mode: str = "gather"  # gather | onehot | histogram
     precision: FixedPointFormat = DEFAULT_FORMAT
+    # seeded device non-idealities; a null model normalizes to None
+    fault: Optional[FaultModel] = None
 
     op = "softmax"
 
@@ -45,6 +49,13 @@ class SoftmaxSpec:
             raise TypeError(
                 f"precision must be a FixedPointFormat, got {type(self.precision).__name__}"
             )
+        if self.fault is not None and self.fault.is_null:
+            object.__setattr__(self, "fault", None)
+        if self.fault is not None and self.kind == "exact":
+            raise ValueError(
+                "kind='exact' is the digital FP oracle: there is no RRAM array to "
+                "inject faults into; use kind='star' (or drop the fault field)"
+            )
 
     @property
     def fmt(self) -> Optional[FixedPointFormat]:
@@ -52,14 +63,19 @@ class SoftmaxSpec:
         return None if self.kind == "exact" else self.precision
 
     def tolerance(self) -> float:
-        """Max-abs-error bound vs the exact softmax: ``e^r - 1``."""
+        """Max-abs-error bound vs the exact softmax: ``e^r - 1`` (an ideal
+        device; faults can exceed it, which the accuracy guard enforces)."""
         fmt = self.fmt
         return 1e-6 if fmt is None else math.exp(fmt.resolution) - 1.0
 
 
 @dataclasses.dataclass(frozen=True)
 class AttentionSpec:
-    """One attention invocation: masking, blocking and the softmax engine."""
+    """One attention invocation: masking, blocking and the softmax engine.
+
+    ``fault`` is sugar for ``softmax=replace(softmax, fault=...)``: the
+    engine's RRAM arrays live in its softmax stage, so the model folds into
+    the nested spec (and wins over a fault already set there)."""
 
     impl: str = "xla"
     softmax: SoftmaxSpec = SoftmaxSpec()
@@ -68,6 +84,7 @@ class AttentionSpec:
     block_k: int = 128  # KV block of the pallas plain version's loop
     block_kv: int = 512  # KV block of the xla loop
     pv_int8: bool = False
+    fault: Optional[FaultModel] = None  # folds into .softmax
 
     op = "attention"
 
@@ -77,6 +94,11 @@ class AttentionSpec:
         for field in ("block_k", "block_kv"):
             if getattr(self, field) <= 0:
                 raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")
+        if self.fault is not None and self.fault.is_null:
+            object.__setattr__(self, "fault", None)
+        if self.fault is not None:
+            object.__setattr__(
+                self, "softmax", dataclasses.replace(self.softmax, fault=self.fault))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,3 +123,26 @@ class PagedAttentionSpec:
                 raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {self.kv_dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulSpec:
+    """One matmul invocation.
+
+    ``impl``: ``"xla"`` (``torch.matmul``, the performance path) or
+    ``"hwmodel"`` (the RRAM crossbar model: 8-bit operands on 128x128 tiles
+    through a 5-bit ADC, the CUDA crossbar kernel on the card)."""
+
+    impl: str = "xla"
+    crossbar: CrossbarSpec = DEFAULT_SPEC
+    ranging: str = "calibrated"  # hwmodel ADC ranging: calibrated | fullscale
+    fault: Optional[FaultModel] = None  # crossbar cell / ADC faults
+
+    op = "matmul"
+
+    def __post_init__(self) -> None:
+        if self.ranging not in ("calibrated", "fullscale"):
+            raise ValueError(
+                f"ranging must be 'calibrated' or 'fullscale', got {self.ranging!r}")
+        if self.fault is not None and self.fault.is_null:
+            object.__setattr__(self, "fault", None)

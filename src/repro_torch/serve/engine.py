@@ -24,14 +24,20 @@ One ``step()`` tick::
               the scratch block and their counters to 0
 
 Sampling at temperature > 0 runs the STAR softmax through
-``ops.softmax`` (``ops.use(softmax="pallas")`` selects the Triton kernel),
-then a categorical draw from the request's own seeded ``torch.Generator``,
-so a request's draws depend neither on its co-tenants nor on preemption.
-The draws are not the reference's ``jax.random`` draws.
+``ops.softmax`` (``ops.use(softmax="pallas")`` selects the Hopper kernels),
+one batched call over the active slots' rows per tick, then a categorical
+draw from each request's own seeded ``torch.Generator``, so a request's
+draws depend neither on its co-tenants nor on preemption.  The draws are not
+the reference's ``jax.random`` draws.
+
+A fault in the config's softmax spec (``FaultModel``) degrades every STAR
+softmax of the model, attention rows and sampling alike.  With
+``ContinuousConfig.guard`` set, one ``AccuracyGuard`` per engine holds every
+sampling softmax to the exact oracle, falls back to the clean ``reference``
+backend on a trip, and reports its counters in ``stats()["guard"]``.
 
 Not ported yet: the dense per-slot layout and the lockstep engine, ring
-(sliding-window) caches, the accuracy guard, tracing and the transfer
-counters.
+(sliding-window) caches, tracing and the transfer counters.
 """
 
 from __future__ import annotations
@@ -55,27 +61,28 @@ from repro_torch.serve.scheduler import Request, Slot, SlotScheduler
 
 def sample_token(
     logits: torch.Tensor,  # [..., V]
-    generators: Sequence[Optional[torch.Generator]],  # one per row of logits
+    generators: Sequence[torch.Generator],  # one per row of logits
     cfg: ModelConfig,
     temperature: float,
+    guard: Optional[ops.AccuracyGuard] = None,
 ) -> torch.Tensor:
     """Greedy (``temperature <= 0``: argmax) or temperature sampling:
     probabilities from one ``ops.softmax`` over ``logits / T`` with the
-    config's softmax spec (the STAR engine unless its kind is exact), then
-    one categorical draw per row from that row's generator (rows whose
-    generator is None — free slots — get token 0)."""
+    config's softmax spec (the STAR engine unless its kind is exact; held to
+    the exact oracle by ``guard`` when given), then one categorical draw per
+    row from that row's generator."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = logits.float() / temperature
     spec = cfg.softmax_spec
-    probs = torch.softmax(scaled, dim=-1) if spec.kind == "exact" else ops.softmax(scaled, spec)
+    if spec.kind == "exact":
+        probs = torch.softmax(scaled, dim=-1)
+    else:
+        probs = ops.softmax(scaled, spec, guard=guard)
     rows = probs.reshape(-1, probs.shape[-1])
     if rows.shape[0] != len(generators):
         raise ValueError(f"{rows.shape[0]} rows but {len(generators)} generators")
-    out = torch.zeros(rows.shape[0], dtype=torch.int64, device=rows.device)
-    for i, g in enumerate(generators):
-        if g is not None:
-            out[i] = torch.multinomial(rows[i], 1, generator=g)[0]
+    out = torch.stack([torch.multinomial(r, 1, generator=g)[0] for r, g in zip(rows, generators)])
     return out.to(torch.int32).reshape(probs.shape[:-1])
 
 
@@ -93,6 +100,9 @@ class ContinuousConfig:
     prefill_chunk_tokens: Optional[int] = None
     # page-pool storage: fp32 (compute dtype) | int8 | fp8_e4m3
     kv_dtype: str = "fp32"
+    # accuracy guard on the sampling softmax: sampled comparison against the
+    # exact oracle, fallback to a clean backend; counters in stats()["guard"]
+    guard: Optional[ops.GuardConfig] = None
 
 
 @dataclasses.dataclass
@@ -160,6 +170,9 @@ class ContinuousBatchingEngine:
         self._inputs = np.zeros((cb_cfg.num_slots, 1), np.int32)  # next token per slot
         self._seed = seed
         self._generators: Dict[int, torch.Generator] = {}
+        # one guard for the engine's lifetime: counters accumulate and the
+        # trip latch persists across ticks
+        self.guard = ops.AccuracyGuard(cb_cfg.guard) if cb_cfg.guard is not None else None
         self.ticks = 0
         self.preemptions = 0
         self.peak_used_blocks = 0
@@ -222,7 +235,7 @@ class ContinuousBatchingEngine:
 
     def _sample_first(self, slot: Slot, logits: torch.Tensor, events: List[TokenEvent]) -> None:
         tok = sample_token(logits[0, -1], [self._generator(slot.request)], self.cfg,
-                           self.cb.temperature)
+                           self.cb.temperature, guard=self.guard)
         self._record(slot, int(tok), events)
 
     def _observe_queue_wait(self, req: Request) -> None:
@@ -477,14 +490,15 @@ class ContinuousBatchingEngine:
         )
         for slot in active:
             self._rows[slot.index] += 1
-        gens = {s.index: self._generator(s.request) for s in active}
+        # one batched sampling softmax over the active rows (one guard check)
+        rows = torch.as_tensor([s.index for s in active], device=self.device)
         sampled = sample_token(
-            logits[:, -1], [gens.get(i) for i in range(self.cb.num_slots)],
-            self.cfg, self.cb.temperature,
+            logits[rows, -1], [self._generator(s.request) for s in active],
+            self.cfg, self.cb.temperature, guard=self.guard,
         )
         toks = sampled.cpu().numpy()  # the tick's one device -> host transfer
-        for slot in active:
-            self._record(slot, int(toks[slot.index]), events)
+        for slot, tok in zip(active, toks):
+            self._record(slot, int(tok), events)
         self.ticks += 1
         return events
 
@@ -550,5 +564,9 @@ class ContinuousBatchingEngine:
         }
 
     def stats(self) -> Dict[str, Any]:
+        """Ticks, KV accounting, the accuracy guard's counters (calls /
+        checks / trips / fallbacks / tripped / last_error; None without a
+        guard) and the engine's metrics snapshot."""
         return {"ticks": self.ticks, "kv": self.kv_stats(),
+                "guard": self.guard.stats() if self.guard is not None else None,
                 "metrics": self.metrics.snapshot()}

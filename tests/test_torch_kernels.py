@@ -226,8 +226,16 @@ def test_star_softmax_neg_inf_follows_the_reference_engine(jax_ref):
 
 
 def test_star_softmax_other_modes_wait_for_their_port():
-    with pytest.raises(CapabilityError, match="histogram"):
-        soft_mod.star_softmax_kernel(torch.zeros(2, 8), FMT, mode="histogram")
+    """The ``onehot`` and ``histogram`` modes are ported now (``onehot`` runs
+    the Triton kernel, ``histogram`` the CUDA LUT kernel): on a CPU tensor
+    the wrapper runs that mode's plain version, and an unknown mode is
+    refused."""
+    x = torch.as_tensor(np.random.default_rng(17).normal(size=(3, 40)) * 4, dtype=torch.float32)
+    for mode in ("onehot", "histogram"):
+        got = soft_mod.star_softmax_kernel(x, FMT, mode=mode)
+        assert torch.equal(got, soft_mod.star_softmax_ref(x, FMT, mode=mode))
+    with pytest.raises(ValueError, match="mode"):
+        soft_mod.star_softmax_kernel(x, FMT, mode="bogus")
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +281,91 @@ def test_star_softmax_kernel_matches_plain_on_card(cuda):
     x[1, 7] = float("nan")
     got = soft_mod.star_softmax_kernel(x, FMT)
     torch.testing.assert_close(got, soft_mod.star_softmax_ref(x, FMT), rtol=1e-5, atol=1e-7)
+
+
+MILD_FAULT = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
+                  adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,faulty", [("histogram", False), ("gather", True),
+                                         ("onehot", True), ("histogram", True)])
+def test_star_softmax_lut_kernel_matches_plain_on_card(cuda, dtype, mode, faulty):
+    """The CUDA LUT softmax (clean histogram, every faulty mode) against its
+    plain version: the same grid indices, float32 rounding of the sums and of
+    the ADC gain's division apart (1e-5 relative)."""
+    from repro_torch.hwmodel.faults import FaultModel
+
+    fault = FaultModel(**MILD_FAULT) if faulty else None
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(5, 49152, device=cuda, generator=g) * 4).to(dtype)
+    x[:, :300] = -float("inf")
+    before = soft_mod.LUT_LAUNCHES.count
+    got = soft_mod.star_softmax_kernel(x, FMT, mode=mode, fault=fault)
+    assert soft_mod.LUT_LAUNCHES.count == before + 1
+    ref = soft_mod.star_softmax_ref(x, FMT, mode=mode, fault=fault)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_star_softmax_onehot_is_the_gather_kernel_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(4, 49152, device=cuda, generator=g) * 4
+    before = soft_mod.LAUNCHES.count
+    onehot = soft_mod.star_softmax_kernel(x, FMT, mode="onehot")
+    assert soft_mod.LAUNCHES.count == before + 1
+    assert torch.equal(onehot, soft_mod.star_softmax_kernel(x, FMT, mode="gather"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faulty", [False, True])
+def test_crossbar_kernel_matches_plain_on_card(cuda, faulty):
+    """Clean: bit-exact (int32 partials are exact).  Faulty float32 weights:
+    equal except where an ADC code sits within 1e-3 LSB of a half-step."""
+    from repro_torch.hwmodel.faults import FaultModel
+    from repro_torch.kernels.crossbar_matmul import kernel as xk
+    from repro_torch.kernels.crossbar_matmul import ref as xr
+
+    fault = FaultModel(**MILD_FAULT) if faulty else None
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for m, k, n in ((7, 300, 190), (64, 512, 384), (130, 1024, 256)):
+        x = torch.randn(m, k, device=cuda, generator=g)
+        w = torch.randn(k, n, device=cuda, generator=g) * 0.05
+        xq, wq, step, off, _ = xr.prepare_operands(x, w, fault=fault)
+        got = xk.crossbar_matmul(xq, wq, step, off)
+        ref = xr.crossbar_accumulate_ref(xq, wq, step, off)
+        if not faulty:
+            assert torch.equal(got, ref)
+            continue
+        differ = got != ref
+        assert int(differ.sum()) <= max(1, int(1e-3 * got.numel()))
+        if bool(differ.any()):
+            kt = xq.shape[1] // 128
+            codes = torch.stack([
+                (xq.double()[:, i * 128:(i + 1) * 128] @ wq.double()[i * 128:(i + 1) * 128])
+                / step[i].double().repeat_interleave(128) for i in range(kt)])
+            if off is not None:
+                codes = codes + off.double().repeat_interleave(128, dim=1)[:, None, :]
+            near = ((codes - codes.floor() - 0.5).abs() < 1e-3).any(dim=0)
+            assert not bool((differ & ~near).any())
+
+
+@pytest.mark.cuda
+def test_fault_realization_bits_equal_on_card_and_cpu(cuda):
+    from repro_torch.hwmodel import faults as tf
+
+    fault = tf.FaultModel(**MILD_FAULT)
+    for fmt_bits in ((6, 2), (6, 3)):
+        from repro_torch.core.fixedpoint import FixedPointFormat
+
+        fmt = FixedPointFormat(*fmt_bits)
+        for tag in ("softmax/lut", "softmax/vmm"):
+            assert torch.equal(tf.faulty_exp_lut(fmt, fault, tag, device=cuda).cpu(),
+                               tf.faulty_exp_lut(fmt, fault, tag, device="cpu"))
+        assert torch.equal(tf.cam_remap(fmt, fault, device=cuda).cpu(), tf.cam_remap(fmt, fault))
+    assert torch.equal(tf.adc_tile_offsets(fault, (32, 112), device=cuda).cpu(),
+                       tf.adc_tile_offsets(fault, (32, 112)))
+    w = torch.randint(-127, 128, (256, 512), dtype=torch.int32)
+    assert torch.equal(tf.apply_cell_faults(w.to(cuda), fault, "matmul/w", g_on=127.0).cpu(),
+                       tf.apply_cell_faults(w, fault, "matmul/w", g_on=127.0))
