@@ -20,7 +20,12 @@ Phases (any failure exits non-zero before the result lines):
    ``gather`` mode, ``onehot`` bit-equal to it, and the CUDA LUT kernel
    (``star_softmax_lut``) in clean ``histogram`` mode and under the mild
    fault in every mode, at the sampling shape [4, 49152]; the fault
-   realization's bits on the card equal the CPU's;
+   realization's bits on the card equal the CPU's.  flash_star's int8 P.V
+   variant (``flash_star_pv_int8``) at the granite prefill shape and ragged
+   (Tk 500, kv_valid 450), block_k 128; the SSD chunk scan (``ssd_scan``) at
+   the Mamba2 serve's prefill shape (xdt [8, 2048, 24, 64], B/C [8, 2048,
+   128] as slices of one conv output, bf16 and float32, chunk 128) and at a
+   ragged T = 2000;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens: once over an fp32 pool, then over int8 and
@@ -30,7 +35,8 @@ Phases (any failure exits non-zero before the result lines):
    materialized ``reference`` path).  Then the smoke config at temperature
    0.8 on the card in clean ``onehot`` and ``histogram`` mode: that mode's
    softmax kernel launches for every sampled batch, and the probabilities of
-   the first request's first sample equal the CPU plain version's;
+   the first request's first sample equal the CPU plain version's.  Then the
+   mamba2-130m smoke config on the lockstep engine, greedy, card == CPU;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed, the continuous-batching engine
    over the paged KV cache (block size 16), 8 requests on 4 slots, prompts
@@ -40,7 +46,9 @@ Phases (any failure exits non-zero before the result lines):
    must have launched.  Then one full-width prefill through the kernels is
    held against the same prefill through the plain ``reference`` impls,
    and one decode tick is traced with ``torch.profiler`` (device time by
-   kernel group);
+   kernel group).  Then the int8 P.V path: one full-width prefill whose
+   attention spec sets ``pv_int8`` (counters zeroed just before: the variant
+   launches once per layer), held against the float P.V prefill;
 6. quantized serve: the same weights over an int8 page pool with the
    prefix cache and 128-token prefill chunks, 8 requests of a common
    256-token system prefix plus their own 64-256-token suffix, 16-32 new
@@ -66,7 +74,17 @@ Phases (any failure exits non-zero before the result lines):
    launch), and the crossbar kernel against its plain version at those
    shapes (clean bit-exact; faulty equal but for ADC codes within 1e-3 LSB
    of a half-step, at most 1e-4 of the outputs);
-8. the ``{"kernels": [...]}`` line and, last, the device line.
+8. Mamba2 serve: mamba2-130m at its published widths and all 24 layers,
+   random weights drawn on the card from a seed, on the lockstep engine:
+   8 prompts of 2048 tokens, 32 new tokens, temperature 0.8, sampling
+   softmax ``pallas``.  Counters zeroed just before and read just after:
+   ``ssd_scan`` once per layer of the prefill, the STAR softmax once per
+   sampled step.  Tok/s, time to first token (a prefill and its sample,
+   timed alone), the time of a decode step and peak memory.  One
+   full-width prefill through the kernel is held against the same prefill
+   under ``ops.use(ssd_scan="reference")``, in bf16 and in float32 compute,
+   and one prefill and one decode step are traced;
+9. the ``{"kernels": [...]}`` line and, last, the device line.
 
 Tolerances.  float32 outputs: |kernel - plain| <= 5e-5 + 1e-4 |plain|;
 bfloat16 outputs: <= 1e-2 + 8e-3 |plain| (two bf16 ulps: both round one
@@ -75,7 +93,12 @@ within float32 summation error of a grid half-step may snap to the
 neighbouring level in one of the two; a row outside tolerance passes only
 if it holds such an ambiguous score (within 1e-3 grid units of a half-step,
 from a float64 recomputation), and such rows must stay below 1e-4 of the
-live scores.  The star softmax kernels snap their input themselves, so
+live scores.  The int8 P.V variant holds to the same tolerances, a row
+outside them passing only if it holds an ambiguous code: a score near a grid
+half-step (STAR) or a p near a half-step of 1/127 (exact), counted and
+bounded the same way.  ssd_scan: y and the final state within SSD_RTOL of
+their largest magnitude (float32 sums in another order).  The star softmax
+kernels snap their input themselves, so
 their indices are identical and they hold to 1e-5 |plain| + 1e-9 (the LUT
 kernel's faulty histogram divides by the ADC gain after the row, the plain
 version before: an ulp).
@@ -99,6 +122,7 @@ H100_FP32_FLOPS = 67e12
 H100_INT8_OPS = 1979e12
 FLIP_DELTA = 1e-3  # grid units (and ADC LSBs)
 FLIP_BOUND = 1e-4  # flipped rows per live score (and ADC flips per output)
+SSD_RTOL = 1e-5  # ssd_scan: max |kernel - plain| per max |plain| (float32 sums reordered)
 MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
             adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
 SEVERE = dict(stuck_on_rate=0.6, stuck_off_rate=0.2, seed=3)
@@ -146,19 +170,29 @@ def tolerance(dtype):
     return 5e-5, 1e-4
 
 
-def compare_rows(name, got, ref, dtype, scores64=None, live=None, scale=None):
-    """Hold ``got`` to ``ref`` row by row (last axis = features).  Returns
-    (max abs error outside flipped rows, flipped rows)."""
+def near_half_step(x):
+    """Entries of a float64 tensor within FLIP_DELTA of a rounding half-step."""
+    return (x - x.floor() - 0.5).abs() < FLIP_DELTA
+
+
+def compare_rows(name, got, ref, dtype, scores64=None, live=None, scale=None, amb=None):
+    """Hold ``got`` to ``ref`` row by row (last axis = features).  A row out
+    of tolerance must hold an ambiguous live entry: ``amb`` when given, else a
+    score near a grid half-step.  Returns (max abs error outside flipped
+    rows, flipped rows)."""
     atol, rtol = tolerance(dtype)
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     bad_rows = (err > atol + rtol * r.abs()).any(dim=-1)
     n_bad = int(bad_rows.sum())
     if n_bad:
-        check(scores64 is not None, f"{name}: {n_bad} rows out of tolerance (max err "
+        check(amb is not None or scores64 is not None,
+              f"{name}: {n_bad} rows out of tolerance (max err "
               f"{float(err.max()):.3e}) with no grid to explain them")
-        grid = scores64 * scale
-        amb = ((grid - grid.floor() - 0.5).abs() < FLIP_DELTA) & live
+        if amb is None:
+            amb = near_half_step(scores64 * scale) & live
+        else:
+            amb = amb & live
         unexplained = bad_rows & ~amb.any(dim=-1)
         check(not bool(unexplained.any()),
               f"{name}: {int(unexplained.sum())} rows out of tolerance hold no score "
@@ -174,16 +208,19 @@ def compare_rows(name, got, ref, dtype, scores64=None, live=None, scale=None):
 # phase 3: each kernel against its plain version
 
 
-def _flash_variants(label, base, info, live, sdpa=None, shape=None):
+def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_block=None):
     """flash_star against its plain version on ``base`` (q, k, v float32)
     in bf16 and f32, STAR and exact; ``sdpa`` times the library call for
-    the exact variant."""
+    the exact variant.  With ``pv_int8_block`` the int8 P.V variant over
+    KV blocks of that many rows, whose flips are counted as ambiguous codes
+    (``_pv_int8_ambiguous``)."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
     from repro_torch.kernels.flash_star import kernel as fk
 
     hq, hkv, d = base[0].shape[1], base[1].shape[1], base[0].shape[3]
+    flips_key = "grid_flip_rows" if pv_int8_block is None else "code_flip_rows"
     variants = []
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (x.to(dtype) for x in base)
@@ -193,24 +230,28 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None):
             mode = "star" if fmt is not None else "exact"
             name = f"{label} {mode} {dtype}"
             kw = dict(fmt=fmt, causal=True)
+            amb = None
+            if pv_int8_block is not None:
+                kw.update(block_k=pv_int8_block, pv_int8=True)
+                amb = _pv_int8_ambiguous(scores64, live, pv_int8_block, fmt)
             got = fk.flash_star_attention(q, k, v, info, **kw)
             ref = fk.flash_star_ref(q, k, v, info, **kw)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
             err, flips = compare_rows(name, got, ref, dtype, scores64, live,
-                                      fmt.scale if fmt else None)
+                                      fmt.scale if fmt else None, amb=amb)
             ms = time_ms(lambda: fk.flash_star_attention(q, k, v, info, **kw))
             plain_ms = time_ms(lambda: fk.flash_star_ref(q, k, v, info, **kw))
             lib_ms = None
             if fmt is None and sdpa is not None:  # SDPA computes the exact softmax
                 lib_ms = time_ms(lambda: sdpa(q, k, v))
             variant = dict(dtype=str(dtype).split(".")[-1], mode=mode,
-                           max_abs_err=err, grid_flip_rows=flips, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms)
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+            variant[flips_key] = flips
             if shape is not None:
                 variant["shape"] = shape
             variants.append(variant)
-            log(f"{name}: max_abs_err={err:.3e} grid_flip_rows={flips} "
+            log(f"{name}: max_abs_err={err:.3e} {flips_key}={flips} "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms}")
     return variants
 
@@ -270,6 +311,125 @@ def parity_flash_append():
         "flash_star append", (q0, k0, v0), info, live.expand(b, hq, tq, tk),
         shape=f"append q[{b},{hq},{tq},{d}] at q_offset {q_off}, "
               f"kv[{b},{hkv},{tk},{d}] valid {valid}")
+
+
+def _pv_int8_ambiguous(scores64, live, bk, fmt):
+    """Live entries whose int8 code may differ between two float32
+    computations: under STAR a score near a grid half-step (its grid index,
+    and with it the row's max, may flip); under the exact softmax a p near a
+    half-step of 1/127, p taken against the running max after each block of
+    ``bk`` columns, as the variant quantizes it."""
+    import torch
+
+    if fmt is not None:
+        return near_half_step(scores64 * fmt.scale) & live
+    tk = scores64.shape[-1]
+    s = scores64.masked_fill(~live, float("-inf"))
+    nb = -(-tk // bk)
+    sp = torch.nn.functional.pad(s, (0, nb * bk - tk), value=float("-inf"))
+    m_run = torch.cummax(sp.reshape(*s.shape[:-1], nb, bk).amax(-1), dim=-1).values
+    p = torch.exp(s - m_run.repeat_interleave(bk, dim=-1)[..., :tk])
+    return near_half_step(p * 127.0) & live
+
+
+def parity_pv_int8(results):
+    """The int8 P.V variant at the granite prefill shape (q [1, 32, 512,
+    128], kv [1, 8, 512, 128], causal, block_k 128), then ragged: Tk 500
+    with kv_valid 450 (the rows past it and the 12 zero rows that pad the
+    last block count in its V absmax)."""
+    import torch
+
+    b, hq, hkv, d, bk = 1, 32, 8, 128, 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    variants = []
+    for t, valid in ((512, 512), (500, 450)):
+        base = [torch.randn(sh, device=dev, generator=gen) for sh in
+                ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
+        info = torch.tensor([0, valid], dtype=torch.int32, device=dev)
+        rows = torch.arange(t, device=dev)
+        live = ((rows[None, :] <= rows[:, None]) & (rows[None, :] < valid))
+        live = live[None, None].expand(b, hq, t, t)
+        shape = f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] valid {valid} causal block_k {bk}"
+        variants += _flash_variants(f"flash_star_pv_int8 T={t}", base, info, live,
+                                    shape=shape, pv_int8_block=bk)
+    t = 512
+    n_live = b * hq * t * (t + 1) // 2
+    bytes_moved = (2 * b * hq * t * d + 2 * b * hkv * t * d) * 2 + (1 + b) * 4
+    # QK^T at the bf16 tensor-core peak, P.V at the int8 peak (twice as fast):
+    # counted as bf16-equivalent operations
+    ops = 2 * n_live * d * (1 + H100_BF16_FLOPS / H100_INT8_OPS)
+    results.append(_entry(
+        "flash_star_pv_int8", "cuda", "src/repro_torch/kernels/flash_star/csrc/flash_star.cu",
+        "src/repro/kernels/flash_star/kernel.py:129", variants[0], bytes_moved, ops,
+        H100_BF16_FLOPS, variants, shape=variants[0]["shape"]))
+
+
+def _ssd_work(b, t, h, p, n, q, bc_bytes):
+    """(bytes, FLOP) of one SSD chunk scan: each input read once, each output
+    written once; the live (causal) triangle of every chunk's scores."""
+    bytes_moved = 4 * (2 * b * t * h * p + b * t * h + b * h * n * p) + 2 * bc_bytes * b * t * n
+    flops = 0
+    for t0 in range(0, t, q):
+        nv = min(q, t - t0)
+        pairs = nv * (nv + 1) // 2
+        # scores C.B (shared by the heads); per head y_intra, y_inter, state
+        flops += b * (2 * n * pairs + h * (2 * p * pairs + 4 * nv * n * p))
+    return bytes_moved, flops
+
+
+def parity_ssd_scan(results):
+    """The SSD chunk-scan kernel against its plain version at the Mamba2
+    serve's prefill shape: xdt [8, 2048, 24, 64], a [8, 2048, 24], B and C
+    [8, 2048, 128] as slices of one conv output (as the mixer passes them),
+    in bf16 and in float32, chunk 128; then a ragged T = 2000."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    b, h, p, n, q = 8, 24, 64, 128, 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    variants = []
+    for t in (2048, 2000):
+        xdt = torch.randn((b, t, h, p), device=dev, generator=gen)
+        a = -(torch.randn((b, t, h), device=dev, generator=gen) * 0.1).abs()
+        conv = torch.randn((b, t, h * p + 2 * n), device=dev, generator=gen) * 0.3
+        for dtype in (torch.bfloat16, torch.float32):
+            cv = conv.to(dtype)
+            bm, cm = cv[..., h * p:h * p + n], cv[..., h * p + n:]
+            name = f"ssd_scan T={t} B/C {dtype}"
+            y, hout = ssk.ssd_scan(xdt, a, bm, cm, chunk=q)
+            y0, h0 = ssd_scan_ref(xdt, a, bm, cm, chunk=q)
+            torch.cuda.synchronize()
+            errs = {}
+            for label, got, ref in (("y", y, y0), ("hout", hout, h0)):
+                check(bool(torch.isfinite(got).all()), f"{name}: non-finite {label}")
+                scale = float(ref.abs().max())
+                errs[label] = float((got - ref).abs().max())
+                check(errs[label] <= SSD_RTOL * scale,
+                      f"{name}: {label} max err {errs[label]:.3e} > {SSD_RTOL} x "
+                      f"max |plain| {scale:.3e}")
+            ms = time_ms(lambda: ssk.ssd_scan(xdt, a, bm, cm, chunk=q))
+            plain_ms = time_ms(lambda: ssd_scan_ref(xdt, a, bm, cm, chunk=q))
+            bytes_moved, flops = _ssd_work(b, t, h, p, n, q, cv.element_size())
+            t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+            t_ops = flops / H100_FP32_FLOPS * 1e3
+            variants.append(dict(
+                dtype=str(dtype).split(".")[-1], shape=f"T={t}", max_abs_err=errs["y"],
+                hout_max_abs_err=errs["hout"], ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=bytes_moved, ops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations"))
+            log(f"{name}: y max_abs_err={errs['y']:.3e} hout max_abs_err={errs['hout']:.3e} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f}")
+    main = variants[0]  # T 2048, bf16 B/C: the serve's call
+    results.append(_entry(
+        "ssd_scan", "cuda", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:97", main, main["bytes"], main["ops"],
+        H100_FP32_FLOPS, variants,
+        shape=f"xdt[{b},2048,{h},{p}] a[{b},2048,{h}] B/C[{b},2048,{n}] chunk {q}; "
+              "main variant bf16 B/C"))
 
 
 def parity_paged(results):
@@ -676,9 +836,49 @@ def serve(results):
         f"max_abs={float((got - ref).abs().max()):.3e}")
     check(rel < 3e-2, f"full-width prefill logits differ from the reference: rel_l2={rel:.3e}")
     profile_tick(cfg, params)
+    pv_int8 = prefill_pv_int8(results, cfg, params, max(prompts, key=len)[:512])
     return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
             "ticks": eng.ticks, "ttft_p50_s": ttft.percentile(50),
-            "max_memory_allocated": peak}, params
+            "max_memory_allocated": peak, "prefill_pv_int8": pv_int8}, params
+
+
+def prefill_pv_int8(results, cfg, params, prompt):
+    """The int8 P.V path: a full-width granite-8b prefill whose attention
+    spec sets ``pv_int8`` (``ops.attention(..., pv_int8=True)`` in every
+    layer), counters zeroed just before and read just after; its logits held
+    against the same prefill through the float P.V kernel."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.registry import build_model
+
+    icfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, pv_int8=True))
+    check(icfg.attention_spec.pv_int8 and icfg.attention_spec.impl == "pallas",
+          f"pv_int8 config resolves to {icfg.attention_spec}")
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    with torch.no_grad():
+        ref, _ = build_model(cfg).prefill(params, tokens, tokens.shape[1])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got, _ = build_model(icfg).prefill(params, tokens, tokens.shape[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    got, ref = got.float(), ref.float()
+    check(bool(torch.isfinite(got).all()), "pv_int8 prefill: non-finite logits")
+    rel = float((got - ref).norm() / ref.norm())
+    log(f"pv_int8 prefill: granite-8b, {tokens.shape[1]} tokens, {wall:.3f}s, launches {counts}; "
+        f"logits vs the float P.V kernel rel_l2={rel:.3e}")
+    check(counts.get("flash_star_pv_int8", 0) == cfg.num_layers and
+          counts.get("flash_star", 0) == 0,
+          f"pv_int8 prefill: launches {counts}, expected flash_star_pv_int8 x {cfg.num_layers}")
+    check(rel < 3e-2, f"pv_int8 prefill logits differ from the float P.V: rel_l2={rel:.3e}")
+    for e in results:
+        e["launches_by_path"]["prefill_pv_int8"] = counts.get(e["name"], 0)
+        if e["name"] == "flash_star_pv_int8":
+            e["launches"] = counts["flash_star_pv_int8"]
+    return {"tokens": int(tokens.shape[1]), "wall_s": wall, "logits_rel_l2": rel}
 
 
 def profile_window(label, fn) -> None:
@@ -704,8 +904,12 @@ def profile_window(label, fn) -> None:
         name = ev.key.lower()
         if "paged_kernel" in name:
             group = "paged_attention"
+        elif "flash_star_pv_int8_kernel" in name:
+            group = "flash_star_pv_int8"
         elif "flash_star_kernel" in name:
             group = "flash_star"
+        elif "ssd_scan_kernel" in name:
+            group = "ssd_scan"
         elif "star_softmax_rows" in name:
             group = "star_softmax"
         elif "star_softmax_lut_kernel" in name:
@@ -1118,6 +1322,162 @@ def parity_crossbar(results, x, weights, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: Mamba2 on the lockstep engine
+
+
+def small_reference_mamba():
+    """The mamba2-130m smoke config served greedy on the card (the kernels)
+    and on the CPU (their plain versions) with the same weights: the same
+    tokens.  The prompts (21 tokens) are ragged against the chunk (16)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import materialize, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_smoke_config("mamba2_130m")
+    params_cpu = materialize(build_model(cfg).param_specs(), SEED, "cpu")
+    params_gpu = tree_map(lambda x: x.cuda(), params_cpu)
+    prompts = np.random.default_rng(SEED + 11).integers(0, cfg.vocab_size, (3, 21))
+    outs, counts = {}, {}
+    with ops.use(softmax="pallas"):
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            reset_launch_counts()
+            toks, _ = ServeEngine(cfg, params, ServeConfig(max_len=64), device=dev).generate(
+                prompts, 8)
+            torch.cuda.synchronize()
+            outs[dev], counts[dev] = toks.cpu().tolist(), launch_counts()
+    check(outs["cuda"] == outs["cpu"],
+          f"mamba2 smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
+    check(counts["cuda"].get("ssd_scan", 0) == cfg.num_layers,
+          f"mamba2 smoke: ssd_scan launched {counts['cuda'].get('ssd_scan', 0)} times on the "
+          f"card for {cfg.num_layers} layers")
+    log(f"small reference mamba2: greedy smoke tokens identical on card and cpu "
+        f"(3 x 8 tokens, prompts of 21, chunk {cfg.ssm_chunk}); card launches {counts['cuda']}")
+
+
+def serve_mamba(results):
+    """mamba2-130m at its published widths and all 24 layers, random weights
+    drawn on the card from the seed, on the lockstep engine: 8 prompts of
+    2048 tokens, 32 new tokens each, temperature 0.8, sampling softmax
+    ``pallas``.  Counters zeroed just before the serve and read just after:
+    ``ssd_scan`` once per layer of the prefill, the STAR softmax once per
+    sampled step.  Then one full-width prefill through the kernel against the
+    same prefill under ``ops.use(ssd_scan="reference")``, and one prefill and
+    one decode step traced."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import count_params, materialize
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, sample_token
+
+    cfg = get_config("mamba2_130m")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = materialize(model.param_specs(), SEED, "cuda")
+    torch.cuda.synchronize()
+    log(f"serve mamba2: {cfg.name} {cfg.num_layers}L d={cfg.d_model} "
+        f"{count_params(model.param_specs()) / 1e6:.1f}M params ({cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}) drawn in {time.perf_counter() - t0:.1f}s")
+    b, t, gen = 8, 2048, 32
+    prompts = np.random.default_rng(SEED + 12).integers(0, cfg.vocab_size, (b, t))
+    tokens = torch.as_tensor(prompts, device="cuda")
+    sc = ServeConfig(max_len=t + gen, temperature=0.8)
+    with ops.use(softmax="pallas"), torch.no_grad():
+        eng = ServeEngine(cfg, params, sc, device="cuda", seed=SEED)
+        eng.generate(prompts[:, :256], 2)  # warm-up: the sampling kernel at this vocabulary
+        # time to first token, alone: the prefill and the first sample
+        gens = [torch.Generator(device="cuda").manual_seed(SEED + i) for i in range(b)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tokens, t + gen)
+        nxt = sample_token(logits[:, -1], gens, cfg, 0.8)[:, None]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        # the time of one decode step (and its sample), over 8 steps
+        t0 = time.perf_counter()
+        for _ in range(8):
+            logits, cache = model.decode_step(params, cache, nxt)
+            nxt = sample_token(logits[:, -1], gens, cfg, 0.8)[:, None]
+        torch.cuda.synchronize()
+        step = (time.perf_counter() - t0) / 8
+        del cache, logits
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, info = eng.generate(prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = toks.cpu().numpy()
+    check(out.shape == (b, gen) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"serve mamba2: bad output {out.shape}")
+    check(info["cache_len"] == t + gen - 1, f"serve mamba2: cache_len {info['cache_len']}")
+    log(f"serve mamba2: {b} x {t}-token prompts, {b * gen} tokens in {wall:.3f}s = "
+        f"{b * gen / wall:.2f} tok/s; ttft (prefill + first sample) {1e3 * ttft:.1f}ms, "
+        f"decode step {1e3 * step:.2f}ms, max_memory_allocated={peak / 2**30:.2f} GiB, "
+        f"cache_len {info['cache_len']}")
+    log(f"serve mamba2: launches {counts}")
+    check(counts.get("ssd_scan", 0) == cfg.num_layers,
+          f"serve mamba2: ssd_scan launched {counts.get('ssd_scan', 0)} times, "
+          f"expected {cfg.num_layers} (one per layer of the prefill)")
+    check(counts.get("star_softmax", 0) == gen,
+          f"serve mamba2: star_softmax launched {counts.get('star_softmax', 0)} times for "
+          f"{gen} sampled steps")
+    for e in results:
+        e["launches_by_path"]["serve_mamba2"] = counts.get(e["name"], 0)
+        if e["name"] == "ssd_scan":
+            e["launches"] = counts["ssd_scan"]
+
+    # one full-width prefill through the kernel vs the plain chunk scan, in
+    # the serve's bf16 compute and in float32 compute (where no bf16
+    # rounding of the mixer output can absorb the scans' float32 differences)
+    rels = {}
+    for dtype in ("bfloat16", "float32"):
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        dmodel = build_model(dcfg)
+        with torch.no_grad():
+            reset_launch_counts()
+            got, _ = dmodel.prefill(params, tokens, t + gen)
+            n_kernel = launch_counts().get("ssd_scan", 0)
+            with ops.use(ssd_scan="reference"):
+                ref, _ = dmodel.prefill(params, tokens, t + gen)
+            n_ref = launch_counts().get("ssd_scan", 0) - n_kernel
+        check(n_kernel == cfg.num_layers and n_ref == 0,
+              f"mamba2 prefill {dtype}: ssd_scan launched {n_kernel} times on the kernel "
+              f"route and {n_ref} times on the reference route")
+        # the vocabulary's own columns: the padding columns hold -1e30
+        got, ref = got[..., :cfg.vocab_size].float(), ref[..., :cfg.vocab_size].float()
+        check(bool(torch.isfinite(got).all()), f"mamba2 prefill {dtype}: non-finite logits")
+        rels[dtype] = float((got - ref).norm() / ref.norm())
+        log(f"full-width mamba2 prefill logits [8, 2048], {dtype} compute, kernel vs reference "
+            f"chunk scan: rel_l2={rels[dtype]:.3e} max_abs={float((got - ref).abs().max()):.3e}")
+        check(rels[dtype] < 3e-2,
+              f"mamba2 prefill {dtype} logits differ from the reference: rel_l2={rels[dtype]:.3e}")
+    rel = rels["bfloat16"]
+    with torch.no_grad():
+        profile_window("mamba2 prefill, 8 x 2048 tokens",
+                       lambda: model.prefill(params, tokens, t + gen))
+        _, cache = model.prefill(params, tokens, t + gen)
+        profile_window("mamba2 decode step, batch 8",
+                       lambda: model.decode_step(params, cache, tokens[:, -1:]))
+    return {"batch": b, "prompt_len": t, "gen": gen, "tokens": b * gen, "wall_s": wall,
+            "tok_per_s": b * gen / wall, "ttft_s": ttft, "decode_step_s": step,
+            "max_memory_allocated": peak, "prefill_logits_rel_l2": rel,
+            "prefill_logits_rel_l2_f32_compute": rels["float32"]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1149,11 +1509,12 @@ def main() -> int:
     from repro_torch.kernels.crossbar_matmul import kernel as xk
     from repro_torch.kernels.flash_star import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.ssd_scan import kernel as ssk
     from repro_torch.kernels.star_softmax import kernel as sk
 
     t0 = time.perf_counter()
-    logs = _cuda.build([fk.SOURCE, pk.SOURCE, sk.LUT_SOURCE, xk.SOURCE])
-    log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, all four sources at once)")
+    logs = _cuda.build([fk.SOURCE, pk.SOURCE, sk.LUT_SOURCE, xk.SOURCE, ssk.SOURCE])
+    log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, all five sources at once)")
     for path, text in logs.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
@@ -1161,19 +1522,25 @@ def main() -> int:
 
     results = []
     parity_flash(results)
+    parity_pv_int8(results)
     parity_paged(results)
     parity_softmax(results)
     parity_softmax_lut(results)
+    parity_ssd_scan(results)
     realization_bits()
     small_reference()
+    small_reference_mamba()
     summary, params = serve(results)
     summary_quant = serve_quant(results, params)
     summary_degraded = degraded_serve(results, params)
     del params
+    torch.cuda.empty_cache()
+    summary_mamba = serve_mamba(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(json.dumps({"serve": summary, "serve_int8": summary_quant,
-                    "serve_degraded": summary_degraded, "card": card}))
+                    "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
+                    "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCH_IDS: List[str] = ["granite_8b"]
+ARCH_IDS: List[str] = ["granite_8b", "mamba2_130m"]
 
 
 def _mod(arch: str):

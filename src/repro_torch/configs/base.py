@@ -1,4 +1,5 @@
-"""Model configuration (port of ``repro.configs.base``, dense fields).
+"""Model configuration (port of ``repro.configs.base``: the dense and ssm
+fields).
 
 A config carries its op contract as ``repro_torch.ops`` specs; the legacy
 loose fields (``softmax_kind``, ``attn_impl``, ...) stay as constructor
@@ -21,7 +22,7 @@ _ATTN_IMPLS = {"naive": "reference", "blocked": "xla", "flash": "pallas"}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family ported so far)
+    family: str  # dense | ssm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,6 +36,14 @@ class ModelConfig:
     norm_eps: float = 1e-6
     mlp_type: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = False
+
+    # --- SSM (mamba2) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 128
+    ssm_ngroups: int = 1
 
     softmax: Optional[SoftmaxSpec] = None
     attention: Optional[AttentionSpec] = None
@@ -114,4 +123,6 @@ class ModelConfig:
                 f"GQA needs num_heads % num_kv_heads == 0, got "
                 f"{self.num_heads} % {self.num_kv_heads}"
             )
+        if self.family == "ssm" and self.ssm_state <= 0:
+            raise ValueError(f"the ssm family needs ssm_state > 0, got {self.ssm_state}")
         return self

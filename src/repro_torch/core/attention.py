@@ -134,11 +134,19 @@ def blocked_attention(
     kv_valid_len: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     block_size: int = 512,
+    pv_int8: bool = False,
 ) -> torch.Tensor:
     """Online blocked attention: a Python loop over KV blocks carrying the
     running (max, denominator, accumulator).  Refuses a fault: the online
     rescale identity ``lut[a] * lut[b] == lut[a + b]`` does not hold for a
-    faulty LUT, so the pipeline would model no physical engine."""
+    faulty LUT, so the pipeline would model no physical engine.
+
+    ``pv_int8`` is the flash_star kernel's int8 P.V: per KV block, P as
+    ``round(127 p)`` and V as ``round(v * (127 / vamax))`` with ``vamax`` the
+    block's absmax over every row and feature (rows past the valid length
+    included), floored at 1e-6; the integer products sum exactly (in
+    float64) and rescale by ``vamax / 127^2``.  The denominator sums the
+    unquantized p."""
     if not is_null(softmax.fault):
         raise ValueError(
             "blocked_attention cannot inject cell faults: the online rescale "
@@ -190,7 +198,21 @@ def blocked_attention(
             p = torch.exp(sc - m_new[..., None])
         p = torch.where(maskb, p, torch.zeros_like(p))
         s = s * r + p.sum(dim=-1)
-        o = o * r[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+        if pv_int8:
+            vamax = vb.abs().amax(dim=(1, 3)).clamp(min=1e-6)  # [B, Hkv]
+            # IEEE divisions, tensor by tensor: torch turns ``127.0 / t`` into
+            # ``t.reciprocal() * 127`` and, on CUDA, ``t / 16129.0`` into a
+            # multiply by the scalar's reciprocal; either can move a code
+            # across a rounding tie
+            vq = torch.full_like(vamax, 127.0) / vamax
+            v8 = torch.round(vb * vq[:, None, :, None])
+            # |sum| <= 128 * 127 * 127 < 2^53: exact in float64 in any order
+            pv32 = torch.einsum("bhgqk,bkhd->bhgqd", torch.round(p * 127.0).double(),
+                                v8.double()).float()
+            pv = pv32 * (vamax / torch.full_like(vamax, 16129.0))[:, :, None, None, None]
+        else:
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+        o = o * r[..., None] + pv
         m = m_new
     s = torch.where(s <= 0.0, torch.ones_like(s), s)
     out = (o / s[..., None]).permute(0, 3, 1, 2, 4)  # [B, Tq, Hkv, G, D]

@@ -24,6 +24,9 @@
 // (core/lut.py) that the wrapper passes in.  lut == nullptr selects the
 // exact float softmax.  Inputs are float32 or bfloat16; all arithmetic is
 // float32; the output has the input's type.  Built without fast math.
+//
+// The int8 P.V variant (pv_int8=True in the TPU kernel, kernel.py:129-141)
+// is a second kernel, flash_star_pv_int8_kernel, below.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -228,6 +231,242 @@ cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The int8 P.V variant.  Per KV block of bk rows (the TPU kernel's block_k,
+// bk <= BK8) the TPU kernel quantizes
+//   p8 = rint(p * 127)                 against the running max after the block,
+//   v8 = rint(v * (127 / vamax)),      vamax = max(max |V_block|, 1e-6),
+// and adds float(sum p8 * v8 as int32) * (vamax / 16129) to the accumulator,
+// while the denominator sums the unquantized p.  Both codes depend on the
+// block: P's through the running max (a max taken after 32 rows would give
+// other codes than one taken after bk rows) and V's through the block's
+// absmax, which runs over all bk x D values, rows past kv_valid included (the
+// zero rows that pad Tk to a multiple of bk change nothing).  So this kernel
+// walks KV in blocks of exactly bk rows from row 0: it forms a whole block's
+// scores (in 32-row K sub-tiles) before it takes the block's max, quantizes
+// V into shared memory as int8 (transposed, four rows to a 32-bit word),
+// packs each row's p8 likewise, and accumulates with __dp4a in int32,
+// converting to float once per block.  The quantizing multiply and the
+// rescale are __fmul_rn / __fadd_rn: never contracted into an FMA.
+//
+// What bounds it: the same QK^T work as the float kernel (FP32 FMAs here)
+// plus int8 products that the card's int8 tensor cores would do at
+// 1979 TOP/s; dp4a on the SMs' integer units is the simple first step
+// (an s8 mma.sync / wgmma version is later work).  One CTA owns 64 q rows
+// with four threads per row; a row's four threads split the block's
+// columns for the scores and p8, and the head dimension for P.V.
+
+constexpr int BK8 = 128;         // largest KV block of the variant
+constexpr int KT = 32;           // K rows per sub-tile
+constexpr int NT8 = 256;         // four threads per q row
+constexpr int W8 = BK8 / 4 + 1;  // 32-bit words per packed row (+1: banks)
+
+template <int D>
+constexpr size_t smem_bytes_int8() {
+  return sizeof(float) * (BQ * (D + 1) + KT * (D + 1) + BQ * (BK8 + 1)) +
+         sizeof(int) * (D * W8 + BQ * W8) + sizeof(float) * (NT8 / 32);
+}
+
+template <typename T, int D, bool STAR>
+__global__ void __launch_bounds__(NT8) flash_star_pv_int8_kernel(Params p, int bk) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                                       // [BQ][D + 1]
+  float* Ks = Qs + BQ * (D + 1);                          // [KT][D + 1]
+  float* Ss = Ks + KT * (D + 1);                          // [BQ][BK8 + 1] scaled scores
+  int* V8 = reinterpret_cast<int*>(Ss + BQ * (BK8 + 1));  // [D][W8] packed v8 codes
+  int* P8 = V8 + D * W8;                                  // [BQ][W8] packed p8 codes
+  float* red = reinterpret_cast<float*>(P8 + BQ * W8);    // [NT8 / 32]
+
+  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = tid >> 2;  // local q row
+  const int qt = tid & 3;    // this thread's quarter of the row
+  const int q_offset = p.info[0];
+  const int kv_valid = p.info[1 + b];
+  const int kv_lim = min(kv_valid, p.Tk);
+  const int row0 = iq * BQ + q_offset;
+  const int pos = row0 + row;
+  const int nw = (bk + 3) / 4;  // packed words per block row
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int idx = tid; idx < BQ * D; idx += NT8) {
+    const int r = idx / D, c = idx % D, t = iq * BQ + r;
+    Qs[r * (D + 1) + c] = t < p.Tq ? to_f32(qg[t * p.q_st + c]) : 0.f;
+  }
+
+  int m_i = GRID_SENTINEL;
+  float m_f = NEG_BIG;
+  float l = 0.f;
+  float acc[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+
+  // the blocks the TPU kernel's block-level test can find live for some row
+  // of this CTA (a block it skips for a row contributes p = 0 and r = 1 there)
+  int kv_end = kv_lim;
+  if (p.causal) kv_end = min(kv_end, row0 + BQ);
+  int kb = 0;
+  if (p.window > 0) kb = max(0, row0 - p.window + 1) / bk;
+
+  for (int c0 = kb * bk; c0 < kv_end; c0 += bk) {
+    const int rows = min(bk, p.Tk - c0);  // rows of the block inside Tk
+    __syncthreads();  // the previous block is done with V8, P8, Ss and red (and Qs loaded)
+
+    // V: the block's absmax, then its int8 codes, transposed and packed
+    float vmax = 0.f;
+    for (int idx = tid; idx < rows * D; idx += NT8) {
+      const int r = idx / D, c = idx % D;
+      vmax = fmaxf(vmax, fabsf(to_f32(vg[(c0 + r) * p.v_st + c])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
+    if (lane == 0) red[warp] = vmax;
+    __syncthreads();
+    float vamax = red[0];
+#pragma unroll
+    for (int w = 1; w < NT8 / 32; ++w) vamax = fmaxf(vamax, red[w]);
+    vamax = fmaxf(vamax, 1e-6f);
+    const float vq = 127.f / vamax;
+    int8_t* v8b = reinterpret_cast<int8_t*>(V8);
+    for (int idx = tid; idx < 4 * nw * D; idx += NT8) {
+      const int r = idx / D, c = idx % D;
+      const float v = r < rows ? to_f32(vg[(c0 + r) * p.v_st + c]) : 0.f;
+      v8b[c * (4 * W8) + r] = (int8_t)(int)rintf(__fmul_rn(v, vq));
+    }
+
+    // scores of the whole block, KT K rows at a time
+    for (int s0 = 0; s0 < bk; s0 += KT) {
+      if (s0 > 0) __syncthreads();  // the previous sub-tile is consumed
+      for (int idx = tid; idx < KT * D; idx += NT8) {
+        const int r = idx / D, c = idx % D, t = c0 + s0 + r;
+        Ks[r * (D + 1) + c] = (s0 + r < bk && t < p.Tk) ? to_f32(kg[t * p.k_st + c]) : 0.f;
+      }
+      __syncthreads();
+      const float* qrow = Qs + row * (D + 1);
+#pragma unroll
+      for (int jj = 0; jj < KT / 4; ++jj) {
+        const int j = s0 + qt + 4 * jj;
+        if (j < bk) {
+          const float* krow = Ks + (qt + 4 * jj) * (D + 1);
+          float sc = 0.f;
+#pragma unroll 8
+          for (int d = 0; d < D; ++d) sc = fmaf(qrow[d], krow[d], sc);
+          Ss[row * (BK8 + 1) + j] = sc * p.sm_scale;
+        }
+      }
+    }
+    __syncthreads();  // a row's scores come from its four threads
+
+    // the block max, p and the packed p8 (this thread: words qt, qt + 4, ...)
+    const float* srow = Ss + row * (BK8 + 1);
+    auto live = [&](int j) {
+      const int col = c0 + j;
+      bool ok = j < rows && col < kv_lim;
+      if (p.causal) ok = ok && col <= pos;
+      if (p.window > 0) ok = ok && col > pos - p.window;
+      return ok;
+    };
+    float r, psum = 0.f;
+    if constexpr (STAR) {
+      const int top = p.num_levels - 1;
+      int mb = GRID_SENTINEL;
+      for (int w = qt; w < nw; w += 4)
+        for (int k = 0; k < 4; ++k)
+          if (live(4 * w + k)) mb = max(mb, snap(srow[4 * w + k], p.grid_scale));
+      mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
+      mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
+      const int m_new = max(m_i, mb);
+      r = __ldg(p.lut + min(max(m_new - m_i, 0), top));
+      for (int w = qt; w < nw; w += 4) {
+        unsigned word = 0;
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * w + k;
+          float pj = 0.f;
+          if (live(j)) pj = __ldg(p.lut + min(max(m_new - snap(srow[j], p.grid_scale), 0), top));
+          psum += pj;
+          word |= ((unsigned)(int)rintf(__fmul_rn(pj, 127.f)) & 0xffu) << (8 * k);
+        }
+        P8[row * W8 + w] = (int)word;
+      }
+      m_i = m_new;
+    } else {
+      float mb = NEG_BIG;
+      for (int w = qt; w < nw; w += 4)
+        for (int k = 0; k < 4; ++k)
+          if (live(4 * w + k)) mb = fmaxf(mb, srow[4 * w + k]);
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
+      const float m_new = fmaxf(m_f, mb);
+      r = expf(m_f - m_new);
+      for (int w = qt; w < nw; w += 4) {
+        unsigned word = 0;
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * w + k;
+          const float pj = live(j) ? expf(srow[j] - m_new) : 0.f;
+          psum += pj;
+          word |= ((unsigned)(int)rintf(__fmul_rn(pj, 127.f)) & 0xffu) << (8 * k);
+        }
+        P8[row * W8 + w] = (int)word;
+      }
+      m_f = m_new;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l = __fadd_rn(__fmul_rn(l, r), psum);
+    __syncthreads();  // P8 and V8 complete
+
+    // P.V in int32 over the block; this thread's features qt + 4 i
+    int part[D / 4];
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) part[i] = 0;
+    const int* prow = P8 + row * W8;
+    for (int w = 0; w < nw; ++w) {
+      const int pw = prow[w];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) part[i] = __dp4a(pw, V8[(qt + 4 * i) * W8 + w], part[i]);
+    }
+    const float vs = vamax / 16129.f;
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i)
+      acc[i] = __fadd_rn(__fmul_rn(acc[i], r), __fmul_rn((float)part[i], vs));
+  }
+
+  const int t = iq * BQ + row;
+  if (t < p.Tq) {
+    const float den = l <= 0.f ? 1.f : l;
+    T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + t * p.o_st;
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) og[qt + 4 * i] = from_f32<T>(acc[i] / den);
+  }
+}
+
+template <typename T, int D, bool STAR>
+cudaError_t launch_int8(const Params& p, int bk, cudaStream_t stream) {
+  auto kernel = flash_star_pv_int8_kernel<T, D, STAR>;
+  constexpr size_t bytes = smem_bytes_int8<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
+  kernel<<<grid, NT8, bytes, stream>>>(p, bk);
+  return cudaSuccess;
+}
+
+template <typename T, bool STAR>
+cudaError_t launch_int8_d(const Params& p, int d, int bk, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_int8<T, 16, STAR>(p, bk, stream);
+    case 32: return launch_int8<T, 32, STAR>(p, bk, stream);
+    case 64: return launch_int8<T, 64, STAR>(p, bk, stream);
+    case 128: return launch_int8<T, 128, STAR>(p, bk, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int code) {
@@ -235,7 +474,9 @@ extern "C" const char* repro_cuda_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the feature
-// dimension must be contiguous.  Returns cudaGetLastError() after launch.
+// dimension must be contiguous.  pv_int8_bk > 0 selects the int8 P.V
+// variant over KV blocks of that many rows (1 .. 128).  Returns
+// cudaGetLastError() after launch.
 extern "C" int flash_star_launch(
     const void* q, const void* k, const void* v, void* o,
     const void* info, const void* lut,
@@ -245,7 +486,7 @@ extern "C" int flash_star_launch(
     long long o_sb, long long o_sh, long long o_st,
     int B, int Hq, int Hkv, int Tq, int Tk, int D, int dtype,
     int causal, int window, float sm_scale, float grid_scale, int num_levels,
-    void* stream) {
+    int pv_int8_bk, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.info = static_cast<const int32_t*>(info);
@@ -260,14 +501,21 @@ extern "C" int flash_star_launch(
   if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool star = lut != nullptr;
+  const int bk = pv_int8_bk;
   cudaError_t err;
-  if (dtype == 0)
+  if (bk < 0 || bk > BK8 || (dtype != 0 && dtype != 1))
+    err = cudaErrorInvalidValue;
+  else if (bk > 0 && dtype == 0)
+    err = star ? launch_int8_d<float, true>(p, D, bk, s)
+               : launch_int8_d<float, false>(p, D, bk, s);
+  else if (bk > 0)
+    err = star ? launch_int8_d<__nv_bfloat16, true>(p, D, bk, s)
+               : launch_int8_d<__nv_bfloat16, false>(p, D, bk, s);
+  else if (dtype == 0)
     err = star ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
-  else if (dtype == 1)
+  else
     err = star ? launch_d<__nv_bfloat16, true>(p, D, s)
                : launch_d<__nv_bfloat16, false>(p, D, s);
-  else
-    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

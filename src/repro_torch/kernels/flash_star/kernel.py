@@ -10,7 +10,9 @@ plain version (``ref.flash_star_ref``) runs instead.
 
 ``block_k`` is the KV block of the plain version's loop; the CUDA kernel
 uses its own fixed tiles (64 q rows, 32 KV rows), which changes only the
-float summation order.
+float summation order.  ``pv_int8=True`` runs the int8 P.V variant, whose
+codes depend on the block: there the KV block is ``min(block_k, Tk)`` rows
+in the kernel too (at most ``PV_INT8_MAX_BLOCK``).
 """
 
 from __future__ import annotations
@@ -28,13 +30,15 @@ from repro_torch.kernels.flash_star.ref import flash_star_ref
 SOURCE = Path(__file__).parent / "csrc" / "flash_star.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PV_INT8_MAX_BLOCK = 128  # the kernel's BK8
 LAUNCHES = _cuda.launch_counter("flash_star")
+PV_INT8_LAUNCHES = _cuda.launch_counter("flash_star_pv_int8")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.flash_star_launch.argtypes = (
-        [p] * 6 + [ll] * 12 + [i] * 7 + [i, i, f, f, i, p]
+        [p] * 6 + [ll] * 12 + [i] * 7 + [i, i, f, f, i, i, p]
     )
     lib.flash_star_launch.restype = i
 
@@ -53,23 +57,25 @@ def flash_star_attention(
     pv_int8: bool = False,
 ) -> torch.Tensor:
     """Fused attention.  Returns ``[B, Hq, Tq, D]`` in q's dtype."""
-    if pv_int8:
-        from repro_torch.ops.registry import CapabilityError
-
-        raise CapabilityError(
-            "flash_star: the int8 P.V variant (pv_int8=True) is not ported yet"
-        )
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got {q.shape[1]} % {k.shape[1]}")
+    if block_k <= 0:
+        raise ValueError(f"block_k must be > 0, got {block_k}")
     if not _cuda.on_card(q):
         return flash_star_ref(
-            q, k, v, info, fmt=fmt, causal=causal,
-            sliding_window=sliding_window, sm_scale=sm_scale, block_k=block_k,
+            q, k, v, info, fmt=fmt, causal=causal, sliding_window=sliding_window,
+            sm_scale=sm_scale, block_k=block_k, pv_int8=pv_int8,
         )
-    return _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale)
+    bk = 0
+    if pv_int8:
+        bk = max(1, min(block_k, k.shape[2]))
+        if bk > PV_INT8_MAX_BLOCK:
+            raise ValueError(f"flash_star pv_int8 kernel takes KV blocks of at most "
+                             f"{PV_INT8_MAX_BLOCK} rows, got block_k={block_k}")
+    return _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk)
 
 
-def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale) -> torch.Tensor:
+def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.Tensor:
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -97,9 +103,9 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale) -> torch.Tenso
         int(causal), int(sliding_window or 0),
         float(d ** -0.5 if sm_scale is None else sm_scale),
         float(fmt.scale) if fmt is not None else 1.0,
-        fmt.num_levels if fmt is not None else 0,
+        fmt.num_levels if fmt is not None else 0, bk,
         _cuda.stream_handle(q.device),
     )
     _cuda.check(lib, rc, "flash_star")
-    LAUNCHES.add()
+    (PV_INT8_LAUNCHES if bk else LAUNCHES).add()
     return out

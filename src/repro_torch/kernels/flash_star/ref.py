@@ -2,7 +2,8 @@
 
 The same online form the kernel computes — a loop over KV blocks carrying
 the int32 grid max, the denominator and the accumulator — through
-``core.attention.blocked_attention``.
+``core.attention.blocked_attention``; with ``pv_int8`` the P.V product of
+each ``block_k`` block in int8 as the kernel's variant computes it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def flash_star_ref(
     sliding_window: Optional[int] = None,
     sm_scale: Optional[float] = None,
     block_k: int = 128,
+    pv_int8: bool = False,
 ) -> torch.Tensor:
     softmax = (
         SoftmaxConfig(kind="exact") if fmt is None
@@ -40,5 +42,6 @@ def flash_star_ref(
         kv_valid_len=info[1:],
         scale=sm_scale,
         block_size=block_k,
+        pv_int8=pv_int8,
     )
     return out.transpose(1, 2)

@@ -1,4 +1,5 @@
-"""Serving launcher of the port: continuous batching over the paged KV cache.
+"""Serving launcher of the port: continuous batching over the paged KV cache
+(attention models), or the lockstep engine (the ssm family).
 
   # on the card, all three kernels (flash_star prefill, paged decode,
   # STAR sampling softmax)
@@ -14,6 +15,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
       --device cpu --attn-impl pallas --kv-dtype int8 --prefix-cache \\
       --prefill-chunk-tokens 8
+
+  # mamba2-130m on the lockstep engine: the SSD chunk-scan kernel in every
+  # layer of the prefill, the STAR sampling softmax at every step
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
+      --engine lockstep --batch 8 --prompt-len 2048 --gen 32 --softmax-impl pallas
 
 ``--attn-impl`` sets the config's attention impl, so prefill and paged
 decode follow it (``pallas`` -> ``flash_star`` + ``pallas_paged``);
@@ -38,10 +44,11 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
-    ap.add_argument("--engine", choices=("continuous",), default="continuous",
-                    help="the lockstep engine is not ported yet")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--engine", choices=("continuous", "lockstep"), default="continuous",
+                    help="lockstep: one batch prefilled and decoded together (ssm family)")
+    ap.add_argument("--batch", type=int, default=4, help="lockstep: batch size")
+    ap.add_argument("--requests", type=int, default=8, help="continuous: request count")
+    ap.add_argument("--slots", type=int, default=4, help="continuous: KV slot pool size")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.8)
@@ -76,13 +83,16 @@ def main(argv=None) -> int:
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     ops.validate(cfg.attention_spec)
-    # fail at config time if the paged backend cannot read this layout
-    ops.validate(cfg.paged_attention_spec, kv_dtype=args.kv_dtype)
+    if args.engine == "continuous":
+        # fail at config time if the paged backend cannot read this layout
+        ops.validate(cfg.paged_attention_spec, kv_dtype=args.kv_dtype)
     overrides = {"softmax": args.softmax_impl} if args.softmax_impl else {}
     with ops.use(**overrides):
         ops.validate(cfg.softmax_spec)
         params = materialize(build_model(cfg).param_specs(), args.seed, device)
         max_len = args.max_len or (args.prompt_len + args.gen + 8)
+        if args.engine == "lockstep":
+            return run_lockstep(args, cfg, params, device, max_len)
         eng = ContinuousBatchingEngine(
             cfg, params,
             ContinuousConfig(num_slots=args.slots, max_len=max_len,
@@ -126,6 +136,31 @@ def main(argv=None) -> int:
         print(f"sampled {len(bad)} tokens outside the vocabulary: {bad[:8]}")
         return 1
     print("sample:", done[min(done)][:16])
+    return 0
+
+
+def run_lockstep(args, cfg, params, device, max_len) -> int:
+    import torch
+
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    eng = ServeEngine(cfg, params, ServeConfig(max_len=max_len, temperature=args.temperature),
+                      device=device, seed=args.seed)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    toks, info = eng.generate(prompts, args.gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(toks.shape)} in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s on {device}) cache_len={info['cache_len']}")
+    out = toks.cpu().numpy()
+    bad = out[(out < 0) | (out >= cfg.vocab_size)]
+    if bad.size:
+        print(f"sampled {bad.size} tokens outside the vocabulary: {bad[:8].tolist()}")
+        return 1
+    print("sample:", out[0][:16].tolist())
     return 0
 
 

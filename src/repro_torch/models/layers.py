@@ -1,4 +1,5 @@
-"""Model building blocks (port of ``repro.models.layers``, dense subset).
+"""Model building blocks (port of ``repro.models.layers``: the dense subset
+and the causal depthwise conv of the ssm family).
 
 Functional style as in the reference: parameters are dicts of tensors,
 layers are functions.  Weights stay in ``param_dtype`` and are cast to
@@ -238,3 +239,47 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu default
     return h @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (mamba2)
+
+
+def spec_conv1d(cfg: ModelConfig, channels: int, width: int) -> Params:
+    return {"kernel": ParamSpec((width, channels), pdtype(cfg), "fan_in")}
+
+
+def causal_conv1d(
+    p: Params, x: torch.Tensor, state: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv.  x ``[B, T, C]``; ``state`` ``[B, W-1, C]``
+    carries the context for decode.  Returns ``(y, new_state)``: without a
+    state, ``new_state`` is None; with one, the last ``W-1`` input rows."""
+    w = p["kernel"].to(x.dtype)  # [W, C]
+    width = w.shape[0]
+    if state is None:
+        xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+        new_state = None
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+        new_state = xp[:, -(width - 1):, :]
+    t = xp.shape[1] - (width - 1)
+    y = xp[:, 0:t, :] * w[0]
+    for i in range(1, width):
+        y = y + xp[:, i:i + t, :] * w[i]
+    return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over positions with ``label >= 0`` (float32
+    reductions)."""
+    lg = logits.float()
+    m = lg.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
+    picked = lg.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - picked) * mask).sum() / mask.sum().clamp(min=1.0)

@@ -35,6 +35,16 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked ``[L, ...]`` leaves."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def stack_specs(block_spec, n: int):
+    """Prepend a layers axis ``[n]`` to every leaf of a block spec tree."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init, s.scale), block_spec)
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):

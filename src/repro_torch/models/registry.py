@@ -1,12 +1,15 @@
-"""Model registry: family -> implementation class (dense only so far)."""
+"""Model registry: family -> implementation class (dense and ssm so far)."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.ssm import MambaLM
 from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig):
     if cfg.family == "dense":
         return DecoderLM(cfg)
-    raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+    if cfg.family == "ssm":
+        return MambaLM(cfg)
+    raise ValueError(f"family {cfg.family!r} is not ported yet (dense and ssm only)")

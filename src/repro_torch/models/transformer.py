@@ -14,14 +14,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvquant
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, tree_map
+from repro_torch.models.param import layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
 
 Params = Dict[str, Any]
-
-
-def _layer(tree, i: int):
-    return tree_map(lambda x: x[i], tree)
 
 
 class DecoderLM:
@@ -43,13 +39,9 @@ class DecoderLM:
 
     def param_specs(self) -> Params:
         cfg = self.cfg
-        stacked = tree_map(
-            lambda s: ParamSpec((cfg.num_layers,) + s.shape, s.dtype, s.init, s.scale),
-            self.block_spec(),
-        )
         return {
             "embed": L.spec_embedding(cfg),
-            "blocks": stacked,
+            "blocks": stack_specs(self.block_spec(), cfg.num_layers),
             "final_norm": L.spec_rmsnorm(cfg),
             "unembed": L.spec_unembed(cfg),
         }
@@ -77,7 +69,7 @@ class DecoderLM:
         h = L.embed(params["embed"], tokens, cfg)
         pos = self._positions(*tokens.shape, tokens.device)
         for i in range(cfg.num_layers):
-            h, _, _ = self._block(_layer(params["blocks"], i), h, pos)
+            h, _, _ = self._block(layer(params["blocks"], i), h, pos)
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         return L.unembed(params["unembed"], h, cfg, params["embed"])
 
@@ -106,7 +98,7 @@ class DecoderLM:
         ks = torch.zeros(shape, dtype=L.cdtype(cfg), device=tokens.device)
         vs = torch.zeros_like(ks)
         for i in range(cfg.num_layers):
-            h, _, (k, v) = self._block(_layer(params["blocks"], i), h, pos)
+            h, _, (k, v) = self._block(layer(params["blocks"], i), h, pos)
             ks[i, :, :t] = k
             vs[i, :, :t] = v
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
@@ -131,7 +123,7 @@ class DecoderLM:
         layers = cache["layers"]
         for i in range(cfg.num_layers):
             layer_cache = {"k": layers["k"][i], "v": layers["v"][i], "len": start}
-            h, _, _ = self._block(_layer(params["blocks"], i), h, pos, cache=layer_cache)
+            h, _, _ = self._block(layer(params["blocks"], i), h, pos, cache=layer_cache)
         # rmsnorm is positionwise: norming the last row alone matches the
         # monolithic norm-then-slice
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
@@ -254,7 +246,7 @@ class DecoderLM:
         for i in range(cfg.num_layers):
             layer_cache = {name: leaf[i] for name, leaf in layers.items()}
             layer_cache.update(len=cache["len"], tables=block_tables)
-            h, _, _ = self._block(_layer(params["blocks"], i), h, pos,
+            h, _, _ = self._block(layer(params["blocks"], i), h, pos,
                                   cache=layer_cache, paged_cache_t=cache_t)
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])

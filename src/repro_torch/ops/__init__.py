@@ -1,11 +1,11 @@
 """``repro_torch.ops`` — the op dispatch layer of the port.
 
 Frozen specs (:class:`SoftmaxSpec`, :class:`AttentionSpec`,
-:class:`PagedAttentionSpec`, :class:`MatmulSpec`) describe an invocation; a
-capability-checked registry maps ``(op, impl)`` to a backend;
-:func:`softmax`, :func:`attention`, :func:`paged_attention` and
-:func:`matmul` dispatch through it, and :func:`use` retargets every dispatch
-in a block.  A :class:`FaultModel` in a spec injects seeded RRAM
+:class:`PagedAttentionSpec`, :class:`MatmulSpec`, :class:`ScanSpec`) describe
+an invocation; a capability-checked registry maps ``(op, impl)`` to a
+backend; :func:`softmax`, :func:`attention`, :func:`paged_attention`,
+:func:`matmul` and :func:`ssd_scan` dispatch through it, and :func:`use`
+retargets every dispatch in a block.  A :class:`FaultModel` in a spec injects seeded RRAM
 non-idealities; an :class:`AccuracyGuard` (``guard=`` on :func:`softmax` and
 :func:`matmul`) holds a degraded backend to the exact oracle and falls back
 to a clean one.
@@ -27,6 +27,8 @@ packages.  What each runs here:
 * ``pallas_paged`` — the gather-free CUDA paged decode kernel.
 * ``hwmodel`` (matmul) — the RRAM crossbar model through the CUDA crossbar
   kernel.
+* ssd_scan ``pallas`` — the CUDA SSD chunk-scan kernel; ``reference`` — the
+  mamba2 mixer's plain chunked scan.
 
 A kernel backend launches its kernel on CUDA tensors and runs the kernel's
 plain version on CPU tensors.
@@ -39,11 +41,13 @@ from repro_torch.ops.dispatch import (  # noqa: F401
     DEFAULT_MATMUL,
     DEFAULT_PAGED_ATTENTION,
     DEFAULT_SOFTMAX,
+    DEFAULT_SSD_SCAN,
     attention,
     matmul,
     paged_attention,
     resolve,
     softmax,
+    ssd_scan,
     validate,
 )
 from repro_torch.ops.guard import (  # noqa: F401
@@ -66,6 +70,7 @@ from repro_torch.ops.specs import (  # noqa: F401
     AttentionSpec,
     MatmulSpec,
     PagedAttentionSpec,
+    ScanSpec,
     SoftmaxSpec,
 )
 

@@ -11,12 +11,19 @@ import torch
 from repro_torch.ops import registry
 from repro_torch.ops.guard import Guard, as_guard
 from repro_torch.ops.registry import Backend, OpDispatchError
-from repro_torch.ops.specs import AttentionSpec, MatmulSpec, PagedAttentionSpec, SoftmaxSpec
+from repro_torch.ops.specs import (
+    AttentionSpec,
+    MatmulSpec,
+    PagedAttentionSpec,
+    ScanSpec,
+    SoftmaxSpec,
+)
 
 DEFAULT_SOFTMAX = SoftmaxSpec()
 DEFAULT_ATTENTION = AttentionSpec()
 DEFAULT_PAGED_ATTENTION = PagedAttentionSpec()
 DEFAULT_MATMUL = MatmulSpec()
+DEFAULT_SSD_SCAN = ScanSpec()
 
 
 def resolve(spec, **overrides: Any) -> Tuple[Backend, Any]:
@@ -133,3 +140,16 @@ def matmul(
     if g is not None:
         return g.matmul(backend, spec, x, w)
     return backend.fn(spec, x, w)
+
+
+def ssd_scan(
+    xdt: torch.Tensor,  # [B, T, H, P] float32, x pre-multiplied by dt
+    a: torch.Tensor,  # [B, T, H] float32 log-decay (negative)
+    bmat: torch.Tensor,  # [B, T, N]
+    cmat: torch.Tensor,  # [B, T, N]
+    spec: Optional[ScanSpec] = None,
+    **overrides: Any,
+):
+    """Fused SSD chunk scan: ``(y [B,T,H,P], final state [B,H,N,P])``."""
+    backend, spec = resolve(spec if spec is not None else DEFAULT_SSD_SCAN, **overrides)
+    return backend.fn(spec, xdt, a, bmat, cmat)

@@ -24,9 +24,17 @@ from repro_torch.kernels.crossbar_matmul.ref import prepare_operands
 from repro_torch.kernels.flash_star import flash_star_attention
 from repro_torch.kernels.paged_attention import paged_flash_attention
 from repro_torch.kernels.paged_attention.ref import gather_pages
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.star_softmax import star_softmax_kernel
 from repro_torch.ops.registry import CapabilityError, register
-from repro_torch.ops.specs import AttentionSpec, MatmulSpec, PagedAttentionSpec, SoftmaxSpec
+from repro_torch.ops.specs import (
+    AttentionSpec,
+    MatmulSpec,
+    PagedAttentionSpec,
+    ScanSpec,
+    SoftmaxSpec,
+)
 
 # ---------------------------------------------------------------------------
 # softmax
@@ -218,3 +226,21 @@ register("matmul", "xla", _matmul_xla, capabilities={"fault": (None,)},
 register("matmul", "hwmodel", _matmul_hwmodel,
          description="RRAM crossbar model: 8-bit operands on 128x128 crossbars through "
          "a 5-bit ADC, CUDA crossbar kernel (kernels.crossbar_matmul)")
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan (the mamba2 mixer's chunk scan)
+
+
+def _ssd_scan_pallas(spec: ScanSpec, xdt, a, bmat, cmat):
+    return ssd_scan(xdt, a, bmat, cmat, chunk=spec.chunk)
+
+
+def _ssd_scan_reference(spec: ScanSpec, xdt, a, bmat, cmat):
+    return ssd_scan_ref(xdt, a, bmat, cmat, chunk=spec.chunk)
+
+
+register("ssd_scan", "pallas", _ssd_scan_pallas,
+         description="CUDA SSD chunk-scan kernel (kernels.ssd_scan)")
+register("ssd_scan", "reference", _ssd_scan_reference,
+         description="plain chunked SSD (models.ssm via kernels.ssd_scan.ref)")

@@ -101,7 +101,7 @@ def validate(backend: Backend, spec: Any) -> None:
 _OVERRIDE_FRAMES: ContextVar[Tuple[Mapping[str, Any], ...]] = ContextVar(
     "repro_torch_ops_overrides", default=()
 )
-_OVERRIDE_KEYS = ("softmax", "attention", "paged_attention", "matmul")
+_OVERRIDE_KEYS = ("softmax", "attention", "paged_attention", "matmul", "ssd_scan")
 
 
 @contextlib.contextmanager

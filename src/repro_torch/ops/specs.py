@@ -146,3 +146,17 @@ class MatmulSpec:
                 f"ranging must be 'calibrated' or 'fullscale', got {self.ranging!r}")
         if self.fault is not None and self.fault.is_null:
             object.__setattr__(self, "fault", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanSpec:
+    """One fused SSD chunk-scan invocation (the mamba2 mixer's prefill)."""
+
+    impl: str = "pallas"
+    chunk: int = 128
+
+    op = "ssd_scan"
+
+    def __post_init__(self) -> None:
+        if self.chunk <= 0:
+            raise ValueError(f"chunk must be > 0, got {self.chunk}")

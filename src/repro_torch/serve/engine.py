@@ -1,9 +1,11 @@
-"""Continuous-batching serving over the paged KV cache (port of the
-reference's ``repro.serve.engine``: ``sample_token`` and
-``ContinuousBatchingEngine`` on the paged layout, with quantized page pools,
-the shared-prefix cache, chunked prefill and preemption).
+"""Serving engines (port of the reference's ``repro.serve.engine``):
+``sample_token``; the lockstep ``ServeEngine`` (one prefill, then
+synchronized decode) for models with a constant-size state cache (the ssm
+family); and ``ContinuousBatchingEngine`` on the paged layout, with
+quantized page pools, the shared-prefix cache, chunked prefill and
+preemption, for the attention family.
 
-One ``step()`` tick::
+One ``step()`` tick of the continuous engine::
 
     admit:    pending -> free slot.  Monolithic: allocate blocks, prefill
               (batch 1), write_slot_paged, sample token 0.  Chunked (a
@@ -36,8 +38,9 @@ softmax of the model, attention rows and sampling alike.  With
 sampling softmax to the exact oracle, falls back to the clean ``reference``
 backend on a trip, and reports its counters in ``stats()["guard"]``.
 
-Not ported yet: the dense per-slot layout and the lockstep engine, ring
-(sliding-window) caches, tracing and the transfer counters.
+Not ported yet: the dense per-slot layout (and so the lockstep engine for
+attention models), ring (sliding-window) caches, tracing and the transfer
+counters.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvquant import validate_kv_dtype
 from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import DecoderLM
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.ops.platform import Device, resolve_device
 from repro_torch.serve.paged import SCRATCH_BLOCK, BlockPool, PrefixCache, bucket_blocks
@@ -65,17 +69,18 @@ def sample_token(
     cfg: ModelConfig,
     temperature: float,
     guard: Optional[ops.AccuracyGuard] = None,
+    star_sampling: bool = True,
 ) -> torch.Tensor:
     """Greedy (``temperature <= 0``: argmax) or temperature sampling:
     probabilities from one ``ops.softmax`` over ``logits / T`` with the
-    config's softmax spec (the STAR engine unless its kind is exact; held to
-    the exact oracle by ``guard`` when given), then one categorical draw per
-    row from that row's generator."""
+    config's softmax spec (the STAR engine unless its kind is exact or
+    ``star_sampling`` is off; held to the exact oracle by ``guard`` when
+    given), then one categorical draw per row from that row's generator."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = logits.float() / temperature
     spec = cfg.softmax_spec
-    if spec.kind == "exact":
+    if spec.kind == "exact" or not star_sampling:
         probs = torch.softmax(scaled, dim=-1)
     else:
         probs = ops.softmax(scaled, spec, guard=guard)
@@ -84,6 +89,59 @@ def sample_token(
         raise ValueError(f"{rows.shape[0]} rows but {len(generators)} generators")
     out = torch.stack([torch.multinomial(r, 1, generator=g)[0] for r, g in zip(rows, generators)])
     return out.to(torch.int32).reshape(probs.shape[:-1])
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 512
+    temperature: float = 0.0  # 0 = greedy
+    star_sampling: bool = True  # STAR softmax on the output distribution
+
+
+class ServeEngine:
+    """Lockstep batch engine: one prefill, then synchronized decode, on
+    ``device`` (the card unless ``device="cpu"``); ``params`` must live
+    there.  Batch row ``i`` samples from its own ``torch.Generator`` seeded
+    ``seed + i`` (not the reference's ``jax.random`` draws: greedy tokens
+    are the parity oracle)."""
+
+    def __init__(self, model_cfg: ModelConfig, params: Dict[str, Any],
+                 serve_cfg: ServeConfig = ServeConfig(), *, device: Device = None,
+                 seed: int = 0):
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params are on {table.device}, the engine on {self.device}")
+        self.cfg = model_cfg
+        self.params = params
+        self.serve_cfg = serve_cfg
+        self.model = build_model(model_cfg)
+        if isinstance(self.model, DecoderLM):
+            raise NotImplementedError(
+                "the lockstep engine needs the dense per-slot KV layout for attention "
+                "models, which is not ported yet (ROADMAP A.2); serve "
+                f"{model_cfg.family!r} models with ContinuousBatchingEngine")
+        self.seed = seed
+
+    def generate(self, prompts, num_tokens: int):
+        """prompts ``[B, T]`` -> (generated ``[B, num_tokens]`` int32,
+        ``{"cache_len": ...}``)."""
+        prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
+        sc = self.serve_cfg
+        gens = [torch.Generator(device=self.device).manual_seed(self.seed + i)
+                for i in range(prompts.shape[0])]
+
+        def sample(logits):
+            return sample_token(logits[:, -1], gens, self.cfg, sc.temperature,
+                                star_sampling=sc.star_sampling)[:, None]
+
+        with torch.no_grad():
+            logits, cache = self.model.prefill(self.params, prompts, sc.max_len)
+            outs = [sample(logits)]
+            for _ in range(num_tokens - 1):
+                logits, cache = self.model.decode_step(self.params, cache, outs[-1])
+                outs.append(sample(logits))
+        return torch.cat(outs, dim=1), {"cache_len": int(cache["len"])}
 
 
 @dataclasses.dataclass
@@ -138,6 +196,10 @@ class ContinuousBatchingEngine:
         self.params = params
         self.cb = cb_cfg
         self.model = build_model(model_cfg)
+        if not isinstance(self.model, DecoderLM):
+            raise ValueError(
+                "continuous batching needs the per-slot KV-cache pool, which only "
+                f"attention-family models implement (got {model_cfg.family!r})")
         self.metrics = MetricsRegistry()
         reg = self.metrics
         self._m_tokens = reg.counter("serve.tokens.generated")

@@ -17,7 +17,6 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
-from repro_torch.ops.registry import CapabilityError
 
 try:  # the machine with the card runs the ``cuda`` tests without JAX
     import jax.numpy as jnp
@@ -92,13 +91,6 @@ def test_flash_star_plain_matches_pallas(case, star, jax_ref):
         torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), torch.as_tensor(info),
         fmt=FMT if star else None, causal=causal, sliding_window=window, block_k=8)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
-
-
-def test_flash_star_pv_int8_waits_for_its_port():
-    q = torch.zeros(1, 2, 4, 16)
-    with pytest.raises(CapabilityError, match="pv_int8"):
-        flash_mod.flash_star_attention(q, q, q, torch.tensor([0, 4], dtype=torch.int32),
-                                       fmt=FMT, pv_int8=True)
 
 
 # ---------------------------------------------------------------------------

@@ -80,15 +80,24 @@ def test_triton_only_in_its_body_module():
         ), f"{path} imports triton at module level"
 
 
+# the sources that quantize (grid snap, int8 codes, ADC): they round with rintf
+QUANTIZING_SOURCES = ("flash_star.cu", "paged_attention.cu", "star_softmax_lut.cu",
+                      "crossbar_matmul.cu")
+
+
 def test_cuda_sources_build_for_sm90a_without_fast_math():
     from repro_torch.kernels import _cuda
 
     flags = " ".join(_cuda.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    for src in (PKG / "kernels").rglob("*.cu"):
+    sources = sorted((PKG / "kernels").rglob("*.cu"))
+    assert set(QUANTIZING_SOURCES) <= {src.name for src in sources}
+    for src in sources:
         text = src.read_text()
-        assert "rintf" in text and "roundf" not in text, src  # half to even
+        assert "roundf" not in text, src  # jnp.round is half to even: rintf
+        if src.name in QUANTIZING_SOURCES:
+            assert "rintf" in text, src
         assert "cudaGetLastError" in text, src
 
 
@@ -112,6 +121,17 @@ def test_entry_points_need_cuda_without_a_device(monkeypatch):
         build_model(cfg).init_paged_cache(4, 4, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(["--arch", "granite_8b", "--smoke"])
+    mamba = get_smoke_config("mamba2_130m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        materialize(build_model(mamba).param_specs(), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(mamba).init_cache(2)
+    # prefill runs where its inputs live: CPU tensors are the caller's choice
+    params = materialize(build_model(mamba).param_specs(), 0, "cpu")
+    logits, cache = build_model(mamba).prefill(params, torch.zeros(1, 4, dtype=torch.int64), 8)
+    assert logits.device.type == cache["layers"]["ssm"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--arch", "mamba2_130m", "--smoke", "--engine", "lockstep"])
 
 
 def test_kernel_wrappers_refuse_other_devices():
