@@ -8,15 +8,29 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero before the result lines):
 
 1. header: the card's name and power limit, torch / CUDA / Triton versions;
-2. build: one ``nvcc`` per CUDA source, all started together, into build/;
+2. build: one ``nvcc`` per CUDA source, all started together, into build/
+   (a library built earlier, by a test or an earlier run, is reused with
+   the compiler log kept beside it); each kernel's registers and spills
+   from ptxas; for flash_star's bf16 tensor-core kernel
+   (``flash_star_mma_kernel``, 8 instantiations) 0 spill bytes and bf16
+   HMMA instructions in its SASS (``cuobjdump -sass``);
 3. parity at main-path shapes: each kernel against its plain PyTorch
    version on the same inputs on the card, bfloat16 and float32, with the
    tolerances below; kernel, plain and library times (CUDA events, median
-   of 20 launches, warm L2).  flash_star also at the chunked-prefill append
-   shape (a 128-row chunk at q_offset 256 over a 512-row staging cache with
-   384 valid rows); the paged kernel also over int8 and fp8_e4m3 pools
-   (codes and scales from ``kvquant.quantize_blocks``), counted as its own
-   entry, ``paged_attention_quant``.  The STAR softmax: the Triton kernel in
+   of 20 launches, warm L2: the host's time to enqueue a call included).
+   flash_star also at the chunked-prefill append shape (a 128-row chunk at
+   q_offset 256 over a 512-row staging cache with 384 valid rows), SDPA
+   timed there for the exact variant with a boolean mask; each of its
+   variants names the kernel that ran it (bf16: mma.sync, float32: FP32
+   FMA) with its device time from ``torch.profiler`` (SDPA's too), the
+   achieved TFLOP/s and its share of the bound; in bf16 it also counts the
+   output elements that differ from the plain version at all.  Then the
+   bf16 STAR kernel with its LUT in shared memory (the default format)
+   against the same kernel reading a 13-bit format's LUT from global
+   memory: the same outputs bit for bit, both device times.  The paged kernel also
+   over int8 and fp8_e4m3 pools (codes and scales from
+   ``kvquant.quantize_blocks``), counted as its own entry,
+   ``paged_attention_quant``.  The STAR softmax: the Triton kernel in
    ``gather`` mode, ``onehot`` bit-equal to it, and the CUDA LUT kernel
    (``star_softmax_lut``) in clean ``histogram`` mode and under the mild
    fault in every mode, at the sampling shape [4, 49152]; the fault
@@ -45,10 +59,11 @@ Phases (any failure exits non-zero before the result lines):
    Launch counters are zeroed just before and read just after; each kernel
    must have launched.  Then one full-width prefill through the kernels is
    held against the same prefill through the plain ``reference`` impls,
-   and one decode tick is traced with ``torch.profiler`` (device time by
-   kernel group).  Then the int8 P.V path: one full-width prefill whose
-   attention spec sets ``pv_int8`` (counters zeroed just before: the variant
-   launches once per layer), held against the float P.V prefill;
+   and the longest prompt's prefill and one decode tick are traced with
+   ``torch.profiler`` (device time by kernel group).  Then the int8 P.V
+   path: one full-width prefill whose attention spec sets ``pv_int8``
+   (counters zeroed just before: the variant launches once per layer),
+   held against the float P.V prefill;
 6. quantized serve: the same weights over an int8 page pool with the
    prefix cache and 128-token prefill chunks, 8 requests of a common
    256-token system prefix plus their own 64-256-token suffix, 16-32 new
@@ -93,7 +108,11 @@ within float32 summation error of a grid half-step may snap to the
 neighbouring level in one of the two; a row outside tolerance passes only
 if it holds such an ambiguous score (within 1e-3 grid units of a half-step,
 from a float64 recomputation), and such rows must stay below 1e-4 of the
-live scores.  The int8 P.V variant holds to the same tolerances, a row
+live scores.  flash_star's bf16 output also differs from the plain
+version's in at most BF16_DIFF_BOUND of its elements: P.V on three bf16
+pieces of P only reorders float32 sums, which moves a bf16 rounding in
+about 0.02 % of them, where a kernel that rounds P to bf16 once moves
+about a third.  The int8 P.V variant holds to the same tolerances, a row
 outside them passing only if it holds an ambiguous code: a score near a grid
 half-step (STAR) or a p near a half-step of 1/127 (exact), counted and
 bounded the same way.  ssd_scan: y and the final state within SSD_RTOL of
@@ -108,6 +127,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,6 +144,8 @@ H100_FP32_FLOPS = 67e12
 H100_INT8_OPS = 1979e12
 FLIP_DELTA = 1e-3  # grid units (and ADC LSBs)
 FLIP_BOUND = 1e-4  # flipped rows per live score (and ADC flips per output)
+BF16_DIFF_BOUND = 1e-2  # flash_star bf16: output elements unequal to the plain version's
+FLASH_DESIGNS = {"bfloat16": "mma.sync bf16, P in three bf16 pieces", "float32": "fp32 FMA"}
 SSD_RTOL = 1e-5  # ssd_scan: max |kernel - plain| per max |plain| (float32 sums reordered)
 MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
             adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
@@ -160,6 +184,30 @@ def time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time of one call of ``fn``: the self time of every kernel it
+    launches, from ``torch.profiler``, summed over ``reps`` calls.  Unlike
+    ``time_ms`` it leaves out the host's time to enqueue the call.  None
+    where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(ev) for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _self_device_us(ev) -> float:
+    us = getattr(ev, "self_device_time_total", None)
+    return ev.self_cuda_time_total if us is None else us
 
 
 def tolerance(dtype):
@@ -205,6 +253,61 @@ def compare_rows(name, got, ref, dtype, scores64=None, live=None, scale=None, am
 
 
 # ---------------------------------------------------------------------------
+# phase 2: what the compiler made of the bf16 flash_star kernel
+
+
+def ptxas_by_function(text):
+    """``nvcc -Xptxas -v`` output as {kernel: [registers line, spill line]}."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [])
+        elif cur and ("spill" in line or "Used" in line):
+            out[cur].append(line.replace("ptxas info    :", "").strip())
+    return out
+
+
+def _cuobjdump():
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(found):
+        return found
+    import triton
+
+    found = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    check(found.exists(), "cuobjdump not found (CUDA toolkit or Triton's copy)")
+    return str(found)
+
+
+def check_mma_build(ptxas_log, library):
+    """The bf16 flash_star kernel runs on the tensor cores and spills
+    nothing: each instantiation's ptxas line (0 spill bytes) and its count
+    of HMMA instructions in the SASS of the built library."""
+    mma = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
+           if "flash_star_mma_kernel" in f}
+    check(len(mma) == 8, f"expected 8 flash_star_mma_kernel instantiations, ptxas shows {len(mma)}")
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    hmma, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+        elif cur and "HMMA" in line:
+            hmma.setdefault(cur, []).append(line.split("HMMA")[1].split()[0])
+    for func, lines in sorted(mma.items()):
+        m = re.search(r"ILi(\d+)ELb([01])E", func)
+        tag = f"D={m.group(1)} {'star' if m.group(2) == '1' else 'exact'}" if m else func
+        ops = hmma.get(func, [])
+        kinds = sorted(set(ops))
+        log(f"flash_star_mma_kernel {tag}: ptxas {'; '.join(lines)}; SASS HMMA x {len(ops)} {kinds}")
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
+              f"flash_star_mma_kernel {tag} spills: {lines}")
+        check(any(".BF16" in k for k in kinds), f"flash_star_mma_kernel {tag}: no bf16 HMMA in its SASS")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 
 
@@ -213,13 +316,20 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
     in bf16 and f32, STAR and exact; ``sdpa`` times the library call for
     the exact variant.  With ``pv_int8_block`` the int8 P.V variant over
     KV blocks of that many rows, whose flips are counted as ambiguous codes
-    (``_pv_int8_ambiguous``)."""
+    (``_pv_int8_ambiguous``).  Without it each variant also records the
+    kernel it ran (``design``), its device time from the profiler, and the
+    achieved TFLOP/s and share of its bound at that time: operations 4 x
+    live scores x D (QK^T and P.V) at the peak of the input type (bf16
+    tensor cores, FP32 for float32), bytes q + out + the K/V rows some row
+    sees, at 3.35 TB/s."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
     from repro_torch.kernels.flash_star import kernel as fk
 
-    hq, hkv, d = base[0].shape[1], base[1].shape[1], base[0].shape[3]
+    b, hq, hkv, d = base[0].shape[0], base[0].shape[1], base[1].shape[1], base[0].shape[3]
+    n_live = int(live.sum())
+    kv_rows = int(live.reshape(-1, live.shape[-1]).any(dim=0).sum())
     flips_key = "grid_flip_rows" if pv_int8_block is None else "code_flip_rows"
     variants = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -238,21 +348,52 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
             ref = fk.flash_star_ref(q, k, v, info, **kw)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+            n_diff = None
+            if dtype == torch.bfloat16 and pv_int8_block is None:
+                n_diff = int((got != ref).sum())
+                log(f"{name}: {n_diff} of {got.numel()} bf16 output elements differ "
+                    f"from the plain version (at most {BF16_DIFF_BOUND:g} of them may)")
             err, flips = compare_rows(name, got, ref, dtype, scores64, live,
                                       fmt.scale if fmt else None, amb=amb)
+            if n_diff is not None:
+                check(n_diff <= BF16_DIFF_BOUND * got.numel(),
+                      f"{name}: {n_diff} of {got.numel()} bf16 output elements differ from "
+                      f"the plain version, over {BF16_DIFF_BOUND:g} of them: is P rounded "
+                      f"to bf16 before P.V?")
             ms = time_ms(lambda: fk.flash_star_attention(q, k, v, info, **kw))
             plain_ms = time_ms(lambda: fk.flash_star_ref(q, k, v, info, **kw))
-            lib_ms = None
+            lib_ms = lib_dev = None
             if fmt is None and sdpa is not None:  # SDPA computes the exact softmax
+                lib_err = float((sdpa(q, k, v).float() - ref.float()).abs().max())
                 lib_ms = time_ms(lambda: sdpa(q, k, v))
+                lib_dev = device_ms(lambda: sdpa(q, k, v))
             variant = dict(dtype=str(dtype).split(".")[-1], mode=mode,
                            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
             variant[flips_key] = flips
+            if n_diff is not None:
+                variant["bf16_diff_elems"] = n_diff
+            extra = ""
+            if pv_int8_block is None:
+                dev = device_ms(lambda: fk.flash_star_attention(q, k, v, info, **kw))
+                flops = 4 * n_live * d
+                nbytes = (2 * q.numel() + 2 * b * hkv * kv_rows * d) * q.element_size() + 4 * info.numel()
+                peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+                bound = max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3
+                at = dev if dev is not None else ms
+                design = FLASH_DESIGNS[variant["dtype"]]
+                variant.update(design=design, device_ms=dev, library_device_ms=lib_dev,
+                               bound_ms=bound, tflops=flops / (at * 1e-3) / 1e12,
+                               share_of_bound=bound / at)
+                extra = (f" device_ms={dev} library_device_ms={lib_dev} bound_ms={bound:.5f} "
+                         f"tflops={variant['tflops']:.2f} share_of_bound={bound / at:.4f} "
+                         f"[{design}]")
+                if lib_ms is not None:
+                    extra += f" sdpa_vs_plain_max_abs={lib_err:.3e}"
             if shape is not None:
                 variant["shape"] = shape
             variants.append(variant)
             log(f"{name}: max_abs_err={err:.3e} {flips_key}={flips} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms}")
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms}{extra}")
     return variants
 
 
@@ -288,6 +429,38 @@ def parity_flash(results):
         "flash_star", "cuda", "src/repro_torch/kernels/flash_star/csrc/flash_star.cu",
         "src/repro/kernels/flash_star/kernel.py:216", main, bytes_moved, flops,
         H100_BF16_FLOPS, variants, shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal"))
+    results[-1]["design"] = FLASH_DESIGNS
+    results[-1]["lut_route"] = flash_lut_route(base, info)
+
+
+def flash_lut_route(base, info):
+    """bf16 STAR at the smoke shape with the default format, whose 256-level
+    LUT the kernel holds in shared memory, against a format of the same
+    scale with 13 bits (8192 levels, read from global memory).  Their
+    entries agree up to the default's top index, beyond which no score
+    difference of these inputs reaches: the same outputs bit for bit.
+    Device time of both."""
+    import torch
+
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.kernels.flash_star import kernel as fk
+
+    wide = FixedPointFormat(int_bits=13 - FMT.frac_bits, frac_bits=FMT.frac_bits)
+    q, k, v = (x.to(torch.bfloat16) for x in base)
+    out, dev = {}, {}
+    for route, fmt in (("shared", FMT), ("global", wide)):
+        out[route] = fk.flash_star_attention(q, k, v, info, fmt=fmt)
+        dev[route] = device_ms(lambda: fk.flash_star_attention(q, k, v, info, fmt=fmt))
+    torch.cuda.synchronize()
+    check(torch.equal(out["shared"], out["global"]),
+          "flash_star: the LUT in shared and in global memory give different outputs")
+    row = {"levels": {"shared": FMT.num_levels, "global": wide.num_levels},
+           "device_ms": dev}
+    log(f"flash_star bf16 STAR LUT route: shared memory ({FMT.num_levels} levels) "
+        f"device_ms={dev['shared']}, global memory ({wide.num_levels} levels) "
+        f"device_ms={dev['global']}; outputs bit-equal")
+    return row
 
 
 def parity_flash_append():
@@ -307,8 +480,13 @@ def parity_flash_append():
     rows = q_off + torch.arange(tq, device=dev)
     cols = torch.arange(tk, device=dev)
     live = ((cols[None, :] <= rows[:, None]) & (cols[None, :] < valid))[None, None]
+
+    def sdpa(q, k, v):  # a boolean mask: is_causal aligns top-left, so cannot offset q
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=live, enable_gqa=True)
+
     return _flash_variants(
-        "flash_star append", (q0, k0, v0), info, live.expand(b, hq, tq, tk),
+        "flash_star append", (q0, k0, v0), info, live.expand(b, hq, tq, tk), sdpa=sdpa,
         shape=f"append q[{b},{hq},{tq},{d}] at q_offset {q_off}, "
               f"kv[{b},{hkv},{tk},{d}] valid {valid}")
 
@@ -835,6 +1013,10 @@ def serve(results):
     log(f"full-width prefill logits, kernels vs reference impls: rel_l2={rel:.3e} "
         f"max_abs={float((got - ref).abs().max()):.3e}")
     check(rel < 3e-2, f"full-width prefill logits differ from the reference: rel_l2={rel:.3e}")
+    longest = torch.as_tensor(max(prompts, key=len), device="cuda")[None]
+    with torch.no_grad():
+        profile_window(f"one full-width prefill, {longest.shape[1]} tokens",
+                       lambda: model.prefill(params, longest, 512))
     profile_tick(cfg, params)
     pv_int8 = prefill_pv_int8(results, cfg, params, max(prompts, key=len)[:512])
     return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
@@ -898,15 +1080,13 @@ def profile_window(label, fn) -> None:
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
+        us = _self_device_us(ev)
         name = ev.key.lower()
         if "paged_kernel" in name:
             group = "paged_attention"
         elif "flash_star_pv_int8_kernel" in name:
             group = "flash_star_pv_int8"
-        elif "flash_star_kernel" in name:
+        elif "flash_star" in name:  # flash_star_kernel (fp32), flash_star_mma_kernel (bf16)
             group = "flash_star"
         elif "ssd_scan_kernel" in name:
             group = "ssd_scan"
@@ -1516,9 +1696,9 @@ def main() -> int:
     logs = _cuda.build([fk.SOURCE, pk.SOURCE, sk.LUT_SOURCE, xk.SOURCE, ssk.SOURCE])
     log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, all five sources at once)")
     for path, text in logs.items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {path.name}: {line.strip()}")
+        for func, lines in ptxas_by_function(text).items():
+            log(f"  {path.name} {func}: {'; '.join(lines)}")
+    check_mma_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
 
     results = []
     parity_flash(results)

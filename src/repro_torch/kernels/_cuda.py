@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` exposes a plain C entry point that launches its kernel on
 the stream it is given and returns ``cudaGetLastError()``.  Libraries are
 built at first use from the sources in the checkout into ``build/`` at the
 repository root, named by a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  ``build`` starts one
-``nvcc`` per source, all at once.
+source is rebuilt and an unchanged one is reused.  Each library's nvcc /
+ptxas log is kept beside it (``.log``), so a later process that reuses
+the library still reads what the compiler made of it.  ``build`` starts
+one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -96,18 +98,22 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-_BUILD_LOGS: Dict[Path, str] = {}
+def log_path(source: Path) -> Path:
+    """The nvcc / ptxas log kept beside ``library_path(source)``."""
+    return library_path(source).with_suffix(".log")
 
 
 def build(sources: Iterable[Path]) -> Dict[Path, str]:
     """Compile every source not built yet, one ``nvcc`` each, all started
-    together.  Returns ``{source: nvcc/ptxas log}``; raises on a failure."""
+    together.  Returns ``{source: nvcc/ptxas log}`` for every source given,
+    read back from ``build/`` for one built earlier; raises on a failure.
+    A library counts as built once both it and its log are there."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = [Path(src) for src in sources]
     procs: List[tuple] = []
     for src in sources:
-        src = Path(src)
         out = library_path(src)
-        if out.exists():
+        if out.exists() and log_path(src).exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -116,14 +122,17 @@ def build(sources: Iterable[Path]) -> Dict[Path, str]:
     failures = []
     for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        _BUILD_LOGS[src] = log
         if proc.returncode != 0:
             failures.append(f"{src.name}:\n{log}")
+            tmp.unlink(missing_ok=True)
             continue
+        log_tmp = log_path(src).with_suffix(f".{os.getpid()}.logtmp")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, log_path(src))
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed\n" + "\n".join(failures))
-    return dict(_BUILD_LOGS)
+    return {src: log_path(src).read_text() for src in sources}
 
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
@@ -135,8 +144,7 @@ def load(source: Path, bind) -> ctypes.CDLL:
     source = Path(source)
     if source not in _LIBS:
         path = library_path(source)
-        if not path.exists():
-            build([source])
+        build([source])
         lib = ctypes.CDLL(str(path))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -159,7 +167,7 @@ def device_lut(fmt, device: torch.device) -> torch.Tensor:
     """The float32 exp LUT of ``fmt`` on ``device``, uploaded once."""
     from repro_torch.core.lut import exp_lut
 
-    key = (fmt, str(device))
+    key = (fmt, device)
     if key not in _LUTS:
         _LUTS[key] = exp_lut(fmt, device=device).contiguous()
     return _LUTS[key]

@@ -8,10 +8,10 @@
 // in a loop, so nothing carries between CTAs.
 //
 // What bounds it on the H100: the QK^T and P.V products (about 2 GFLOP for
-// one 512-token causal prefill at 32 heads, D=128).  This first version does
-// them with float32 FMAs from shared memory, not with tensor cores, so it is
-// bound by the SMs' FP32 and shared-memory rates, far above the card's
-// bf16 tensor-core bound; a wgmma/TMA version is later work.  The design
+// one 512-token causal prefill at 32 heads, D=128).  The first kernel below,
+// which now serves float32 inputs only, does them with float32 FMAs from
+// shared memory, bound by the SMs' FP32 and shared-memory rates; bfloat16
+// inputs run on the tensor cores (flash_star_mma_kernel).  The design
 // keeps the operand traffic at one read of q and of each K/V tile per CTA,
 // skips whole KV tiles outside the causal / window / ragged range, and
 // never writes the score matrix to device memory.
@@ -22,15 +22,22 @@
 // infinite score cannot wrap; the running max is an int32, and both the
 // rescale factor and the probabilities are entries of the exp LUT
 // (core/lut.py) that the wrapper passes in.  lut == nullptr selects the
-// exact float softmax.  Inputs are float32 or bfloat16; all arithmetic is
-// float32; the output has the input's type.  Built without fast math.
+// exact float softmax.  All softmax arithmetic is float32; the output has
+// the input's type.  Built without fast math.
 //
-// The int8 P.V variant (pv_int8=True in the TPU kernel, kernel.py:129-141)
-// is a second kernel, flash_star_pv_int8_kernel, below.
+// Three kernels, chosen by type (the wrapper routes; each entry point
+// refuses the others' types):
+//   flash_star_kernel<float>      float32 q/k/v: FP32 FMAs (this first one);
+//   flash_star_mma_kernel         bfloat16 q/k/v: tensor cores (mma.sync),
+//                                 entry point flash_star_mma_launch;
+//   flash_star_pv_int8_kernel     the int8 P.V variant (pv_int8=True in the
+//                                 TPU kernel, kernel.py:129-141), either type.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -467,26 +474,488 @@ cudaError_t launch_int8_d(const Params& p, int d, int bk, cudaStream_t stream) {
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// The bfloat16 kernel on the tensor cores, flash_star_mma_kernel.
+//
+// Replaces the same TPU kernel (src/repro/kernels/flash_star/kernel.py:216,
+// flash_star_attention / _kernel without pv_int8) for bf16 q/k/v, the type
+// the models serve in.  What bounds it: at a 512-token causal prefill (q
+// [1, 32, 512, 128], kv [1, 8, 512, 128]) the live work is 1.07 GFLOP of
+// QK^T and 1.07 GFLOP of P.V; the bytes take 3.1 us at 3.35 TB/s and the
+// tensor work 2.2 us at 989 TFLOP/s (4.3 us with P.V done three times, as
+// below), so the card's rates allow a few microseconds and what is left is
+// latency: tile loads, the softmax's scalar work and a grid of 256 CTAs.
+//
+// Design (FlashAttention-2's shape): one CTA of 4 warps owns (batch, q
+// head, 64 q rows), 16 rows per warp.  The grid is one-dimensional and
+// hands out the longest causal rows first; when it is one wave of two CTAs
+// per SM, the second CTA of each SM takes the lightest rows left, so heavy
+// and light q blocks share an SM.  Each warp keeps its Q fragments in
+// registers (ldmatrix once).  K and V tiles of 64 rows pass through a
+// two-stage ring in shared memory filled by 16-byte cp.async copies (rows
+// past Tk zero-filled): tile i + 1 loads while tile i computes, and the
+// first tile's V lands while its QK^T runs.  Rows are padded by 16 bytes, so
+// the eight row addresses of each ldmatrix (K) and ldmatrix.trans (V) fall
+// on distinct banks.  Tiles outside the causal / window / ragged range are
+// skipped by the CTA, and by a warp whose 16 rows see none of the tile; the
+// mask is built only in tiles that are not wholly live for the warp, and a
+// row whose max held (r == 1 exactly) skips the rescale.  mma.sync.m16n8k16
+// (bf16 in, float32 accumulators) is far faster than this shape needs;
+// wgmma with TMA is the step after, once a profile shows the tensor pipe as
+// the limit.  On an H100 80GB HBM3 at 700 W it runs ~27 us at the shape
+// above, ~9x its bound: each warp streams the whole K and V tile from shared memory
+// for its 16 rows, and startup, softmax and P.V's three products each take
+// a share (PERF.md).
+//
+// Arithmetic, as the reference's: bf16 x bf16 products are exact in
+// float32, so QK^T differs from the float32 dot only in the order of its
+// sums.  Then s = fl(acc * sm_scale), a separate multiply (sm_scale and
+// log2(e) are not folded into q or into an exp2: the grid index is
+// rint(fl(s * grid_scale)) as in the plain version), masked entries never
+// enter the max and give p = 0.  STAR: the int32 row max is reduced across
+// the four threads that share a row of the accumulator fragment, r and p
+// are entries of the LUT (held in shared memory up to LUT_SMEM_MAX
+// levels).  Exact: expf, no fast math.  P is float32 (a LUT entry or an
+// expf), and rounding it to bf16 would break the outputs' float32 rounding,
+// so each p is split in registers into three bf16 pieces, hi = bf16(p),
+// mid = bf16(p - hi), lo = bf16(p - hi - mid), which sum to p exactly for
+// p >= 2^-100 (within 2^-134 below; ref.split_bf16x3 is the plain copy);
+// V is bf16 already, so three mma's into one float32 accumulator give the
+// float32 P.V up to the order of its sums.  The A operands come straight
+// from the score accumulators' registers.  The row sum adds the unsplit p,
+// the accumulator is rescaled by r before the tile's P.V, and the epilogue
+// divides by den = (l <= 0 ? 1 : l) (a true division) and rounds to bf16.
 
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+constexpr int MQ = 64;              // q rows per CTA, 16 per warp
+constexpr int MK = 64;              // KV rows per tile
+constexpr int MT = 128;             // four warps
+constexpr int MSTAGES = 2;          // K/V ring depth
+constexpr int LUT_SMEM_MAX = 4096;  // larger LUTs are read from global memory
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the feature
-// dimension must be contiguous.  pv_int8_bk > 0 selects the int8 P.V
-// variant over KV blocks of that many rows (1 .. 128).  Returns
-// cudaGetLastError() after launch.
-extern "C" int flash_star_launch(
-    const void* q, const void* k, const void* v, void* o,
-    const void* info, const void* lut,
-    long long q_sb, long long q_sh, long long q_st,
-    long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st,
-    long long o_sb, long long o_sh, long long o_st,
-    int B, int Hq, int Hkv, int Tq, int Tk, int D, int dtype,
-    int causal, int window, float sm_scale, float grid_scale, int num_levels,
-    int pv_int8_bk, void* stream) {
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 zero-fills.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>  // all but the newest N groups have landed
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(ptr)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(ptr)));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulators (not
+// volatile: the compiler may interleave independent products)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) rounded to nearest as bf16, x in the low half: an mma fragment
+// register holding columns c, c + 1
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// Two neighbouring p (columns c, c + 1 of one row) as three packed bf16
+// pieces each: hi + mid + lo == p (the differences are exact in float32).
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = pack_bf16(x, y);
+  const float2 h = unpack_bf16(hi);
+  const float xr = __fsub_rn(x, h.x), yr = __fsub_rn(y, h.y);
+  mid = pack_bf16(xr, yr);
+  const float2 m = unpack_bf16(mid);
+  lo = pack_bf16(__fsub_rn(xr, m.x), __fsub_rn(yr, m.y));
+}
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * MK) * (D + 8);
+}
+
+// snap's grid index with one F2I.RNI: rint(s * scale) saturated to the
+// sentinel range, NaN -> sentinel (fmaxf returns the bound for a NaN)
+__device__ __forceinline__ int snap_rn(float s, float scale) {
+  const float lim = static_cast<float>(-GRID_SENTINEL);
+  return __float2int_rn(fminf(fmaxf(s * scale, -lim), lim));
+}
+
+// minBlocks 1: without it ptxas caps small-D instantiations at 128
+// registers (four CTAs an SM) and spills
+template <int D, bool STAR>
+__global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int first_round) {
+  constexpr int PITCH = D + 8;    // bf16 per shared row: 16 bytes of padding
+  constexpr int TILE = MK * PITCH;
+  constexpr int CH = D / 8;       // 16-byte chunks per row
+  constexpr int NS = MK / 8;      // score n-tiles per warp
+  constexpr int NO = D / 8;       // output n-tiles per warp
+  constexpr int VG = D >= 32 ? 2 : 1;  // V column groups per P.V step
+  constexpr int QK_STEPS = (D / 16) * (NS / 2);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MQ][PITCH]
+  __nv_bfloat16* ring = Qs + MQ * PITCH;  // stage s: K at ring + 2 s TILE, V after it
+  float* lut_s = reinterpret_cast<float*>(ring + 2 * MSTAGES * TILE);
+
+  // Block -> (q block, head, batch), the longest causal rows first.  When
+  // the grid is one wave of two CTAs per SM, the second CTA of each SM
+  // (blocks from first_round on, dispatched in the first round's SM order)
+  // takes the lightest remaining work, so heavy and light q blocks pair up.
+  const int nq = (p.Tq + MQ - 1) / MQ, hb = p.Hq * p.B;
+  const int blk = blockIdx.x;
+  const int rank = first_round > 0 && blk >= first_round
+      ? static_cast<int>(gridDim.x) - 1 - (blk - first_round) : blk;
+  const int iq = nq - 1 - rank / hb;
+  const int h = rank % hb % p.Hq, b = rank % hb / p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;  // fragment row group, thread in group
+  const int q_offset = p.info[0];
+  const int kv_lim = min(p.info[1 + b], p.Tk);
+  const int row0 = iq * MQ + q_offset;  // absolute position of the CTA's row 0
+  const int wr0 = row0 + warp * 16;     // ... of the warp's row 0
+
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  int kv_end = kv_lim;
+  if (p.causal) kv_end = min(kv_end, row0 + MQ);
+  int kv_start = 0;
+  if (p.window > 0) kv_start = max(0, row0 - p.window + 1) / MK * MK;
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + MK - 1) / MK : 0;
+
+  // a thread copies the 16-byte chunk tid % CH of rows tid / CH + i * RS
+  constexpr int RS = MT / CH;
+  const int r_t = tid / CH, c_t = 8 * (tid % CH);
+  auto load_k = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, long long st, int c0) {
+    const __nv_bfloat16* row = src + (c0 + r_t) * st + c_t;
+#pragma unroll
+    for (int i = 0; i < MK / RS; ++i) {
+      const bool in = c0 + r_t + i * RS < p.Tk;
+      cp_async16(dst + (r_t + i * RS) * PITCH + c_t, in ? row + i * RS * st : src, in ? 16 : 0);
+    }
+  };
+  // Copy groups: [Q, K0, LUT], [V0], then [K, V] of each later tile, one
+  // tile ahead of the tile being computed.
+  const float* lut = p.lut;
+  if (n_tiles > 0) {
+#pragma unroll
+    for (int i = 0; i < MQ / RS; ++i) {
+      const int t = iq * MQ + r_t + i * RS;
+      const bool in = t < p.Tq;
+      cp_async16(Qs + (r_t + i * RS) * PITCH + c_t, in ? qg + t * p.q_st + c_t : qg, in ? 16 : 0);
+    }
+    load_k(ring, kg, p.k_st, kv_start);
+    if constexpr (STAR) {
+      if (p.num_levels <= LUT_SMEM_MAX) {
+        for (int i = tid; i < p.num_levels; i += MT) cp_async4(lut_s + i, p.lut + i);
+        lut = lut_s;
+      }
+    }
+    cp_async_commit();
+    load_k(ring + TILE, vg, p.v_st, kv_start);
+    cp_async_commit();
+  }
+
+  uint32_t qa[D / 16][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float l[2] = {0.f, 0.f};  // this thread's part of the row sums (rows g, g + 8)
+  int m_i[2] = {GRID_SENTINEL, GRID_SENTINEL};
+  float m_f[2] = {NEG_BIG, NEG_BIG};
+  // the live columns of this thread's rows g, g + 8: lo[hr] <= col <= hi[hr];
+  // of the warp's 16 rows: w_lo <= col <= w_hi
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int pos = wr0 + g + 8 * hr;
+    hi[hr] = p.causal ? min(kv_lim - 1, pos) : kv_lim - 1;
+    lo[hr] = p.window > 0 ? pos - p.window + 1 : 0;
+  }
+  const int w_hi = p.causal ? min(kv_lim - 1, wr0 + 15) : kv_lim - 1;
+  const int w_lo = p.window > 0 ? wr0 - p.window + 1 : 0;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int c0 = kv_start + it * MK;
+    if (it == 0)
+      cp_async_wait<1>();  // Q, K0 and the LUT; V0 may be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // tile it's K landed for every thread; tile it - 1 consumed
+    if (it + 1 < n_tiles) {
+      __nv_bfloat16* next = ring + 2 * ((it + 1) % MSTAGES) * TILE;
+      load_k(next, kg, p.k_st, c0 + MK);
+      load_k(next + TILE, vg, p.v_st, c0 + MK);
+    }
+    cp_async_commit();  // empty past the last tile: V0's wait below stays exact
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH +
+                            16 * kk + 8 * (lane >> 4));
+    }
+    // the tile's live columns for some row of this warp, relative to c0
+    const int t_lo = w_lo - c0, t_hi = w_hi - c0;
+    const bool warp_live = t_hi >= 0 && t_lo <= MK - 1;
+    const __nv_bfloat16* ks = ring + 2 * (it % MSTAGES) * TILE;
+    const __nv_bfloat16* vs = ks + TILE;
+    float s[NS][4];
+
+    // this warp's rows see nothing of the tile: p = 0 and r = 1, skip it
+    if (warp_live) {
+      // S = Q K^T: n-tile j holds columns c0 + 8 j + 2 tg + {0, 1} of rows g
+      // (elements 0, 1) and g + 8 (elements 2, 3).  K fragments one step
+      // ahead of their products.
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const __nv_bfloat16* kfrag =
+          ks + (8 * (lane >> 4) + (lane & 7)) * PITCH + 8 * ((lane >> 3) & 1);
+      uint32_t kb[2][4];
+      ldsm_x4(kb[0], kfrag);
+#pragma unroll
+      for (int step = 0; step < QK_STEPS; ++step) {
+        const int kk = step / (NS / 2), j = 2 * (step % (NS / 2));
+        if (step + 1 < QK_STEPS) {
+          const int kk1 = (step + 1) / (NS / 2), j1 = 2 * ((step + 1) % (NS / 2));
+          ldsm_x4(kb[(step + 1) & 1], kfrag + 8 * j1 * PITCH + 16 * kk1);
+        }
+        mma_bf16(s[j], qa[kk], kb[step & 1][0], kb[step & 1][1]);
+        mma_bf16(s[j + 1], qa[kk], kb[step & 1][2], kb[step & 1][3]);
+      }
+    }
+    if (it == 0) {
+      cp_async_wait<1>();  // V0 (the next tile may be in flight)
+      __syncthreads();
+    }
+    if (!warp_live) continue;
+
+    // the softmax of the tile, with the mask only where the tile is not
+    // wholly live for this warp's rows
+    float r[2];
+    auto softmax = [&](auto full_tile) {
+      constexpr bool FULL = decltype(full_tile)::value;
+      // element e of n-tile j is column c0 + 2 tg + 8 j + (e & 1)
+      int dlo[2] = {0, 0}, dhi[2] = {0, 0};
+      if constexpr (!FULL) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          dlo[hr] = lo[hr] - c0 - 2 * tg;
+          dhi[hr] = hi[hr] - c0 - 2 * tg;
+        }
+      }
+      auto is_live = [&](int j, int e) {
+        const int c = 8 * j + (e & 1);
+        return FULL || (c >= dlo[e >> 1] && c <= dhi[e >> 1]);
+      };
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.sm_scale);
+      if constexpr (STAR) {
+        const int top = p.num_levels - 1;
+        int jg[NS][4];
+        int mb[2] = {GRID_SENTINEL, GRID_SENTINEL};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            jg[j][e] = is_live(j, e) ? snap_rn(s[j][e], p.grid_scale) : GRID_SENTINEL;
+            mb[e >> 1] = max(mb[e >> 1], jg[j][e]);
+          }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
+          mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
+          const int m_new = max(m_i[hr], mb[hr]);
+          r[hr] = lut[min(m_new - m_i[hr], top)];  // m_new >= m_i
+          m_i[hr] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // a live j is at most the row max
+            s[j][e] = is_live(j, e) ? lut[min(m_i[e >> 1] - jg[j][e], top)] : 0.f;
+      } else {
+        float mb[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!is_live(j, e)) s[j][e] = NEG_BIG;
+            mb[e >> 1] = fmaxf(mb[e >> 1], s[j][e]);
+          }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
+          mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
+          const float m_new = fmaxf(m_f[hr], mb[hr]);
+          r[hr] = expf(__fsub_rn(m_f[hr], m_new));
+          m_f[hr] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = is_live(j, e) ? expf(__fsub_rn(s[j][e], m_f[e >> 1])) : 0.f;
+      }
+    };
+    // every column of the tile is live for every row of the warp
+    const bool full = c0 + MK <= kv_lim && (!p.causal || c0 + MK - 1 <= wr0) &&
+                      (p.window <= 0 || c0 > wr0 + 15 - p.window);
+    if (full)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ps[e >> 1] = __fadd_rn(ps[e >> 1], s[j][e]);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l[hr] = __fadd_rn(__fmul_rn(l[hr], r[hr]), ps[hr]);
+    // a row whose max held has r == 1 exactly: its accumulator stays as it is
+    if (__any_sync(0xffffffffu, r[0] != 1.f || r[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] = __fmul_rn(o[n][0], r[0]);
+        o[n][1] = __fmul_rn(o[n][1], r[0]);
+        o[n][2] = __fmul_rn(o[n][2], r[1]);
+        o[n][3] = __fmul_rn(o[n][3], r[1]);
+      }
+    }
+
+    // O += P V over 16-column steps; the A fragment of step kk is the score
+    // n-tiles 2 kk and 2 kk + 1, split into three bf16 pieces.  VG 16-wide
+    // column groups of V at a time, so that 2 VG independent accumulators
+    // separate two products into the same one.
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk) {
+      uint32_t pc[3][4];  // hi, mid, lo
+      split3(s[2 * kk][0], s[2 * kk][1], pc[0][0], pc[1][0], pc[2][0]);
+      split3(s[2 * kk][2], s[2 * kk][3], pc[0][1], pc[1][1], pc[2][1]);
+      split3(s[2 * kk + 1][0], s[2 * kk + 1][1], pc[0][2], pc[1][2], pc[2][2]);
+      split3(s[2 * kk + 1][2], s[2 * kk + 1][3], pc[0][3], pc[1][3], pc[2][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; dp += VG) {
+        uint32_t vb[VG][4];
+#pragma unroll
+        for (int u = 0; u < VG; ++u)
+          ldsm_x4_trans(vb[u], vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH +
+                                   16 * (dp + u) + 8 * (lane >> 4));
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+          for (int u = 0; u < VG; ++u) {
+            mma_bf16(o[2 * (dp + u)], pc[piece], vb[u][0], vb[u][1]);
+            mma_bf16(o[2 * (dp + u) + 1], pc[piece], vb[u][2], vb[u][3]);
+          }
+      }
+    }
+  }
+
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float den = l[hr];
+    den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 1));
+    den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 2));
+    if (den <= 0.f) den = 1.f;
+    const int t = iq * MQ + warp * 16 + g + 8 * hr;
+    if (t < p.Tq) {
+      __nv_bfloat16* orow = og + t * p.o_st + 2 * tg;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(__fdiv_rn(o[n][2 * hr], den), __fdiv_rn(o[n][2 * hr + 1], den));
+    }
+  }
+}
+
+template <int D, bool STAR>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  auto kernel = flash_star_mma_kernel<D, STAR>;
+  size_t bytes = smem_bytes_mma<D>();
+  if (STAR && p.num_levels <= LUT_SMEM_MAX) bytes += sizeof(float) * p.num_levels;
+  // once per device: the largest shared-memory request of this
+  // instantiation (it bounds what a launch may ask; occupancy follows what
+  // it does ask), the SM count and the CTAs an SM holds at that request
+  constexpr int MAX_DEVICES = 64;
+  static int sms[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    const int most = (int)(smem_bytes_mma<D>() + (STAR ? sizeof(float) * LUT_SMEM_MAX : 0));
+    int n_sm = 0, n_cta = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_cta, kernel, MT, most);
+    if (err != cudaSuccess) return err;
+    per_sm[dev] = n_cta;
+    sms[dev] = n_sm;
+  }
+  const long long blocks = (long long)((p.Tq + MQ - 1) / MQ) * p.Hq * p.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // pair heavy and light CTAs only in a causal grid of one wave of two per SM
+  const int first_round =
+      p.causal && per_sm[dev] == 2 && blocks > sms[dev] && blocks <= 2LL * sms[dev] ? sms[dev] : 0;
+  kernel<<<(unsigned)blocks, MT, bytes, stream>>>(p, first_round);
+  return cudaSuccess;
+}
+
+template <bool STAR>
+cudaError_t launch_mma_d(const Params& p, int d, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_mma<16, STAR>(p, stream);
+    case 32: return launch_mma<32, STAR>(p, stream);
+    case 64: return launch_mma<64, STAR>(p, stream);
+    case 128: return launch_mma<128, STAR>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   const void* info, const void* lut,
+                   long long q_sb, long long q_sh, long long q_st,
+                   long long k_sb, long long k_sh, long long k_st,
+                   long long v_sb, long long v_sh, long long v_st,
+                   long long o_sb, long long o_sh, long long o_st,
+                   int B, int Hq, int Hkv, int Tq, int Tk,
+                   int causal, int window, float sm_scale, float grid_scale, int num_levels) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.info = static_cast<const int32_t*>(info);
@@ -498,12 +967,44 @@ extern "C" int flash_star_launch(
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Tq = Tq; p.Tk = Tk;
   p.causal = causal; p.window = window;
   p.sm_scale = sm_scale; p.grid_scale = grid_scale; p.num_levels = num_levels;
+  return p;
+}
+
+}  // namespace
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+#define FLASH_STAR_ARGS                                                     \
+    const void *q, const void *k, const void *v, void *o,                    \
+    const void *info, const void *lut,                                       \
+    long long q_sb, long long q_sh, long long q_st,                          \
+    long long k_sb, long long k_sh, long long k_st,                          \
+    long long v_sb, long long v_sh, long long v_st,                          \
+    long long o_sb, long long o_sh, long long o_st,                          \
+    int B, int Hq, int Hkv, int Tq, int Tk, int D
+#define FLASH_STAR_PARAMS                                                    \
+  make_params(q, k, v, o, info, lut, q_sb, q_sh, q_st, k_sb, k_sh, k_st,    \
+              v_sb, v_sh, v_st, o_sb, o_sh, o_st, B, Hq, Hkv, Tq, Tk,        \
+              causal, window, sm_scale, grid_scale, num_levels)
+
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the feature
+// dimension must be contiguous.  pv_int8_bk > 0 selects the int8 P.V
+// variant over KV blocks of that many rows (1 .. 128), either type; with
+// pv_int8_bk == 0 this entry point takes float32 only (bfloat16 goes to
+// flash_star_mma_launch).  Returns cudaGetLastError() after launch.
+extern "C" int flash_star_launch(
+    FLASH_STAR_ARGS, int dtype,
+    int causal, int window, float sm_scale, float grid_scale, int num_levels,
+    int pv_int8_bk, void* stream) {
+  const Params p = FLASH_STAR_PARAMS;
   if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool star = lut != nullptr;
   const int bk = pv_int8_bk;
   cudaError_t err;
-  if (bk < 0 || bk > BK8 || (dtype != 0 && dtype != 1))
+  if (bk < 0 || bk > BK8 || (dtype != 0 && dtype != 1) || (bk == 0 && dtype != 0))
     err = cudaErrorInvalidValue;
   else if (bk > 0 && dtype == 0)
     err = star ? launch_int8_d<float, true>(p, D, bk, s)
@@ -511,11 +1012,25 @@ extern "C" int flash_star_launch(
   else if (bk > 0)
     err = star ? launch_int8_d<__nv_bfloat16, true>(p, D, bk, s)
                : launch_int8_d<__nv_bfloat16, false>(p, D, bk, s);
-  else if (dtype == 0)
-    err = star ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
   else
-    err = star ? launch_d<__nv_bfloat16, true>(p, D, s)
-               : launch_d<__nv_bfloat16, false>(p, D, s);
+    err = star ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 q/k/v/o, pv_int8 off: the tensor-core kernel.  Strides are in
+// elements; the base pointers and the batch, head and T strides must be
+// multiples of 16 bytes (the wrapper checks), the feature dimension
+// contiguous.  Returns cudaGetLastError() after launch.
+extern "C" int flash_star_mma_launch(
+    FLASH_STAR_ARGS,
+    int causal, int window, float sm_scale, float grid_scale, int num_levels,
+    void* stream) {
+  const Params p = FLASH_STAR_PARAMS;
+  if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = lut != nullptr ? launch_mma_d<true>(p, D, s)
+                                         : launch_mma_d<false>(p, D, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

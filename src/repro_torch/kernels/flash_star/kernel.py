@@ -8,11 +8,20 @@ Any strides are taken as long as the feature dimension is contiguous, so
 the ops layer passes transposed views without a copy.  On a CPU tensor the
 plain version (``ref.flash_star_ref``) runs instead.
 
-``block_k`` is the KV block of the plain version's loop; the CUDA kernel
-uses its own fixed tiles (64 q rows, 32 KV rows), which changes only the
-float summation order.  ``pv_int8=True`` runs the int8 P.V variant, whose
-codes depend on the block: there the KV block is ``min(block_k, Tk)`` rows
-in the kernel too (at most ``PV_INT8_MAX_BLOCK``).
+The kernel is chosen by type, a documented choice and no fallback:
+bfloat16 runs on the tensor cores (``flash_star_mma_launch``: mma.sync,
+P.V with P in three bf16 pieces, so P keeps its float32 value), float32 on
+the FP32 FMA kernel, and ``pv_int8=True`` on the int8 P.V kernel, either
+type.  The bfloat16 kernel copies 16-byte pieces, so its q/k/v must start
+on a 16-byte boundary with batch, head and T strides of 16 bytes each; a
+view that does not is refused with a ValueError before any launch (the
+ops layer's transposed ``[B, T, H, D]`` views pass).
+
+``block_k`` is the KV block of the plain version's loop; the CUDA kernels
+use their own fixed tiles (64 q rows; 64 KV rows in bf16, 32 in float32),
+which changes only the float summation order.  ``pv_int8=True`` runs the
+int8 P.V variant, whose codes depend on the block: there the KV block is
+``min(block_k, Tk)`` rows in the kernel too (at most ``PV_INT8_MAX_BLOCK``).
 """
 
 from __future__ import annotations
@@ -41,6 +50,23 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 6 + [ll] * 12 + [i] * 7 + [i, i, f, f, i, i, p]
     )
     lib.flash_star_launch.restype = i
+    lib.flash_star_mma_launch.argtypes = [p] * 6 + [ll] * 12 + [i] * 6 + [i, i, f, f, i, p]
+    lib.flash_star_mma_launch.restype = i
+
+
+def _check_16_byte_pieces(name: str, t: torch.Tensor, ptr: int, strides) -> None:
+    """The bf16 kernel's ``cp.async`` copies 16 bytes at a time: refuse a
+    base pointer or a batch / head / T stride (of a dimension longer than
+    1) that is not a multiple of 16 bytes (8 bf16 elements)."""
+    shape = t.shape
+    if ptr % 16 == 0 and all(st % 8 == 0 or n == 1 for st, n in zip(strides[:3], shape)):
+        return
+    bad = [f"data_ptr % 16 = {ptr % 16}"] if ptr % 16 else []
+    bad += [f"stride({i}) = {st} elements" for i, st in enumerate(strides[:3])
+            if shape[i] > 1 and st % 8]
+    raise ValueError(
+        f"flash_star's bf16 tensor-core kernel needs 16-byte aligned {name}: "
+        f"{', '.join(bad)} (shape {tuple(shape)}); pass a contiguous copy")
 
 
 def flash_star_attention(
@@ -82,30 +108,44 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_star kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dtype = q.dtype
+    if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"flash_star kernel takes float32/bfloat16 q/k/v of one type, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("info", info)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+    dev = q.device
+    if not dev == k.device == v.device == info.device:
+        for name, t in (("k", k), ("v", v), ("info", info)):
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
         raise ValueError("flash_star kernel needs a contiguous feature dimension")
     if info.dtype != torch.int32 or info.shape != (1 + b,) or not info.is_contiguous():
         raise ValueError(f"info must be contiguous int32 [1 + B], got {info.dtype} {tuple(info.shape)}")
-    out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
-    lut = _cuda.device_lut(fmt, q.device) if fmt is not None else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    mma = dtype == torch.bfloat16 and not bk
+    if mma:
+        for name, t, ptr, st in (("q", q, ptrs[0], qs), ("k", k, ptrs[1], ks), ("v", v, ptrs[2], vs)):
+            _check_16_byte_pieces(name, t, ptr, st)
+    out = torch.empty((b, hq, tq, d), dtype=dtype, device=dev)
+    lut = _cuda.device_lut(fmt, dev) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
-    rc = lib.flash_star_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        info.data_ptr(), lut.data_ptr() if lut is not None else None,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        b, hq, hkv, tq, tk, d, DTYPES[q.dtype],
+    args = (
+        *ptrs, out.data_ptr(), info.data_ptr(), lut.data_ptr() if lut is not None else None,
+        *qs[:3], *ks[:3], *vs[:3], *out.stride()[:3],
+        b, hq, hkv, tq, tk, d,
+    )
+    softmax = (
         int(causal), int(sliding_window or 0),
         float(d ** -0.5 if sm_scale is None else sm_scale),
         float(fmt.scale) if fmt is not None else 1.0,
-        fmt.num_levels if fmt is not None else 0, bk,
-        _cuda.stream_handle(q.device),
+        fmt.num_levels if fmt is not None else 0,
     )
+    stream = _cuda.stream_handle(dev)
+    if mma:
+        rc = lib.flash_star_mma_launch(*args, *softmax, stream)
+    else:
+        rc = lib.flash_star_launch(*args, DTYPES[dtype], *softmax, bk, stream)
     _cuda.check(lib, rc, "flash_star")
     (PV_INT8_LAUNCHES if bk else LAUNCHES).add()
     return out

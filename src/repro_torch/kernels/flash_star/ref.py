@@ -4,6 +4,9 @@ The same online form the kernel computes — a loop over KV blocks carrying
 the int32 grid max, the denominator and the accumulator — through
 ``core.attention.blocked_attention``; with ``pv_int8`` the P.V product of
 each ``block_k`` block in int8 as the kernel's variant computes it.
+
+``split_bf16x3`` is the plain copy of how the bfloat16 kernel splits P
+for P.V on the tensor cores without rounding P to bf16.
 """
 
 from __future__ import annotations
@@ -45,3 +48,19 @@ def flash_star_ref(
         pv_int8=pv_int8,
     )
     return out.transpose(1, 2)
+
+
+def split_bf16x3(p: torch.Tensor):
+    """float32 ``p`` as three bfloat16 pieces, as the bf16 kernel splits it:
+    ``hi = bf16(p)``, ``mid = bf16(p - hi)``, ``lo = bf16((p - hi) - mid)``
+    (round to nearest even; both differences are exact in float32).  For
+    ``p >= 2**-100`` the pieces sum to ``p`` exactly (each piece holds 8 of
+    its 24 significant bits); below that ``lo`` may fall among the bf16
+    subnormals and ``|p - (hi + mid + lo)| <= 2**-134``, half their spacing."""
+    p = p.float()
+    hi = p.to(torch.bfloat16)
+    rest = p - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+

@@ -234,20 +234,53 @@ def test_star_softmax_other_modes_wait_for_their_port():
 # on the card: each kernel against its plain version
 
 
+CARD_FLASH_CASES = FLASH_CASES + [
+    # across the bf16 kernel's 64-row q and KV tiles
+    (1, 4, 2, 130, 130, True, None, 0, None),
+    (2, 4, 2, 65, 265, True, None, 200, (265, 190)),  # q_offset, ragged
+    (1, 4, 2, 200, 200, True, 50, 0, None),           # sliding window at Tk 200
+    (1, 32, 8, 130, 130, True, None, 0, None),        # GQA 32:8
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("star", [True, False])
 def test_flash_star_kernel_matches_plain_on_card(cuda, dtype, star):
+    """Every case at every head dimension, heads-major and as the transposed
+    ``[B, T, H, D]`` views that ``ops.attention`` passes."""
     rng = np.random.default_rng(15)
-    for b, hq, hkv, tq, tk, causal, window, q_off, kvl in FLASH_CASES:
-        for d in (16, 64):
-            q, k, v = (torch.as_tensor(_dyadic(rng, sh), device=cuda).to(dtype) for sh in
-                       ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
-            info = torch.tensor([q_off] + list(kvl or [tk] * b), dtype=torch.int32, device=cuda)
-            kw = dict(fmt=FMT if star else None, causal=causal, sliding_window=window)
-            got = flash_mod.flash_star_attention(q, k, v, info, **kw)
-            ref = flash_mod.flash_star_ref(q, k, v, info, **kw)
-            torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+    for b, hq, hkv, tq, tk, causal, window, q_off, kvl in CARD_FLASH_CASES:
+        for d in (16, 32, 64, 128):
+            for transposed in (False, True):
+                shapes = ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+                if transposed:
+                    shapes = [(sh[0], sh[2], sh[1], sh[3]) for sh in shapes]
+                q, k, v = (torch.as_tensor(_dyadic(rng, sh), device=cuda).to(dtype)
+                           for sh in shapes)
+                if transposed:
+                    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+                info = torch.tensor([q_off] + list(kvl or [tk] * b), dtype=torch.int32,
+                                    device=cuda)
+                kw = dict(fmt=FMT if star else None, causal=causal, sliding_window=window)
+                got = flash_mod.flash_star_attention(q, k, v, info, **kw)
+                ref = flash_mod.flash_star_ref(q, k, v, info, **kw)
+                torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_star_misaligned_bf16_view_raises_on_card(cuda):
+    """The bf16 kernel copies 16-byte pieces: a view 2 bytes off a 16-byte
+    boundary is refused with the named error, and nothing launches."""
+    b, h, t, d = 1, 4, 70, 16
+    flat = torch.zeros(b * h * t * d + 1, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(b, h, t, d)
+    k = v = torch.zeros((b, h, t, d), dtype=torch.bfloat16, device=cuda)
+    info = torch.tensor([0, t], dtype=torch.int32, device=cuda)
+    before = flash_mod.LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte aligned q"):
+        flash_mod.flash_star_attention(q, k, v, info, fmt=FMT)
+    assert flash_mod.LAUNCHES.count == before
 
 
 @pytest.mark.cuda

@@ -101,6 +101,48 @@ def test_cuda_sources_build_for_sm90a_without_fast_math():
         assert "cudaGetLastError" in text, src
 
 
+def test_build_keeps_the_compiler_log_beside_the_library(tmp_path, monkeypatch):
+    """A library built once is reused with its nvcc / ptxas log read back
+    from build/, so a later process (a test run, a second chip_smoke.py)
+    still gets every source's log; a library without its log is rebuilt,
+    and a failed compile leaves neither behind.  A stand-in compiler counts
+    its calls."""
+    from repro_torch.kernels import _cuda
+
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "echo x >> " + str(calls) + "\n"
+        "while [ $# -gt 1 ]; do\n"
+        "  if [ \"$1\" = -o ]; then out=$2; fi; src=$2; shift\n"
+        "done\n"
+        "grep -q broken \"$src\" && { echo 'error: broken'; exit 1; }\n"
+        "echo \"ptxas info    : Used 32 registers for $(basename $src)\"\n"
+        ": > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(nvcc))
+    src = tmp_path / "k.cu"
+    src.write_text("__global__ void k() {}\n")
+    n_calls = lambda: len(calls.read_text().splitlines()) if calls.exists() else 0
+
+    first = _cuda.build([src])
+    assert n_calls() == 1 and "Used 32 registers for k.cu" in first[src]
+    assert _cuda.library_path(src).exists() and _cuda.log_path(src).exists()
+    assert _cuda.build([src]) == first and n_calls() == 1
+    _cuda.log_path(src).unlink()
+    assert _cuda.build([src]) == first and n_calls() == 2
+
+    bad = tmp_path / "bad.cu"
+    bad.write_text("broken\n")
+    with pytest.raises(RuntimeError, match="error: broken"):
+        _cuda.build([src, bad])
+    assert not _cuda.library_path(bad).exists() and not _cuda.log_path(bad).exists()
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [_cuda.library_path(src).name, _cuda.log_path(src).name])
+
+
 def test_entry_points_need_cuda_without_a_device(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve as launcher
