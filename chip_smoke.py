@@ -13,7 +13,9 @@ Phases (any failure exits non-zero before the result lines):
    the compiler log kept beside it); each kernel's registers and spills
    from ptxas; for flash_star's bf16 tensor-core kernel
    (``flash_star_mma_kernel``, 8 instantiations) 0 spill bytes and bf16
-   HMMA instructions in its SASS (``cuobjdump -sass``);
+   HMMA instructions in its SASS (``cuobjdump -sass``); for the split-KV
+   paged kernels (48 ``paged_split_kernel`` and 4 ``paged_combine_kernel``
+   instantiations) 0 spill bytes;
 3. parity at main-path shapes: each kernel against its plain PyTorch
    version on the same inputs on the card, bfloat16 and float32, with the
    tolerances below; kernel, plain and library times (CUDA events, median
@@ -27,10 +29,20 @@ Phases (any failure exits non-zero before the result lines):
    output elements that differ from the plain version at all.  Then the
    bf16 STAR kernel with its LUT in shared memory (the default format)
    against the same kernel reading a 13-bit format's LUT from global
-   memory: the same outputs bit for bit, both device times.  The paged kernel also
-   over int8 and fp8_e4m3 pools (codes and scales from
-   ``kvquant.quantize_blocks``), counted as its own entry,
-   ``paged_attention_quant``.  The STAR softmax: the Triton kernel in
+   memory: the same outputs bit for bit, both device times.  The paged
+   kernels (split-KV + combine) over bf16 / float32 pools and over int8 and
+   fp8_e4m3 pools (codes and scales from ``kvquant.quantize_blocks``; the
+   second entry, ``paged_attention_quant``), bf16 and float32 q, STAR and
+   exact, at three shapes of S 4, Hq 32, Hkv 8, D 128, bs 16: the smoke
+   shape (lens 0/1/17/600), the full-width decode tick's (lens
+   514/386/258/130, W 34) and short contexts (lens 0/1/17/30, W 2: one
+   split, no combine); each with its device time split into the split and
+   the combine kernel, its bound (the live K/V bytes, or operations at the
+   FP32 peak) and share of it; at the tick shape also slot 0 alone under
+   its narrowest table bit-equal to slot 0 in the batch, and at the short
+   shape each slot (one split: the split kernel writes the output itself)
+   bit-equal to the same slot in a batch under the tick's table width (9
+   splits, through the combine).  The STAR softmax: the Triton kernel in
    ``gather`` mode, ``onehot`` bit-equal to it, and the CUDA LUT kernel
    (``star_softmax_lut``) in clean ``histogram`` mode and under the mild
    fault in every mode, at the sampling shape [4, 49152]; the fault
@@ -57,7 +69,7 @@ Phases (any failure exits non-zero before the result lines):
    of 128-512 tokens, 16-32 new tokens each, temperature 0.8, with the
    attention (flash_star), paged decode and STAR sampling softmax kernels.
    Launch counters are zeroed just before and read just after; each kernel
-   must have launched.  Then one full-width prefill through the kernels is
+   must have launched, the paged kernel once per layer of every tick.  Then one full-width prefill through the kernels is
    held against the same prefill through the plain ``reference`` impls,
    and the longest prompt's prefill and one decode tick are traced with
    ``torch.profiler`` (device time by kernel group).  Then the int8 P.V
@@ -188,9 +200,16 @@ def time_ms(fn, reps: int = 20) -> float:
 
 def device_ms(fn, reps: int = 20):
     """Device time of one call of ``fn``: the self time of every kernel it
-    launches, from ``torch.profiler``, summed over ``reps`` calls.  Unlike
+    launches, from ``torch.profiler``, averaged over ``reps`` calls.  Unlike
     ``time_ms`` it leaves out the host's time to enqueue the call.  None
     where the profiler records no device time."""
+    by_kernel = device_ms_by_kernel(fn, reps)
+    return sum(by_kernel.values()) if by_kernel else None
+
+
+def device_ms_by_kernel(fn, reps: int = 20):
+    """``device_ms`` by kernel name: {name: ms per call}, empty where the
+    profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,9 +219,12 @@ def device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_self_device_us(ev) for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    out = {}
+    for ev in prof.key_averages():
+        us = _self_device_us(ev) if ev.device_type == torch.autograd.DeviceType.CUDA else 0
+        if us > 0:
+            out[ev.key] = out.get(ev.key, 0.0) + us / reps / 1e3
+    return out
 
 
 def _self_device_us(ev) -> float:
@@ -305,6 +327,22 @@ def check_mma_build(ptxas_log, library):
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
               f"flash_star_mma_kernel {tag} spills: {lines}")
         check(any(".BF16" in k for k in kinds), f"flash_star_mma_kernel {tag}: no bf16 HMMA in its SASS")
+
+
+def check_paged_build(ptxas_log):
+    """Every instantiation of the paged split kernel (2 q types x 3 pool
+    types for the fp entry and the two code types, 4 head dims, STAR and
+    exact: 48) and of its combine (4) spills nothing."""
+    funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
+             if "paged_split_kernel" in f or "paged_combine_kernel" in f}
+    n_split = sum("paged_split_kernel" in f for f in funcs)
+    check(n_split == 48 and len(funcs) == 52,
+          f"expected 48 paged_split_kernel and 4 paged_combine_kernel instantiations, "
+          f"ptxas shows {n_split} and {len(funcs) - n_split}")
+    for func, lines in sorted(funcs.items()):
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
+              f"paged kernel {func} spills: {lines}")
+    log(f"paged kernels: {len(funcs)} instantiations, 0 spill bytes in each")
 
 
 # ---------------------------------------------------------------------------
@@ -610,101 +648,162 @@ def parity_ssd_scan(results):
               "main variant bf16 B/C"))
 
 
-def parity_paged(results):
+PAGED_DESIGN = "split-KV, L = 64 rows a split, + combine"
+PAGED_SHAPES = {  # name: (kv_valid per slot, table width W in blocks of 16)
+    "smoke": ([0, 1, 17, 600], 38),
+    # a decode tick of the fp serve's traced window: prompts of 512, 384,
+    # 256 and 128 tokens after two decode steps, tables of (512 + 32) / 16
+    "tick": ([514, 386, 258, 130], 34),
+    # short contexts under a table of 32 rows: one split, no combine launch
+    "short": ([0, 1, 17, 30], 2),
+}
+
+
+def _paged_work(q, lens, w, hkv, pool_elem, pages_scaled=0):
+    """Bytes (q and out once, the live K/V rows once, tables, kv_valid and
+    the live pages' two scales) and FP32 operations (QK^T and P.V) of one
+    paged decode call."""
+    s, hq, d = q.shape
+    live_rows = sum(lens)
+    nbytes = (2 * live_rows * hkv * d * pool_elem + 2 * q.numel() * q.element_size()
+              + 4 * (s * w + s) + 2 * pages_scaled * hkv * 4)
+    return nbytes, 4 * live_rows * hq * d
+
+
+def _paged_variant(name, fn, ref_fn, got_dtype, scores64, live, fmt, nbytes, flops, extra):
+    """One paged variant: parity against the plain version, CUDA-event time,
+    device time of the split and combine kernels, bound and share."""
     import torch
 
+    got, ref = fn(), ref_fn()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    err, flips = compare_rows(name, got, ref, got_dtype, scores64, live,
+                              fmt.scale if fmt else None)
+    ms = time_ms(fn)
+    plain_ms = time_ms(ref_fn)
+    by_kernel = device_ms_by_kernel(fn)
+    split_ms = sum(t for k, t in by_kernel.items() if "paged_split_kernel" in k)
+    combine_ms = sum(t for k, t in by_kernel.items() if "paged_combine_kernel" in k)
+    dev = (split_ms + combine_ms) if by_kernel else None
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    at = dev if dev is not None else ms
+    variant = dict(extra, max_abs_err=err, grid_flip_rows=flips, ms=ms, device_ms=dev,
+                   split_device_ms=split_ms if by_kernel else None,
+                   combine_device_ms=combine_ms if by_kernel else None, plain_ms=plain_ms,
+                   library_ms=None, bytes=nbytes, ops=flops, bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   share_of_bound=bound / at)
+    log(f"{name}: max_abs_err={err:.3e} grid_flip_rows={flips} ms={ms:.4f} device_ms={dev} "
+        f"(split {variant['split_device_ms']}, combine {variant['combine_device_ms']}) "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.5f} share_of_bound={bound / at:.4f}")
+    return got, variant
+
+
+def parity_paged(results):
+    """The paged kernels (split-KV + combine) against their plain version at
+    the smoke shape and at the full-width decode tick's shape (S 4, Hq 32,
+    Hkv 8, D 128, bs 16): bf16 and float32 q over pools of q's type and over
+    int8 / fp8_e4m3 pools, STAR and exact.  At the tick shape also a slot's
+    output alone against the same slot in the batch under a wider table, and
+    at the short shape (one split, no combine) each slot against the same
+    slot in a batch under the tick's table width (combine): bit-equal."""
+    import torch
+
+    from repro_torch.core import kvquant
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention.ref import gather_pages
 
-    s, hq, hkv, d, bs = 4, 32, 8, 128, 16
-    lens = [0, 1, 17, 600]
-    w = -(-max(lens) // bs)
-    n = s * w + 1
+    hq, hkv, d, bs = 32, 8, 128, 16
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    base = [torch.randn(sh, device=dev, generator=gen) for sh in
-            ((s, hq, d), (n, bs, hkv, d), (n, bs, hkv, d))]
-    tables = (torch.randperm(n - 1, device=dev, generator=gen)[: s * w] + 1)
-    tables = tables.reshape(s, w).to(torch.int32).contiguous()
-    valid = torch.tensor(lens, dtype=torch.int32, device=dev)
-    cols = torch.arange(w * bs, device=dev)
-    live = (cols[None, :] < valid[:, None])[:, None, :].expand(s, hq, w * bs)
-    variants = []
-    for dtype in (torch.bfloat16, torch.float32):
-        q, kp, vp = (x.to(dtype) for x in base)
-        kd, _ = gather_pages(kp, vp, tables)
-        kd = kd.double().repeat_interleave(hq // hkv, dim=2)  # [S, W*bs, Hq, D]
-        scores64 = torch.einsum("shd,sthd->sht", q.double(), kd) * d ** -0.5
-        for fmt in (FMT, None):
-            mode = "star" if fmt is not None else "exact"
-            got = pk.paged_flash_attention(q, kp, vp, tables, valid, fmt=fmt)
-            ref = pk.paged_attention_ref(q, kp, vp, tables, valid, fmt=fmt)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got.float()).all()), f"paged {mode} {dtype}: non-finite")
-            check(not bool(got[0].any()), f"paged {mode} {dtype}: free slot not zero")
-            err, flips = compare_rows(f"paged {mode} {dtype}", got, ref, dtype,
-                                      scores64, live, fmt.scale if fmt else None)
-            ms = time_ms(lambda: pk.paged_flash_attention(q, kp, vp, tables, valid, fmt=fmt))
-            plain_ms = time_ms(lambda: pk.paged_attention_ref(q, kp, vp, tables, valid, fmt=fmt))
-            variants.append(dict(dtype=str(dtype).split(".")[-1], mode=mode,
-                                 max_abs_err=err, grid_flip_rows=flips, ms=ms,
-                                 plain_ms=plain_ms, library_ms=None))
-            log(f"paged      {mode:5s} {dtype}: max_abs_err={err:.3e} grid_flip_rows={flips} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    elem = 2
-    live_rows = sum(lens)
-    bytes_moved = (2 * live_rows * hkv * d + 2 * s * hq * d) * elem + (tables.numel() + s) * 4
-    flops = 2 * 2 * live_rows * hq * d
-    shape = f"S={s} bs={bs} lens={lens} Hq={hq} Hkv={hkv} D={d}"
-    results.append(_entry(
-        "paged_attention", "cuda",
-        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-        "src/repro/kernels/paged_attention/kernel.py:222", variants[0], bytes_moved, flops,
-        H100_BF16_FLOPS, variants, shape=shape))
-
-    # the quantized variant: int8 / fp8_e4m3 codes with [N, Hkv] scale pages
-    from repro_torch.core import kvquant
-
-    qvariants = []
-    for kv_dtype in ("int8", "fp8_e4m3"):
-        kc, ks = kvquant.quantize_blocks(base[1], kv_dtype)
-        vc, vs = kvquant.quantize_blocks(base[2], kv_dtype)
-        kdq = kvquant.decode(kc, ks[:, None, :, None])
-        vdq = kvquant.decode(vc, vs[:, None, :, None])
-        kd, _ = gather_pages(kdq, vdq, tables)
-        kd = kd.double().repeat_interleave(hq // hkv, dim=2)
-        kw_pages = dict(k_scale=ks, v_scale=vs)
-        for dtype in (torch.bfloat16, torch.float32):
-            q = base[0].to(dtype)
-            scores64 = torch.einsum("shd,sthd->sht", q.double(), kd) * d ** -0.5
-            for fmt in (FMT, None):
-                mode = "star" if fmt is not None else "exact"
-                name = f"paged_quant {kv_dtype} {mode} {dtype}"
-                got = pk.paged_flash_attention(q, kc, vc, tables, valid, fmt=fmt, **kw_pages)
-                ref = pk.paged_attention_ref(q, kc, vc, tables, valid, fmt=fmt, **kw_pages)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
-                check(not bool(got[0].any()), f"{name}: free slot not zero")
-                err, flips = compare_rows(name, got, ref, dtype, scores64, live,
-                                          fmt.scale if fmt else None)
-                ms = time_ms(lambda: pk.paged_flash_attention(
-                    q, kc, vc, tables, valid, fmt=fmt, **kw_pages))
-                plain_ms = time_ms(lambda: pk.paged_attention_ref(
-                    q, kc, vc, tables, valid, fmt=fmt, **kw_pages))
-                qvariants.append(dict(dtype=str(dtype).split(".")[-1], kv_dtype=kv_dtype,
-                                      mode=mode, max_abs_err=err, grid_flip_rows=flips,
-                                      ms=ms, plain_ms=plain_ms, library_ms=None))
-                log(f"{name}: max_abs_err={err:.3e} grid_flip_rows={flips} "
-                    f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    live_pages = sum(-(-n // bs) for n in lens)
-    bytes_moved = (2 * live_rows * hkv * d * 1 + 2 * s * hq * d * elem
-                   + 2 * live_pages * hkv * 4 + (tables.numel() + s) * 4)
-    results.append(_entry(
-        "paged_attention_quant", "cuda",
-        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-        "src/repro/kernels/paged_attention/kernel.py:230", qvariants[0], bytes_moved, flops,
-        H100_BF16_FLOPS, qvariants, shape=f"{shape}, int8/fp8_e4m3 pages + [N,Hkv] scales"))
+    variants, qvariants, splits = [], [], {}
+    for shape, (lens, w) in PAGED_SHAPES.items():
+        s = len(lens)
+        n = s * w + 1
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 if shape == "smoke" else SEED + 8)
+        base = [torch.randn(sh, device=dev, generator=gen) for sh in
+                ((s, hq, d), (n, bs, hkv, d), (n, bs, hkv, d))]
+        tables = (torch.randperm(n - 1, device=dev, generator=gen)[: s * w] + 1)
+        tables = tables.reshape(s, w).to(torch.int32).contiguous()
+        valid = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cols = torch.arange(w * bs, device=dev)
+        live = (cols[None, :] < valid[:, None])[:, None, :].expand(s, hq, w * bs)
+        splits[shape] = pk.num_splits(w, bs)
+        live_pages = sum(-(-x // bs) for x in lens)
+        pools = {"bf16": None}
+        for kv_dtype in ("int8", "fp8_e4m3"):
+            kc, ks = kvquant.quantize_blocks(base[1], kv_dtype)
+            vc, vs = kvquant.quantize_blocks(base[2], kv_dtype)
+            pools[kv_dtype] = (kc, vc, dict(k_scale=ks, v_scale=vs))
+        for pool, coded in pools.items():
+            if coded is not None:  # K as the kernel dequantizes it
+                kp, vp, kw_pages = coded
+                kdq = kvquant.decode(kp, kw_pages["k_scale"][:, None, :, None])
+                k64 = gather_pages(kdq, kdq, tables)[0].double().repeat_interleave(hq // hkv, 2)
+                elem, scaled = 1, live_pages
+            for dtype in (torch.bfloat16, torch.float32):
+                q = base[0].to(dtype)
+                if coded is None:  # a pool of q's type
+                    kp, vp = base[1].to(dtype), base[2].to(dtype)
+                    kw_pages, elem, scaled = {}, q.element_size(), 0
+                    k64 = gather_pages(kp, vp, tables)[0].double().repeat_interleave(hq // hkv, 2)
+                scores64 = torch.einsum("shd,sthd->sht", q.double(), k64) * d ** -0.5
+                nbytes, flops = _paged_work(q, lens, w, hkv, elem, scaled)
+                for fmt in (FMT, None):
+                    mode = "star" if fmt is not None else "exact"
+                    tag = "paged" if coded is None else f"paged_quant {pool}"
+                    name = f"{tag} {shape} {mode} {dtype}"
+                    kw = dict(fmt=fmt, **kw_pages)
+                    extra = dict(shape=shape, dtype=str(dtype).split(".")[-1], mode=mode,
+                                 splits=splits[shape], split_rows=pk.SPLIT_ROWS)
+                    if coded is not None:
+                        extra["kv_dtype"] = pool
+                    got, variant = _paged_variant(
+                        name, lambda: pk.paged_flash_attention(q, kp, vp, tables, valid, **kw),
+                        lambda: pk.paged_attention_ref(q, kp, vp, tables, valid, **kw),
+                        dtype, scores64, live, fmt, nbytes, flops, extra)
+                    check(not bool(got[valid == 0].any()), f"{name}: free slot not zero")
+                    (variants if coded is None else qvariants).append(variant)
+                    if shape == "short":
+                        # the direct route against the combine: the same slots
+                        # under the tick's width, slot 0 made long
+                        w_wide = PAGED_SHAPES["tick"][1]
+                        wide_tables = torch.cat([tables, torch.zeros(
+                            s, w_wide - w, dtype=torch.int32, device=dev)], 1).contiguous()
+                        wide_valid = valid.clone()
+                        wide_valid[0] = PAGED_SHAPES["tick"][0][0]
+                        wide = pk.paged_flash_attention(q, kp, vp, wide_tables, wide_valid, **kw)
+                        check(torch.equal(got[1:], wide[1:]),
+                              f"{name}: slots of one split (W {w}, no combine) differ from "
+                              f"the same slots under W {w_wide} (combine)")
+                        log(f"{name}: slots of lens {lens[1:]} alone (W {w}, 1 split, no "
+                            f"combine) bit-equal under W {w_wide} "
+                            f"({pk.num_splits(w_wide, bs)} splits, combine)")
+                    if shape != "tick" or dtype != torch.bfloat16 or fmt is None:
+                        continue
+                    w0 = -(-lens[0] // bs)
+                    alone = pk.paged_flash_attention(q[:1].contiguous(), kp, vp,
+                                                     tables[:1, :w0].contiguous(), valid[:1], **kw)
+                    check(torch.equal(alone[0], got[0]),
+                          f"{name}: slot 0 alone (W {w0}) differs from slot 0 in the batch (W {w})")
+                    log(f"{name}: slot 0 alone (W {w0}, {pk.num_splits(w0, bs)} splits) "
+                        f"bit-equal to slot 0 in the batch (W {w}, {splits[shape]} splits)")
+    desc = (f"S=4 Hq={hq} Hkv={hkv} D={d} bs={bs}; "
+            + ", ".join(f"{k} lens {lens} W {w}" for k, (lens, w) in PAGED_SHAPES.items())
+            + "; main variant: tick, bf16 q, STAR")
+    for name, replaces, vs_, suffix in (
+            ("paged_attention", "src/repro/kernels/paged_attention/kernel.py:222", variants, ""),
+            ("paged_attention_quant", "src/repro/kernels/paged_attention/kernel.py:230", qvariants,
+             " over int8 pages + [N,Hkv] scales (fp8_e4m3 too)")):
+        main = next(v for v in vs_ if v["shape"] == "tick" and v["dtype"] == "bfloat16"
+                    and v["mode"] == "star" and v.get("kv_dtype", "int8") == "int8")
+        results.append(_entry(
+            name, "cuda", "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            replaces, main, main["bytes"], main["ops"], H100_FP32_FLOPS, vs_,
+            shape=desc + suffix))
+        results[-1].update(design=PAGED_DESIGN, splits=splits, device_ms=main["device_ms"])
 
 
 def parity_softmax(results):
@@ -991,12 +1090,13 @@ def serve(results):
         f"{eng.ticks} decode ticks, ttft p50={1e3 * ttft.percentile(50):.1f}ms, "
         f"max_memory_allocated={peak / 2**30:.2f} GiB")
     log(f"serve: launches {counts}")
-    need = {"flash_star": cfg.num_layers * len(prompts),
-            "paged_attention": cfg.num_layers * eng.ticks,
-            "star_softmax": eng.ticks}
+    need = {"flash_star": cfg.num_layers * len(prompts), "star_softmax": eng.ticks}
     for name, least in need.items():
         check(counts.get(name, 0) >= least,
               f"serve: {name} launched {counts.get(name, 0)} times, expected >= {least}")
+    check(counts.get("paged_attention", 0) == cfg.num_layers * eng.ticks,
+          f"serve: paged_attention launched {counts.get('paged_attention', 0)} times, not "
+          f"once per layer of each of {eng.ticks} ticks")
     for entry in results:
         entry["launches"] = counts.get(entry["name"], 0)
         entry["launches_by_path"] = {"serve_fp": entry["launches"]}
@@ -1082,8 +1182,8 @@ def profile_window(label, fn) -> None:
             continue
         us = _self_device_us(ev)
         name = ev.key.lower()
-        if "paged_kernel" in name:
-            group = "paged_attention"
+        if "paged_split_kernel" in name or "paged_combine_kernel" in name:
+            group = "paged_attention"  # the fp and the quantized kernels alike
         elif "flash_star_pv_int8_kernel" in name:
             group = "flash_star_pv_int8"
         elif "flash_star" in name:  # flash_star_kernel (fp32), flash_star_mma_kernel (bf16)
@@ -1207,9 +1307,9 @@ def serve_quant(results, params):
     log(f"serve int8: launches {counts}")
     check(st["prefix"]["hits"] >= 1, "serve int8: no prefix-cache hit")
     check(eng.preemptions >= 1, "serve int8: the pool forced no preemption")
-    check(counts.get("paged_attention_quant", 0) >= cfg.num_layers * eng.ticks,
+    check(counts.get("paged_attention_quant", 0) == cfg.num_layers * eng.ticks,
           f"serve int8: paged_attention_quant launched {counts.get('paged_attention_quant', 0)} "
-          f"times, expected >= {cfg.num_layers * eng.ticks}")
+          f"times, expected {cfg.num_layers * eng.ticks}")
     check(counts.get("flash_star", 0) == cfg.num_layers * prefills,
           f"serve int8: flash_star launched {counts.get('flash_star', 0)} times for "
           f"{prefills} chunks of {cfg.num_layers} layers")
@@ -1699,6 +1799,7 @@ def main() -> int:
         for func, lines in ptxas_by_function(text).items():
             log(f"  {path.name} {func}: {'; '.join(lines)}")
     check_mma_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
+    check_paged_build(logs[pk.SOURCE])
 
     results = []
     parity_flash(results)

@@ -13,6 +13,16 @@ pages and tables go to the kernel untouched — the wrapper builds no gathered
 or dequantized view.  On a CPU tensor the plain gather version
 (``ref.paged_attention_ref``) runs instead.  The fp and quantized variants
 count their launches apart (``paged_attention``, ``paged_attention_quant``).
+
+The kernel is split-KV: each slot's rows are cut at fixed offsets into
+splits of ``SPLIT_ROWS`` rows (L, for every block size), one CTA per (slot,
+KV head, split), and a combine kernel merges the splits.  The number of
+splits, ``ceil(W * bs / L)``, and the float32 workspace of the partials
+(``[S, Hkv, splits, G, D]`` plus ``[S, Hkv, splits, G]`` for each of m and
+l) come from shapes alone: the wrapper never reads ``kv_valid`` back from
+the card.  One library call per
+wrapper call launches both kernels (the combine only when there is more
+than one split).
 """
 
 from __future__ import annotations
@@ -33,16 +43,23 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 MAX_GROUP = 16
 MAX_BLOCK_SIZE = 128
+SPLIT_ROWS = 64  # L, a split's rows: the kernel's SPLIT_ROWS
 LAUNCHES = _cuda.launch_counter("paged_attention")
 LAUNCHES_QUANT = _cuda.launch_counter("paged_attention_quant")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_attention_launch.argtypes = [p] * 7 + [i] * 7 + [f, f, i, p]
+    lib.paged_attention_launch.argtypes = [p] * 7 + [i] * 7 + [f, f, i, p] + [p, i]
     lib.paged_attention_launch.restype = i
-    lib.paged_attention_quant_launch.argtypes = [p] * 9 + [i] * 8 + [f, f, i, p]
+    lib.paged_attention_quant_launch.argtypes = [p] * 9 + [i] * 8 + [f, f, i, p] + [p, i]
     lib.paged_attention_quant_launch.restype = i
+
+
+def num_splits(w: int, bs: int) -> int:
+    """Splits of ``SPLIT_ROWS`` rows that cover a table of ``w`` blocks of
+    ``bs`` (one for an empty table: it writes the zeros of its free slots)."""
+    return max(1, -(-(w * bs) // SPLIT_ROWS))
 
 
 def paged_flash_attention(
@@ -113,7 +130,16 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
         raise ValueError("block_tables and kv_valid must be int32")
     if not q.is_contiguous():
         raise ValueError("paged kernel needs a contiguous q")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged kernel copies 16-byte pieces: it needs a 16-byte "
+                             f"aligned {name}, got data_ptr % 16 = {t.data_ptr() % 16}; "
+                             f"pass a contiguous copy")
+    splits = num_splits(w, bs)
     out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
+    ws = None
+    if splits > 1:
+        ws = torch.empty(s * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
     lut = _cuda.device_lut(fmt, q.device) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
     common = (
@@ -121,6 +147,7 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
         float(fmt.scale) if fmt is not None else 1.0,
         fmt.num_levels if fmt is not None else 0,
         _cuda.stream_handle(q.device),
+        ws.data_ptr() if ws is not None else None, splits,
     )
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
             block_tables.data_ptr(), kv_valid.data_ptr(),
