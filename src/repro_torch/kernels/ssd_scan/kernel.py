@@ -1,5 +1,5 @@
-"""ssd_scan — the fused SSD chunk scan of the mamba2 mixer, the wrapper of
-the CUDA C++ kernel ``csrc/ssd_scan.cu`` (port of
+"""ssd_scan — the SSD chunk scan of the mamba2 mixer, the wrapper of the CUDA
+C++ kernels in ``csrc/ssd_scan.cu`` (port of
 ``repro.kernels.ssd_scan.kernel.ssd_scan_pallas``).
 
 xdt ``[B, T, H, P]`` and a ``[B, T, H]`` float32, B/C ``[B, T, N]`` float32
@@ -7,10 +7,18 @@ or bfloat16 (G=1: shared by every head); returns ``(y [B, T, H, P], final
 state [B, H, N, P])`` float32, the scan starting from a zero state.  B and C
 are read in their own type with any batch and time strides (the mixer passes
 slices of the conv output), so the wrapper makes no float32 copy; every
-input needs a contiguous last dimension.  A chunk and state size whose
-tiles exceed a CTA's shared memory are refused by the launch, and the
-wrapper raises.  On a CPU tensor the plain version (``ref.ssd_scan_ref``)
-runs instead.
+input that holds elements needs a contiguous last dimension.
+
+One call is three launches on the current stream (chunk state, state
+passing, chunk output) through one C entry, counted once.  The wrapper
+allocates their float32 workspace from shapes alone: ``ws [B, nc, H, N,
+P]`` (each chunk's state contribution, then the state entering it) and
+``cas [B, nc, H, Qp]`` (each chunk's cumsum of a), nc = ceil(T / chunk);
+the C entry groups the chunk-scan kernel's heads for about one CTA per SM.
+A chunk over ``MAX_CHUNK`` rows, or a state over ``MAX_STATE`` rows (the
+tiles would not fit a CTA's shared memory), is refused before anything
+launches.  On a CPU tensor the plain version (``ref.ssd_scan_ref``) runs
+instead.
 """
 
 from __future__ import annotations
@@ -28,10 +36,21 @@ SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
 BC_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _cuda.launch_counter("ssd_scan")
 
+# limits of csrc/ssd_scan.cu (a test reads them back from the source)
+QPAD = 64  # chunk rows padded to a multiple of this in the cumsum workspace
+MAX_CHUNK = 128  # rows of y: one 16-row tile for each of 8 warps
+MAX_STATE = 144  # state rows whose tiles fit a CTA's shared memory beside MAX_CHUNK
+
+
+def workspace_shapes(b: int, t: int, h: int, p: int, n: int, chunk: int):
+    """Shapes of the float32 workspace ``(ws, cas)`` of one call."""
+    nc = -(-t // chunk)
+    return (b, nc, h, n, p), (b, nc, h, -(-chunk // QPAD) * QPAD)
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_launch.argtypes = [p] * 6 + [ll] * 9 + [i] * 7 + [p]
+    lib.ssd_scan_launch.argtypes = [p] * 8 + [ll] * 9 + [i] * 7 + [p]
     lib.ssd_scan_launch.restype = i
 
 
@@ -68,14 +87,22 @@ def _launch(xdt, a, bmat, cmat, chunk) -> Tuple[torch.Tensor, torch.Tensor]:
     for name, x in (("xdt", xdt), ("a", a), ("bmat", bmat), ("cmat", cmat)):
         if x.device != xdt.device:
             raise ValueError(f"{name} is on {x.device}, xdt on {xdt.device}")
-        if x.stride(-1) != 1:
+        if x.numel() and x.stride(-1) != 1:  # an empty input is never read
             raise ValueError(f"ssd_scan kernel needs a contiguous last dimension of {name}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"ssd_scan kernel takes chunks of at most {MAX_CHUNK} steps, got {chunk}")
+    if n > MAX_STATE:
+        raise ValueError(f"ssd_scan kernel takes a state of at most {MAX_STATE} rows (its tiles "
+                         f"fill a CTA's shared memory), got {n}")
     y = torch.empty((b, t, h, p), dtype=torch.float32, device=xdt.device)
     hout = torch.empty((b, h, n, p), dtype=torch.float32, device=xdt.device)
+    ws_shape, cas_shape = workspace_shapes(b, t, h, p, n, chunk)
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=xdt.device)
+    cas = torch.empty(cas_shape, dtype=torch.float32, device=xdt.device)
     lib = _cuda.load(SOURCE, _bind)
     rc = lib.ssd_scan_launch(
         xdt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-        y.data_ptr(), hout.data_ptr(),
+        y.data_ptr(), hout.data_ptr(), ws.data_ptr(), cas.data_ptr(),
         *xdt.stride()[:3], *a.stride()[:2], bmat.stride(0), bmat.stride(1),
         cmat.stride(0), cmat.stride(1),
         b, t, h, p, n, chunk, BC_TYPES[bmat.dtype],
