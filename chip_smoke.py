@@ -13,7 +13,11 @@ Phases (any failure exits non-zero before the result lines):
    the compiler log kept beside it); each kernel's registers and spills
    from ptxas; for flash_star's bf16 tensor-core kernel
    (``flash_star_mma_kernel``, 8 instantiations) 0 spill bytes and bf16
-   HMMA instructions in its SASS (``cuobjdump -sass``); for the split-KV
+   HMMA instructions in its SASS (``cuobjdump -sass``); for its float32
+   kernel (``flash_star_tf32_kernel``, 8) 0 spill bytes and tf32 HMMA, for
+   the int8 P.V kernel (``flash_star_pv_int8_kernel``, 16: float32 and bf16
+   q/k) 0 spill bytes, s8 IMMA and tf32 / bf16 HMMA, for its V pre-pass
+   (``flash_star_quantize_v_kernel``, 2) 0 spill bytes; for the split-KV
    paged kernels (48 ``paged_split_kernel`` and 4 ``paged_combine_kernel``
    instantiations) 0 spill bytes; for the SSD scan's three kernels (5
    instantiations) 0 spill bytes, and tf32 HMMA in the SASS of the chunk
@@ -25,9 +29,11 @@ Phases (any failure exits non-zero before the result lines):
    flash_star also at the chunked-prefill append shape (a 128-row chunk at
    q_offset 256 over a 512-row staging cache with 384 valid rows), SDPA
    timed there for the exact variant with a boolean mask; each of its
-   variants names the kernel that ran it (bf16: mma.sync, float32: FP32
-   FMA) with its device time from ``torch.profiler`` (SDPA's too), the
-   achieved TFLOP/s and its share of the bound; in bf16 it also counts the
+   variants names the kernel that ran it (bf16: mma.sync, float32: mma.sync
+   tf32 as 3xTF32) with its device time from ``torch.profiler`` (SDPA's
+   too, float32 beside float32), the achieved TFLOP/s and its share of the
+   bound (float32: the tf32 products as issued, the FP32-FMA bound beside
+   it); in bf16 it also counts the
    output elements that differ from the plain version at all.  Then the
    bf16 STAR kernel with its LUT in shared memory (the default format)
    against the same kernel reading a 13-bit format's LUT from global
@@ -50,7 +56,9 @@ Phases (any failure exits non-zero before the result lines):
    fault in every mode, at the sampling shape [4, 49152]; the fault
    realization's bits on the card equal the CPU's.  flash_star's int8 P.V
    variant (``flash_star_pv_int8``) at the granite prefill shape and ragged
-   (Tk 500, kv_valid 450), block_k 128; the SSD chunk scan (``ssd_scan``) at
+   (Tk 500, kv_valid 450), block_k 128, its device time split into the V
+   pre-pass and the attention kernel, the bf16 time also as a multiple of
+   the bf16 flash_star kernel's at the same shape; the SSD chunk scan (``ssd_scan``) at
    the Mamba2 serve's prefill shape (xdt [8, 2048, 24, 64], B/C [8, 2048,
    128] as slices of one conv output, bf16 and float32, chunk 128) and at a
    ragged T = 2000, with the device time of each of its three kernels and
@@ -58,7 +66,9 @@ Phases (any failure exits non-zero before the result lines):
    each; the share is taken against the lower);
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
-   must give the same tokens: once over an fp32 pool, then over int8 and
+   must give the same tokens (the config computes in float32, so every
+   prefill on the card runs flash_star's float32 kernel at D 16: its
+   launches are counted and must be > 0): once over an fp32 pool, then over int8 and
    fp8_e4m3 pools with the prefix cache, 8-token prefill chunks, prompts
    sharing a prefix and a pool small enough to force a preemption, then
    under the mild fault (histogram mode, faulty attention on the
@@ -79,7 +89,8 @@ Phases (any failure exits non-zero before the result lines):
    ``torch.profiler`` (device time by kernel group).  Then the int8 P.V
    path: one full-width prefill whose attention spec sets ``pv_int8``
    (counters zeroed just before: the variant launches once per layer),
-   held against the float P.V prefill;
+   held against the float P.V prefill, and traced (the V pre-pass and the
+   attention kernel in one group);
 6. quantized serve: the same weights over an int8 page pool with the
    prefix cache and 128-token prefill chunks, 8 requests of a common
    256-token system prefix plus their own 64-256-token suffix, 16-32 new
@@ -165,7 +176,11 @@ H100_INT8_OPS = 1979e12
 FLIP_DELTA = 1e-3  # grid units (and ADC LSBs)
 FLIP_BOUND = 1e-4  # flipped rows per live score (and ADC flips per output)
 BF16_DIFF_BOUND = 1e-2  # flash_star bf16: output elements unequal to the plain version's
-FLASH_DESIGNS = {"bfloat16": "mma.sync bf16, P in three bf16 pieces", "float32": "fp32 FMA"}
+FLASH_DESIGNS = {"bfloat16": "mma.sync bf16, P in three bf16 pieces",
+                 "float32": "mma.sync tf32, every product as 3xTF32"}
+PV_INT8_DESIGN = "V codes once per block (pre-pass), QK^T bf16 / 3xTF32 mma.sync, P.V s8 mma.sync"
+PV_INT8_KERNELS = ("flash_star_quantize_v_kernel", "flash_star_pv_int8_kernel")
+PV_INT8_BF16_BAR = 2.0  # pv_int8 bf16 device time per the bf16 flash_star kernel's, same shape
 SSD_RTOL = 1e-5  # ssd_scan: max |kernel - plain| per max |plain| (float32 sums reordered)
 SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 SSD_DESIGN = ("chunk state + state pass + chunk scan; mma.sync tf32, float32 operands as 3xTF32, "
@@ -341,7 +356,9 @@ def _cuobjdump():
 
 
 def sass_hmma(library):
-    """{kernel: [HMMA kind per instruction]} from the SASS of a built library."""
+    """{kernel: [tensor-core instruction kind per instruction]} from the SASS
+    of a built library: HMMA (float inputs, e.g. ``.16816.F32.BF16``) and
+    IMMA (integer inputs, e.g. ``IMMA.16832.S8.S8``)."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
     hmma, cur = {}, None
@@ -351,6 +368,8 @@ def sass_hmma(library):
             cur = m.group(1)
         elif cur and "HMMA" in line:
             hmma.setdefault(cur, []).append(line.split("HMMA")[1].split()[0])
+        elif cur and "IMMA" in line:
+            hmma.setdefault(cur, []).append("IMMA" + line.split("IMMA")[1].split()[0])
     return hmma
 
 
@@ -371,6 +390,39 @@ def check_mma_build(ptxas_log, library):
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
               f"flash_star_mma_kernel {tag} spills: {lines}")
         check(any(".BF16" in k for k in kinds), f"flash_star_mma_kernel {tag}: no bf16 HMMA in its SASS")
+
+
+def check_tc_build(ptxas_log, library):
+    """flash_star's float32 and int8 P.V kernels run on the tensor cores and
+    spill nothing: ``flash_star_tf32_kernel`` (4 head dims x STAR / exact)
+    with tf32 HMMA in its SASS, ``flash_star_pv_int8_kernel`` (float32 and
+    bf16 q/k: 16) with s8 IMMA (its P.V) and tf32 / bf16 HMMA (its QK^T),
+    and the two ``flash_star_quantize_v_kernel`` instantiations (its V
+    pre-pass, float32 and bf16 V); each one's ptxas line is printed."""
+    funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
+             if "flash_star_tf32_kernel" in f or any(k in f for k in PV_INT8_KERNELS)}
+    n = {k: sum(k in f for f in funcs) for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS)}
+    check(n == {"flash_star_tf32_kernel": 8, "flash_star_quantize_v_kernel": 2,
+                "flash_star_pv_int8_kernel": 16},
+          f"expected 8 tf32, 2 quantize_v and 16 pv_int8 instantiations, ptxas shows {n}")
+    mma = sass_hmma(library)
+    for func, lines in sorted(funcs.items()):
+        name = next(k for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS) if k in func)
+        m = re.search(r"Li(\d+)ELb([01])E", func)
+        tag = name + (" bf16" if "nv_bfloat16" in func else " f32") + (
+            f" D={m.group(1)} {'star' if m.group(2) == '1' else 'exact'}" if m else "")
+        ops = mma.get(func, [])
+        kinds = sorted(set(ops))
+        log(f"{tag}: ptxas {'; '.join(lines)}; SASS HMMA/IMMA x {len(ops)} {kinds}")
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
+              f"{tag} spills: {lines}")
+        if name == "flash_star_quantize_v_kernel":
+            continue
+        qk = ".BF16" if "nv_bfloat16" in func else "TF32"
+        check(any(qk in k for k in kinds), f"{tag}: no {qk} HMMA in its SASS")
+        if name == "flash_star_pv_int8_kernel":
+            check(any(k.startswith("IMMA") and "S8" in k for k in kinds),
+                  f"{tag}: no s8 IMMA (its P.V) in its SASS")
 
 
 def check_ssd_build(ptxas_log, library):
@@ -418,12 +470,14 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
     in bf16 and f32, STAR and exact; ``sdpa`` times the library call for
     the exact variant.  With ``pv_int8_block`` the int8 P.V variant over
     KV blocks of that many rows, whose flips are counted as ambiguous codes
-    (``_pv_int8_ambiguous``).  Without it each variant also records the
-    kernel it ran (``design``), its device time from the profiler, and the
-    achieved TFLOP/s and share of its bound at that time: operations 4 x
-    live scores x D (QK^T and P.V) at the peak of the input type (bf16
-    tensor cores, FP32 for float32), bytes q + out + the K/V rows some row
-    sees, at 3.35 TB/s."""
+    (``_pv_int8_ambiguous``).  Each variant also records the kernel it ran
+    (``design``), its device time from the profiler (pv_int8: the V
+    pre-pass and the attention kernel apart), and the achieved TFLOP/s and
+    share of its bound at that time.  The bound: bytes q + out + the K/V
+    rows some row sees, at 3.35 TB/s, or the products as the kernel issues
+    them, 2 x live scores x D for QK^T and as much for P.V: bf16 at the bf16
+    tensor-core peak, float32 as three tf32 products each at the tf32 peak
+    (the FP32-FMA bound beside it), pv_int8's P.V at the int8 peak."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
@@ -474,23 +528,41 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
             variant[flips_key] = flips
             if n_diff is not None:
                 variant["bf16_diff_elems"] = n_diff
-            extra = ""
+            call = lambda: fk.flash_star_attention(q, k, v, info, **kw)  # noqa: E731
+            flops = 4 * n_live * d
+            nbytes = (2 * q.numel() + 2 * b * hkv * kv_rows * d) * q.element_size() + 4 * info.numel()
+            bf16 = dtype == torch.bfloat16
+            t_qk = flops / 2 / (H100_BF16_FLOPS if bf16 else H100_TF32_FLOPS / 3)
             if pv_int8_block is None:
-                dev = device_ms(lambda: fk.flash_star_attention(q, k, v, info, **kw))
-                flops = 4 * n_live * d
-                nbytes = (2 * q.numel() + 2 * b * hkv * kv_rows * d) * q.element_size() + 4 * info.numel()
-                peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
-                bound = max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3
-                at = dev if dev is not None else ms
+                dev = device_ms(call)
+                t_pv = t_qk
                 design = FLASH_DESIGNS[variant["dtype"]]
-                variant.update(design=design, device_ms=dev, library_device_ms=lib_dev,
-                               bound_ms=bound, tflops=flops / (at * 1e-3) / 1e12,
-                               share_of_bound=bound / at)
-                extra = (f" device_ms={dev} library_device_ms={lib_dev} bound_ms={bound:.5f} "
-                         f"tflops={variant['tflops']:.2f} share_of_bound={bound / at:.4f} "
-                         f"[{design}]")
-                if lib_ms is not None:
-                    extra += f" sdpa_vs_plain_max_abs={lib_err:.3e}"
+            else:
+                by_kernel = device_ms_by_kernel(call, per_call={k: 1 for k in PV_INT8_KERNELS})
+                parts = {k: sum(t for key, t in by_kernel.items() if k in key)
+                         for k in PV_INT8_KERNELS}
+                dev = sum(parts.values()) if by_kernel else None
+                variant.update(prepass_device_ms=parts[PV_INT8_KERNELS[0]],
+                               attention_device_ms=parts[PV_INT8_KERNELS[1]])
+                t_pv = flops / 2 / H100_INT8_OPS
+                design = PV_INT8_DESIGN
+            bound = max(nbytes / H100_BYTES_PER_S, t_qk + t_pv) * 1e3
+            at = dev if dev is not None else ms
+            variant.update(design=design, device_ms=dev, library_device_ms=lib_dev,
+                           bound_ms=bound, tflops=flops / (at * 1e-3) / 1e12,
+                           share_of_bound=bound / at)
+            extra = (f" device_ms={dev} library_device_ms={lib_dev} bound_ms={bound:.5f} "
+                     f"tflops={variant['tflops']:.2f} share_of_bound={bound / at:.4f} "
+                     f"[{design}]")
+            if not bf16:
+                fma = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
+                variant["bound_fp32_fma_ms"] = fma
+                extra += f" bound_fp32_fma_ms={fma:.5f}"
+            if pv_int8_block is not None:
+                extra += (f" prepass_device_ms={variant['prepass_device_ms']} "
+                          f"attention_device_ms={variant['attention_device_ms']}")
+            if lib_ms is not None:
+                extra += f" sdpa_vs_plain_max_abs={lib_err:.3e}"
             if shape is not None:
                 variant["shape"] = shape
             variants.append(variant)
@@ -633,6 +705,18 @@ def parity_pv_int8(results):
         shape = f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] valid {valid} causal block_k {bk}"
         variants += _flash_variants(f"flash_star_pv_int8 T={t}", base, info, live,
                                     shape=shape, pv_int8_block=bk)
+    # the bar: bf16 pv_int8 at the smoke shape within PV_INT8_BF16_BAR x the
+    # bf16 flash_star kernel's device time (measured, not enforced)
+    flash = next(e for e in results if e["name"] == "flash_star")["variants"]
+    for mode in ("star", "exact"):
+        ref_dev = next(x["device_ms"] for x in flash if x["dtype"] == "bfloat16"
+                       and x["mode"] == mode and "append" not in x.get("shape", ""))
+        got = next(x for x in variants if x["dtype"] == "bfloat16" and x["mode"] == mode)
+        if ref_dev and got["device_ms"]:
+            got["per_bf16_flash_star"] = got["device_ms"] / ref_dev
+            log(f"flash_star_pv_int8 bf16 {mode}: {got['device_ms']:.5f} ms device = "
+                f"{got['per_bf16_flash_star']:.2f}x the bf16 flash_star kernel's {ref_dev:.5f} "
+                f"(bar {PV_INT8_BF16_BAR:g}x)")
     t = 512
     n_live = b * hq * t * (t + 1) // 2
     bytes_moved = (2 * b * hq * t * d + 2 * b * hkv * t * d) * 2 + (1 + b) * 4
@@ -1059,11 +1143,18 @@ def small_reference():
             eng = ContinuousBatchingEngine(
                 cfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4),
                 device=dev)
+            reset_launch_counts()
             outs[dev] = eng.serve(prompts, gens)
+            if dev == "cuda":  # float32 compute: every prefill runs the tf32 kernel
+                f32_launches = launch_counts().get("flash_star", 0)
     check(outs["cuda"] == outs["cpu"],
           f"smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
+    check(cfg.compute_dtype == "float32" and f32_launches > 0,
+          f"smoke card run: flash_star launched {f32_launches} times in "
+          f"{cfg.compute_dtype} compute")
     log(f"small reference: greedy smoke tokens identical on card and cpu "
-        f"({sum(gens)} tokens, 5 requests)")
+        f"({sum(gens)} tokens, 5 requests); the float32 flash_star kernel "
+        f"(flash_star_tf32_kernel, D {cfg.resolved_head_dim}) launched {f32_launches} times on the card")
 
     # quantized pools, prefix cache, chunked prefill and preemption: prompts
     # share a 9-token prefix; 7 blocks of 4 rows cannot hold both slots
@@ -1142,6 +1233,7 @@ def small_reference():
         log(f"small reference T=0.8 {mode}: {kernel} launched {counts[kernel]} times for "
             f"{batches} sampled batches; first sample's probabilities vs cpu plain version "
             f"max_abs_err={err:.3e}")
+    return f32_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1261,6 +1353,9 @@ def prefill_pv_int8(results, cfg, params, prompt):
         e["launches_by_path"]["prefill_pv_int8"] = counts.get(e["name"], 0)
         if e["name"] == "flash_star_pv_int8":
             e["launches"] = counts["flash_star_pv_int8"]
+    with torch.no_grad():
+        profile_window(f"one full-width pv_int8 prefill, {tokens.shape[1]} tokens",
+                       lambda: build_model(icfg).prefill(params, tokens, tokens.shape[1]))
     return {"tokens": int(tokens.shape[1]), "wall_s": wall, "logits_rel_l2": rel}
 
 
@@ -1285,9 +1380,9 @@ def profile_window(label, fn) -> None:
         name = ev.key.lower()
         if "paged_split_kernel" in name or "paged_combine_kernel" in name:
             group = "paged_attention"  # the fp and the quantized kernels alike
-        elif "flash_star_pv_int8_kernel" in name:
+        elif any(k in name for k in PV_INT8_KERNELS):  # V pre-pass + attention
             group = "flash_star_pv_int8"
-        elif "flash_star" in name:  # flash_star_kernel (fp32), flash_star_mma_kernel (bf16)
+        elif "flash_star" in name:  # flash_star_tf32_kernel (f32), flash_star_mma_kernel (bf16)
             group = "flash_star"
         elif any(k in name for k in SSD_KERNELS):
             group = "ssd_scan"
@@ -1962,6 +2057,7 @@ def main() -> int:
         for func, lines in ptxas_by_function(text).items():
             log(f"  {path.name} {func}: {'; '.join(lines)}")
     check_mma_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
+    check_tc_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
     check_paged_build(logs[pk.SOURCE])
     check_ssd_build(logs[ssk.SOURCE], _cuda.library_path(ssk.SOURCE))
 
@@ -1973,7 +2069,8 @@ def main() -> int:
     parity_softmax_lut(results)
     parity_ssd_scan(results)
     realization_bits()
-    small_reference()
+    f32_launches = small_reference()
+    next(e for e in results if e["name"] == "flash_star")["launches_float32_smoke"] = f32_launches
     small_reference_mamba()
     summary, params = serve(results)
     summary_quant = serve_quant(results, params)

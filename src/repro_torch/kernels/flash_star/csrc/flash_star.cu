@@ -2,19 +2,10 @@
 // online softmax, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_star/kernel.py
-// (flash_star_attention / _kernel).  The TPU grid (B, Hq, nq, nk) runs its
-// innermost KV axis in order and carries (m, l, acc) in VMEM scratch; here
-// one CTA owns one (batch, q head, 64-row q block) and walks the KV blocks
-// in a loop, so nothing carries between CTAs.
-//
-// What bounds it on the H100: the QK^T and P.V products (about 2 GFLOP for
-// one 512-token causal prefill at 32 heads, D=128).  The first kernel below,
-// which now serves float32 inputs only, does them with float32 FMAs from
-// shared memory, bound by the SMs' FP32 and shared-memory rates; bfloat16
-// inputs run on the tensor cores (flash_star_mma_kernel).  The design
-// keeps the operand traffic at one read of q and of each K/V tile per CTA,
-// skips whole KV tiles outside the causal / window / ragged range, and
-// never writes the score matrix to device memory.
+// (flash_star_attention / _kernel, with and without pv_int8).  The TPU grid
+// (B, Hq, nq, nk) runs its innermost KV axis in order and carries (m, l, acc)
+// in VMEM scratch; here one CTA owns one (batch, q head, 64-row q block) and
+// walks the KV tiles in a loop, so nothing carries between CTAs.
 //
 // STAR arithmetic matches the TPU kernel: score s = (q.k) * sm_scale snaps
 // to j = rint(s * 2^frac) (round half to even, as jnp.round), saturated to
@@ -22,16 +13,27 @@
 // infinite score cannot wrap; the running max is an int32, and both the
 // rescale factor and the probabilities are entries of the exp LUT
 // (core/lut.py) that the wrapper passes in.  lut == nullptr selects the
-// exact float softmax.  All softmax arithmetic is float32; the output has
-// the input's type.  Built without fast math.
+// exact float softmax.  All softmax arithmetic is float32 (block_softmax,
+// shared by every kernel here); the output has the input's type.  Built
+// without fast math.
 //
-// Three kernels, chosen by type (the wrapper routes; each entry point
-// refuses the others' types):
-//   flash_star_kernel<float>      float32 q/k/v: FP32 FMAs (this first one);
-//   flash_star_mma_kernel         bfloat16 q/k/v: tensor cores (mma.sync),
-//                                 entry point flash_star_mma_launch;
-//   flash_star_pv_int8_kernel     the int8 P.V variant (pv_int8=True in the
-//                                 TPU kernel, kernel.py:129-141), either type.
+// Every product runs on the tensor cores (mma.sync).  The kernels, chosen by
+// type and variant (the wrapper routes; each entry point refuses the others'
+// types):
+//   flash_star_mma_kernel         bfloat16 q/k/v (flash_star_mma_launch);
+//   flash_star_tf32_kernel        float32 q/k/v, products as 3xTF32
+//                                 (flash_star_tf32_launch);
+//   flash_star_quantize_v_kernel  the int8 P.V variant (pv_int8=True in the
+//   + flash_star_pv_int8_kernel   TPU kernel, kernel.py:129-141), either
+//                                 type: V's codes once per block, then the
+//                                 attention with s8 P.V
+//                                 (flash_star_quantize_v_launch, then
+//                                 flash_star_pv_int8_launch).
+// flash_star_tf32_kernel and flash_star_pv_int8_kernel share one body,
+// tc_attention, a sibling of the bf16 kernel rather than a template of it: their K and V tiles go through a split into
+// tf32 planes (float32) or their P.V through a block of int8 codes, so tile
+// sizes, shared memory and the P.V step all differ, while the score tiles'
+// layout and the softmax (block_softmax) are the same in all three.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,27 +43,17 @@
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per CTA
-constexpr int BK = 32;         // KV rows per tile
-constexpr int NTHREADS = 128;  // two threads per q row
 constexpr int GRID_SENTINEL = -(1 << 24);
 constexpr float NEG_BIG = -1e30f;
+constexpr int MQ = 64;              // q rows per CTA, 16 per warp
+constexpr int MT = 128;             // four warps
+constexpr int LUT_SMEM_MAX = 4096;  // larger LUTs are read from global memory
+
+template <int N>
+using Int = std::integral_constant<int, N>;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round(s * scale) on the signed grid, saturated, NaN -> sentinel.
-__device__ __forceinline__ int snap(float s, float scale) {
-  float v = rintf(s * scale);
-  if (isnan(v)) v = (float)GRID_SENTINEL;
-  v = fminf(fmaxf(v, (float)GRID_SENTINEL), (float)(-GRID_SENTINEL));
-  return (int)v;
-}
 
 struct Params {
   const void* q; const void* k; const void* v; void* o;
@@ -73,464 +65,6 @@ struct Params {
   float sm_scale, grid_scale;
   int num_levels;
 };
-
-template <typename T, int D, bool STAR>
-__global__ void __launch_bounds__(NTHREADS) flash_star_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);     // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);     // [BK][D]
-  float* Ps = Vs + BK * D;           // [BQ][BK + 1]
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int tid = threadIdx.x;
-  const int row = tid >> 1;    // local q row
-  const int half = tid & 1;    // this thread's column / feature parity
-  const int q_offset = p.info[0];
-  const int kv_valid = min(p.info[1 + b], p.Tk);
-  const int row0 = iq * BQ + q_offset;  // absolute position of local row 0
-  const int pos = row0 + row;
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D, t = iq * BQ + r;
-    Qs[r * (D + 1) + c] = t < p.Tq ? to_f32(qg[t * p.q_st + c]) : 0.f;
-  }
-
-  int m_i = GRID_SENTINEL;  // running grid max (STAR)
-  float m_f = NEG_BIG;      // running max (exact)
-  float l = 0.f;
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-  // KV tiles that can hold a live column for some row of this CTA.
-  int kv_end = kv_valid;
-  if (p.causal) kv_end = min(kv_end, row0 + BQ);
-  int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, row0 - p.window + 1) / BK * BK;
-
-  for (int c0 = kv_start; c0 < kv_end; c0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and Qs loaded)
-    for (int idx = tid; idx < BK * D; idx += NTHREADS) {
-      const int r = idx / D, c = idx % D, t = c0 + r;
-      const bool in = t < p.Tk;
-      Ks[r * (D + 1) + c] = in ? to_f32(kg[t * p.k_st + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vg[t * p.v_st + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[BK / 2];
-#pragma unroll
-    for (int jj = 0; jj < BK / 2; ++jj) sc[jj] = 0.f;
-    const float* qrow = Qs + row * (D + 1);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj)
-        sc[jj] = fmaf(qd, Ks[(half + 2 * jj) * (D + 1) + d], sc[jj]);
-    }
-
-    unsigned live = 0;
-#pragma unroll
-    for (int jj = 0; jj < BK / 2; ++jj) {
-      const int col = c0 + half + 2 * jj;
-      bool ok = col < kv_valid;
-      if (p.causal) ok = ok && col <= pos;
-      if (p.window > 0) ok = ok && col > pos - p.window;
-      if (ok) live |= 1u << jj;
-      sc[jj] *= p.sm_scale;
-    }
-
-    float r, psum = 0.f;
-    float* prow = Ps + row * (BK + 1);
-    if constexpr (STAR) {
-      const int top = p.num_levels - 1;
-      int jg[BK / 2];
-      int mb = GRID_SENTINEL;
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        jg[jj] = (live >> jj & 1u) ? snap(sc[jj], p.grid_scale) : GRID_SENTINEL;
-        mb = max(mb, jg[jj]);
-      }
-      mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-      const int m_new = max(m_i, mb);
-      r = __ldg(p.lut + min(max(m_new - m_i, 0), top));
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        const float pv = (live >> jj & 1u)
-            ? __ldg(p.lut + min(max(m_new - jg[jj], 0), top)) : 0.f;
-        prow[half + 2 * jj] = pv;
-        psum += pv;
-      }
-      m_i = m_new;
-    } else {
-      float mb = NEG_BIG;
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        if (!(live >> jj & 1u)) sc[jj] = NEG_BIG;
-        mb = fmaxf(mb, sc[jj]);
-      }
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-      const float m_new = fmaxf(m_f, mb);
-      r = expf(m_f - m_new);
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        const float pv = (live >> jj & 1u) ? expf(sc[jj] - m_new) : 0.f;
-        prow[half + 2 * jj] = pv;
-        psum += pv;
-      }
-      m_f = m_new;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * r + psum;
-    __syncthreads();  // the pair's probabilities are in Ps
-
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= r;
-    for (int j = 0; j < BK; ++j) {
-      const float pj = prow[j];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i)
-        acc[i] = fmaf(pj, Vs[j * D + half + 2 * i], acc[i]);
-    }
-  }
-
-  const int t = iq * BQ + row;
-  if (t < p.Tq) {
-    const float den = l <= 0.f ? 1.f : l;
-    T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + t * p.o_st;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) og[half + 2 * i] = from_f32<T>(acc[i] / den);
-  }
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-template <typename T, int D, bool STAR>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_star_kernel<T, D, STAR>;
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
-  kernel<<<grid, NTHREADS, bytes, stream>>>(p);
-  return cudaSuccess;
-}
-
-template <typename T, bool STAR>
-cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16, STAR>(p, stream);
-    case 32: return launch<T, 32, STAR>(p, stream);
-    case 64: return launch<T, 64, STAR>(p, stream);
-    case 128: return launch<T, 128, STAR>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The int8 P.V variant.  Per KV block of bk rows (the TPU kernel's block_k,
-// bk <= BK8) the TPU kernel quantizes
-//   p8 = rint(p * 127)                 against the running max after the block,
-//   v8 = rint(v * (127 / vamax)),      vamax = max(max |V_block|, 1e-6),
-// and adds float(sum p8 * v8 as int32) * (vamax / 16129) to the accumulator,
-// while the denominator sums the unquantized p.  Both codes depend on the
-// block: P's through the running max (a max taken after 32 rows would give
-// other codes than one taken after bk rows) and V's through the block's
-// absmax, which runs over all bk x D values, rows past kv_valid included (the
-// zero rows that pad Tk to a multiple of bk change nothing).  So this kernel
-// walks KV in blocks of exactly bk rows from row 0: it forms a whole block's
-// scores (in 32-row K sub-tiles) before it takes the block's max, quantizes
-// V into shared memory as int8 (transposed, four rows to a 32-bit word),
-// packs each row's p8 likewise, and accumulates with __dp4a in int32,
-// converting to float once per block.  The quantizing multiply and the
-// rescale are __fmul_rn / __fadd_rn: never contracted into an FMA.
-//
-// What bounds it: the same QK^T work as the float kernel (FP32 FMAs here)
-// plus int8 products that the card's int8 tensor cores would do at
-// 1979 TOP/s; dp4a on the SMs' integer units is the simple first step
-// (an s8 mma.sync / wgmma version is later work).  One CTA owns 64 q rows
-// with four threads per row; a row's four threads split the block's
-// columns for the scores and p8, and the head dimension for P.V.
-
-constexpr int BK8 = 128;         // largest KV block of the variant
-constexpr int KT = 32;           // K rows per sub-tile
-constexpr int NT8 = 256;         // four threads per q row
-constexpr int W8 = BK8 / 4 + 1;  // 32-bit words per packed row (+1: banks)
-
-template <int D>
-constexpr size_t smem_bytes_int8() {
-  return sizeof(float) * (BQ * (D + 1) + KT * (D + 1) + BQ * (BK8 + 1)) +
-         sizeof(int) * (D * W8 + BQ * W8) + sizeof(float) * (NT8 / 32);
-}
-
-template <typename T, int D, bool STAR>
-__global__ void __launch_bounds__(NT8) flash_star_pv_int8_kernel(Params p, int bk) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                                       // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);                          // [KT][D + 1]
-  float* Ss = Ks + KT * (D + 1);                          // [BQ][BK8 + 1] scaled scores
-  int* V8 = reinterpret_cast<int*>(Ss + BQ * (BK8 + 1));  // [D][W8] packed v8 codes
-  int* P8 = V8 + D * W8;                                  // [BQ][W8] packed p8 codes
-  float* red = reinterpret_cast<float*>(P8 + BQ * W8);    // [NT8 / 32]
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row = tid >> 2;  // local q row
-  const int qt = tid & 3;    // this thread's quarter of the row
-  const int q_offset = p.info[0];
-  const int kv_valid = p.info[1 + b];
-  const int kv_lim = min(kv_valid, p.Tk);
-  const int row0 = iq * BQ + q_offset;
-  const int pos = row0 + row;
-  const int nw = (bk + 3) / 4;  // packed words per block row
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  for (int idx = tid; idx < BQ * D; idx += NT8) {
-    const int r = idx / D, c = idx % D, t = iq * BQ + r;
-    Qs[r * (D + 1) + c] = t < p.Tq ? to_f32(qg[t * p.q_st + c]) : 0.f;
-  }
-
-  int m_i = GRID_SENTINEL;
-  float m_f = NEG_BIG;
-  float l = 0.f;
-  float acc[D / 4];
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
-
-  // the blocks the TPU kernel's block-level test can find live for some row
-  // of this CTA (a block it skips for a row contributes p = 0 and r = 1 there)
-  int kv_end = kv_lim;
-  if (p.causal) kv_end = min(kv_end, row0 + BQ);
-  int kb = 0;
-  if (p.window > 0) kb = max(0, row0 - p.window + 1) / bk;
-
-  for (int c0 = kb * bk; c0 < kv_end; c0 += bk) {
-    const int rows = min(bk, p.Tk - c0);  // rows of the block inside Tk
-    __syncthreads();  // the previous block is done with V8, P8, Ss and red (and Qs loaded)
-
-    // V: the block's absmax, then its int8 codes, transposed and packed
-    float vmax = 0.f;
-    for (int idx = tid; idx < rows * D; idx += NT8) {
-      const int r = idx / D, c = idx % D;
-      vmax = fmaxf(vmax, fabsf(to_f32(vg[(c0 + r) * p.v_st + c])));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
-    if (lane == 0) red[warp] = vmax;
-    __syncthreads();
-    float vamax = red[0];
-#pragma unroll
-    for (int w = 1; w < NT8 / 32; ++w) vamax = fmaxf(vamax, red[w]);
-    vamax = fmaxf(vamax, 1e-6f);
-    const float vq = 127.f / vamax;
-    int8_t* v8b = reinterpret_cast<int8_t*>(V8);
-    for (int idx = tid; idx < 4 * nw * D; idx += NT8) {
-      const int r = idx / D, c = idx % D;
-      const float v = r < rows ? to_f32(vg[(c0 + r) * p.v_st + c]) : 0.f;
-      v8b[c * (4 * W8) + r] = (int8_t)(int)rintf(__fmul_rn(v, vq));
-    }
-
-    // scores of the whole block, KT K rows at a time
-    for (int s0 = 0; s0 < bk; s0 += KT) {
-      if (s0 > 0) __syncthreads();  // the previous sub-tile is consumed
-      for (int idx = tid; idx < KT * D; idx += NT8) {
-        const int r = idx / D, c = idx % D, t = c0 + s0 + r;
-        Ks[r * (D + 1) + c] = (s0 + r < bk && t < p.Tk) ? to_f32(kg[t * p.k_st + c]) : 0.f;
-      }
-      __syncthreads();
-      const float* qrow = Qs + row * (D + 1);
-#pragma unroll
-      for (int jj = 0; jj < KT / 4; ++jj) {
-        const int j = s0 + qt + 4 * jj;
-        if (j < bk) {
-          const float* krow = Ks + (qt + 4 * jj) * (D + 1);
-          float sc = 0.f;
-#pragma unroll 8
-          for (int d = 0; d < D; ++d) sc = fmaf(qrow[d], krow[d], sc);
-          Ss[row * (BK8 + 1) + j] = sc * p.sm_scale;
-        }
-      }
-    }
-    __syncthreads();  // a row's scores come from its four threads
-
-    // the block max, p and the packed p8 (this thread: words qt, qt + 4, ...)
-    const float* srow = Ss + row * (BK8 + 1);
-    auto live = [&](int j) {
-      const int col = c0 + j;
-      bool ok = j < rows && col < kv_lim;
-      if (p.causal) ok = ok && col <= pos;
-      if (p.window > 0) ok = ok && col > pos - p.window;
-      return ok;
-    };
-    float r, psum = 0.f;
-    if constexpr (STAR) {
-      const int top = p.num_levels - 1;
-      int mb = GRID_SENTINEL;
-      for (int w = qt; w < nw; w += 4)
-        for (int k = 0; k < 4; ++k)
-          if (live(4 * w + k)) mb = max(mb, snap(srow[4 * w + k], p.grid_scale));
-      mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-      mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
-      const int m_new = max(m_i, mb);
-      r = __ldg(p.lut + min(max(m_new - m_i, 0), top));
-      for (int w = qt; w < nw; w += 4) {
-        unsigned word = 0;
-        for (int k = 0; k < 4; ++k) {
-          const int j = 4 * w + k;
-          float pj = 0.f;
-          if (live(j)) pj = __ldg(p.lut + min(max(m_new - snap(srow[j], p.grid_scale), 0), top));
-          psum += pj;
-          word |= ((unsigned)(int)rintf(__fmul_rn(pj, 127.f)) & 0xffu) << (8 * k);
-        }
-        P8[row * W8 + w] = (int)word;
-      }
-      m_i = m_new;
-    } else {
-      float mb = NEG_BIG;
-      for (int w = qt; w < nw; w += 4)
-        for (int k = 0; k < 4; ++k)
-          if (live(4 * w + k)) mb = fmaxf(mb, srow[4 * w + k]);
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
-      const float m_new = fmaxf(m_f, mb);
-      r = expf(m_f - m_new);
-      for (int w = qt; w < nw; w += 4) {
-        unsigned word = 0;
-        for (int k = 0; k < 4; ++k) {
-          const int j = 4 * w + k;
-          const float pj = live(j) ? expf(srow[j] - m_new) : 0.f;
-          psum += pj;
-          word |= ((unsigned)(int)rintf(__fmul_rn(pj, 127.f)) & 0xffu) << (8 * k);
-        }
-        P8[row * W8 + w] = (int)word;
-      }
-      m_f = m_new;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = __fadd_rn(__fmul_rn(l, r), psum);
-    __syncthreads();  // P8 and V8 complete
-
-    // P.V in int32 over the block; this thread's features qt + 4 i
-    int part[D / 4];
-#pragma unroll
-    for (int i = 0; i < D / 4; ++i) part[i] = 0;
-    const int* prow = P8 + row * W8;
-    for (int w = 0; w < nw; ++w) {
-      const int pw = prow[w];
-#pragma unroll
-      for (int i = 0; i < D / 4; ++i) part[i] = __dp4a(pw, V8[(qt + 4 * i) * W8 + w], part[i]);
-    }
-    const float vs = vamax / 16129.f;
-#pragma unroll
-    for (int i = 0; i < D / 4; ++i)
-      acc[i] = __fadd_rn(__fmul_rn(acc[i], r), __fmul_rn((float)part[i], vs));
-  }
-
-  const int t = iq * BQ + row;
-  if (t < p.Tq) {
-    const float den = l <= 0.f ? 1.f : l;
-    T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + t * p.o_st;
-#pragma unroll
-    for (int i = 0; i < D / 4; ++i) og[qt + 4 * i] = from_f32<T>(acc[i] / den);
-  }
-}
-
-template <typename T, int D, bool STAR>
-cudaError_t launch_int8(const Params& p, int bk, cudaStream_t stream) {
-  auto kernel = flash_star_pv_int8_kernel<T, D, STAR>;
-  constexpr size_t bytes = smem_bytes_int8<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
-  kernel<<<grid, NT8, bytes, stream>>>(p, bk);
-  return cudaSuccess;
-}
-
-template <typename T, bool STAR>
-cudaError_t launch_int8_d(const Params& p, int d, int bk, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_int8<T, 16, STAR>(p, bk, stream);
-    case 32: return launch_int8<T, 32, STAR>(p, bk, stream);
-    case 64: return launch_int8<T, 64, STAR>(p, bk, stream);
-    case 128: return launch_int8<T, 128, STAR>(p, bk, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The bfloat16 kernel on the tensor cores, flash_star_mma_kernel.
-//
-// Replaces the same TPU kernel (src/repro/kernels/flash_star/kernel.py:216,
-// flash_star_attention / _kernel without pv_int8) for bf16 q/k/v, the type
-// the models serve in.  What bounds it: at a 512-token causal prefill (q
-// [1, 32, 512, 128], kv [1, 8, 512, 128]) the live work is 1.07 GFLOP of
-// QK^T and 1.07 GFLOP of P.V; the bytes take 3.1 us at 3.35 TB/s and the
-// tensor work 2.2 us at 989 TFLOP/s (4.3 us with P.V done three times, as
-// below), so the card's rates allow a few microseconds and what is left is
-// latency: tile loads, the softmax's scalar work and a grid of 256 CTAs.
-//
-// Design (FlashAttention-2's shape): one CTA of 4 warps owns (batch, q
-// head, 64 q rows), 16 rows per warp.  The grid is one-dimensional and
-// hands out the longest causal rows first; when it is one wave of two CTAs
-// per SM, the second CTA of each SM takes the lightest rows left, so heavy
-// and light q blocks share an SM.  Each warp keeps its Q fragments in
-// registers (ldmatrix once).  K and V tiles of 64 rows pass through a
-// two-stage ring in shared memory filled by 16-byte cp.async copies (rows
-// past Tk zero-filled): tile i + 1 loads while tile i computes, and the
-// first tile's V lands while its QK^T runs.  Rows are padded by 16 bytes, so
-// the eight row addresses of each ldmatrix (K) and ldmatrix.trans (V) fall
-// on distinct banks.  Tiles outside the causal / window / ragged range are
-// skipped by the CTA, and by a warp whose 16 rows see none of the tile; the
-// mask is built only in tiles that are not wholly live for the warp, and a
-// row whose max held (r == 1 exactly) skips the rescale.  mma.sync.m16n8k16
-// (bf16 in, float32 accumulators) is far faster than this shape needs;
-// wgmma with TMA is the step after, once a profile shows the tensor pipe as
-// the limit.  On an H100 80GB HBM3 at 700 W it runs ~27 us at the shape
-// above, ~9x its bound: each warp streams the whole K and V tile from shared memory
-// for its 16 rows, and startup, softmax and P.V's three products each take
-// a share (PERF.md).
-//
-// Arithmetic, as the reference's: bf16 x bf16 products are exact in
-// float32, so QK^T differs from the float32 dot only in the order of its
-// sums.  Then s = fl(acc * sm_scale), a separate multiply (sm_scale and
-// log2(e) are not folded into q or into an exp2: the grid index is
-// rint(fl(s * grid_scale)) as in the plain version), masked entries never
-// enter the max and give p = 0.  STAR: the int32 row max is reduced across
-// the four threads that share a row of the accumulator fragment, r and p
-// are entries of the LUT (held in shared memory up to LUT_SMEM_MAX
-// levels).  Exact: expf, no fast math.  P is float32 (a LUT entry or an
-// expf), and rounding it to bf16 would break the outputs' float32 rounding,
-// so each p is split in registers into three bf16 pieces, hi = bf16(p),
-// mid = bf16(p - hi), lo = bf16(p - hi - mid), which sum to p exactly for
-// p >= 2^-100 (within 2^-134 below; ref.split_bf16x3 is the plain copy);
-// V is bf16 already, so three mma's into one float32 accumulator give the
-// float32 P.V up to the order of its sums.  The A operands come straight
-// from the score accumulators' registers.  The row sum adds the unsplit p,
-// the accumulator is rescaled by r before the tile's P.V, and the epilogue
-// divides by den = (l <= 0 ? 1 : l) (a true division) and rounds to bf16.
-
-constexpr int MQ = 64;              // q rows per CTA, 16 per warp
-constexpr int MK = 64;              // KV rows per tile
-constexpr int MT = 128;             // four warps
-constexpr int MSTAGES = 2;          // K/V ring depth
-constexpr int LUT_SMEM_MAX = 4096;  // larger LUTs are read from global memory
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -552,6 +86,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// Four 8 x 16-byte matrices: register i of lane l holds 4 bytes (2 bf16, 1
+// float, 4 int8) of matrix i, row l / 4, bytes 4 (l % 4) .. + 3.  Lane l gives
+// the address of row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(ptr)));
@@ -569,6 +106,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x8 tf32, row) * b (8x8 tf32, col), float32 accumulators.  Lane
+// 4 g + t holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) and B (t,
+// g), (t + 4, g).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x32 s8, row) * b (32x8 s8, col), int32 accumulators.  Lane 4 g +
+// t holds A rows g (a0, a2) and g + 8 (a1, a3) at k = 4 t + i (a0, a1) and
+// 16 + 4 t + i (a2, a3), byte i; B column g at the same k (b0, b1).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -594,9 +155,20 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t&
   lo = pack_bf16(__fsub_rn(xr, m.x), __fsub_rn(yr, m.y));
 }
 
-template <int D>
-constexpr size_t smem_bytes_mma() {
-  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * MK) * (D + 8);
+// x rounded to the nearest tf32 (ties away), as a float32 bit pattern
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// x = hi + lo as two tf32 values (3xTF32: hi.hi + hi.lo + lo.hi of two such
+// operands is their float32 product up to ~2^-21 of it; ref.split_tf32 is
+// the plain copy)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32_rna(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32_rna(__fsub_rn(x, h)));
 }
 
 // snap's grid index with one F2I.RNI: rint(s * scale) saturated to the
@@ -604,6 +176,209 @@ constexpr size_t smem_bytes_mma() {
 __device__ __forceinline__ int snap_rn(float s, float scale) {
   const float lim = static_cast<float>(-GRID_SENTINEL);
   return __float2int_rn(fminf(fmaxf(s * scale, -lim), lim));
+}
+
+// The online softmax of one block of scores for this thread's rows g and g
+// + 8 of its warp, as every kernel here forms it.  Element e of n-tile j of
+// s is column cb + 8 j + (e & 1) (cb = c0 + 2 tg) of row g (e < 2) or g + 8;
+// it is live when lo[e / 2] <= column <= hi[e / 2] (FULL: all are).  Then s
+// = fl(acc * sm_scale), a separate multiply (sm_scale and log2(e) are not
+// folded into q or an exp2: the grid index is rint(fl(s * grid_scale)) as in
+// the plain version); masked entries never enter the max and give p = 0.
+// STAR: the int32 row max is reduced across the four threads that share a
+// row of the fragment, r and p are LUT entries (a live j is at most the row
+// max).  Exact: expf, no fast math.  s becomes p, r the rescale of the
+// running state, and l = fl(fl(l r) + the row sum of the unsplit p).
+template <int NS, bool STAR, bool FULL>
+__device__ __forceinline__ void block_softmax(float (&s)[NS][4], const int (&lo)[2],
+                                              const int (&hi)[2], int cb, const Params& p,
+                                              const float* lut, int (&m_i)[2], float (&m_f)[2],
+                                              float (&l)[2], float (&r)[2]) {
+  int dlo[2] = {0, 0}, dhi[2] = {0, 0};
+  if constexpr (!FULL) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      dlo[hr] = lo[hr] - cb;
+      dhi[hr] = hi[hr] - cb;
+    }
+  }
+  auto is_live = [&](int j, int e) {
+    const int c = 8 * j + (e & 1);
+    return FULL || (c >= dlo[e >> 1] && c <= dhi[e >> 1]);
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.sm_scale);
+  if constexpr (STAR) {
+    const int top = p.num_levels - 1;
+    int mb[2] = {GRID_SENTINEL, GRID_SENTINEL};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // the grid index takes the score's register
+        const int jg = is_live(j, e) ? snap_rn(s[j][e], p.grid_scale) : GRID_SENTINEL;
+        s[j][e] = __int_as_float(jg);
+        mb[e >> 1] = max(mb[e >> 1], jg);
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
+      mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
+      const int m_new = max(m_i[hr], mb[hr]);
+      r[hr] = lut[min(m_new - m_i[hr], top)];  // m_new >= m_i
+      m_i[hr] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = is_live(j, e) ? lut[min(m_i[e >> 1] - __float_as_int(s[j][e]), top)] : 0.f;
+  } else {
+    float mb[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!is_live(j, e)) s[j][e] = NEG_BIG;
+        mb[e >> 1] = fmaxf(mb[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
+      mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
+      const float m_new = fmaxf(m_f[hr], mb[hr]);
+      r[hr] = expf(__fsub_rn(m_f[hr], m_new));
+      m_f[hr] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = is_live(j, e) ? expf(__fsub_rn(s[j][e], m_f[e >> 1])) : 0.f;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ps[e >> 1] = __fadd_rn(ps[e >> 1], s[j][e]);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) l[hr] = __fadd_rn(__fmul_rn(l[hr], r[hr]), ps[hr]);
+}
+
+// o *= r for the rows whose max moved; a row whose max held has r == 1
+// exactly, and a warp whose rows all held skips the multiplies
+template <int NO>
+__device__ __forceinline__ void rescale(float (&o)[NO][4], const float (&r)[2]) {
+  if (__any_sync(0xffffffffu, r[0] != 1.f || r[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] = __fmul_rn(o[n][0], r[0]);
+      o[n][1] = __fmul_rn(o[n][1], r[0]);
+      o[n][2] = __fmul_rn(o[n][2], r[1]);
+      o[n][3] = __fmul_rn(o[n][3], r[1]);
+    }
+  }
+}
+
+// Block -> (q block, head, batch), the longest causal rows first.  When
+// the grid is one wave of two CTAs per SM, the second CTA of each SM
+// (blocks from first_round on, dispatched in the first round's SM order)
+// takes the lightest remaining work, so heavy and light q blocks pair up.
+struct Tile {
+  int iq, h, b, hk;
+};
+__device__ __forceinline__ Tile tile_of_block(const Params& p, int first_round) {
+  const int nq = (p.Tq + MQ - 1) / MQ, hb = p.Hq * p.B;
+  const int blk = blockIdx.x;
+  const int rank = first_round > 0 && blk >= first_round
+      ? static_cast<int>(gridDim.x) - 1 - (blk - first_round) : blk;
+  Tile t;
+  t.iq = nq - 1 - rank / hb;
+  t.h = rank % hb % p.Hq;
+  t.b = rank % hb / p.Hq;
+  t.hk = t.h / (p.Hq / p.Hkv);
+  return t;
+}
+
+// The epilogue of every kernel here: o / den (a true division, den = the
+// row sum, or 1 where it is <= 0) in the output's type, columns 8 n + 2 tg,
+// + 1 of rows g and g + 8 of the warp
+template <typename T, int NO>
+__device__ __forceinline__ void store_rows(const Params& p, const Tile& tl, const float (&o)[NO][4],
+                                           const float (&l)[2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  T* og = static_cast<T*>(p.o) + tl.b * p.o_sb + tl.h * p.o_sh;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float den = l[hr];
+    den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 1));
+    den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 2));
+    if (den <= 0.f) den = 1.f;
+    const int t = tl.iq * MQ + warp * 16 + g + 8 * hr;
+    if (t < p.Tq) {
+      T* orow = og + t * p.o_st + 2 * tg;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float x = __fdiv_rn(o[n][2 * hr], den), y = __fdiv_rn(o[n][2 * hr + 1], den);
+        if constexpr (std::is_same<T, float>::value)
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x, y);
+        else
+          *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(x, y);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bfloat16 kernel on the tensor cores, flash_star_mma_kernel.
+//
+// Replaces the same TPU kernel (src/repro/kernels/flash_star/kernel.py:216,
+// flash_star_attention / _kernel without pv_int8) for bf16 q/k/v, the type
+// the models serve in.  What bounds it: at a 512-token causal prefill (q
+// [1, 32, 512, 128], kv [1, 8, 512, 128]) the live work is 1.07 GFLOP of
+// QK^T and 1.07 GFLOP of P.V; the bytes take 3.1 us at 3.35 TB/s and the
+// tensor work 2.2 us at 989 TFLOP/s (4.3 us with P.V done three times, as
+// below), so the card's rates allow a few microseconds and what is left is
+// latency: tile loads, the softmax's scalar work and a grid of 256 CTAs.
+//
+// Design (FlashAttention-2's shape): one CTA of 4 warps owns (batch, q
+// head, 64 q rows), 16 rows per warp.  The grid is one-dimensional and
+// hands out the longest causal rows first (tile_of_block).  Each warp keeps
+// its Q fragments in registers (ldmatrix once).  K and V tiles of 64 rows
+// pass through a two-stage ring in shared memory filled by 16-byte cp.async
+// copies (rows past Tk zero-filled): tile i + 1 loads while tile i computes,
+// and the first tile's V lands while its QK^T runs.  Rows are padded by 16
+// bytes, so the eight row addresses of each ldmatrix (K) and ldmatrix.trans
+// (V) fall on distinct banks.  Tiles outside the causal / window / ragged
+// range are skipped by the CTA, and by a warp whose 16 rows see none of the
+// tile; the mask is built only in tiles that are not wholly live for the
+// warp, and a row whose max held (r == 1 exactly) skips the rescale.
+// mma.sync.m16n8k16 (bf16 in, float32 accumulators) is far faster than this
+// shape needs; wgmma with TMA is the step after, once a profile shows the
+// tensor pipe as the limit.  On an H100 80GB HBM3 at 700 W it runs ~27 us
+// at the shape above, ~9x its bound: each warp streams the whole K and V
+// tile from shared memory for its 16 rows, and startup, softmax and P.V's
+// three products each take a share (PERF.md).
+//
+// Arithmetic, as the reference's: bf16 x bf16 products are exact in
+// float32, so QK^T differs from the float32 dot only in the order of its
+// sums; the softmax is block_softmax.  P is float32 (a LUT entry or an
+// expf), and rounding it to bf16 would break the outputs' float32 rounding,
+// so each p is split in registers into three bf16 pieces, hi = bf16(p),
+// mid = bf16(p - hi), lo = bf16(p - hi - mid), which sum to p exactly for
+// p >= 2^-100 (within 2^-134 below; ref.split_bf16x3 is the plain copy);
+// V is bf16 already, so three mma's into one float32 accumulator give the
+// float32 P.V up to the order of its sums.  The A operands come straight
+// from the score accumulators' registers.
+
+constexpr int MK = 64;              // KV rows per tile
+constexpr int MSTAGES = 2;          // K/V ring depth
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * MK) * (D + 8);
 }
 
 // minBlocks 1: without it ptxas caps small-D instantiations at 128
@@ -622,17 +397,8 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
   __nv_bfloat16* ring = Qs + MQ * PITCH;  // stage s: K at ring + 2 s TILE, V after it
   float* lut_s = reinterpret_cast<float*>(ring + 2 * MSTAGES * TILE);
 
-  // Block -> (q block, head, batch), the longest causal rows first.  When
-  // the grid is one wave of two CTAs per SM, the second CTA of each SM
-  // (blocks from first_round on, dispatched in the first round's SM order)
-  // takes the lightest remaining work, so heavy and light q blocks pair up.
-  const int nq = (p.Tq + MQ - 1) / MQ, hb = p.Hq * p.B;
-  const int blk = blockIdx.x;
-  const int rank = first_round > 0 && blk >= first_round
-      ? static_cast<int>(gridDim.x) - 1 - (blk - first_round) : blk;
-  const int iq = nq - 1 - rank / hb;
-  const int h = rank % hb % p.Hq, b = rank % hb / p.Hq;
-  const int hk = h / (p.Hq / p.Hkv);
+  const Tile tl = tile_of_block(p, first_round);
+  const int iq = tl.iq, b = tl.b;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;  // fragment row group, thread in group
   const int q_offset = p.info[0];
@@ -640,9 +406,9 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
   const int row0 = iq * MQ + q_offset;  // absolute position of the CTA's row 0
   const int wr0 = row0 + warp * 16;     // ... of the warp's row 0
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + tl.h * p.q_sh;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + tl.hk * p.k_sh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + tl.hk * p.v_sh;
 
   int kv_end = kv_lim;
   if (p.causal) kv_end = min(kv_end, row0 + MQ);
@@ -759,98 +525,13 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
     // the softmax of the tile, with the mask only where the tile is not
     // wholly live for this warp's rows
     float r[2];
-    auto softmax = [&](auto full_tile) {
-      constexpr bool FULL = decltype(full_tile)::value;
-      // element e of n-tile j is column c0 + 2 tg + 8 j + (e & 1)
-      int dlo[2] = {0, 0}, dhi[2] = {0, 0};
-      if constexpr (!FULL) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          dlo[hr] = lo[hr] - c0 - 2 * tg;
-          dhi[hr] = hi[hr] - c0 - 2 * tg;
-        }
-      }
-      auto is_live = [&](int j, int e) {
-        const int c = 8 * j + (e & 1);
-        return FULL || (c >= dlo[e >> 1] && c <= dhi[e >> 1]);
-      };
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.sm_scale);
-      if constexpr (STAR) {
-        const int top = p.num_levels - 1;
-        int jg[NS][4];
-        int mb[2] = {GRID_SENTINEL, GRID_SENTINEL};
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            jg[j][e] = is_live(j, e) ? snap_rn(s[j][e], p.grid_scale) : GRID_SENTINEL;
-            mb[e >> 1] = max(mb[e >> 1], jg[j][e]);
-          }
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
-          mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
-          const int m_new = max(m_i[hr], mb[hr]);
-          r[hr] = lut[min(m_new - m_i[hr], top)];  // m_new >= m_i
-          m_i[hr] = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)  // a live j is at most the row max
-            s[j][e] = is_live(j, e) ? lut[min(m_i[e >> 1] - jg[j][e], top)] : 0.f;
-      } else {
-        float mb[2] = {NEG_BIG, NEG_BIG};
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (!is_live(j, e)) s[j][e] = NEG_BIG;
-            mb[e >> 1] = fmaxf(mb[e >> 1], s[j][e]);
-          }
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
-          mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
-          const float m_new = fmaxf(m_f[hr], mb[hr]);
-          r[hr] = expf(__fsub_rn(m_f[hr], m_new));
-          m_f[hr] = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[j][e] = is_live(j, e) ? expf(__fsub_rn(s[j][e], m_f[e >> 1])) : 0.f;
-      }
-    };
-    // every column of the tile is live for every row of the warp
     const bool full = c0 + MK <= kv_lim && (!p.causal || c0 + MK - 1 <= wr0) &&
                       (p.window <= 0 || c0 > wr0 + 15 - p.window);
     if (full)
-      softmax(std::true_type{});
+      block_softmax<NS, STAR, true>(s, lo, hi, c0 + 2 * tg, p, lut, m_i, m_f, l, r);
     else
-      softmax(std::false_type{});
-
-    float ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ps[e >> 1] = __fadd_rn(ps[e >> 1], s[j][e]);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) l[hr] = __fadd_rn(__fmul_rn(l[hr], r[hr]), ps[hr]);
-    // a row whose max held has r == 1 exactly: its accumulator stays as it is
-    if (__any_sync(0xffffffffu, r[0] != 1.f || r[1] != 1.f)) {
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][0] = __fmul_rn(o[n][0], r[0]);
-        o[n][1] = __fmul_rn(o[n][1], r[0]);
-        o[n][2] = __fmul_rn(o[n][2], r[1]);
-        o[n][3] = __fmul_rn(o[n][3], r[1]);
-      }
-    }
+      block_softmax<NS, STAR, false>(s, lo, hi, c0 + 2 * tg, p, lut, m_i, m_f, l, r);
+    rescale(o, r);
 
     // O += P V over 16-column steps; the A fragment of step kk is the score
     // n-tiles 2 kk and 2 kk + 1, split into three bf16 pieces.  VG 16-wide
@@ -880,41 +561,528 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
       }
     }
   }
+  store_rows<__nv_bfloat16>(p, tl, o, l);
+}
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float den = l[hr];
-    den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 1));
-    den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 2));
-    if (den <= 0.f) den = 1.f;
-    const int t = iq * MQ + warp * 16 + g + 8 * hr;
-    if (t < p.Tq) {
-      __nv_bfloat16* orow = og + t * p.o_st + 2 * tg;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-            pack_bf16(__fdiv_rn(o[n][2 * hr], den), __fdiv_rn(o[n][2 * hr + 1], den));
-    }
+// ---------------------------------------------------------------------------
+// The float32 kernel and the int8 P.V variant on the tensor cores,
+// flash_star_tf32_kernel and flash_star_pv_int8_kernel (body tc_attention).
+//
+// What bounds them.  Float32: at the 512-token causal prefill the live
+// products are 2.15 GFLOP; as 3xTF32 (hi.hi + hi.lo + lo.hi of the tf32
+// pieces of each float32 operand, on mma.sync.m16n8k8 tf32 with float32
+// accumulators) they are 6.4 GFLOP at 495 TFLOP/s, 0.013 ms, against 0.032
+// ms on FP32 FMAs and 0.006 ms for the bytes.  int8 P.V: QK^T as in the
+// float kernels (bf16 mma, or 3xTF32), P.V on mma.sync.m16n8k32 s8 at 1979
+// TOP/s: a few microseconds; the bytes bound it.  Latency is what is left,
+// as in the bf16 kernel.
+//
+// Shape, as the bf16 kernel's: one CTA of 4 warps owns (batch, q head, 64 q
+// rows), the longest causal rows first; the softmax and its arithmetic are
+// block_softmax's; whole tiles outside the causal / window / ragged range
+// are skipped by the CTA and by a warp whose rows see none of them.  K (and,
+// in the float32 kernel, V) come in sub-tiles of SUB = 32 rows through a
+// two-stage cp.async ring, sub-tile i + 1 loading while sub-tile i computes.
+//
+// Float32 (tf32 kernel).  A block is one sub-tile of 32 KV rows.  Q is split
+// once into tf32 hi and lo planes in shared memory, each K / V sub-tile once
+// per CTA (not per warp) into hi and lo planes (split_rows / split_vt), so
+// every warp reads ready operands with ldmatrix (32-bit elements: a row of 4
+// floats is a row of 8 bf16).  V is stored transposed (split_vt), features
+// as rows, and within each 8 keys in the order 0 2 4 6 1 3 5 7: the A
+// fragment of P.V is then the score tile's accumulator registers as they
+// are (columns 2 tg and 2 tg + 1 of a lane are slots tg and tg + 4), and
+// the B fragments come from ldmatrix too.  P is split in registers.  Each
+// product is three mma's into one float32 accumulator, issued for four (P.V:
+// four to eight) accumulators in turn.  Rows are padded by 16 bytes (Q, K:
+// D + 4 floats; V^T: 36), so each ldmatrix falls on distinct banks.  Shared
+// memory at D = 128: Q planes 66 KB, the ring 66 KB, the split K and V 69
+// KB: one CTA an SM.
+//
+// int8 P.V (pv_int8 kernel).  As the TPU kernel, per KV block of bk =
+// min(block_k, Tk) <= BK8 rows from row 0: P as p8 = rint(fl(p * 127))
+// against the running max after the block, V as rint(fl(v * fl(127 /
+// vamax))) with vamax the block's absmax over every row inside Tk, and acc
+// = fl(fl(acc * r) + fl(float(int32 P8.V8) * fl(vamax / 16129))), the
+// denominator over the unquantized p.  V's codes depend only on the block,
+// so flash_star_quantize_v_kernel writes them once per (batch, KV head,
+// block) to a workspace (the old kernel redid them in every CTA, 32 times
+// over for one KV head at the smoke shape), each feature's codes
+// k-contiguous in 32-key groups, in the order that lets the attention
+// kernel pack its own p8 into the s8 A fragment with no shuffle: logical
+// k = 16 h + 4 t + i of a group is key 16 h + 8 (i / 2) + 2 t + i % 2, the
+// keys that lane t's score fragments hold (ref.v8_perm).  The block's scores
+// (up to 16 n-tiles, in registers) are formed sub-tile by sub-tile, a sub-tile
+// past the block's end skipped, then the softmax runs over the whole block
+// (its max must be the block's: p8 depends on it), the packed p8 meet the
+// codes (ldmatrix from a double-buffered copy of the block, loaded with the
+// block's first sub-tile) and the int32 sums fold into the accumulator one
+// 16-feature group at a time.  int32 sums are exact in any order, so the
+// codes' products are the plain version's bit for bit.
+//
+// On an H100 80GB HBM3 at 700 W, at the shape above: float32 ~0.108 ms, 12 %
+// of its tf32 bound (one CTA of 4 warps an SM, a split pass and two barriers
+// per 32-row tile); pv_int8 with bf16 q/k ~0.038 ms, 0.006 of it the
+// pre-pass (PERF.md).
+
+constexpr int SUB = 32;              // KV rows per ring stage
+constexpr int BK8 = 128;             // largest KV block of the int8 P.V variant
+constexpr int V8_PITCH = BK8 + 16;   // bytes per feature row of a block's codes
+
+// the codes' workspace: per (batch, KV head, block) D rows of kpad bytes
+struct V8Args {
+  const int8_t* codes;  // [B, Hkv, nblk, D, kpad]
+  const float* scales;  // [B, Hkv, nblk]: vamax / 16129
+  int bk, kpad, nblk;
+};
+
+__host__ __device__ constexpr int pad32(int bk) { return (bk + 31) / 32 * 32; }
+
+template <typename T, int D, bool PV8>
+struct TcSmem {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int QP = F32 ? D + 4 : D + 8;  // elements per row of Q and the ring
+  static constexpr int VTP = SUB + 4;             // floats per row of the split V^T
+  static constexpr size_t q = sizeof(T) * (F32 ? 2 : 1) * MQ * QP;        // Q (hi, lo)
+  static constexpr size_t stage = sizeof(T) * (PV8 ? 1 : 2) * SUB * QP;   // K (and V)
+  static constexpr size_t ksplit = F32 ? sizeof(float) * 2 * SUB * QP : 0;
+  static constexpr size_t vsplit = F32 && !PV8 ? sizeof(float) * 2 * D * VTP : 0;
+  static constexpr size_t v8 = PV8 ? 2 * D * V8_PITCH : 0;
+  static constexpr size_t bytes = q + 2 * stage + ksplit + vsplit + v8;
+};
+
+// ROWS x D floats at src (row pitch QP) as tf32 hi and lo planes of the same
+// pitch; src may be hi (each thread splits in place what it reads)
+template <int ROWS, int D, int QP>
+__device__ __forceinline__ void split_rows(const float* src, float* hi, float* lo) {
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < ROWS * C4; idx += MT) {
+    const int r = idx / C4, c = 4 * (idx - r * C4);
+    const float4 x = *reinterpret_cast<const float4*>(src + r * QP + c);
+    float4 h, e;
+    h.x = tf32_rna(x.x); e.x = tf32_rna(__fsub_rn(x.x, h.x));
+    h.y = tf32_rna(x.y); e.y = tf32_rna(__fsub_rn(x.y, h.y));
+    h.z = tf32_rna(x.z); e.z = tf32_rna(__fsub_rn(x.z, h.z));
+    h.w = tf32_rna(x.w); e.w = tf32_rna(__fsub_rn(x.w, h.w));
+    *reinterpret_cast<float4*>(hi + r * QP + c) = h;
+    *reinterpret_cast<float4*>(lo + r * QP + c) = e;
   }
 }
 
+// SUB x D floats of V at src (row pitch QP) as tf32 hi and lo planes of V^T
+// (D rows of VTP), key 8 a + k at slot 8 a + 4 (k % 2) + k / 2.  A warp reads
+// 8 keys x 4 features at a time, on 32 distinct banks.
+template <int D, int QP, int VTP>
+__device__ __forceinline__ void split_vt(const float* src, float* hi, float* lo) {
+  for (int idx = threadIdx.x; idx < SUB * D; idx += MT) {
+    const int w = idx >> 5, ln = idx & 31;
+    const int key = 8 * (w % (SUB / 8)) + (ln & 7), f = 4 * (w / (SUB / 8)) + (ln >> 3);
+    const int slot = (key & ~7) + 4 * (key & 1) + ((key & 7) >> 1);
+    const float x = src[key * QP + f];
+    const float h = tf32_rna(x);
+    hi[f * VTP + slot] = h;
+    lo[f * VTP + slot] = tf32_rna(__fsub_rn(x, h));
+  }
+}
+
+// p in [0, 1] as its int8 code rint(fl(p * 127)), four to a register, byte i
+// from the i-th argument
+__device__ __forceinline__ uint32_t pack_p8(float a, float b, float c, float d) {
+  auto q = [](float x) { return static_cast<uint32_t>(static_cast<int>(rintf(__fmul_rn(x, 127.f)))); };
+  return q(a) | q(b) << 8 | q(c) << 16 | q(d) << 24;
+}
+
+template <typename T, int D, bool STAR, bool PV8>
+__device__ __forceinline__ void tc_attention(const Params& p, int first_round, const V8Args& w) {
+  using S = TcSmem<T, D, PV8>;
+  constexpr bool F32 = S::F32;
+  constexpr int QP = S::QP, VTP = S::VTP;
+  constexpr int NS = PV8 ? BK8 / 8 : SUB / 8;  // score n-tiles of a block
+  constexpr int NO = D / 8;                    // output n-tiles per warp
+  constexpr int CH = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int STAGE = (int)(S::stage / sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);                 // [MQ][QP] (F32: then lo)
+  T* ring = reinterpret_cast<T*>(smem_raw + S::q);        // stage s: K, then V (!PV8)
+  float* Ksp = reinterpret_cast<float*>(smem_raw + S::q + 2 * S::stage);  // K hi, lo
+  float* Vtp = Ksp + (S::ksplit / sizeof(float));         // V^T hi, lo
+  int8_t* V8s = reinterpret_cast<int8_t*>(Vtp + S::vsplit / sizeof(float));  // 2 blocks
+  float* lut_s = reinterpret_cast<float*>(smem_raw + S::bytes);
+
+  const Tile tl = tile_of_block(p, first_round);
+  const int iq = tl.iq, b = tl.b;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int q_offset = p.info[0];
+  const int kv_lim = min(p.info[1 + b], p.Tk);
+  const int row0 = iq * MQ + q_offset;
+  const int wr0 = row0 + warp * 16;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + tl.h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + tl.hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + tl.hk * p.v_sh;
+
+  // blocks of blk_rows KV rows from `start`, nsub ring sub-tiles each
+  const int blk_rows = PV8 ? w.bk : SUB;
+  int kv_end = kv_lim;
+  if (p.causal) kv_end = min(kv_end, row0 + MQ);
+  const int start = p.window > 0 ? max(0, row0 - p.window + 1) / blk_rows * blk_rows : 0;
+  const int n_blocks = kv_end > start ? (kv_end - start + blk_rows - 1) / blk_rows : 0;
+  const int nsub = PV8 ? (w.bk + SUB - 1) / SUB : 1;
+  const int n_it = n_blocks * nsub;
+
+  // ROWS rows of src (row stride st) from row r0 into dst (pitch QP), 16
+  // bytes a copy; rows at or past lim zero-filled
+  auto load_rows = [&](T* dst, const T* src, long long st, int r0, int lim, auto rows) {
+    constexpr int ROWS = decltype(rows)::value;
+#pragma unroll
+    for (int i = 0; i < (ROWS * CH + MT - 1) / MT; ++i) {
+      const int idx = tid + i * MT;
+      if ((ROWS * CH) % MT == 0 || idx < ROWS * CH) {
+        const int r = idx / CH, c = (16 / (int)sizeof(T)) * (idx - r * CH);
+        const bool in = r0 + r < lim;
+        cp_async16(dst + r * QP + c, in ? src + (r0 + r) * st + c : src, in ? 16 : 0);
+      }
+    }
+  };
+  // one copy group per sub-tile: its K (and V), and with a block's first
+  // sub-tile the block's codes
+  auto issue = [&](int it) {
+    if (it < n_it) {
+      const int blk = it / nsub, u = it - blk * nsub;
+      const int r0 = start + blk * blk_rows + SUB * u;
+      T* st = ring + (it & 1) * STAGE;
+      load_rows(st, kg, p.k_st, r0, p.Tk, Int<SUB>{});
+      if constexpr (!PV8) load_rows(st + SUB * QP, vg, p.v_st, r0, p.Tk, Int<SUB>{});
+      if constexpr (PV8) {
+        if (u == 0) {
+          const int cpr = w.kpad / 16;
+          const int8_t* src = w.codes +
+              (((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk) * D * w.kpad;
+          int8_t* dst = V8s + (blk & 1) * D * V8_PITCH;
+          for (int idx = tid; idx < D * cpr; idx += MT) {
+            const int f = idx / cpr, c = 16 * (idx - f * cpr);
+            cp_async16(dst + f * V8_PITCH + c, src + f * w.kpad + c, 16);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const float* lut = p.lut;
+  if (n_it > 0) {  // the first group: Q, the LUT and sub-tile 0
+    load_rows(Qs, qg, p.q_st, iq * MQ, p.Tq, Int<MQ>{});
+    if constexpr (STAR) {
+      if (p.num_levels <= LUT_SMEM_MAX) {
+        for (int i = tid; i < p.num_levels; i += MT) cp_async4(lut_s + i, p.lut + i);
+        lut = lut_s;
+      }
+    }
+    issue(0);
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float l[2] = {0.f, 0.f};
+  int m_i[2] = {GRID_SENTINEL, GRID_SENTINEL};
+  float m_f[2] = {NEG_BIG, NEG_BIG};
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int pos = wr0 + g + 8 * hr;
+    hi[hr] = p.causal ? min(kv_lim - 1, pos) : kv_lim - 1;
+    lo[hr] = p.window > 0 ? pos - p.window + 1 : 0;
+  }
+  const int w_hi = p.causal ? min(kv_lim - 1, wr0 + 15) : kv_lim - 1;
+  const int w_lo = p.window > 0 ? wr0 - p.window + 1 : 0;
+
+  // fragment addresses: A rows of Q; B rows of K (n-tiles j, j + 1), of V^T
+  // (n-tiles of features), of the codes
+  const int a_row = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_half = (lane >> 3) & 1;
+
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int c0 = start + blk * blk_rows, c_last = c0 + blk_rows - 1;
+    const bool warp_live = w_hi >= c0 && w_lo <= c_last;
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+
+#pragma unroll
+    for (int u = 0; u < NS / 4; ++u) {
+      if (u >= nsub) break;
+      const int it = blk * nsub + u;
+      cp_async_wait<0>();
+      __syncthreads();  // sub-tile it landed for every thread; it - 1 consumed
+      issue(it + 1);
+      const T* ks = ring + (it & 1) * STAGE;
+      if constexpr (F32) {
+        if (it == 0) split_rows<MQ, D, QP>(Qs, Qs, Qs + MQ * QP);
+        split_rows<SUB, D, QP>(ks, Ksp, Ksp + SUB * QP);
+        if constexpr (!PV8) split_vt<D, QP, VTP>(ks + SUB * QP, Vtp, Vtp + D * VTP);
+        __syncthreads();  // the tf32 planes are complete
+      }
+      if (!warp_live) continue;
+      // S[:, 32 u + ...] = Q K^T of the sub-tile: n-tile 4 u + j holds
+      // columns c0 + 32 u + 8 j + 2 tg + {0, 1}
+      if constexpr (F32) {
+        const float* qh = Qs + a_row * QP + 4 * (lane >> 4);
+        const float* kh = Ksp + b_row * QP + 4 * b_half;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          uint32_t ah[4], al[4], bh[2][4], bl[2][4];
+          ldsm_x4(ah, qh + 8 * kk);
+          ldsm_x4(al, qh + MQ * QP + 8 * kk);
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            ldsm_x4(bh[jp], kh + 16 * jp * QP + 8 * kk);
+            ldsm_x4(bl[jp], kh + SUB * QP + 16 * jp * QP + 8 * kk);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_tf32(s[4 * u + j], al, bh[j >> 1][2 * (j & 1)], bh[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_tf32(s[4 * u + j], ah, bl[j >> 1][2 * (j & 1)], bl[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_tf32(s[4 * u + j], ah, bh[j >> 1][2 * (j & 1)], bh[j >> 1][2 * (j & 1) + 1]);
+        }
+      } else {
+        const T* qf = Qs + a_row * QP + 8 * (lane >> 4);
+        const T* kf = ks + b_row * QP + 8 * b_half;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qa[4];
+          ldsm_x4(qa, qf + 16 * kk);
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t kb[4];
+            ldsm_x4(kb, kf + 16 * jp * QP + 16 * kk);
+            mma_bf16(s[4 * u + 2 * jp], qa, kb[0], kb[1]);
+            mma_bf16(s[4 * u + 2 * jp + 1], qa, kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    if (!warp_live) continue;  // p = 0 and r = 1 for all of this warp's rows
+
+    // the block's softmax; columns past the block's end (PV8: bk < 128) are
+    // not live
+    float r[2];
+    const int hb[2] = {min(hi[0], c_last), min(hi[1], c_last)};
+    const bool full = blk_rows == 8 * NS && c0 + blk_rows <= kv_lim &&
+                      (!p.causal || c_last <= wr0) &&
+                      (p.window <= 0 || c0 > wr0 + 15 - p.window);
+    if (full)
+      block_softmax<NS, STAR, true>(s, lo, hb, c0 + 2 * tg, p, lut, m_i, m_f, l, r);
+    else
+      block_softmax<NS, STAR, false>(s, lo, hb, c0 + 2 * tg, p, lut, m_i, m_f, l, r);
+
+    if constexpr (PV8) {
+      // k-step kk (keys 32 kk ..): lane t's p8 of n-tiles 4 kk .. 4 kk + 3,
+      // packed as logical k = 16 h + 4 t + i <- key 16 h + 8 (i / 2) + 2 t + i % 2
+      uint32_t pa[NS / 4][4];
+#pragma unroll
+      for (int kk = 0; kk < NS / 4; ++kk) {
+        const int j = 4 * kk;
+        pa[kk][0] = pack_p8(s[j][0], s[j][1], s[j + 1][0], s[j + 1][1]);
+        pa[kk][1] = pack_p8(s[j][2], s[j][3], s[j + 1][2], s[j + 1][3]);
+        pa[kk][2] = pack_p8(s[j + 2][0], s[j + 2][1], s[j + 3][0], s[j + 3][1]);
+        pa[kk][3] = pack_p8(s[j + 2][2], s[j + 2][3], s[j + 3][2], s[j + 3][3]);
+      }
+      const float vs = __ldg(w.scales + ((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk);
+      const int8_t* vf = V8s + (blk & 1) * D * V8_PITCH + b_row * V8_PITCH + 16 * b_half;
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        int c[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+        for (int kk = 0; kk < NS / 4; ++kk) {
+          if (32 * kk >= w.kpad) break;
+          uint32_t vb[4];
+          ldsm_x4(vb, vf + 16 * np * V8_PITCH + 32 * kk);
+          mma_s8(c[0], pa[kk], vb[0], vb[1]);
+          mma_s8(c[1], pa[kk], vb[2], vb[3]);
+        }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[2 * np + h2][e] = __fadd_rn(__fmul_rn(o[2 * np + h2][e], r[e >> 1]),
+                                          __fmul_rn(static_cast<float>(c[h2][e]), vs));
+      }
+    } else {
+      rescale(o, r);
+      // O += P V: k-step j is score n-tile j, its registers the A fragment
+      // as they are (V^T's key order), split into tf32 hi and lo
+      constexpr int VG = D >= 32 ? 2 : 1;
+      const float* vt = Vtp + b_row * VTP + 4 * b_half;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; dp += VG) {
+          uint32_t vh[VG][4], vl[VG][4];
+#pragma unroll
+          for (int u = 0; u < VG; ++u) {
+            ldsm_x4(vh[u], vt + 16 * (dp + u) * VTP + 8 * j);
+            ldsm_x4(vl[u], vt + D * VTP + 16 * (dp + u) * VTP + 8 * j);
+          }
+#pragma unroll
+          for (int u = 0; u < VG; ++u) {
+            mma_tf32(o[2 * (dp + u)], pl, vh[u][0], vh[u][1]);
+            mma_tf32(o[2 * (dp + u) + 1], pl, vh[u][2], vh[u][3]);
+          }
+#pragma unroll
+          for (int u = 0; u < VG; ++u) {
+            mma_tf32(o[2 * (dp + u)], ph, vl[u][0], vl[u][1]);
+            mma_tf32(o[2 * (dp + u) + 1], ph, vl[u][2], vl[u][3]);
+          }
+#pragma unroll
+          for (int u = 0; u < VG; ++u) {
+            mma_tf32(o[2 * (dp + u)], ph, vh[u][0], vh[u][1]);
+            mma_tf32(o[2 * (dp + u) + 1], ph, vh[u][2], vh[u][3]);
+          }
+        }
+      }
+    }
+  }
+  store_rows<T>(p, tl, o, l);
+}
+
 template <int D, bool STAR>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_star_mma_kernel<D, STAR>;
-  size_t bytes = smem_bytes_mma<D>();
-  if (STAR && p.num_levels <= LUT_SMEM_MAX) bytes += sizeof(float) * p.num_levels;
-  // once per device: the largest shared-memory request of this
-  // instantiation (it bounds what a launch may ask; occupancy follows what
-  // it does ask), the SM count and the CTAs an SM holds at that request
-  constexpr int MAX_DEVICES = 64;
-  static int sms[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {};
+__global__ void __launch_bounds__(MT, 1) flash_star_tf32_kernel(Params p, int first_round) {
+  tc_attention<float, D, STAR, false>(p, first_round, V8Args{});
+}
+
+template <typename T, int D, bool STAR>
+__global__ void __launch_bounds__(MT, 1) flash_star_pv_int8_kernel(Params p, int first_round,
+                                                                   V8Args w) {
+  tc_attention<T, D, STAR, true>(p, first_round, w);
+}
+
+// V's codes and scales for the int8 P.V variant, once per (block, KV head,
+// batch): vamax = max(absmax of the block's rows inside Tk, 1e-6), codes
+// rint(fl(v * fl(127 / vamax))) (true divisions, as the TPU kernel's
+// jnp.round(vf * (127.0 / vamax))), in the attention kernel's k order,
+// zero past the block's rows; scale fl(vamax / 16129).  The block is read
+// once, in 16-byte pieces, QV_BATCH of them in flight per thread, into
+// shared memory as float32 (pitch D + 1), and the codes are gathered from
+// there: a grid of a few dozen CTAs waits on memory latency, not bytes.
+constexpr int QV_THREADS = 1024;
+constexpr int QV_BATCH = 4;
+
+__host__ __device__ constexpr size_t quantize_v_smem(int bk, int d) {
+  return sizeof(float) * bk * (d + 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(QV_THREADS) flash_star_quantize_v_kernel(
+    const T* v, long long v_sb, long long v_sh, long long v_st, int Hkv, int Tk, int D,
+    int bk, int kpad, int nblk, int8_t* codes, float* scales) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte piece
+  extern __shared__ float vsm[];            // [bk][D + 1]
+  __shared__ float red[QV_THREADS / 32];
+  const int blk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = min(bk, Tk - blk * bk);
+  const T* vb = v + b * v_sb + h * v_sh + static_cast<long long>(blk) * bk * v_st;
+  const int cpr = D / EPC, n = rows * cpr;
+  float amax = 0.f;
+  for (int base = tid; base < n; base += QV_BATCH * QV_THREADS) {
+    uint4 piece[QV_BATCH];
+#pragma unroll
+    for (int u = 0; u < QV_BATCH; ++u) {
+      const int idx = base + u * QV_THREADS, r = idx / cpr, c = EPC * (idx - r * cpr);
+      if (idx < n) piece[u] = *reinterpret_cast<const uint4*>(vb + r * v_st + c);
+    }
+#pragma unroll
+    for (int u = 0; u < QV_BATCH; ++u) {
+      const int idx = base + u * QV_THREADS, r = idx / cpr, c = EPC * (idx - r * cpr);
+      if (idx >= n) break;
+      const T* e = reinterpret_cast<const T*>(&piece[u]);
+#pragma unroll
+      for (int i = 0; i < EPC; ++i) {
+        const float x = to_f32(e[i]);
+        vsm[r * (D + 1) + c + i] = x;
+        amax = fmaxf(amax, fabsf(x));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();  // red, and the block in vsm
+  float vamax = red[0];
+#pragma unroll
+  for (int i = 1; i < QV_THREADS / 32; ++i) vamax = fmaxf(vamax, red[i]);
+  vamax = fmaxf(vamax, 1e-6f);
+  const float vq = __fdiv_rn(127.f, vamax);
+  const long long slot = (static_cast<long long>(b) * Hkv + h) * nblk + blk;
+  if (tid == 0) scales[slot] = __fdiv_rn(vamax, 16129.f);
+  uint32_t* out = reinterpret_cast<uint32_t*>(codes + slot * D * kpad);
+  const int wpr = kpad / 4;  // 32-bit words per feature
+  for (int idx = tid; idx < D * wpr; idx += QV_THREADS) {
+    const int f = idx / wpr, k0 = 4 * (idx - f * wpr);
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = (k0 & 31) + i;  // logical k in the 32-key group
+      const int key = (k0 & ~31) + 16 * (k >> 4) + 8 * (i >> 1) + 2 * ((k >> 2) & 3) + (i & 1);
+      const int code = key < rows
+          ? static_cast<int>(rintf(__fmul_rn(vsm[key * (D + 1) + f], vq))) : 0;
+      word |= (static_cast<uint32_t>(code) & 0xffu) << (8 * i);
+    }
+    out[idx] = word;
+  }
+}
+
+template <typename T>
+cudaError_t launch_quantize_v(const T* v, long long v_sb, long long v_sh, long long v_st,
+                              int B, int Hkv, int Tk, int D, int bk, int8_t* codes,
+                              float* scales, cudaStream_t s) {
+  static bool sized = false;  // the largest request: bk = BK8 rows at D = 128
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_star_quantize_v_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)quantize_v_smem(BK8, 128));
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const int nblk = (Tk + bk - 1) / bk;
+  flash_star_quantize_v_kernel<T><<<dim3(nblk, Hkv, B), QV_THREADS, quantize_v_smem(bk, D), s>>>(
+      v, v_sb, v_sh, v_st, Hkv, Tk, D, bk, pad32(bk), nblk, codes, scales);
+  return cudaSuccess;
+}
+
+// Launch kernel (MT threads a CTA, smem bytes of shared memory, a STAR LUT
+// of up to LUT_SMEM_MAX levels on top) over (q blocks x heads x batch),
+// with first_round as tile_of_block reads it.  cache: the kernel's own.
+struct LaunchCache {
+  static constexpr int MAX_DEVICES = 64;
+  int sms[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {};
+};
+
+template <class Kernel, class... Extra>
+cudaError_t launch_rows_first(Kernel kernel, size_t smem, bool star, LaunchCache& cache,
+                              const Params& p, cudaStream_t stream, Extra... extra) {
+  size_t bytes = smem;
+  if (star && p.num_levels <= LUT_SMEM_MAX) bytes += sizeof(float) * p.num_levels;
+  // once per device: the largest shared-memory request of this kernel (it
+  // bounds what a launch may ask; occupancy follows what it does ask), the
+  // SM count and the CTAs an SM holds at that request
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    const int most = (int)(smem_bytes_mma<D>() + (STAR ? sizeof(float) * LUT_SMEM_MAX : 0));
+  if (dev < 0 || dev >= LaunchCache::MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cache.sms[dev] == 0) {
+    const int most = (int)(smem + (star ? sizeof(float) * LUT_SMEM_MAX : 0));
     int n_sm = 0, n_cta = 0;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err == cudaSuccess)
@@ -925,25 +1093,46 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_cta, kernel, MT, most);
     if (err != cudaSuccess) return err;
-    per_sm[dev] = n_cta;
-    sms[dev] = n_sm;
+    cache.per_sm[dev] = n_cta;
+    cache.sms[dev] = n_sm;
   }
+  const int sms = cache.sms[dev];
   const long long blocks = (long long)((p.Tq + MQ - 1) / MQ) * p.Hq * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   // pair heavy and light CTAs only in a causal grid of one wave of two per SM
   const int first_round =
-      p.causal && per_sm[dev] == 2 && blocks > sms[dev] && blocks <= 2LL * sms[dev] ? sms[dev] : 0;
-  kernel<<<(unsigned)blocks, MT, bytes, stream>>>(p, first_round);
+      p.causal && cache.per_sm[dev] == 2 && blocks > sms && blocks <= 2LL * sms ? sms : 0;
+  kernel<<<(unsigned)blocks, MT, bytes, stream>>>(p, first_round, extra...);
   return cudaSuccess;
 }
 
-template <bool STAR>
-cudaError_t launch_mma_d(const Params& p, int d, cudaStream_t stream) {
+// KIND 0: flash_star_mma_kernel, 1: flash_star_tf32_kernel, 2 / 3: the
+// pv_int8 kernel on float32 / bfloat16
+template <int KIND, bool STAR, int D>
+cudaError_t launch_kind(const Params& p, cudaStream_t s, const V8Args& w) {
+  static LaunchCache cache;
+  if constexpr (KIND == 0)
+    return launch_rows_first(flash_star_mma_kernel<D, STAR>, smem_bytes_mma<D>(), STAR, cache,
+                             p, s);
+  else if constexpr (KIND == 1)
+    return launch_rows_first(flash_star_tf32_kernel<D, STAR>, TcSmem<float, D, false>::bytes,
+                             STAR, cache, p, s);
+  else if constexpr (KIND == 2)
+    return launch_rows_first(flash_star_pv_int8_kernel<float, D, STAR>,
+                             TcSmem<float, D, true>::bytes, STAR, cache, p, s, w);
+  else
+    return launch_rows_first(flash_star_pv_int8_kernel<__nv_bfloat16, D, STAR>,
+                             TcSmem<__nv_bfloat16, D, true>::bytes, STAR, cache, p, s, w);
+}
+
+template <int KIND>
+cudaError_t launch_d(const Params& p, int d, cudaStream_t s, const V8Args& w = V8Args{}) {
+  const bool star = p.lut != nullptr;
   switch (d) {
-    case 16: return launch_mma<16, STAR>(p, stream);
-    case 32: return launch_mma<32, STAR>(p, stream);
-    case 64: return launch_mma<64, STAR>(p, stream);
-    case 128: return launch_mma<128, STAR>(p, stream);
+    case 16: return star ? launch_kind<KIND, true, 16>(p, s, w) : launch_kind<KIND, false, 16>(p, s, w);
+    case 32: return star ? launch_kind<KIND, true, 32>(p, s, w) : launch_kind<KIND, false, 32>(p, s, w);
+    case 64: return star ? launch_kind<KIND, true, 64>(p, s, w) : launch_kind<KIND, false, 64>(p, s, w);
+    case 128: return star ? launch_kind<KIND, true, 128>(p, s, w) : launch_kind<KIND, false, 128>(p, s, w);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -989,48 +1178,73 @@ extern "C" const char* repro_cuda_error_string(int code) {
               v_sb, v_sh, v_st, o_sb, o_sh, o_st, B, Hq, Hkv, Tq, Tk,        \
               causal, window, sm_scale, grid_scale, num_levels)
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the feature
-// dimension must be contiguous.  pv_int8_bk > 0 selects the int8 P.V
-// variant over KV blocks of that many rows (1 .. 128), either type; with
-// pv_int8_bk == 0 this entry point takes float32 only (bfloat16 goes to
-// flash_star_mma_launch).  Returns cudaGetLastError() after launch.
-extern "C" int flash_star_launch(
-    FLASH_STAR_ARGS, int dtype,
-    int causal, int window, float sm_scale, float grid_scale, int num_levels,
-    int pv_int8_bk, void* stream) {
-  const Params p = FLASH_STAR_PARAMS;
-  if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool star = lut != nullptr;
-  const int bk = pv_int8_bk;
-  cudaError_t err;
-  if (bk < 0 || bk > BK8 || (dtype != 0 && dtype != 1) || (bk == 0 && dtype != 0))
-    err = cudaErrorInvalidValue;
-  else if (bk > 0 && dtype == 0)
-    err = star ? launch_int8_d<float, true>(p, D, bk, s)
-               : launch_int8_d<float, false>(p, D, bk, s);
-  else if (bk > 0)
-    err = star ? launch_int8_d<__nv_bfloat16, true>(p, D, bk, s)
-               : launch_int8_d<__nv_bfloat16, false>(p, D, bk, s);
-  else
-    err = star ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
+// Every entry point: strides in elements, the feature dimension contiguous;
+// the base pointers and the batch, head and T strides of q, k and v
+// multiples of 16 bytes (the wrapper checks); returns cudaGetLastError()
+// after its launch(es).
 
-// bfloat16 q/k/v/o, pv_int8 off: the tensor-core kernel.  Strides are in
-// elements; the base pointers and the batch, head and T strides must be
-// multiples of 16 bytes (the wrapper checks), the feature dimension
-// contiguous.  Returns cudaGetLastError() after launch.
+// bfloat16 q/k/v/o, pv_int8 off: flash_star_mma_kernel.
 extern "C" int flash_star_mma_launch(
     FLASH_STAR_ARGS,
     int causal, int window, float sm_scale, float grid_scale, int num_levels,
     void* stream) {
   const Params p = FLASH_STAR_PARAMS;
   if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
+  const cudaError_t err = launch_d<0>(p, D, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// float32 q/k/v/o, pv_int8 off: flash_star_tf32_kernel.
+extern "C" int flash_star_tf32_launch(
+    FLASH_STAR_ARGS,
+    int causal, int window, float sm_scale, float grid_scale, int num_levels,
+    void* stream) {
+  const Params p = FLASH_STAR_PARAMS;
+  if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
+  const cudaError_t err = launch_d<1>(p, D, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The int8 P.V variant, step 1: V [B, Hkv, Tk, D] (dtype 0 = float32, 1 =
+// bfloat16) to codes [B, Hkv, nblk, D, kpad] and scales [B, Hkv, nblk],
+// nblk = ceil(Tk / bk), kpad = bk rounded up to 32 (1 <= bk <= 128).
+extern "C" int flash_star_quantize_v_launch(
+    const void* v, long long v_sb, long long v_sh, long long v_st,
+    int B, int Hkv, int Tk, int D, int dtype, int bk, void* codes, void* scales,
+    void* stream) {
+  if (bk < 1 || bk > BK8 || (dtype != 0 && dtype != 1) || D < 16 || D > 128 || D % 16)
+    return (int)cudaErrorInvalidValue;
+  if (Tk <= 0 || B <= 0 || Hkv <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = lut != nullptr ? launch_mma_d<true>(p, D, s)
-                                         : launch_mma_d<false>(p, D, s);
+  int8_t* c = static_cast<int8_t*>(codes);
+  float* sc = static_cast<float*>(scales);
+  const cudaError_t err = dtype == 0
+      ? launch_quantize_v(static_cast<const float*>(v), v_sb, v_sh, v_st, B, Hkv, Tk, D, bk, c, sc, s)
+      : launch_quantize_v(static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, v_st, B, Hkv, Tk, D,
+                          bk, c, sc, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The int8 P.V variant, step 2: the attention over V's codes from step 1
+// (the same bk and Tk), q/k/o float32 (dtype 0) or bfloat16 (1).
+extern "C" int flash_star_pv_int8_launch(
+    FLASH_STAR_ARGS, int dtype,
+    int causal, int window, float sm_scale, float grid_scale, int num_levels,
+    int bk, const void* codes, const void* scales, void* stream) {
+  const Params p = FLASH_STAR_PARAMS;
+  if (bk < 1 || bk > BK8 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
+  V8Args w;
+  w.codes = static_cast<const int8_t*>(codes);
+  w.scales = static_cast<const float*>(scales);
+  w.bk = bk;
+  w.kpad = pad32(bk);
+  w.nblk = (Tk + bk - 1) / bk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dtype == 0 ? launch_d<2>(p, D, s, w) : launch_d<3>(p, D, s, w);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -8,14 +8,18 @@ Any strides are taken as long as the feature dimension is contiguous, so
 the ops layer passes transposed views without a copy.  On a CPU tensor the
 plain version (``ref.flash_star_ref``) runs instead.
 
-The kernel is chosen by type, a documented choice and no fallback:
-bfloat16 runs on the tensor cores (``flash_star_mma_launch``: mma.sync,
-P.V with P in three bf16 pieces, so P keeps its float32 value), float32 on
-the FP32 FMA kernel, and ``pv_int8=True`` on the int8 P.V kernel, either
-type.  The bfloat16 kernel copies 16-byte pieces, so its q/k/v must start
-on a 16-byte boundary with batch, head and T strides of 16 bytes each; a
-view that does not is refused with a ValueError before any launch (the
-ops layer's transposed ``[B, T, H, D]`` views pass).
+The kernel is chosen by type and variant, a documented choice and no
+fallback, every one on the tensor cores: bfloat16 on
+``flash_star_mma_launch`` (mma.sync, P.V with P in three bf16 pieces, so P
+keeps its float32 value), float32 on ``flash_star_tf32_launch`` (every
+product as 3xTF32), and ``pv_int8=True``, either type, as two launches
+behind one call and one ``flash_star_pv_int8`` count: V's int8 codes once
+per block into a workspace sized from the shapes
+(``flash_star_quantize_v_launch``), then the attention with an s8 P.V
+(``flash_star_pv_int8_launch``).  Every kernel copies 16-byte pieces, so
+q/k/v must start on a 16-byte boundary with batch, head and T strides of
+16 bytes each; a view that does not is refused with a ValueError before
+any launch (the ops layer's transposed ``[B, T, H, D]`` views pass).
 
 ``block_k`` is the KV block of the plain version's loop; the CUDA kernels
 use their own fixed tiles (64 q rows; 64 KV rows in bf16, 32 in float32),
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.core.fixedpoint import FixedPointFormat
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.flash_star.ref import flash_star_ref
+from repro_torch.kernels.flash_star.ref import V8_GROUP, flash_star_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_star.cu"
 HEAD_DIMS = (16, 32, 64, 128)
@@ -46,27 +50,53 @@ PV_INT8_LAUNCHES = _cuda.launch_counter("flash_star_pv_int8")
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.flash_star_launch.argtypes = (
-        [p] * 6 + [ll] * 12 + [i] * 7 + [i, i, f, f, i, i, p]
-    )
-    lib.flash_star_launch.restype = i
-    lib.flash_star_mma_launch.argtypes = [p] * 6 + [ll] * 12 + [i] * 6 + [i, i, f, f, i, p]
-    lib.flash_star_mma_launch.restype = i
+    args = [p] * 6 + [ll] * 12 + [i] * 6
+    softmax = [i, i, f, f, i]
+    lib.flash_star_mma_launch.argtypes = args + softmax + [p]
+    lib.flash_star_tf32_launch.argtypes = args + softmax + [p]
+    lib.flash_star_quantize_v_launch.argtypes = [p] + [ll] * 3 + [i] * 6 + [p, p, p]
+    lib.flash_star_pv_int8_launch.argtypes = args + [i] + softmax + [i, p, p, p]
+    for fn in (lib.flash_star_mma_launch, lib.flash_star_tf32_launch,
+               lib.flash_star_quantize_v_launch, lib.flash_star_pv_int8_launch):
+        fn.restype = i
 
 
 def _check_16_byte_pieces(name: str, t: torch.Tensor, ptr: int, strides) -> None:
-    """The bf16 kernel's ``cp.async`` copies 16 bytes at a time: refuse a
-    base pointer or a batch / head / T stride (of a dimension longer than
-    1) that is not a multiple of 16 bytes (8 bf16 elements)."""
-    shape = t.shape
-    if ptr % 16 == 0 and all(st % 8 == 0 or n == 1 for st, n in zip(strides[:3], shape)):
+    """The kernels' ``cp.async`` copies 16 bytes at a time: refuse a base
+    pointer or a batch / head / T stride (of a dimension longer than 1) that
+    is not a multiple of 16 bytes."""
+    shape, per = t.shape, 16 // t.element_size()
+    if ptr % 16 == 0 and all(st % per == 0 or n == 1 for st, n in zip(strides[:3], shape)):
         return
     bad = [f"data_ptr % 16 = {ptr % 16}"] if ptr % 16 else []
     bad += [f"stride({i}) = {st} elements" for i, st in enumerate(strides[:3])
-            if shape[i] > 1 and st % 8]
+            if shape[i] > 1 and st % per]
     raise ValueError(
-        f"flash_star's bf16 tensor-core kernel needs 16-byte aligned {name}: "
+        f"flash_star's tensor-core kernels need 16-byte aligned {name}: "
         f"{', '.join(bad)} (shape {tuple(shape)}); pass a contiguous copy")
+
+
+def v8_shape(b: int, hkv: int, tk: int, d: int, bk: int):
+    """The int8 variant's workspace: codes ``[B, Hkv, nblk, D, kpad]`` and
+    scales ``[B, Hkv, nblk]``, ``nblk = ceil(Tk / bk)`` blocks of ``bk``
+    rows, each feature's codes padded to ``kpad`` (a multiple of 32)."""
+    nblk = -(-tk // bk)
+    kpad = -(-bk // V8_GROUP) * V8_GROUP
+    return (b, hkv, nblk, d, kpad), (b, hkv, nblk)
+
+
+def _quantize_v(lib, v: torch.Tensor, bk: int, stream: int):
+    """V's codes and scales on the card (``ref.quantize_v_blocks`` and
+    ``ref.v8_layout`` are the plain version): one launch."""
+    b, hkv, tk, d = v.shape
+    code_shape, scale_shape = v8_shape(b, hkv, tk, d, bk)
+    codes = torch.empty(code_shape, dtype=torch.int8, device=v.device)
+    scales = torch.empty(scale_shape, dtype=torch.float32, device=v.device)
+    rc = lib.flash_star_quantize_v_launch(
+        v.data_ptr(), *v.stride()[:3], b, hkv, tk, d, DTYPES[v.dtype], bk,
+        codes.data_ptr(), scales.data_ptr(), stream)
+    _cuda.check(lib, rc, "flash_star_quantize_v")
+    return codes, scales
 
 
 def flash_star_attention(
@@ -123,10 +153,8 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
     if info.dtype != torch.int32 or info.shape != (1 + b,) or not info.is_contiguous():
         raise ValueError(f"info must be contiguous int32 [1 + B], got {info.dtype} {tuple(info.shape)}")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    mma = dtype == torch.bfloat16 and not bk
-    if mma:
-        for name, t, ptr, st in (("q", q, ptrs[0], qs), ("k", k, ptrs[1], ks), ("v", v, ptrs[2], vs)):
-            _check_16_byte_pieces(name, t, ptr, st)
+    for name, t, ptr, st in (("q", q, ptrs[0], qs), ("k", k, ptrs[1], ks), ("v", v, ptrs[2], vs)):
+        _check_16_byte_pieces(name, t, ptr, st)
     out = torch.empty((b, hq, tq, d), dtype=dtype, device=dev)
     lut = _cuda.device_lut(fmt, dev) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
@@ -142,10 +170,14 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
         fmt.num_levels if fmt is not None else 0,
     )
     stream = _cuda.stream_handle(dev)
-    if mma:
-        rc = lib.flash_star_mma_launch(*args, *softmax, stream)
-    else:
-        rc = lib.flash_star_launch(*args, DTYPES[dtype], *softmax, bk, stream)
-    _cuda.check(lib, rc, "flash_star")
-    (PV_INT8_LAUNCHES if bk else LAUNCHES).add()
+    if bk:
+        codes, scales = _quantize_v(lib, v, bk, stream)
+        rc = lib.flash_star_pv_int8_launch(*args, DTYPES[dtype], *softmax, bk,
+                                           codes.data_ptr(), scales.data_ptr(), stream)
+        _cuda.check(lib, rc, "flash_star_pv_int8")
+        PV_INT8_LAUNCHES.add()
+        return out
+    launch = lib.flash_star_mma_launch if dtype == torch.bfloat16 else lib.flash_star_tf32_launch
+    _cuda.check(lib, launch(*args, *softmax, stream), "flash_star")
+    LAUNCHES.add()
     return out

@@ -6,7 +6,11 @@ the int32 grid max, the denominator and the accumulator — through
 each ``block_k`` block in int8 as the kernel's variant computes it.
 
 ``split_bf16x3`` is the plain copy of how the bfloat16 kernel splits P
-for P.V on the tensor cores without rounding P to bf16.
+for P.V on the tensor cores without rounding P to bf16, ``split_tf32`` of
+how the float32 kernel splits every operand into two tf32 pieces (3xTF32),
+and ``quantize_v_blocks`` / ``v8_layout`` of the int8 variant's V pre-pass:
+the codes and scales per block, and the k order in which the kernel reads
+them.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 
 from repro_torch.core.attention import SoftmaxConfig, blocked_attention
 from repro_torch.core.fixedpoint import FixedPointFormat
+
+V8_GROUP = 32  # keys per k-group of the int8 variant's codes (one s8 mma step)
 
 
 def flash_star_ref(
@@ -64,3 +70,58 @@ def split_bf16x3(p: torch.Tensor):
     lo = (rest - mid.float()).to(torch.bfloat16)
     return hi, mid, lo
 
+
+
+def split_tf32(x: torch.Tensor):
+    """float32 ``x`` as two tf32 values in float32, as the float32 kernel
+    splits it: ``hi = tf32(x)``, ``lo = tf32(x - hi)``, each rounded to a
+    10-bit mantissa to nearest with ties away from zero (``cvt.rna``,
+    emulated on the float32 bits)."""
+
+    def rna(t):
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
+
+
+def quantize_v_blocks(v: torch.Tensor, bk: int):
+    """The int8 variant's V per block of ``bk`` rows, as the TPU kernel
+    quantizes it: ``vamax = max(max |v|, 1e-6)`` over the block's rows inside
+    Tk, codes ``round(v * (127 / vamax))`` (half to even; both divisions
+    IEEE, tensor by tensor, as ``core.attention.blocked_attention`` forms
+    them).  Returns int8 codes ``[B, Hkv, nblk * bk, D]`` (zero past Tk) and
+    the float32 scales ``vamax / 16129`` ``[B, Hkv, nblk]``."""
+    b, h, tk, d = v.shape
+    nblk = -(-tk // bk)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, nblk * bk - tk))
+    blocks = vf.reshape(b, h, nblk, bk, d)
+    vamax = blocks.abs().amax(dim=(3, 4)).clamp(min=1e-6)
+    vq = torch.full_like(vamax, 127.0) / vamax
+    codes = torch.round(blocks * vq[..., None, None]).to(torch.int8)
+    scales = vamax / torch.full_like(vamax, 16129.0)
+    return codes.reshape(b, h, nblk * bk, d), scales
+
+
+def v8_perm() -> torch.Tensor:
+    """The key each logical k of a 32-key group stands for in the kernel's
+    s8 P.V: logical ``16 h + 4 t + i`` is key ``16 h + 8 (i // 2) + 2 t + i % 2``,
+    the keys whose scores lane ``t`` of a warp holds in its accumulator
+    registers, so it packs its own p8 into the A fragment as they are."""
+    k = torch.arange(V8_GROUP)
+    h, t, i = k // 16, (k // 4) % 4, k % 4
+    return 16 * h + 8 * (i // 2) + 2 * t + i % 2
+
+
+def v8_layout(codes: torch.Tensor, bk: int) -> torch.Tensor:
+    """``quantize_v_blocks``'s codes ``[B, Hkv, nblk * bk, D]`` in the
+    kernel's workspace layout ``[B, Hkv, nblk, D, kpad]``: each block's
+    feature rows k-contiguous, padded with zero codes to ``kpad`` (``bk``
+    rounded up to 32), each 32-key group in ``v8_perm`` order."""
+    b, h, rows, d = codes.shape
+    nblk = rows // bk
+    kpad = -(-bk // V8_GROUP) * V8_GROUP
+    blocks = torch.nn.functional.pad(codes.reshape(b, h, nblk, bk, d), (0, 0, 0, kpad - bk))
+    order = (torch.arange(0, kpad, V8_GROUP)[:, None] + v8_perm()[None, :]).reshape(-1)
+    return blocks[:, :, :, order, :].transpose(3, 4).contiguous()

@@ -3,7 +3,8 @@ split of P that its P.V mirrors (``kernels.flash_star.ref``), and how
 ``chip_smoke.py``'s count of unequal bf16 outputs tells that P.V from one
 on P rounded to bf16; the wrapper's routing by type and its alignment
 check (through a fake library, as
-``test_paged_wrapper_builds_no_gathered_window`` fakes it); and the plain
+``test_paged_wrapper_builds_no_gathered_window`` fakes it), with the
+float32 and int8 routes beside it; and the plain
 version against the JAX Pallas kernel in interpret mode at the new kernel's
 head dimension and across its 64-row tiles.  On the card (marked ``cuda``):
 the main path's views through the kernel against the plain route; every
@@ -179,16 +180,19 @@ def test_bf16_diff_bound_tells_three_pieces_from_p_rounded_to_bf16(star):
 
 
 class _FakeLib:
+    ENTRIES = ("flash_star_mma_launch", "flash_star_tf32_launch",
+               "flash_star_quantize_v_launch", "flash_star_pv_int8_launch")
+
     def __init__(self):
         self.calls = []
+        for name in self.ENTRIES:
+            setattr(self, name, self._entry(name))
 
-    def flash_star_launch(self, *args):
-        self.calls.append(("flash_star_launch", args))
-        return 0
-
-    def flash_star_mma_launch(self, *args):
-        self.calls.append(("flash_star_mma_launch", args))
-        return 0
+    def _entry(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
 
 
 @pytest.fixture
@@ -207,23 +211,36 @@ def _operands(dtype, b=2, hq=4, hkv=2, t=70, d=16):
     return q, k, v, torch.tensor([0] + [t] * b, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("dtype,pv_int8,entry,dtype_code,bk", [
-    (torch.bfloat16, False, "flash_star_mma_launch", None, None),
-    (torch.float32, False, "flash_star_launch", 0, 0),
-    (torch.bfloat16, True, "flash_star_launch", 1, 64),
-    (torch.float32, True, "flash_star_launch", 0, 64),
+@pytest.mark.parametrize("dtype,pv_int8,entries,dtype_code,bk", [
+    (torch.bfloat16, False, ["flash_star_mma_launch"], None, None),
+    (torch.float32, False, ["flash_star_tf32_launch"], None, None),
+    (torch.bfloat16, True, ["flash_star_quantize_v_launch", "flash_star_pv_int8_launch"], 1, 64),
+    (torch.float32, True, ["flash_star_quantize_v_launch", "flash_star_pv_int8_launch"], 0, 64),
 ])
-def test_wrapper_routes_by_type(fake_lib, dtype, pv_int8, entry, dtype_code, bk):
+def test_wrapper_routes_by_type(fake_lib, dtype, pv_int8, entries, dtype_code, bk):
+    """bf16 to the mma kernel, float32 to the tf32 kernel (the same
+    arguments, no dtype code, no int8 block); pv_int8 to V's pre-pass and
+    then the s8 attention over its workspace (sized from the shapes alone),
+    one launch count for the pair."""
     q, k, v, info = _operands(dtype)
+    before = (flash_mod.LAUNCHES.count, flash_mod.PV_INT8_LAUNCHES.count)
     out = flash_mod.flash_star_attention(q, k, v, info, fmt=FMT, block_k=64, pv_int8=pv_int8)
     assert out.shape == q.shape and out.dtype == dtype
-    assert [name for name, _ in fake_lib.calls] == [entry]
-    args = fake_lib.calls[0][1]
+    assert [name for name, _ in fake_lib.calls] == entries
+    after = (flash_mod.LAUNCHES.count, flash_mod.PV_INT8_LAUNCHES.count)
+    assert after == (before[0] + (not pv_int8), before[1] + pv_int8)
+    args = fake_lib.calls[-1][1]
     assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    if entry == "flash_star_mma_launch":
+    if not pv_int8:
         assert len(args) == 6 + 12 + 6 + 5 + 1  # no dtype code, no int8 block
-    else:
-        assert (args[24], args[-2]) == (dtype_code, bk)
+        return
+    pre = fake_lib.calls[0][1]
+    b, hkv, tk, d = k.shape
+    # v, its strides, B Hkv Tk D, dtype, bk, codes, scales, stream
+    assert pre[:4] == (v.data_ptr(), *v.stride()[:3])
+    assert pre[4:10] == (b, hkv, tk, d, dtype_code, bk)
+    assert (args[24], args[-4]) == (dtype_code, bk)
+    assert args[-3:-1] == pre[-3:-1]  # the attention reads the pre-pass's workspace
 
 
 def _misaligned_views():
@@ -247,31 +264,40 @@ def test_misaligned_bf16_view_raises_before_any_launch(fake_lib, which, operand)
 
 
 def test_misaligned_float32_and_int8_views_are_not_the_bf16_kernels_concern(fake_lib):
-    """The float32 and int8 kernels read element by element: the same
-    views go to them unchecked."""
+    """The float32 and int8 kernels copy 16-byte pieces too: the same views
+    are refused by the same check, for float32 (a T stride of 68 bytes) and
+    for bf16 q/k/v on the int8 route, before any launch."""
     view = _misaligned_views()["T stride"]
     view32 = torch.zeros(1, 4, 70, 17)[..., :16]  # T stride 68 bytes
     info = torch.tensor([0, 70], dtype=torch.int32)
-    flash_mod.flash_star_attention(view32, view32, view32, info, fmt=FMT)
-    flash_mod.flash_star_attention(view, view, view, info, fmt=FMT, pv_int8=True)
-    assert [name for name, _ in fake_lib.calls] == ["flash_star_launch"] * 2
+    with pytest.raises(ValueError, match="16-byte aligned q"):
+        flash_mod.flash_star_attention(view32, view32, view32, info, fmt=FMT)
+    with pytest.raises(ValueError, match="16-byte aligned q"):
+        flash_mod.flash_star_attention(view, view, view, info, fmt=FMT, pv_int8=True)
+    with pytest.raises(ValueError, match="16-byte aligned k"):
+        q32 = torch.zeros(1, 4, 70, 16)
+        flash_mod.flash_star_attention(q32, view32, q32, info, fmt=FMT, pv_int8=True)
+    assert fake_lib.calls == []
 
 
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_star_mma_launch"),
+                                         (torch.float32, "flash_star_tf32_launch")])
 @pytest.mark.parametrize("d", [16, 128])
-def test_main_path_transposed_views_pass_the_check(fake_lib, d):
+def test_main_path_transposed_views_pass_the_check(fake_lib, d, dtype, entry):
     """``ops.attention``'s pallas route hands ``[B, T, H, D]`` activations
-    to the kernel as heads-major views without a copy; they pass."""
+    to the kernel as heads-major views without a copy; they pass, in bf16
+    and in float32."""
     from repro_torch import ops
     from repro_torch.ops.specs import AttentionSpec, SoftmaxSpec
 
     b, t, hq, hkv = 2, 70, 8, 2
     g = torch.Generator().manual_seed(24)
-    q, k, v = (torch.randn(sh, generator=g).to(torch.bfloat16) for sh in
+    q, k, v = (torch.randn(sh, generator=g).to(dtype) for sh in
                ((b, t, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
     spec = AttentionSpec(impl="pallas", softmax=SoftmaxSpec(kind="star", precision=FMT))
     out = ops.attention(q, k, v, spec, causal=True)
     assert out.shape == q.shape
-    assert [name for name, _ in fake_lib.calls] == ["flash_star_mma_launch"]
+    assert [name for name, _ in fake_lib.calls] == [entry]
     assert fake_lib.calls[0][1][6:9] == q.transpose(1, 2).stride()[:3]
 
 
