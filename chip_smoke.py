@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero before the result lines):
 
-1. header: the card's name and power limit, torch / CUDA / Triton versions;
+1. header: the card's name and power limit, torch / CUDA versions (and
+   Triton's, where installed: the port runs no Triton kernel);
 2. build: one ``nvcc`` per CUDA source, all started together, into build/
    (a library built earlier, by a test or an earlier run, is reused with
    the compiler log kept beside it); each kernel's registers and spills
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero before the result lines):
    paged kernels (48 ``paged_split_kernel`` and 4 ``paged_combine_kernel``
    instantiations) 0 spill bytes; for the SSD scan's three kernels (5
    instantiations) 0 spill bytes, and tf32 HMMA in the SASS of the chunk
-   state and chunk scan kernels;
+   state and chunk scan kernels; for the crossbar (8 tensor-core and 2
+   scalar instantiations) 0 spill bytes, s8 IMMA in the clean and bf16 HMMA
+   in the faulty tensor-core ones; for the STAR softmax (8) 0 spill bytes;
 3. parity at main-path shapes: each kernel against its plain PyTorch
    version on the same inputs on the card, bfloat16 and float32, with the
    tolerances below; kernel, plain and library times (CUDA events, median
@@ -50,10 +53,13 @@ Phases (any failure exits non-zero before the result lines):
    its narrowest table bit-equal to slot 0 in the batch, and at the short
    shape each slot (one split: the split kernel writes the output itself)
    bit-equal to the same slot in a batch under the tick's table width (9
-   splits, through the combine).  The STAR softmax: the Triton kernel in
-   ``gather`` mode, ``onehot`` bit-equal to it, and the CUDA LUT kernel
-   (``star_softmax_lut``) in clean ``histogram`` mode and under the mild
-   fault in every mode, at the sampling shape [4, 49152]; the fault
+   splits, through the combine).  The STAR softmax, one cluster kernel
+   for every mode (its cluster size and slice printed per shape, device
+   time from ``torch.profiler``): clean ``gather`` (counted as
+   ``star_softmax``) at the sampling shapes [4, 49152] and [8, 50688],
+   ``onehot`` bit-equal to it; clean ``histogram`` and the mild fault in
+   every mode (counted as ``star_softmax_lut``) at [4, 49152], float32 and
+   bfloat16, and the histogram at [8, 50688]; the fault
    realization's bits on the card equal the CPU's.  flash_star's int8 P.V
    variant (``flash_star_pv_int8``) at the granite prefill shape and ragged
    (Tk 500, kv_valid 450), block_k 128, its device time split into the V
@@ -115,7 +121,9 @@ Phases (any failure exits non-zero before the result lines):
    a guard, clean and under the mild fault (the crossbar kernel must
    launch), and the crossbar kernel against its plain version at those
    shapes (clean bit-exact; faulty equal but for ADC codes within 1e-3 LSB
-   of a half-step, at most 1e-4 of the outputs);
+   of a half-step, at most 1e-4 of the outputs), with its device time and
+   that of the same instantiation without the ADC epilogue (the epilogue's
+   share), its CTA tile and grid;
 8. Mamba2 serve: mamba2-130m at its published widths and all 24 layers,
    random weights drawn on the card from a seed, on the lockstep engine:
    8 prompts of 2048 tokens, 32 new tokens, temperature 0.8, sampling
@@ -189,6 +197,11 @@ SSD_DIVERGENCE_FACTOR = 10  # a greedy divergence fails above this x the prefill
 MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
             adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
 SEVERE = dict(stuck_on_rate=0.6, stuck_off_rate=0.2, seed=3)
+SOFTMAX_SHAPES = ((4, 49152), (8, 50688))  # sampling: granite-8b's 4 slots, Mamba2's 8 rows
+SOFTMAX_DESIGN = ("one thread-block cluster a row (up to 8 CTAs, 16-byte slices in registers), "
+                  "row max and denominator through distributed shared memory")
+CROSSBAR_DESIGN = ("128 x 32/64 CTA tiles, cp.async stage; clean s8 mma.sync into int32; faulty "
+                   "float32 weights as three bf16 pieces on bf16 mma.sync")
 
 
 class SmokeFailure(RuntimeError):
@@ -274,6 +287,39 @@ def device_ms_by_kernel(fn, reps: int = 20, per_call=None):
     check(not short, f"profiler: kernel records still short of {reps} calls after "
                      f"{PROFILE_TRIES} windows: {short}")
     return out
+
+
+def device_ms_per_launch(fn, part: str, reps: int = 20) -> float:
+    """Device time of one launch of the kernels whose name holds ``part``:
+    their self time from ``torch.profiler`` over ``reps`` calls of ``fn``,
+    divided by the launch records the profiler kept.  Where it kept fewer
+    than ``reps`` (it loses records now and then, the kernel ran: see
+    ``device_ms_by_kernel``) the shortfall is logged and the average over
+    the records it has stands if they are at least half; otherwise the
+    window is profiled again, and still short after PROFILE_TRIES windows,
+    fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and part in ev.key:
+                total += _self_device_us(ev)
+                count += ev.count
+        if count != reps:
+            PROFILES_RETAKEN.append({part: f"{count} of {reps} records"})
+            log(f"profiler: {count} {part} records of {reps} calls")
+        if 2 * count >= reps:
+            return total / count / 1e3
+    check(False, f"profiler: under {reps // 2} {part} records of {reps} calls in each of "
+                 f"{PROFILE_TRIES} windows")
 
 
 PROFILE_TRIES = 4  # profiler windows taken before a short count fails
@@ -459,6 +505,53 @@ def check_paged_build(ptxas_log):
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
               f"paged kernel {func} spills: {lines}")
     log(f"paged kernels: {len(funcs)} instantiations, 0 spill bytes in each")
+
+
+def check_crossbar_build(ptxas_log, library):
+    """The crossbar's tensor-core instantiations (clean / faulty x BN 32 / 64
+    x with / without the ADC epilogue: 8) and its two scalar int32-code ones
+    spill nothing; the clean ones hold s8 IMMA in their SASS, the faulty ones
+    bf16 HMMA."""
+    funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
+             if "crossbar_tc_kernel" in f or "crossbar_scalar_kernel" in f}
+    n_tc = sum("crossbar_tc_kernel" in f for f in funcs)
+    check(n_tc == 8 and len(funcs) == 10,
+          f"expected 8 crossbar_tc_kernel and 2 crossbar_scalar_kernel instantiations, "
+          f"ptxas shows {n_tc} and {len(funcs) - n_tc}")
+    mma = sass_hmma(library)
+    for func, lines in sorted(funcs.items()):
+        m = re.search(r"crossbar_tc_kernelILb([01])ELi(\d+)ELb([01])E", func)
+        tag = (f"crossbar_tc_kernel {'faulty' if m.group(1) == '1' else 'clean'} BN={m.group(2)}"
+               f"{'' if m.group(3) == '1' else ' (no ADC: timing probe)'}" if m
+               else "crossbar_scalar_kernel " + ("int32 x float32" if "IifE" in func else
+                                                 "int32 x int32"))
+        ops = mma.get(func, [])
+        kinds = sorted(set(ops))
+        log(f"{tag}: ptxas {'; '.join(lines)}; SASS HMMA/IMMA x {len(ops)} {kinds}")
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
+              f"{tag} spills: {lines}")
+        if m and m.group(1) == "1":
+            check(any(".BF16" in k for k in kinds), f"{tag}: no bf16 HMMA in its SASS")
+        elif m:
+            check(any(k.startswith("IMMA") and "S8" in k for k in kinds),
+                  f"{tag}: no s8 IMMA in its SASS")
+
+
+def check_softmax_build(ptxas_log):
+    """The STAR softmax kernel's 8 instantiations (float32 / bf16 x gather /
+    histogram x vector / element loads) spill nothing."""
+    funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
+             if "star_softmax_lut_kernel" in f}
+    check(len(funcs) == 8, f"expected 8 star_softmax_lut_kernel instantiations, "
+                           f"ptxas shows {len(funcs)}")
+    for func, lines in sorted(funcs.items()):
+        m = re.search(r"star_softmax_lut_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E", func)
+        tag = (f"star_softmax_lut_kernel {'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
+               f"{'histogram' if m.group(2) == '1' else 'gather'} "
+               f"{'16-byte' if m.group(3) == '1' else 'element'} loads") if m else func
+        log(f"{tag}: ptxas {'; '.join(lines)}")
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
+              f"{tag} spills: {lines}")
 
 
 # ---------------------------------------------------------------------------
@@ -991,7 +1084,35 @@ def parity_paged(results):
         results[-1].update(design=PAGED_DESIGN, splits=splits, device_ms=main["device_ms"])
 
 
+def _softmax_variant(name, fn, ref_fn, x, extra):
+    """One STAR softmax variant: parity against the plain version (rtol
+    1e-5, atol 1e-9), CUDA-event and device time, the cluster it ran on."""
+    import torch
+
+    from repro_torch.kernels.star_softmax import kernel as sk
+
+    got, ref = fn(), ref_fn()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    err = float((got - ref).abs().max())
+    check(bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-9)),
+          f"{name}: max err {err:.3e} out of tolerance")
+    ms = time_ms(fn)
+    plain_ms = time_ms(ref_fn)
+    dev = device_ms_per_launch(fn, "star_softmax_lut_kernel")
+    d = x.shape[-1]
+    cluster, slice_ = sk.cluster_size(d), sk.slice_len(d, sk.cluster_size(d))
+    log(f"{name}: cluster {cluster} CTAs a row ({x.shape[0] * cluster} CTAs, slices of "
+        f"{slice_}) max_abs_err={err:.3e} ms={ms:.4f} device_ms={dev} plain_ms={plain_ms:.4f}")
+    return dict(extra, shape=str(list(x.shape)), cluster=cluster, slice=slice_,
+                max_abs_err=err, grid_flip_rows=0, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=None)
+
+
 def parity_softmax(results):
+    """The STAR softmax kernel in clean ``gather`` mode at the two sampling
+    shapes (granite [4, 49152], Mamba2 [8, 50688]), ``-inf`` columns
+    saturating as the plain version does, ``onehot`` bit-equal to it."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
@@ -999,38 +1120,36 @@ def parity_softmax(results):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    x = torch.randn(4, 49152, device=dev, generator=gen) * 4
-    got = sk.star_softmax_kernel(x, FMT)
-    ref = sk.star_softmax_ref(x, FMT)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    check(bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-9)),
-          f"star_softmax: max err {err:.3e} out of tolerance")
-    xi = x.clone()
-    xi[:, :512] = -float("inf")  # saturates to the last level, never wraps
-    gi = sk.star_softmax_kernel(xi, FMT)
-    check(bool(torch.allclose(gi, sk.star_softmax_ref(xi, FMT), rtol=1e-5, atol=1e-9)),
-          "star_softmax: -inf columns disagree with the plain version")
-    onehot = sk.star_softmax_kernel(x, FMT, mode="onehot")
-    check(torch.equal(onehot, got), "star_softmax: onehot mode is not bit-equal to gather")
-    log("star_softmax onehot [4, 49152] f32: bit-equal to gather (the same function)")
-    ms = time_ms(lambda: sk.star_softmax_kernel(x, FMT))
-    plain_ms = time_ms(lambda: sk.star_softmax_ref(x, FMT))
-    log(f"star_softmax [4, 49152] f32: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    variant = dict(dtype="float32", mode="gather", max_abs_err=err, grid_flip_rows=0,
-                   ms=ms, plain_ms=plain_ms, library_ms=None)
-    bytes_moved = 2 * x.numel() * 4
-    ops = 16 * x.numel()  # per element: grid snap ~12, index 2, sum 1, divide 1
+    variants = []
+    for rows, d in SOFTMAX_SHAPES:
+        x = torch.randn(rows, d, device=dev, generator=gen) * 4
+        variants.append(_softmax_variant(
+            f"star_softmax gather clean float32 [{rows}, {d}]",
+            lambda: sk.star_softmax_kernel(x, FMT), lambda: sk.star_softmax_ref(x, FMT), x,
+            dict(dtype="float32", mode="gather", fault=None, bytes=2 * x.numel() * 4)))
+        xi = x.clone()
+        xi[:, :512] = -float("inf")  # saturates to the last level, never wraps
+        gi = sk.star_softmax_kernel(xi, FMT)
+        check(bool(torch.allclose(gi, sk.star_softmax_ref(xi, FMT), rtol=1e-5, atol=1e-9)),
+              f"star_softmax [{rows}, {d}]: -inf columns disagree with the plain version")
+        onehot = sk.star_softmax_kernel(x, FMT, mode="onehot")
+        check(torch.equal(onehot, sk.star_softmax_kernel(x, FMT)),
+              f"star_softmax [{rows}, {d}]: onehot mode is not bit-equal to gather")
+        log(f"star_softmax onehot [{rows}, {d}] f32: bit-equal to gather (the same launch)")
+    main = variants[0]
+    ops = 16 * 4 * 49152  # per element: grid snap ~12, index 2, sum 1, divide 1
     results.append(_entry(
-        "star_softmax", "triton", "src/repro_torch/kernels/star_softmax/triton_kernel.py",
-        "src/repro/kernels/star_softmax/kernel.py:177", variant, bytes_moved,
-        ops, H100_FP32_FLOPS, [variant], shape="[4, 49152] f32"))
+        "star_softmax", "cuda", "src/repro_torch/kernels/star_softmax/csrc/star_softmax_lut.cu",
+        "src/repro/kernels/star_softmax/kernel.py:177", main, main["bytes"],
+        ops, H100_FP32_FLOPS, variants, shape="[4, 49152] f32 (main); [8, 50688] in variants"))
+    results[-1].update(design=SOFTMAX_DESIGN, device_ms=main["device_ms"])
 
 
 def parity_softmax_lut(results):
-    """The CUDA LUT softmax at the sampling shape [4, 49152]: clean
-    histogram and the mild fault in every mode, float32 and bfloat16, against
-    the plain version (the reference engine with the same realization)."""
+    """The same kernel under the ``star_softmax_lut`` counter: clean
+    histogram and the mild fault in every mode, float32 and bfloat16, at the
+    sampling shape [4, 49152], and the histogram at [8, 50688], against the
+    plain version (the reference engine with the same realization)."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
@@ -1040,35 +1159,30 @@ def parity_softmax_lut(results):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     base = torch.randn(4, 49152, device=dev, generator=gen) * 4
+    wide = torch.randn(8, 50688, device=dev, generator=gen) * 4
     mild = FaultModel(**MILD)
+    cases = [(base.to(dtype), mode, fault) for dtype in (torch.float32, torch.bfloat16)
+             for mode, fault in (("histogram", None), ("histogram", mild), ("gather", mild),
+                                 ("onehot", mild))]
+    cases += [(wide, "histogram", None), (wide, "histogram", mild)]
     variants = []
-    for dtype in (torch.float32, torch.bfloat16):
-        x = base.to(dtype)
-        for mode, fault in (("histogram", None), ("histogram", mild), ("gather", mild),
-                            ("onehot", mild)):
-            name = f"star_softmax_lut {mode} {'mild fault' if fault else 'clean'} {dtype}"
-            got = sk.star_softmax_kernel(x, FMT, mode=mode, fault=fault)
-            ref = sk.star_softmax_ref(x, FMT, mode=mode, fault=fault)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
-            err = float((got - ref).abs().max())
-            check(bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-9)),
-                  f"{name}: max err {err:.3e} out of tolerance")
-            ms = time_ms(lambda: sk.star_softmax_kernel(x, FMT, mode=mode, fault=fault))
-            plain_ms = time_ms(lambda: sk.star_softmax_ref(x, FMT, mode=mode, fault=fault))
-            variants.append(dict(dtype=str(dtype).split(".")[-1], mode=mode,
-                                 fault="mild" if fault else None, max_abs_err=err,
-                                 grid_flip_rows=0, ms=ms, plain_ms=plain_ms, library_ms=None))
-            log(f"{name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    levels = FMT.num_levels
-    bytes_moved = 2 * base.numel() * 4 + 3 * levels * 4  # x, out, three tables
-    ops = 16 * base.numel() + 2 * levels  # per element as star_softmax, plus the VMM
+    for x, mode, fault in cases:
+        dtype = str(x.dtype).split(".")[-1]
+        name = (f"star_softmax_lut {mode} {'mild fault' if fault else 'clean'} {dtype} "
+                f"{list(x.shape)}")
+        variants.append(_softmax_variant(
+            name, lambda: sk.star_softmax_kernel(x, FMT, mode=mode, fault=fault),
+            lambda: sk.star_softmax_ref(x, FMT, mode=mode, fault=fault), x,
+            dict(dtype=dtype, mode=mode, fault="mild" if fault else None,
+                 bytes=x.numel() * (x.element_size() + 4) + 3 * FMT.num_levels * 4)))
     main = variants[1]  # the faulty histogram in float32: the degraded serve's call
+    ops = 16 * base.numel() + 2 * FMT.num_levels  # per element as star_softmax, plus the VMM
     results.append(_entry(
         "star_softmax_lut", "cuda", "src/repro_torch/kernels/star_softmax/csrc/star_softmax_lut.cu",
-        "src/repro/kernels/star_softmax/kernel.py:201", main, bytes_moved, ops,
+        "src/repro/kernels/star_softmax/kernel.py:201", main, main["bytes"], ops,
         H100_FP32_FLOPS, variants, shape="[4, 49152]; main variant f32 histogram, mild fault"))
     results[-1]["also_replaces"] = "src/repro/kernels/star_softmax/kernel.py:177 (use_histogram)"
+    results[-1].update(design=SOFTMAX_DESIGN, device_ms=main["device_ms"])
 
 
 def realization_bits() -> None:
@@ -1386,11 +1500,9 @@ def profile_window(label, fn) -> None:
             group = "flash_star"
         elif any(k in name for k in SSD_KERNELS):
             group = "ssd_scan"
-        elif "star_softmax_rows" in name:
+        elif "star_softmax_lut_kernel" in name:  # every mode, clean or faulty: one kernel
             group = "star_softmax"
-        elif "star_softmax_lut_kernel" in name:
-            group = "star_softmax_lut"
-        elif "crossbar_kernel" in name:
+        elif "crossbar_tc_kernel" in name or "crossbar_scalar_kernel" in name:
             group = "crossbar_matmul"
         elif any(g in name for g in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
             group = "gemm"
@@ -1731,10 +1843,35 @@ def degraded_serve(results, params):
     return summary
 
 
+def _crossbar_products(xq, wq, step, off):
+    """The kernel's products and staging without its ADC epilogue (the
+    library's timing probe; its output is not the crossbar's)."""
+    import torch
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.crossbar_matmul import kernel as xk
+    from repro_torch.kernels.crossbar_matmul import ref as xr
+
+    lib = _cuda.load(xk.SOURCE, xk._bind)
+    lib.crossbar_matmul_products_launch.argtypes = lib.crossbar_matmul_launch.argtypes
+    lib.crossbar_matmul_products_launch.restype = lib.crossbar_matmul_launch.restype
+    out = torch.empty((xq.shape[0], wq.shape[1]), dtype=torch.float32, device=xq.device)
+    rc = lib.crossbar_matmul_products_launch(
+        xq.data_ptr(), wq.data_ptr(), step.data_ptr(),
+        off.data_ptr() if off is not None else None, out.data_ptr(), xq.shape[0], xq.shape[1],
+        wq.shape[1], 0, xk.W_TYPES[wq.dtype], xr.DEFAULT_SPEC.adc_levels,
+        _cuda.stream_handle(xq.device))
+    _cuda.check(lib, rc, "crossbar_matmul_products")
+    return out
+
+
 def parity_crossbar(results, x, weights, launches):
     """The crossbar kernel against its plain version at the projection
     shapes: clean outputs bit-exact; faulty ones equal but for ADC codes
-    within FLIP_DELTA LSB of a half-step, at most FLIP_BOUND of the outputs."""
+    within FLIP_DELTA LSB of a half-step, at most FLIP_BOUND of the outputs.
+    Times: CUDA events and the kernel's device time (int8 operands handed to
+    it as the wrapper passes them), and the device time of the same
+    instantiation without its ADC epilogue: the epilogue's share."""
     import torch
 
     from repro_torch.hwmodel import faults as tf
@@ -1745,6 +1882,8 @@ def parity_crossbar(results, x, weights, launches):
     for name, w in weights.items():
         for label, fault in (("clean", None), ("mild", tf.FaultModel(**MILD))):
             xq, wq, step, off, _ = xr.prepare_operands(x, w, fault=fault)
+            xq = xq.to(torch.int8)  # the kernel's operand types, as the wrapper casts them
+            wq = wq if fault is not None else wq.to(torch.int8)
             got = xk.crossbar_matmul(xq, wq, step, off)
             ref = xr.crossbar_accumulate_ref(xq, wq, step, off)
             torch.cuda.synchronize()
@@ -1769,23 +1908,40 @@ def parity_crossbar(results, x, weights, launches):
                 check(flips <= FLIP_BOUND * got.numel(),
                       f"{tag}: {flips} ADC flips exceed {FLIP_BOUND} of {got.numel()} outputs")
             err = float((got - ref).abs()[~differ].max()) if bool((~differ).any()) else 0.0
-            ms = time_ms(lambda: xk.crossbar_matmul(xq, wq, step, off))
+            call = lambda: xk.crossbar_matmul(xq, wq, step, off)  # noqa: E731
+            ms = time_ms(call)
             plain_ms = time_ms(lambda: xr.crossbar_accumulate_ref(xq, wq, step, off))
+            dev = device_ms_per_launch(call, "crossbar_tc_kernel")
+            prod = device_ms_per_launch(lambda: _crossbar_products(xq, wq, step, off),
+                                        "crossbar_tc_kernel")
             m, k = xq.shape
             n = wq.shape[1]
             # the kernel reads int8 codes, and float32 weights under a fault
             bytes_moved = (m * k + k * n * (4 if fault is not None else 1)
                            + step.numel() * 4 * (1 if off is None else 2) + m * n * 4)
-            peak = H100_INT8_OPS if fault is None else H100_FP32_FLOPS
             t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-            t_ops = 2 * m * n * k / peak * 1e3
+            if fault is None:  # s8 products at the int8 peak
+                t_ops = 2 * m * n * k / H100_INT8_OPS * 1e3
+            else:  # three bf16 products as issued at the bf16 peak
+                t_ops = 3 * 2 * m * n * k / H100_BF16_FLOPS * 1e3
+            bound = max(t_bytes, t_ops)
+            at = dev
+            bn = 64 if -(-m // 128) * (n // 64) >= torch.cuda.get_device_properties(0) \
+                .multi_processor_count else 32
             variants.append(dict(
                 shape=f"[{m}, {k}] @ {name} [{k}, {n}]", fault=label, max_abs_err=err,
-                adc_flips=flips, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes=bytes_moved, ops=2 * m * n * k, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations"))
+                adc_flips=flips, ms=ms, device_ms=dev, products_device_ms=prod,
+                adc_share=1 - prod / dev, plain_ms=plain_ms,
+                library_ms=None, bytes=bytes_moved, ops=2 * m * n * k, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                fp32_fma_bound_ms=2 * m * n * k / H100_FP32_FLOPS * 1e3 if fault else None,
+                share_of_bound=bound / at, cta_tile=f"128 x {bn}",
+                ctas=-(-m // 128) * (n // bn)))
             log(f"{tag}: [{m}, {k}] @ [{k}, {n}] max_abs_err={err:.3e} adc_flips={flips} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.5f}")
+                f"ms={ms:.4f} device_ms={dev} (without the ADC epilogue {prod}) "
+                f"plain_ms={plain_ms:.4f} bound_ms={bound:.5f} ({variants[-1]['bound_by']}) "
+                f"share_of_bound={bound / at:.4f} tiles 128 x {bn}, "
+                f"{variants[-1]['ctas']} CTAs")
     main = variants[2]  # mlp_up, clean
     entry = _entry("crossbar_matmul", "cuda",
                    "src/repro_torch/kernels/crossbar_matmul/csrc/crossbar_matmul.cu",
@@ -1794,6 +1950,7 @@ def parity_crossbar(results, x, weights, launches):
                    shape=f"{main['shape']}, clean int8 (main); faulty float32 weights in variants")
     entry["launches"] = launches
     entry["launches_by_path"] = {"matmul_hwmodel": launches}
+    entry.update(design=CROSSBAR_DESIGN, device_ms=main["device_ms"])
     results.append(entry)
 
 
@@ -2038,10 +2195,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
-    import triton
+    try:  # only for the header: the port runs no Triton kernel
+        import triton
 
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = "not installed"
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
-        f"triton {triton.__version__} device {torch.cuda.get_device_name(0)}")
+        f"triton {triton_version} device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.crossbar_matmul import kernel as xk
@@ -2060,6 +2221,8 @@ def main() -> int:
     check_tc_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
     check_paged_build(logs[pk.SOURCE])
     check_ssd_build(logs[ssk.SOURCE], _cuda.library_path(ssk.SOURCE))
+    check_crossbar_build(logs[xk.SOURCE], _cuda.library_path(xk.SOURCE))
+    check_softmax_build(logs[sk.LUT_SOURCE])
 
     results = []
     parity_flash(results)

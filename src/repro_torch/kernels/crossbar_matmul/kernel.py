@@ -10,7 +10,9 @@ plain PyTorch, as the reference does outside its kernel): integer codes
 as int8 when ``spec.weight_bits <= 8`` (as the reference passes them, the
 activation codes included), else as int32.  Returns float32 ``[M, N]``.  On
 a CPU tensor the plain version (``ref.crossbar_accumulate_ref``) runs on the
-same operands instead.
+same operands instead.  8-bit codes run on the tensor cores (s8 mma.sync
+clean, three bf16 pieces of each weight under a fault), wider codes on the
+kernel's scalar body.
 """
 
 from __future__ import annotations
@@ -90,6 +92,10 @@ def _launch(xq, wq, step, offsets, spec) -> torch.Tensor:
     for name, t in tensors[2:]:
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for name, t in tensors[:2]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"crossbar kernel copies 16-byte pieces: needs a 16-byte "
+                             f"aligned {name}")
     m, k = xq.shape
     n = wq.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)

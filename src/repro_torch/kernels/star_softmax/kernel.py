@@ -1,4 +1,4 @@
-"""STAR row softmax — the wrapper of two Hopper kernels (port of
+"""STAR row softmax — the wrapper of one Hopper kernel (port of
 ``repro.kernels.star_softmax.kernel.star_softmax_pallas``).
 
 Softmax over the last axis of ``x`` (any leading shape), float32 output.
@@ -8,21 +8,19 @@ numerators from the LUT, the denominator as the row sum or, in
 ``core.fixedpoint.quantize_logits`` does, so a ``-inf`` column gets the
 last level's probability (the reference semantics), never level 0.
 
-Routing, by mode and fault:
-
-* clean ``gather`` and ``onehot``: the Triton kernel
-  (``triton_kernel.star_softmax_rows``, launches counted as
-  ``star_softmax``).  ``onehot`` is the TPU's one-hot @ LUT dataflow
-  (``use_mxu_lut``); a one-hot row with a single nonzero reproduces the
-  gathered entry bit for bit, so the function is the gather kernel's and no
-  second kernel exists.
-* clean ``histogram`` and every faulty call: the CUDA kernel
-  ``csrc/star_softmax_lut.cu`` (counted as ``star_softmax_lut``), which takes
-  the numerator LUT, the denominator VMM table and the CAM remap as runtime
-  tables: the clean histogram passes ``(lut, lut, identity)``; a fault
-  passes its seeded realization (``hwmodel.faults``, computed once per
-  device), and in ``histogram`` mode the output is divided by the ADC gain
-  afterwards, as the TPU wrapper does.
+Every mode, clean or faulty, launches the CUDA kernel
+``csrc/star_softmax_lut.cu``: a cluster of ``cluster_size(d)`` CTAs owns a
+row, each a ``slice_len(d, C)``-column slice, and the row max and the
+denominator are reduced through distributed shared memory inside the one
+launch.  It takes the numerator LUT, the denominator VMM table and the CAM
+remap as runtime tables: a clean call passes ``(lut, lut, identity)``; a
+fault passes its seeded realization (``hwmodel.faults``, computed once per
+device), and in ``histogram`` mode the output is divided by the ADC gain
+afterwards, as the TPU wrapper does.  ``onehot`` is the TPU's one-hot @ LUT
+dataflow (``use_mxu_lut``); a one-hot row with a single nonzero reproduces
+the gathered entry bit for bit, so it is the gather launch.  Launches count
+as ``star_softmax`` (clean ``gather`` / ``onehot``) or ``star_softmax_lut``
+(``histogram`` and every faulty call).
 
 On a CPU tensor the plain version (``star_softmax_ref``: the reference
 engine ``core.star_softmax`` with the same realization) runs instead.
@@ -43,18 +41,32 @@ from repro_torch.hwmodel import faults as faults_lib
 from repro_torch.hwmodel.faults import FaultModel
 from repro_torch.kernels import _cuda
 
-BLOCK = 4096
-NUM_WARPS = 8
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the codes of the CUDA entry point
 LAUNCHES = _cuda.launch_counter("star_softmax")
 LUT_SOURCE = Path(__file__).parent / "csrc" / "star_softmax_lut.cu"
 LUT_LAUNCHES = _cuda.launch_counter("star_softmax_lut")
 MAX_LEVELS = 4096  # three tables and the counters in shared memory: 16 L bytes
+CLUSTER_MAX = 8  # CTAs a row: the portable cluster size
+SLICE_TARGET = 4096  # columns a CTA takes before a row is split over more
+SLICE_ALIGN = 8  # slices start on 16 bytes of float32 or bfloat16 x
+
+
+def cluster_size(d: int) -> int:
+    """CTAs of the cluster that owns a row of ``d`` columns: one up to
+    ``SLICE_TARGET``, one more per ``SLICE_TARGET``, at most ``CLUSTER_MAX``."""
+    return max(1, min(CLUSTER_MAX, -(-d // SLICE_TARGET)))
+
+
+def slice_len(d: int, cluster: int) -> int:
+    """Columns of each CTA's slice: ``d / cluster`` rounded up to
+    ``SLICE_ALIGN``; the last slice takes what is left."""
+    per_cta = -(-d // cluster)
+    return -(-per_cta // SLICE_ALIGN) * SLICE_ALIGN
 
 
 def star_softmax_ref(x: torch.Tensor, fmt: FixedPointFormat, *, mode: str = "gather",
                      fault: Optional[FaultModel] = None) -> torch.Tensor:
-    """The plain version of both kernels: the reference engine."""
+    """The plain version of the kernel: the reference engine."""
     return star_softmax(x, fmt, mode=mode, fault=fault, dtype=torch.float32)
 
 
@@ -67,38 +79,18 @@ def star_softmax_kernel(
         raise ValueError(f"mode must be one of {Modes}, got {mode!r}")
     if not _cuda.on_card(x):
         return star_softmax_ref(x, fmt, mode=mode, fault=fault)
-    x2 = _rows(x)
-    if faults_lib.is_null(fault) and mode != "histogram":
-        out = _launch_triton(x2, fmt)
-    else:
-        out = _launch_lut(x2, fmt, mode, fault)
-    return out.reshape(x.shape)
+    return _launch(_rows(x), fmt, mode, fault).reshape(x.shape)
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in DTYPES:
-        raise ValueError(f"star_softmax kernels take float32/bfloat16, got {x.dtype}")
+        raise ValueError(f"star_softmax kernel takes float32/bfloat16, got {x.dtype}")
     if x.ndim == 0 or x.shape[-1] == 0:
-        raise ValueError(f"star_softmax kernels need a non-empty last axis, got {tuple(x.shape)}")
+        raise ValueError(f"star_softmax kernel needs a non-empty last axis, got {tuple(x.shape)}")
     x2 = x.reshape(-1, x.shape[-1])
     if x2.stride(1) != 1:
-        raise ValueError("star_softmax kernels need a contiguous last axis")
+        raise ValueError("star_softmax kernel needs a contiguous last axis")
     return x2
-
-
-def _launch_triton(x2: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
-    from repro_torch.kernels.star_softmax.triton_kernel import star_softmax_rows
-
-    d = x2.shape[1]
-    out = torch.empty(x2.shape, dtype=torch.float32, device=x2.device)
-    lut = _cuda.device_lut(fmt, x2.device)
-    if x2.shape[0]:
-        star_softmax_rows[(x2.shape[0],)](
-            x2, out, lut, d, x2.stride(0), out.stride(0), float(fmt.scale),
-            TOP=fmt.num_levels - 1, BLOCK=BLOCK, num_warps=NUM_WARPS,
-        )
-        LAUNCHES.add()
-    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -107,7 +99,7 @@ def _identity(levels: int, device: str) -> torch.Tensor:
 
 
 def _tables(fmt: FixedPointFormat, mode: str, fault: Optional[FaultModel], device):
-    """(lut, vmm, remap) for the LUT kernel, all on ``device``."""
+    """(lut, vmm, remap) for the kernel, all on ``device``."""
     if faults_lib.is_null(fault):
         lut = _cuda.device_lut(fmt, device)
         return lut, lut, _identity(fmt.num_levels, str(device))
@@ -120,32 +112,35 @@ def _tables(fmt: FixedPointFormat, mode: str, fault: Optional[FaultModel], devic
     return lut, vmm, remap
 
 
-def _bind_lut(lib: ctypes.CDLL) -> None:
+def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.star_softmax_lut_launch.argtypes = [p] * 5 + [i, i, ll, ll, i, i, f, i, p]
+    lib.star_softmax_lut_launch.argtypes = [p] * 5 + [i, i, i, i, ll, ll, i, i, f, i, p]
     lib.star_softmax_lut_launch.restype = i
 
 
-def _launch_lut(x2: torch.Tensor, fmt: FixedPointFormat, mode: str,
-                fault: Optional[FaultModel]) -> torch.Tensor:
+def _launch(x2: torch.Tensor, fmt: FixedPointFormat, mode: str,
+            fault: Optional[FaultModel]) -> torch.Tensor:
     levels = fmt.num_levels
     if levels > MAX_LEVELS:
-        raise ValueError(f"star_softmax_lut kernel holds at most {MAX_LEVELS} levels in "
+        raise ValueError(f"star_softmax kernel holds at most {MAX_LEVELS} levels in "
                          f"shared memory; format {fmt.short_name()} has {levels}")
     lut, vmm, remap = _tables(fmt, mode, fault, x2.device)
     histogram = mode == "histogram"
+    clean_gather = faults_lib.is_null(fault) and not histogram
     rows, d = x2.shape
     out = torch.empty((rows, d), dtype=torch.float32, device=x2.device)
     if rows == 0:
         return out
-    lib = _cuda.load(LUT_SOURCE, _bind_lut)
+    cluster = cluster_size(d)
+    lib = _cuda.load(LUT_SOURCE, _bind)
     rc = lib.star_softmax_lut_launch(
         x2.data_ptr(), out.data_ptr(), lut.data_ptr(), vmm.data_ptr(), remap.data_ptr(),
-        rows, d, x2.stride(0), out.stride(0), DTYPES[x2.dtype], int(histogram),
-        float(fmt.scale), levels, _cuda.stream_handle(x2.device),
+        rows, d, cluster, slice_len(d, cluster), x2.stride(0), out.stride(0),
+        DTYPES[x2.dtype], int(histogram), float(fmt.scale), levels,
+        _cuda.stream_handle(x2.device),
     )
-    _cuda.check(lib, rc, "star_softmax_lut")
-    LUT_LAUNCHES.add()
+    _cuda.check(lib, rc, "star_softmax")
+    (LAUNCHES if clean_gather else LUT_LAUNCHES).add()
     if histogram and not faults_lib.is_null(fault):
         gain = faults_lib.adc_gain(fault)
         if gain is not None:

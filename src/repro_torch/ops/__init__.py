@@ -20,8 +20,8 @@ packages.  What each runs here:
   softmax ``xla`` is ``torch.softmax`` (exact kind only); matmul ``xla``
   is ``torch.matmul``.
 * ``pallas`` — the hand-written Hopper kernels: attention runs the CUDA
-  ``flash_star`` kernel, softmax the Triton STAR row softmax (``gather``,
-  ``onehot``) or the CUDA LUT softmax (``histogram``, any fault), paged
+  ``flash_star`` kernel, softmax the CUDA STAR row softmax (one cluster of
+  CTAs a row, every mode, clean or faulty), paged
   ``pallas`` the gather adapter + ``flash_star``.  The attention kernels
   refuse a fault, as the reference's do.
 * ``pallas_paged`` — the gather-free CUDA paged decode kernel.

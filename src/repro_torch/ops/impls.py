@@ -72,8 +72,8 @@ register("softmax", "xla", _softmax_xla,
          capabilities={"kind": ("exact",), "fault": (None,)},
          description="torch.softmax — the exact FP path")
 register("softmax", "pallas", _softmax_pallas, capabilities={"kind": ("star",)},
-         description="STAR row softmax kernels: Triton (gather, onehot), CUDA LUT "
-         "kernel (histogram, faults) (kernels.star_softmax)")
+         description="STAR row softmax kernel: CUDA, one thread-block cluster a row, "
+         "every mode and fault (kernels.star_softmax)")
 
 
 # ---------------------------------------------------------------------------

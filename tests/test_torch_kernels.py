@@ -218,8 +218,8 @@ def test_star_softmax_neg_inf_follows_the_reference_engine(jax_ref):
 
 
 def test_star_softmax_other_modes_wait_for_their_port():
-    """The ``onehot`` and ``histogram`` modes are ported now (``onehot`` runs
-    the Triton kernel, ``histogram`` the CUDA LUT kernel): on a CPU tensor
+    """The ``onehot`` and ``histogram`` modes are ported now (both run the
+    CUDA cluster kernel, as ``gather`` does): on a CPU tensor
     the wrapper runs that mode's plain version, and an unknown mode is
     refused."""
     x = torch.as_tensor(np.random.default_rng(17).normal(size=(3, 40)) * 4, dtype=torch.float32)
