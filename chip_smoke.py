@@ -82,17 +82,36 @@ Phases (any failure exits non-zero before the result lines):
    0.8 on the card in clean ``onehot`` and ``histogram`` mode: that mode's
    softmax kernel launches for every sampled batch, and the probabilities of
    the first request's first sample equal the CPU plain version's.  Then the
-   mamba2-130m smoke config on the lockstep engine, greedy, card == CPU;
+   mamba2-130m smoke config on the lockstep engine, greedy, card == CPU.
+   Every continuous engine here decodes by CUDA graph replay (on the CPU the
+   same tick runs eagerly): one capture per engine and route, one replay per
+   tick, the paged kernel once per layer of every tick counted through the
+   replays; the lockstep engine captures its decode step once per generate;
 5. serve: granite-8b at its published widths and all 36 layers, random
-   weights drawn on the card from a seed, the continuous-batching engine
-   over the paged KV cache (block size 16), 8 requests on 4 slots, prompts
-   of 128-512 tokens, 16-32 new tokens each, temperature 0.8, with the
-   attention (flash_star), paged decode and STAR sampling softmax kernels.
-   Launch counters are zeroed just before and read just after; each kernel
-   must have launched, the paged kernel once per layer of every tick.  Then one full-width prefill through the kernels is
+   weights drawn on the card from a seed and cast to bf16 once
+   (``compute_params``, shared by every engine after it), the
+   continuous-batching engine over the paged KV cache (block size 16), 8
+   requests on 4 slots, prompts of 128-512 tokens, 16-32 new tokens each,
+   temperature 0.8, with the attention (flash_star), paged decode and STAR
+   sampling softmax kernels; every tick is one CUDA graph replay (decode over
+   the pool and the sampling softmax), one capture in all.  Launch counters
+   are zeroed just before and read just after; each kernel must have
+   launched, the paged kernel once per layer of every tick, the softmax once
+   per admission and per tick (counted through the replays; the capture's
+   warm-up launches are printed apart).  The serve is traced
+   (``repro_torch.obs``): its Chrome trace goes to build/serve_fp_trace.json
+   and the share of wall time in the prefill and decode spans, and of a
+   steady tick in its decode span, is printed, with the bytes the engine
+   moved up and down.  Then one full-width prefill through the kernels is
    held against the same prefill through the plain ``reference`` impls,
-   and the longest prompt's prefill and one decode tick are traced with
-   ``torch.profiler`` (device time by kernel group).  Then the int8 P.V
+   and the longest prompt's prefill is traced with ``torch.profiler``
+   (device time by kernel group).  One steady decode tick by replay is
+   traced (wall, device busy, idle share, groups; no copy/cast kernel as
+   long as the cast of the smallest weight, WEIGHT_CAST_BOUND_US), its bytes
+   up (the [4, 1] int32 inputs, no table row) and down (the sampled tokens)
+   checked, the replay held against the eager tick from a copy of the same
+   state (greedy tokens equal, the logits' max_abs difference printed) and
+   timed with CUDA events.  Then the int8 P.V
    path: one full-width prefill whose attention spec sets ``pv_int8``
    (counters zeroed just before: the variant launches once per layer),
    held against the float P.V prefill, and traced (the V pre-pass and the
@@ -106,12 +125,16 @@ Phases (any failure exits non-zero before the result lines):
    every chunk; prefix hits and preemptions must both occur.  Then one
    full-width decode step over the int8 pool through the kernel is held
    against the same step through the ``reference`` paged impl, and one
-   int8 decode tick and one 128-token prefill chunk are traced;
+   int8 decode tick (the same per-tick checks as phase 5) and one 128-token
+   prefill chunk are traced.  Its ticks run by replay too (one capture);
+   the table rows flushed (dirty rows from admissions, block growth,
+   finishes and preemptions) and the bytes moved are printed;
 7. degraded-RRAM serve: the same weights with a seeded ``FaultModel`` in
    the config's softmax spec (attention ``xla``, so faulty rows take the
    materialized ``reference`` path; sampling softmax ``pallas``), 4 requests
    on 4 slots, prompts of 128-256 tokens, 16 new tokens, temperature 0.8,
-   under the accuracy guard.  7a: the mild fault in ``histogram`` mode with
+   under the accuracy guard: decode by replay (one capture), the guarded
+   sampling eagerly after it.  7a: the mild fault in ``histogram`` mode with
    a non-latching guard: the LUT kernel launches for every sampled batch and
    the guard checks every one.  7b: a severe fault in ``gather`` mode with
    a latching guard: it trips, falls back and latches; the kernel
@@ -129,14 +152,18 @@ Phases (any failure exits non-zero before the result lines):
    8 prompts of 2048 tokens, 32 new tokens, temperature 0.8, sampling
    softmax ``pallas``.  Counters zeroed just before and read just after:
    ``ssd_scan`` once per layer of the prefill, the STAR softmax once per
-   sampled step.  Tok/s, time to first token (a prefill and its sample,
-   timed alone), the time of a decode step and peak memory.  One
+   sampled step (counted through the replays: ``generate`` captures its
+   decode step once and replays it 31 times).  Tok/s with and without the
+   graph's warm-up and capture, time to first token (the engine's ``begin``:
+   a prefill and its sample, timed alone), the engine's own decode step by
+   replay (``decode``: its wall time, one step traced for device busy, a
+   step by CUDA events) and peak memory.  One
    full-width prefill through the kernel is held against the same prefill
    under ``ops.use(ssd_scan="reference")``, in bf16 and in float32 compute;
    32 greedy tokens from each route's prefill are compared, and where a row
    parts, the reference's top-2 margin at that step must stay within
    SSD_DIVERGENCE_FACTOR x the bf16 prefill logits' max_abs difference; one
-   prefill and one decode step are traced;
+   prefill is traced;
 9. the ``{"kernels": [...]}`` line and, last, the device line.
 
 Tolerances.  float32 outputs: |kernel - plain| <= 5e-5 + 1e-4 |plain|;
@@ -1259,8 +1286,13 @@ def small_reference():
                 device=dev)
             reset_launch_counts()
             outs[dev] = eng.serve(prompts, gens)
+            check_graphs(eng, f"smoke serve on {dev}")
             if dev == "cuda":  # float32 compute: every prefill runs the tf32 kernel
                 f32_launches = launch_counts().get("flash_star", 0)
+                check(launch_counts().get("paged_attention", 0) == cfg.num_layers * eng.ticks,
+                      f"smoke serve: paged_attention launched "
+                      f"{launch_counts().get('paged_attention', 0)} times for {eng.ticks} "
+                      f"ticks of {cfg.num_layers} layers")
     check(outs["cuda"] == outs["cpu"],
           f"smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
     check(cfg.compute_dtype == "float32" and f32_launches > 0,
@@ -1285,6 +1317,7 @@ def small_reference():
             for dev, params in devices:
                 eng = ContinuousBatchingEngine(cfg, params, cb, device=dev)
                 outs[dev] = eng.serve(prompts, gens)
+                check_graphs(eng, f"smoke serve {kv_dtype} on {dev}")
                 stats[dev] = (eng.preemptions, eng.kv_stats()["prefix"]["hits"])
         check(outs["cuda"] == outs["cpu"],
               f"{kv_dtype} smoke greedy tokens differ card vs cpu: "
@@ -1312,6 +1345,7 @@ def small_reference():
         eng = ContinuousBatchingEngine(
             fcfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4), device=dev)
         outs[dev] = eng.serve(prompts, gens)
+        check_graphs(eng, f"smoke serve mild fault on {dev}")
     check(outs["cuda"] == outs["cpu"],
           f"mild-fault smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
     log(f"small reference mild fault (histogram, faulty attention): greedy tokens identical on "
@@ -1329,6 +1363,7 @@ def small_reference():
             reset_launch_counts()
             out = eng.serve(prompts, gens)
             counts = launch_counts()
+            check_graphs(eng, f"smoke serve T=0.8 {mode}")
             tokens = torch.as_tensor(prompts[0], device="cuda")[None]
             logits, _ = build_model(mcfg).prefill(params_gpu, tokens, 40)
             scaled = logits[0, -1].float() / 0.8
@@ -1354,14 +1389,73 @@ def small_reference():
 # phase 5: serve granite-8b at full width and depth
 
 
+def serve_requests(eng, prompts, gens):
+    """``eng.serve(prompts, gens)``, keeping each request: returns the
+    outputs and the exact TTFT p50 over the requests (nearest rank; the
+    ``serve.ttft_s`` histogram's p50 follows the reference's bucket rule, 5
+    buckets a decade, and reads a bucket edge)."""
+    import math
+
+    uids, reqs = [], []
+    for prompt, gen in zip(prompts, gens):
+        uids.append(eng.submit(prompt, int(gen)))
+        reqs.append(eng.scheduler.pending[-1])
+    done = eng.run()
+    ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
+    return [done[u] for u in uids], ttfts[math.ceil(len(ttfts) / 2) - 1]
+
+
+def check_graphs(eng, label) -> None:
+    """A continuous engine's ticks ran by replay: one capture for its one
+    route, one replay per tick."""
+    check(eng.graph_entries() == 1 and eng.graphs.replays == eng.ticks,
+          f"{label}: {eng.graph_entries()} graphs captured, {eng.graphs.replays} replays for "
+          f"{eng.ticks} ticks (expected 1 and one a tick)")
+
+
+def host_spans(tracer, wall_s):
+    """Where a serve's host time goes, from its Chrome trace: the share of
+    the serve's wall time inside ``serve.prefill`` / ``serve.prefill_chunk``
+    spans, inside ``serve.decode`` spans and outside both; and per steady
+    tick (an engine step that ran no prefill) its wall time (between the
+    ``serve.sched`` samples that close each step) and the ``serve.decode``
+    span's share of it."""
+    evs = tracer.events
+    prefill = sum(e.dur for e in evs if e.ph == "X" and e.name.startswith("serve.prefill"))
+    begins = [e.ts for e in evs if e.name == "serve.decode" and e.ph == "B"]
+    ends = [e.ts for e in evs if e.name == "serve.decode" and e.ph == "E"]
+    decode = sum(b - a for a, b in zip(begins, ends))
+    sched = [e.ts for e in evs if e.name == "serve.sched"]
+    steady, spans = [], []
+    for t0, t1 in zip(sched, sched[1:]):
+        inside = [e for e in evs if t0 < e.ts < t1]
+        if any(e.name.startswith("serve.prefill") for e in inside):
+            continue
+        b = [e.ts for e in inside if e.name == "serve.decode" and e.ph == "B"]
+        en = [e.ts for e in inside if e.name == "serve.decode" and e.ph == "E"]
+        if b and en:
+            steady.append(t1 - t0)
+            spans.append(en[0] - b[0])
+    total = wall_s * 1e6
+    out = {"prefill_share": prefill / total, "decode_share": decode / total,
+           "outside_share": 1 - (prefill + decode) / total, "steady_ticks": len(steady),
+           "steady_tick_ms": statistics.median(steady) / 1e3 if steady else None,
+           "decode_span_ms": statistics.median(spans) / 1e3 if spans else None,
+           "events": len(evs), "dropped": tracer.dropped}
+    if steady:
+        out["decode_span_share_of_tick"] = statistics.median(
+            [d / t for d, t in zip(spans, steady)])
+    return out
+
+
 def serve(results):
     import numpy as np
     import torch
 
-    from repro_torch import ops
+    from repro_torch import obs, ops
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.param import count_params, materialize
+    from repro_torch.models.param import compute_params, count_params, materialize
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
 
@@ -1373,30 +1467,44 @@ def serve(results):
     log(f"serve: granite-8b {cfg.num_layers}L d={cfg.d_model} {count_params(model.param_specs()) / 1e9:.2f}B "
         f"params ({cfg.param_dtype}, compute {cfg.compute_dtype}) drawn in "
         f"{time.perf_counter() - t0:.1f}s")
+    # the engines' tree: weights cast to bf16 once, shared by every engine
+    # below; the float32 tree stays for ops.matmul(impl="hwmodel") (phase 7)
+    t0 = time.perf_counter()
+    cparams = compute_params(params, cfg)
+    torch.cuda.synchronize()
+    log(f"serve: weights cast to {cfg.compute_dtype} once in {time.perf_counter() - t0:.2f}s, "
+        f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(128, 513, 8)]
     gens = [int(g) for g in rng.integers(16, 33, 8)]
     cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16)
+    tracer = obs.enable_tracing()  # before the engine: it binds the tracer when built
     with ops.use(softmax="pallas"):
-        eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
+        eng = ContinuousBatchingEngine(cfg, cparams, cb, device="cuda", seed=SEED)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = eng.serve(prompts, gens)
+        out, ttft_p50 = serve_requests(eng, prompts, gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+    obs.disable_tracing()
     toks = [t for seq in out for t in seq]
     check([len(s) for s in out] == gens, f"serve: generated lengths {[len(s) for s in out]} != {gens}")
     check(all(0 <= t < cfg.vocab_size for t in toks), "serve: a token outside the vocabulary")
+    check_graphs(eng, "serve")
     ttft = eng.metrics.histogram("serve.ttft_s")
     peak = torch.cuda.max_memory_allocated()
     log(f"serve: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
-        f"{len(toks)} tokens in {wall:.3f}s = {len(toks) / wall:.2f} tok/s, "
-        f"{eng.ticks} decode ticks, ttft p50={1e3 * ttft.percentile(50):.1f}ms, "
+        f"{len(toks)} tokens in {wall:.3f}s = {len(toks) / wall:.2f} tok/s "
+        f"({len(toks) / (wall - eng.graphs.capture_seconds):.2f} tok/s without the warm-up "
+        f"and capture, {eng.graphs.capture_seconds:.3f}s of the serve's wall), "
+        f"{eng.ticks} decode ticks by graph replay ({eng.graph_entries()} capture), "
+        f"ttft p50={1e3 * ttft_p50:.1f}ms (histogram p50 {1e3 * ttft.percentile(50):.1f}ms), "
         f"max_memory_allocated={peak / 2**30:.2f} GiB")
-    log(f"serve: launches {counts}")
+    log(f"serve: launches {counts}; the capture's warm-up (not counted) "
+        f"{eng.graphs.warmup_launches()}")
     need = {"flash_star": cfg.num_layers * len(prompts), "star_softmax": eng.ticks}
     for name, least in need.items():
         check(counts.get(name, 0) >= least,
@@ -1404,16 +1512,29 @@ def serve(results):
     check(counts.get("paged_attention", 0) == cfg.num_layers * eng.ticks,
           f"serve: paged_attention launched {counts.get('paged_attention', 0)} times, not "
           f"once per layer of each of {eng.ticks} ticks")
+    check(counts.get("star_softmax", 0) == len(prompts) + eng.ticks,
+          f"serve: star_softmax launched {counts.get('star_softmax', 0)} times for "
+          f"{len(prompts)} admissions and {eng.ticks} ticks")
     for entry in results:
         entry["launches"] = counts.get(entry["name"], 0)
         entry["launches_by_path"] = {"serve_fp": entry["launches"]}
+    trace_path = ROOT / "build" / "serve_fp_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    tracer.export_chrome(str(trace_path))
+    spans = host_spans(tracer, wall)
+    log(f"serve: Chrome trace {trace_path.relative_to(ROOT)} ({spans['events']} events, "
+        f"{spans['dropped']} dropped); host time: {spans}")
+    moved = {n: eng.metrics.counter(n).value()
+             for n in ("serve.bytes.h2d", "serve.bytes.d2h", "kv.gather.bytes",
+                       "serve.tables.rows_flushed")}
+    log(f"serve: transfers {moved}")
 
     # one full-width prefill through the kernels vs the plain reference impls
     tokens = torch.as_tensor(prompts[0][:128], device="cuda")[None]
     with torch.no_grad():
-        got, _ = model.prefill(params, tokens, 128)
+        got, _ = model.prefill(cparams, tokens, 128)
         with ops.use(attention="reference"):
-            ref, _ = model.prefill(params, tokens, 128)
+            ref, _ = model.prefill(cparams, tokens, 128)
     got, ref = got.float(), ref.float()
     check(bool(torch.isfinite(got).all()), "full-width prefill: non-finite logits")
     rel = float((got - ref).norm() / ref.norm())
@@ -1422,13 +1543,18 @@ def serve(results):
     check(rel < 3e-2, f"full-width prefill logits differ from the reference: rel_l2={rel:.3e}")
     longest = torch.as_tensor(max(prompts, key=len), device="cuda")[None]
     with torch.no_grad():
-        profile_window(f"one full-width prefill, {longest.shape[1]} tokens",
-                       lambda: model.prefill(params, longest, 512))
-    profile_tick(cfg, params)
-    pv_int8 = prefill_pv_int8(results, cfg, params, max(prompts, key=len)[:512])
+        prefill_prof = profile_window(f"one full-width prefill, {longest.shape[1]} tokens",
+                                      lambda: model.prefill(cparams, longest, 512))
+    tick = profile_tick(cfg, cparams)
+    pv_int8 = prefill_pv_int8(results, cfg, cparams, max(prompts, key=len)[:512])
     return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
-            "ticks": eng.ticks, "ttft_p50_s": ttft.percentile(50),
-            "max_memory_allocated": peak, "prefill_pv_int8": pv_int8}, params
+            "ticks": eng.ticks, "ttft_p50_s": ttft_p50,
+            "ttft_p50_histogram_s": ttft.percentile(50),
+            "max_memory_allocated": peak, "capture_s": eng.graphs.capture_seconds,
+            "tok_per_s_without_capture": len(toks) / (wall - eng.graphs.capture_seconds),
+            "host_spans": spans, "transfers": moved,
+            "tick": tick, "prefill_profile": prefill_prof,
+            "prefill_pv_int8": pv_int8}, params, cparams
 
 
 def prefill_pv_int8(results, cfg, params, prompt):
@@ -1473,10 +1599,33 @@ def prefill_pv_int8(results, cfg, params, prompt):
     return {"tokens": int(tokens.shape[1]), "wall_s": wall, "logits_rel_l2": rel}
 
 
-def profile_window(label, fn) -> None:
-    """Device time of ``fn`` by kernel group, from ``torch.profiler``;
-    where the profiler records no device time the breakdown is reported as
-    not measured."""
+def _kernel_group(name: str) -> str:
+    name = name.lower()
+    if "paged_split_kernel" in name or "paged_combine_kernel" in name:
+        return "paged_attention"  # the fp and the quantized kernels alike
+    if any(k in name for k in PV_INT8_KERNELS):  # V pre-pass + attention
+        return "flash_star_pv_int8"
+    if "flash_star" in name:  # flash_star_tf32_kernel (f32), flash_star_mma_kernel (bf16)
+        return "flash_star"
+    if any(k in name for k in SSD_KERNELS):
+        return "ssd_scan"
+    if "star_softmax_lut_kernel" in name:  # every mode, clean or faulty: one kernel
+        return "star_softmax"
+    if "crossbar_tc_kernel" in name or "crossbar_scalar_kernel" in name:
+        return "crossbar_matmul"
+    if any(g in name for g in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
+        return "gemm"
+    if "copy" in name or "cast" in name or "convert" in name:
+        return "copy/cast"
+    return "other"
+
+
+def profile_window(label, fn):
+    """Device time of ``fn`` by kernel group, from ``torch.profiler``, with
+    its wall time (host clock, synchronized), device busy and idle share,
+    each group's kernel records and the longest single copy/cast kernel.
+    Where the profiler records no device time the breakdown is reported as
+    not measured (None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1486,44 +1635,96 @@ def profile_window(label, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups = {}
+    groups, records = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = _self_device_us(ev)
-        name = ev.key.lower()
-        if "paged_split_kernel" in name or "paged_combine_kernel" in name:
-            group = "paged_attention"  # the fp and the quantized kernels alike
-        elif any(k in name for k in PV_INT8_KERNELS):  # V pre-pass + attention
-            group = "flash_star_pv_int8"
-        elif "flash_star" in name:  # flash_star_tf32_kernel (f32), flash_star_mma_kernel (bf16)
-            group = "flash_star"
-        elif any(k in name for k in SSD_KERNELS):
-            group = "ssd_scan"
-        elif "star_softmax_lut_kernel" in name:  # every mode, clean or faulty: one kernel
-            group = "star_softmax"
-        elif "crossbar_tc_kernel" in name or "crossbar_scalar_kernel" in name:
-            group = "crossbar_matmul"
-        elif any(g in name for g in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
-            group = "gemm"
-        elif "copy" in name or "cast" in name or "convert" in name:
-            group = "copy/cast"
-        else:
-            group = "other"
-        groups[group] = groups.get(group, 0.0) + us
+        group = _kernel_group(ev.key)
+        groups[group] = groups.get(group, 0.0) + _self_device_us(ev)
+        records[group] = records.get(group, 0) + ev.count
+    longest_cast = max((_self_device_us(ev) for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        and _kernel_group(ev.name) == "copy/cast"), default=0.0)
     busy = sum(groups.values())
     if busy <= 0:
-        log(f"profile: {label}: the profiler recorded no device time (breakdown not measured)")
-        return
+        log(f"profile: {label}: wall {wall_us / 1e3:.2f} ms; the profiler recorded no device "
+            f"time (breakdown not measured)")
+        return None
     shares = {g: round(us / busy, 4) for g, us in sorted(groups.items(), key=lambda x: -x[1])}
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+           "groups_ms": {g: us / 1e3 for g, us in groups.items()}, "records": records,
+           "longest_cast_us": longest_cast}
     log(f"profile: {label}: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%} of wall); device time by group "
-        f"(ms): { {g: round(us / 1e3, 3) for g, us in groups.items()} }; shares {shares}")
+        f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%} of wall, idle {1 - busy / wall_us:.1%}); "
+        f"device time by group (ms): { {g: round(us / 1e3, 3) for g, us in groups.items()} }; "
+        f"shares {shares}; kernel records {records}; longest copy/cast kernel "
+        f"{longest_cast:.2f} us")
+    return out
 
 
-def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="") -> None:
-    """One full-width decode tick with 4 active slots, traced."""
+def tick_vs_eager(eng):
+    """One decode tick by graph replay against the eager tick from a copy
+    of the same state (pool, token inputs, tables): the last-position
+    logits' max_abs difference (expected 0: the same kernels in the same
+    order) and the greedy tokens of each.  The replay advances the engine's
+    pool without its bookkeeping, so it is the engine's last use."""
+    import torch
+
+    from repro_torch.models.param import tree_map
+
+    eng._upload_tick_inputs()
+    state = (tree_map(torch.clone, eng.pool), eng._inputs_dev.clone(), eng._tables_dev.clone())
+    _, eager = eng._tick_body(*state)
+    replays = eng.graphs.replays
+    _, replay = eng._decode()
+    torch.cuda.synchronize()
+    check(eng.graphs.replays == replays + 1 and eng.graph_entries() == 1,
+          "tick vs eager: the tick did not replay its one graph")
+    diff = float((replay.float() - eager.float()).abs().max())
+    same = torch.equal(torch.argmax(replay, -1), torch.argmax(eager, -1))
+    check(same, "tick vs eager: the replayed tick's greedy tokens differ from the eager tick's")
+    return diff, bool(torch.equal(replay, eager))
+
+
+# the longest copy/cast kernel a tick on the paged kernel may hold: the
+# cast of the smallest weight at full width (wk or wv, [4096, 1024] float32
+# read, bfloat16 written: 25.17 MB) takes at least 25.17 MB / 3.35 TB/s =
+# 7.51 us, so a weight still cast at use shows as a kernel this long or
+# longer.  (The gather adapters' materialized attention permutes float32
+# K/V windows in copy kernels longer than that: there only the structural
+# check below holds.)
+WEIGHT_CAST_BOUND_US = 25.17e6 / 3.35e12 * 1e6
+
+
+def check_cast_once(eng, label) -> None:
+    """Every leaf the layers read through ``.to(compute_dtype)`` is in the
+    compute dtype already: no weight is cast at use."""
+    import torch
+
+    from repro_torch.models.param import CAST_ONCE
+
+    dtype = getattr(torch, eng.cfg.compute_dtype)
+
+    def leaves(tree):
+        for k, v in tree.items():
+            yield from (leaves(v) if isinstance(v, dict) else [(k, v)])
+
+    wrong = sorted({k for k, v in leaves(eng.params) if k in CAST_ONCE and v.dtype != dtype})
+    check(not wrong, f"{label}: weights {wrong} are not in {dtype}: cast at every use")
+
+
+def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label=""):
+    """One full-width decode tick with 4 active slots, by graph replay, from
+    a steady state (no block opens): traced (device busy by group; on the
+    paged kernel no copy/cast kernel as long as ``WEIGHT_CAST_BOUND_US``),
+    then the next one timed alone (wall time, host clock after a
+    synchronize: the profiler's own start and stop inflate the traced
+    window's wall), the bytes of each (the ``[S, 1]`` int32 inputs and no
+    table row up, the sampled tokens and the guard's error per check down),
+    the replay held against the eager tick from a copy of its state, and the
+    replay timed with CUDA events."""
     import numpy as np
+    import torch
 
     from repro_torch import ops
     from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
@@ -1531,12 +1732,56 @@ def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="") -> None:
     cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16,
                           kv_dtype=kv_dtype, guard=guard)
     eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
+    check_cast_once(eng, "profile tick")
     rng = np.random.default_rng(SEED + 3)
-    for n in (512, 384, 256, 128):
-        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 4)
+    for n in (512, 384, 256, 128):  # the first tick opens a block; the next ones none
+        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 8)
+    h2d, d2h = (eng.metrics.counter(n) for n in ("serve.bytes.h2d", "serve.bytes.d2h"))
+    name = f"one decode tick by replay, 4 slots, {kv_dtype} pool{label}"
+    moved = []
+
+    def steady(step):
+        checks = eng.guard.checks if guard is not None else 0
+        before = (h2d.value(), d2h.value())
+        out = step()
+        up, down = h2d.value() - before[0], d2h.value() - before[1]
+        checks = (eng.guard.checks if guard is not None else 0) - checks
+        check(up == 4 * 4 and down == 4 * 4 + 4 * checks,
+              f"{name}: {up} bytes up, {down} down; a steady tick moves the [4, 1] int32 "
+              f"inputs up and 4 sampled tokens (+ {checks} guard errors) down")
+        moved.append((up, down))
+        return out
+
     with ops.use(softmax="pallas"):
-        eng.step()  # admissions and the first tick, outside the trace
-        profile_window(f"one decode tick, 4 slots, {kv_dtype} pool{label}", eng.step)
+        eng.step()  # admissions and the first tick (its capture), outside the trace
+        prof = steady(lambda: profile_window(name, eng.step))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steady(eng.step)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        check(eng.graph_entries() == 1 and eng.graphs.replays == eng.ticks == 3,
+              f"{name}: {eng.graph_entries()} graphs, {eng.graphs.replays} replays, "
+              f"{eng.ticks} ticks")
+        on_kernel = cfg.paged_attention_spec.impl == "pallas_paged"
+        if prof is not None and on_kernel:
+            check(prof["longest_cast_us"] < WEIGHT_CAST_BOUND_US,
+                  f"{name}: a copy/cast kernel of {prof['longest_cast_us']:.2f} us: a weight is "
+                  f"still cast at use (bound {WEIGHT_CAST_BOUND_US:.2f} us)")
+        diff, bit_equal = tick_vs_eager(eng)
+        replay_ms = time_ms(eng._decode)
+    busy = prof["busy_ms"] if prof is not None else None
+    log(f"{name}: wall {wall_ms:.2f} ms untraced (device busy "
+        f"{'not measured' if busy is None else f'{busy:.2f} ms, idle {1 - busy / wall_ms:.1%}'}); "
+        f"bytes up / down per tick {moved}; replay vs eager tick: logits max_abs {diff:.3e} "
+        f"(bit-equal {bit_equal}), greedy tokens equal; replay {replay_ms:.3f} ms (CUDA "
+        f"events, median of 20)" + ("" if on_kernel else "; copy/cast kernel bound not "
+                                    "applied (materialized attention)"))
+    return {"profile": prof, "wall_ms": wall_ms,
+            "idle_share": None if busy is None else 1 - busy / wall_ms,
+            "bytes_up_down": moved, "logits_max_abs_vs_eager": diff,
+            "logits_bit_equal": bit_equal, "replay_ms_events": replay_ms,
+            "warmup_launches": eng.graphs.warmup_launches()}
 
 
 def profile_chunk(cfg, model, params) -> None:
@@ -1594,13 +1839,25 @@ def serve_quant(results, params):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = eng.serve(prompts, gens)
+        out, ttft_p50 = serve_requests(eng, prompts, gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
     toks = [t for seq in out for t in seq]
     check([len(s) for s in out] == gens,
           f"serve int8: generated lengths {[len(s) for s in out]} != {gens}")
+    check_graphs(eng, "serve int8")
+    moved = {n: eng.metrics.counter(n).value()
+             for n in ("serve.bytes.h2d", "serve.bytes.d2h", "kv.gather.bytes",
+                       "serve.tables.rows_flushed")}
+    # every table edit (an admission's fresh blocks, a block a decode write
+    # opens, a slot cleared by a finish or a preemption) marks its row
+    # dirty; the next tick uploads each dirty row once, W int32 entries
+    check(moved["serve.tables.rows_flushed"] >= eng.preemptions + 1,
+          f"serve int8: {moved['serve.tables.rows_flushed']} table rows flushed for "
+          f"{eng.preemptions} preemptions")
+    log(f"serve int8: {eng.ticks} ticks by graph replay; transfers {moved} "
+        f"({eng._slot_blocks} entries a table row)")
     check(all(0 <= t < cfg.vocab_size for t in toks), "serve int8: a token outside the vocabulary")
     st = eng.kv_stats()
     prefills = int(eng.metrics.counter("serve.prefill.calls").value())
@@ -1609,7 +1866,8 @@ def serve_quant(results, params):
     log(f"serve int8: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
         f"{len(toks)} tokens in {wall:.3f}s = {len(toks) / wall:.2f} tok/s, "
         f"{eng.ticks} decode ticks, {prefills} prefill chunks, "
-        f"ttft p50={1e3 * ttft.percentile(50):.1f}ms, max_memory_allocated={peak / 2**30:.2f} GiB, "
+        f"ttft p50={1e3 * ttft_p50:.1f}ms (histogram p50 {1e3 * ttft.percentile(50):.1f}ms), "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB, "
         f"{eng.preemptions} preemptions, prefix {st['prefix']}, "
         f"kv bytes/token {st['kv_bytes_per_token']:.1f}")
     log(f"serve int8: launches {counts}")
@@ -1630,11 +1888,12 @@ def serve_quant(results, params):
         if entry["name"] == "paged_attention_quant":
             entry["launches"] = n
     rel = quant_decode_step(cfg, model, params, prompts[:4])
-    profile_tick(cfg, params, kv_dtype="int8")
+    tick = profile_tick(cfg, params, kv_dtype="int8")
     profile_chunk(cfg, model, params)
     return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
-            "ticks": eng.ticks, "prefill_chunks": prefills,
-            "ttft_p50_s": ttft.percentile(50), "max_memory_allocated": peak,
+            "ticks": eng.ticks, "prefill_chunks": prefills, "transfers": moved, "tick": tick,
+            "ttft_p50_s": ttft_p50, "ttft_p50_histogram_s": ttft.percentile(50),
+            "max_memory_allocated": peak,
             "preemptions": eng.preemptions, "prefix": st["prefix"],
             "decode_step_logits_rel_l2": rel}
 
@@ -1690,7 +1949,7 @@ def _degraded_engine(params, fault_kw, mode, guard):
     return cfg, ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
 
 
-def degraded_serve(results, params):
+def degraded_serve(results, params, cparams):
     import warnings
 
     import numpy as np
@@ -1711,21 +1970,20 @@ def degraded_serve(results, params):
     # 7a: the mild fault, histogram mode, a guard that checks every call and
     # never latches, so the LUT kernel serves every sampled batch
     with ops.use(softmax="pallas"):
-        cfg, eng = _degraded_engine(params, MILD, "histogram", ops.GuardConfig(latch=False))
+        cfg, eng = _degraded_engine(cparams, MILD, "histogram", ops.GuardConfig(latch=False))
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", ops.GuardTripWarning)
-            out = eng.serve(prompts, gens)
+            out, ttft = serve_requests(eng, prompts, gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
     toks = [t for o in out for t in o]
     g = eng.stats()["guard"]
     batches = len(prompts) + eng.ticks
-    ttft = eng.metrics.histogram("serve.ttft_s").percentile(50)
     peak = torch.cuda.max_memory_allocated()
     log(f"degraded 7a (mild fault, histogram, guard latch=False): prompts {lens}, {len(toks)} "
         f"tokens in {wall:.3f}s = {len(toks) / wall:.2f} tok/s, {eng.ticks} ticks, ttft "
@@ -1733,6 +1991,8 @@ def degraded_serve(results, params):
         f"launches {counts}")
     check([len(o) for o in out] == gens and all(0 <= t < cfg.vocab_size for t in toks),
           "degraded 7a: bad output")
+    check_graphs(eng, "degraded 7a")
+    check(eng._eager_sampling, "degraded 7a: sampling under the guard is not eager")
     check(g["calls"] == batches and g["checks"] == g["calls"],
           f"degraded 7a: guard calls/checks {g['calls']}/{g['checks']}, {batches} sampled batches")
     check(counts.get("star_softmax_lut", 0) == batches,
@@ -1746,7 +2006,8 @@ def degraded_serve(results, params):
     summary["mild_histogram"] = {"tokens": len(toks), "wall_s": wall,
                                  "tok_per_s": len(toks) / wall, "ticks": eng.ticks,
                                  "ttft_p50_s": ttft, "max_memory_allocated": peak, "guard": g}
-    profile_tick(cfg, params, guard=ops.GuardConfig(latch=False), label=", mild fault")
+    summary["mild_histogram"]["tick"] = profile_tick(
+        cfg, cparams, guard=ops.GuardConfig(latch=False), label=", mild fault")
 
     # 7b: a severe fault, gather mode, a latching guard: the kernel runs until
     # the first check trips, then the clean path serves.  The format's
@@ -1760,7 +2021,7 @@ def degraded_serve(results, params):
     clean_cfg = get_config("granite_8b")
     with torch.no_grad():
         tokens = torch.as_tensor(prompts[0], device="cuda")[None]
-        logits, _ = build_model(clean_cfg).prefill(params, tokens, 256 + 16)
+        logits, _ = build_model(clean_cfg).prefill(cparams, tokens, 256 + 16)
     scaled = logits[0, -1].float() / 0.8
     clean_err = float((ops.softmax(scaled, ops.SoftmaxSpec(impl="pallas"))
                        - torch.softmax(scaled, dim=-1)).abs().max())
@@ -1769,9 +2030,11 @@ def degraded_serve(results, params):
         f"(largest exact probability {float(torch.softmax(scaled, -1).max()):.3e}); "
         f"guard tolerance {budget:.3e}")
     with ops.use(softmax="pallas"):
-        cfg, eng = _degraded_engine(params, SEVERE, "gather", ops.GuardConfig(tolerance=budget))
+        cfg, eng = _degraded_engine(cparams, SEVERE, "gather", ops.GuardConfig(tolerance=budget))
+        reqs = []
         for p in prompts:
             eng.submit(p, 16)
+            reqs.append(eng.scheduler.pending[-1])
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1788,7 +2051,7 @@ def degraded_serve(results, params):
     g = eng.stats()["guard"]
     trips = [w for w in rec if issubclass(w.category, ops.GuardTripWarning)]
     toks = [t for o in eng.scheduler.finished.values() for t in o]
-    ttft = eng.metrics.histogram("serve.ttft_s").percentile(50)
+    ttft = sorted(r.first_token_time - r.submit_time for r in reqs)[len(reqs) // 2 - 1]
     peak = torch.cuda.max_memory_allocated()
     log(f"degraded 7b (severe fault, gather, latching guard): {len(toks)} tokens in {wall:.3f}s "
         f"= {len(toks) / wall:.2f} tok/s, {eng.ticks} ticks, ttft p50={1e3 * ttft:.1f}ms, "
@@ -1805,6 +2068,7 @@ def degraded_serve(results, params):
           f"degraded 7b: {counts['star_softmax_lut']} launches for guard {g}")
     check(all(0 <= t < cfg.vocab_size for t in toks) and len(toks) == sum(gens),
           "degraded 7b: bad output")
+    check_graphs(eng, "degraded 7b")
     for e in results:
         e["launches_by_path"]["degraded_severe"] = counts.get(e["name"], 0)
     summary["severe_gather"] = {"tokens": len(toks), "wall_s": wall,
@@ -1980,10 +2244,13 @@ def small_reference_mamba():
     with ops.use(softmax="pallas"):
         for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
             reset_launch_counts()
-            toks, _ = ServeEngine(cfg, params, ServeConfig(max_len=64), device=dev).generate(
-                prompts, 8)
+            eng = ServeEngine(cfg, params, ServeConfig(max_len=64), device=dev)
+            toks, _ = eng.generate(prompts, 8)
             torch.cuda.synchronize()
             outs[dev], counts[dev] = toks.cpu().tolist(), launch_counts()
+            check((eng.graphs.entries(), eng.graphs.replays) == (1, 7),
+                  f"mamba2 smoke on {dev}: {eng.graphs.entries()} captures, "
+                  f"{eng.graphs.replays} replays for 7 decode steps")
     check(outs["cuda"] == outs["cpu"],
           f"mamba2 smoke greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
     check(counts["cuda"].get("ssd_scan", 0) == cfg.num_layers,
@@ -2050,16 +2317,45 @@ def mamba_greedy_divergence(cfg, model, params, tokens, max_len, steps, noise):
             "rows_identical": int(tk.shape[0]) - len(divergences), "divergences": divergences}
 
 
+def mamba_decode_step(eng, prompts, steps=8):
+    """The engine's own decode step (``ServeEngine.decode``: its graph's
+    replay, the draws outside it, the token copy) from a full-width
+    ``begin``: the time to first token (``begin``: the prefill and the first
+    sample, host clock after a synchronize), the wall time of a step over
+    ``steps`` after the capturing one (host clock, synchronized), one step
+    traced (device busy, idle share) and a step by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = eng.begin(prompts)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    eng.decode(state)  # the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.decode(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    prof = profile_window("mamba2 decode step by replay, batch 8", lambda: eng.decode(state))
+    event_ms = time_ms(lambda: eng.decode(state))
+    check(eng.graphs.entries() == 1, f"mamba2 decode step: {eng.graphs.entries()} captures")
+    return ttft, {"wall_ms": wall_ms, "busy_ms": prof["busy_ms"] if prof else None,
+                  "profile": prof, "step_ms_events": event_ms}
+
+
 def serve_mamba(results):
     """mamba2-130m at its published widths and all 24 layers, random weights
     drawn on the card from the seed, on the lockstep engine: 8 prompts of
     2048 tokens, 32 new tokens each, temperature 0.8, sampling softmax
     ``pallas``.  Counters zeroed just before the serve and read just after:
     ``ssd_scan`` once per layer of the prefill, the STAR softmax once per
-    sampled step.  Then one full-width prefill through the kernel against the
-    same prefill under ``ops.use(ssd_scan="reference")``, 32 greedy tokens
-    from each route's prefill (``mamba_greedy_divergence``), and one prefill
-    and one decode step traced."""
+    sampled step (the first sample's eager launch and one a replay).  Then
+    one full-width prefill through the kernel against the same prefill under
+    ``ops.use(ssd_scan="reference")``, 32 greedy tokens from each route's
+    prefill (``mamba_greedy_divergence``), and one prefill and one decode
+    step traced."""
     import numpy as np
     import torch
 
@@ -2068,7 +2364,7 @@ def serve_mamba(results):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.param import count_params, materialize
     from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import ServeConfig, ServeEngine, sample_token
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     cfg = get_config("mamba2_130m")
     model = build_model(cfg)
@@ -2085,22 +2381,7 @@ def serve_mamba(results):
     with ops.use(softmax="pallas"), torch.no_grad():
         eng = ServeEngine(cfg, params, sc, device="cuda", seed=SEED)
         eng.generate(prompts[:, :256], 2)  # warm-up: the sampling kernel at this vocabulary
-        # time to first token, alone: the prefill and the first sample
-        gens = [torch.Generator(device="cuda").manual_seed(SEED + i) for i in range(b)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(params, tokens, t + gen)
-        nxt = sample_token(logits[:, -1], gens, cfg, 0.8)[:, None]
-        torch.cuda.synchronize()
-        ttft = time.perf_counter() - t0
-        # the time of one decode step (and its sample), over 8 steps
-        t0 = time.perf_counter()
-        for _ in range(8):
-            logits, cache = model.decode_step(params, cache, nxt)
-            nxt = sample_token(logits[:, -1], gens, cfg, 0.8)[:, None]
-        torch.cuda.synchronize()
-        step = (time.perf_counter() - t0) / 8
-        del cache, logits
+        ttft, step = mamba_decode_step(eng, prompts)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -2110,21 +2391,30 @@ def serve_mamba(results):
         wall = time.perf_counter() - t0
         counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    capture = eng.graphs.capture_seconds
     out = toks.cpu().numpy()
     check(out.shape == (b, gen) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"serve mamba2: bad output {out.shape}")
     check(info["cache_len"] == t + gen - 1, f"serve mamba2: cache_len {info['cache_len']}")
+    check((eng.graphs.entries(), eng.graphs.replays) == (1, gen - 1),
+          f"serve mamba2: {eng.graphs.entries()} captures, {eng.graphs.replays} replays for "
+          f"{gen - 1} decode steps")
     log(f"serve mamba2: {b} x {t}-token prompts, {b * gen} tokens in {wall:.3f}s = "
-        f"{b * gen / wall:.2f} tok/s; ttft (prefill + first sample) {1e3 * ttft:.1f}ms, "
-        f"decode step {1e3 * step:.2f}ms, max_memory_allocated={peak / 2**30:.2f} GiB, "
-        f"cache_len {info['cache_len']}")
+        f"{b * gen / wall:.2f} tok/s ({b * gen / (wall - capture):.2f} tok/s without the "
+        f"warm-up and capture, {capture:.3f}s of the generate's wall); ttft (begin: prefill "
+        f"+ first sample) {1e3 * ttft:.1f}ms, decode step by replay {step['wall_ms']:.2f}ms "
+        f"wall (device busy "
+        f"{step['busy_ms'] if step['busy_ms'] is None else round(step['busy_ms'], 3)} ms, "
+        f"{step['step_ms_events']:.3f} ms by CUDA events), "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB, cache_len {info['cache_len']}; "
+        f"{gen - 1} decode steps by replay of {eng.graphs.entries()} capture")
     log(f"serve mamba2: launches {counts}")
     check(counts.get("ssd_scan", 0) == cfg.num_layers,
           f"serve mamba2: ssd_scan launched {counts.get('ssd_scan', 0)} times, "
           f"expected {cfg.num_layers} (one per layer of the prefill)")
     check(counts.get("star_softmax", 0) == gen,
           f"serve mamba2: star_softmax launched {counts.get('star_softmax', 0)} times for "
-          f"{gen} sampled steps")
+          f"{gen} sampled steps (counted through {eng.graphs.replays} replays)")
     for e in results:
         e["launches_by_path"]["serve_mamba2"] = counts.get(e["name"], 0)
         if e["name"] == "ssd_scan":
@@ -2161,12 +2451,11 @@ def serve_mamba(results):
     greedy = mamba_greedy_divergence(cfg, model, params, tokens, t + gen, gen, max_abs["bfloat16"])
     with torch.no_grad():
         profile_window("mamba2 prefill, 8 x 2048 tokens",
-                       lambda: model.prefill(params, tokens, t + gen))
-        _, cache = model.prefill(params, tokens, t + gen)
-        profile_window("mamba2 decode step, batch 8",
-                       lambda: model.decode_step(params, cache, tokens[:, -1:]))
+                       lambda: model.prefill(eng.params, tokens, t + gen))
     return {"batch": b, "prompt_len": t, "gen": gen, "tokens": b * gen, "wall_s": wall,
-            "tok_per_s": b * gen / wall, "ttft_s": ttft, "decode_step_s": step,
+            "tok_per_s": b * gen / wall, "capture_s": capture,
+            "tok_per_s_without_capture": b * gen / (wall - capture), "ttft_s": ttft,
+            "decode_step": step,
             "max_memory_allocated": peak, "prefill_logits_rel_l2": rel,
             "prefill_logits_rel_l2_f32_compute": rels["float32"],
             "prefill_logits_max_abs": max_abs, "greedy_kernel_vs_reference": greedy}
@@ -2235,10 +2524,10 @@ def main() -> int:
     f32_launches = small_reference()
     next(e for e in results if e["name"] == "flash_star")["launches_float32_smoke"] = f32_launches
     small_reference_mamba()
-    summary, params = serve(results)
-    summary_quant = serve_quant(results, params)
-    summary_degraded = degraded_serve(results, params)
-    del params
+    summary, params, cparams = serve(results)
+    summary_quant = serve_quant(results, cparams)
+    summary_degraded = degraded_serve(results, params, cparams)
+    del params, cparams
     torch.cuda.empty_cache()
     summary_mamba = serve_mamba(results)
     for entry in results:

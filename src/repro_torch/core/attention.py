@@ -63,8 +63,10 @@ class SoftmaxConfig:
 STAR_SOFTMAX = SoftmaxConfig(kind="star")
 
 
-def _as_long(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, device=device).long()
+def _as_long(x, device):
+    """A tensor index as int64 on ``device``; a Python int stays a scalar
+    (no host-to-device copy, which a CUDA graph could not capture)."""
+    return x if isinstance(x, int) else torch.as_tensor(x, device=device).long()
 
 
 def _build_mask(

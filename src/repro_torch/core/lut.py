@@ -24,10 +24,22 @@ def _exp_lut_np(int_bits: int, frac_bits: int) -> np.ndarray:
     return np.exp(-k / fmt.scale).astype(np.float32)
 
 
-def exp_lut(fmt: FixedPointFormat, device=None, dtype=torch.float32) -> torch.Tensor:
-    """``lut[k] = exp(-k / 2**frac_bits)``, shape ``[num_levels]``."""
-    table = torch.from_numpy(_exp_lut_np(fmt.int_bits, fmt.frac_bits))
+@functools.lru_cache(maxsize=64)
+def _exp_lut_on(int_bits: int, frac_bits: int, device: str, dtype: torch.dtype) -> torch.Tensor:
+    table = torch.from_numpy(_exp_lut_np(int_bits, frac_bits))
     return table.to(device=device, dtype=dtype)
+
+
+def exp_lut(fmt: FixedPointFormat, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``lut[k] = exp(-k / 2**frac_bits)``, shape ``[num_levels]``.
+
+    One copy per (format, device, dtype), shared by every caller, who only
+    read it: an upload per call would be a host-to-device copy inside each
+    STAR softmax, which a CUDA graph cannot capture."""
+    dev = torch.device(device if device is not None else "cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _exp_lut_on(fmt.int_bits, fmt.frac_bits, str(dev), dtype)
 
 
 def lookup_gather(k: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

@@ -9,18 +9,24 @@ ptxas log is kept beside it (``.log``), so a later process that reuses
 the library still reads what the compiler made of it.  ``build`` starts
 one ``nvcc`` per source, all at once.
 
+Launch counters survive CUDA graphs: while a graph is captured its
+launches tally into the graph (``launches_into``), not into the global
+counts, and each replay adds the graph's tally (``add_launches``), so
+``launch_counts()`` counts device launches either way.
+
 Nothing here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, Iterator, List
 
 import torch
 
@@ -34,20 +40,44 @@ NVCC_FLAGS = (
 
 class LaunchCounter:
     """A plain count of kernel launches, bumped by a wrapper where it
-    launches its kernel and nowhere else."""
+    launches its kernel and nowhere else.  Inside ``launches_into(tally)``
+    the launch goes to ``tally`` instead: a kernel recorded into a graph
+    being captured has not run yet."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
 
     def add(self) -> None:
-        self.count += 1
+        if _TALLIES:
+            tally = _TALLIES[-1]
+            tally[self.name] = tally.get(self.name, 0) + 1
+        else:
+            self.count += 1
 
     def reset(self) -> None:
         self.count = 0
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}
+_TALLIES: List[Dict[str, int]] = []
+
+
+@contextlib.contextmanager
+def launches_into(tally: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Count the block's launches into ``tally`` (innermost block wins)
+    instead of the global counts."""
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.pop()
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add a tally to the counts: a replayed graph's launches ran now."""
+    for name, n in tally.items():
+        launch_counter(name).count += n
 
 
 def launch_counter(name: str) -> LaunchCounter:
@@ -159,15 +189,3 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
 
-
-_LUTS: Dict[tuple, torch.Tensor] = {}
-
-
-def device_lut(fmt, device: torch.device) -> torch.Tensor:
-    """The float32 exp LUT of ``fmt`` on ``device``, uploaded once."""
-    from repro_torch.core.lut import exp_lut
-
-    key = (fmt, device)
-    if key not in _LUTS:
-        _LUTS[key] = exp_lut(fmt, device=device).contiguous()
-    return _LUTS[key]

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointFormat
+from repro_torch.core.lut import exp_lut
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_star.ref import V8_GROUP, flash_star_ref
 
@@ -156,7 +157,7 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
     for name, t, ptr, st in (("q", q, ptrs[0], qs), ("k", k, ptrs[1], ks), ("v", v, ptrs[2], vs)):
         _check_16_byte_pieces(name, t, ptr, st)
     out = torch.empty((b, hq, tq, d), dtype=dtype, device=dev)
-    lut = _cuda.device_lut(fmt, dev) if fmt is not None else None
+    lut = exp_lut(fmt, device=dev) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
     args = (
         *ptrs, out.data_ptr(), info.data_ptr(), lut.data_ptr() if lut is not None else None,

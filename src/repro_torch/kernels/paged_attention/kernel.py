@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointFormat
+from repro_torch.core.lut import exp_lut
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -140,7 +141,7 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
     ws = None
     if splits > 1:
         ws = torch.empty(s * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
-    lut = _cuda.device_lut(fmt, q.device) if fmt is not None else None
+    lut = exp_lut(fmt, device=q.device) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
     common = (
         float(d ** -0.5 if sm_scale is None else sm_scale),

@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointFormat
+from repro_torch.core.lut import exp_lut
 from repro_torch.core.star_softmax import Modes, star_softmax
 from repro_torch.hwmodel import faults as faults_lib
 from repro_torch.hwmodel.faults import FaultModel
@@ -101,7 +102,7 @@ def _identity(levels: int, device: str) -> torch.Tensor:
 def _tables(fmt: FixedPointFormat, mode: str, fault: Optional[FaultModel], device):
     """(lut, vmm, remap) for the kernel, all on ``device``."""
     if faults_lib.is_null(fault):
-        lut = _cuda.device_lut(fmt, device)
+        lut = exp_lut(fmt, device=device)
         return lut, lut, _identity(fmt.num_levels, str(device))
     lut = faults_lib.faulty_exp_lut(fmt, fault, "softmax/lut", device=device)
     vmm = (faults_lib.faulty_exp_lut(fmt, fault, "softmax/vmm", device=device)

@@ -27,6 +27,14 @@ decode follow it (``pallas`` -> ``flash_star`` + ``pallas_paged``);
 ``--kv-dtype`` int8 / fp8_e4m3 stores the page pool as codes plus scale
 pages; ``--kv-pool-blocks`` bounds the pool (exhaustion preempts).
 Weights are random, drawn on the device from ``--seed``.
+
+``--trace-out PATH`` enables tracing before the engine is built and writes
+the run's Chrome trace-event JSON there (load it in https://ui.perfetto.dev);
+``--metrics-out PATH`` writes ``{"engine": engine.stats(), "global": the
+process registry's snapshot (dispatch and guard counters)}``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
+      --device cpu --trace-out build/trace.json --metrics-out build/metrics.json
 """
 
 from __future__ import annotations
@@ -70,9 +78,17 @@ def main(argv=None) -> int:
     ap.add_argument("--softmax-impl", default=None, metavar="IMPL",
                     help="force the softmax backend: reference|xla|pallas")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable tracing for the run and write Chrome trace-event JSON here")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics snapshot (engine stats + the global dispatch / "
+                    "guard counters) as JSON")
     args = ap.parse_args(argv)
 
-    from repro_torch import ops
+    from repro_torch import obs, ops
+
+    if args.trace_out:
+        obs.enable_tracing()  # engines bind the global tracer when they are built
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.param import materialize
     from repro_torch.models.registry import build_model
@@ -136,12 +152,14 @@ def main(argv=None) -> int:
         print(f"sampled {len(bad)} tokens outside the vocabulary: {bad[:8]}")
         return 1
     print("sample:", done[min(done)][:16])
+    write_obs(args, eng)
     return 0
 
 
 def run_lockstep(args, cfg, params, device, max_len) -> int:
     import torch
 
+    from repro_torch import obs
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     eng = ServeEngine(cfg, params, ServeConfig(max_len=max_len, temperature=args.temperature),
@@ -149,7 +167,8 @@ def run_lockstep(args, cfg, params, device, max_len) -> int:
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     t0 = time.perf_counter()
-    toks, info = eng.generate(prompts, args.gen)
+    with obs.get_tracer().span("serve.generate", batch=args.batch, gen=args.gen):
+        toks, info = eng.generate(prompts, args.gen)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -161,7 +180,27 @@ def run_lockstep(args, cfg, params, device, max_len) -> int:
         print(f"sampled {bad.size} tokens outside the vocabulary: {bad[:8].tolist()}")
         return 1
     print("sample:", out[0][:16].tolist())
+    write_obs(args)
     return 0
+
+
+def write_obs(args, engine=None) -> None:
+    """Write the Chrome trace and / or the metrics snapshot when asked."""
+    import json
+
+    from repro_torch import obs
+
+    if args.trace_out:
+        tracer = obs.get_tracer()
+        tracer.export_chrome(args.trace_out)
+        print(f"wrote {len(tracer.events)} trace events to {args.trace_out}")
+    if args.metrics_out:
+        snap = {"global": obs.default_registry().snapshot()}
+        if engine is not None:
+            snap["engine"] = engine.stats()
+        with open(args.metrics_out, "w") as f:
+            json.dump(snap, f, indent=2, default=float)
+        print(f"wrote metrics snapshot to {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 and the causal depthwise conv of the ssm family).
 
 Functional style as in the reference: parameters are dicts of tensors,
-layers are functions.  Weights stay in ``param_dtype`` and are cast to
-``compute_dtype`` where they are used.  Projections are plain
+layers are functions.  Weights are read through ``.to(compute_dtype)``
+where they are used; the engines hand in ``models.param.compute_params``'s
+tree, cast once, so those reads copy nothing.  Projections are plain
 ``torch.matmul``; attention goes through ``repro_torch.ops``.
 """
 

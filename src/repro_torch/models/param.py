@@ -95,5 +95,34 @@ def from_reference(np_params, cfg, device: Device = None) -> Params:
     )
 
 
+# the leaves the layers read only through ``.to(compute_dtype)``: the
+# attention and MLP projections (and biases), the unembed kernel, the embed
+# table (gather-then-cast equals cast-then-gather, ``layers.embed``) and
+# Mamba2's in / out projections and conv kernel.  Norm scales, ``A_log``,
+# ``D``, ``dt_bias`` and ``out_norm`` are read through ``.float()`` and stay.
+CAST_ONCE = frozenset({
+    "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg", "kernel", "table",
+    "in_proj", "out_proj",
+})
+
+
+def compute_params(params: Params, cfg) -> Params:
+    """The tree the engines compute with: every leaf in ``CAST_ONCE`` cast
+    to ``cfg.compute_dtype`` once, every other leaf the same tensor.  A cast
+    depends only on the weight, so the layers' own ``.to(compute_dtype)``
+    then finds the type already right and copies nothing, and the results
+    are bit for bit those of casting at every use.  Idempotent and free on a
+    tree already cast (``.to`` returns the same tensor); where the compute
+    dtype is the parameter dtype no leaf is copied."""
+    dtype = getattr(torch, cfg.compute_dtype)
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v.to(dtype) if k in CAST_ONCE else v)
+                for k, v in tree.items()}
+
+    return cast(params)
+
+
 def count_params(specs) -> int:
     return int(sum(int(np.prod(s.shape)) for _, s in _leaves(specs)))

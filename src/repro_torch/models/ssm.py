@@ -241,8 +241,9 @@ class MambaLM:
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Params]:
-        """tokens ``[B, t]`` -> (logits ``[B, t, V]``, cache'); the cache's
-        states are updated in place."""
+        """tokens ``[B, t]`` -> (logits ``[B, t, V]``, the same cache): the
+        conv and SSM states and ``len`` are updated in place, so a CUDA graph
+        of the step owns them."""
         cfg = self.cfg
         layers = cache["layers"]
         h = L.embed(params["embed"], tokens, cfg)
@@ -253,4 +254,5 @@ class MambaLM:
             layers["ssm"][i] = state["ssm"]
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
-        return logits, {"layers": layers, "len": cache["len"] + tokens.shape[1]}
+        cache["len"].add_(tokens.shape[1])
+        return logits, cache

@@ -237,8 +237,11 @@ class DecoderLM:
         block_tables: torch.Tensor, *, cache_t: int,
     ) -> Tuple[torch.Tensor, Params]:
         """One paged token step: tokens ``[S, 1]`` -> (logits ``[S, 1, V]``,
-        cache').  ``block_tables`` ``[S, W]`` int32 on the cache's device;
-        ``cache_t`` is the logical per-slot row count."""
+        the same cache).  ``block_tables`` ``[S, W]`` int32 on the cache's
+        device; ``cache_t`` is the logical per-slot row count.  Every state
+        update is in place — the KV rows, then ``len`` and ``pos`` advance by
+        one in the pool's own tensors — so a CUDA graph of the step owns the
+        pool's state (the reference returns new arrays)."""
         cfg = self.cfg
         h = L.embed(params["embed"], tokens, cfg)
         pos = cache["pos"][:, None]
@@ -250,4 +253,6 @@ class DecoderLM:
                                   cache=layer_cache, paged_cache_t=cache_t)
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
-        return logits, {"layers": layers, "len": cache["len"] + 1, "pos": cache["pos"] + 1}
+        cache["len"].add_(1)
+        cache["pos"].add_(1)
+        return logits, cache

@@ -24,7 +24,8 @@ packages.  What each runs here:
   CTAs a row, every mode, clean or faulty), paged
   ``pallas`` the gather adapter + ``flash_star``.  The attention kernels
   refuse a fault, as the reference's do.
-* ``pallas_paged`` — the gather-free CUDA paged decode kernel.
+* ``pallas_paged`` — the gather-free CUDA paged decode kernel
+  (:func:`paged_gather_bytes` counts the pool bytes each route reads).
 * ``hwmodel`` (matmul) — the RRAM crossbar model through the CUDA crossbar
   kernel.
 * ssd_scan ``pallas`` — the CUDA SSD chunk-scan kernel; ``reference`` — the
@@ -76,3 +77,4 @@ from repro_torch.ops.specs import (  # noqa: F401
 
 # Importing the built-in backends populates the registry.
 from repro_torch.ops import impls as _impls  # noqa: E402,F401  isort: skip
+from repro_torch.ops.impls import paged_gather_bytes  # noqa: E402,F401  isort: skip

@@ -1,5 +1,6 @@
 """Dispatch: spec -> (call-site overrides, ``use()`` frames, validation) ->
-backend (port of ``repro.ops.dispatch``)."""
+backend (port of ``repro.ops.dispatch``).  Every resolution counts in the
+process registry as ``ops.dispatch.calls{op, impl}``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.obs.metrics import default_registry
 from repro_torch.ops import registry
 from repro_torch.ops.guard import Guard, as_guard
 from repro_torch.ops.registry import Backend, OpDispatchError
@@ -42,6 +44,10 @@ def resolve(spec, **overrides: Any) -> Tuple[Backend, Any]:
         spec = dataclasses.replace(spec, impl=forced)
     backend = registry.get(spec.op, spec.impl)
     registry.validate(backend, spec)
+    # counts dispatches: inside a captured CUDA graph that is capture time,
+    # so a replayed tick counts once per capture, as the reference counts
+    # a jitted call site once per trace
+    default_registry().counter("ops.dispatch.calls").inc(op=spec.op, impl=backend.impl)
     return backend, spec
 
 

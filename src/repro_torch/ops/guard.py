@@ -10,9 +10,8 @@ clean backend (fault stripped, ``fallback_impl``).  Counters live on the
 guard instance and mirror into the process registry
 (``obs.metrics.default_registry``) as ``ops.guard.{calls,checks,fallbacks,
 trips}``, labelled by ``op`` (and ``impl`` for trips); the serving engine
-reports them in ``ContinuousBatchingEngine.stats()["guard"]``.  The
-reference also marks a trip as a ``guard.trip`` instant in its trace; that
-waits for the port of the tracer.
+reports them in ``ContinuousBatchingEngine.stats()["guard"]``.  A trip is
+also a ``guard.trip`` instant in the active trace (``obs.get_tracer()``).
 
 Latching: after the first trip (``latch=True``, the default) every guarded
 call goes straight to the clean backend; ``latch=False`` keeps running and
@@ -33,6 +32,7 @@ from typing import Any, Dict, Optional, Union
 
 from repro_torch.kernels.crossbar_matmul.ref import exact_matmul_ref
 from repro_torch.obs.metrics import default_registry
+from repro_torch.obs.trace import get_tracer
 from repro_torch.ops import registry
 from repro_torch.ops.registry import CapabilityError, OpDispatchError
 
@@ -131,9 +131,13 @@ class AccuracyGuard:
     def _trip(self, op: str, impl: str, err: float, tol: float) -> None:
         self.trips += 1
         self.tripped = True
+        fallback = self._fallback_impl(op)
         default_registry().counter("ops.guard.trips").inc(op=op, impl=impl)
-        warnings.warn(GuardTripWarning(op, impl, err, tol, self._fallback_impl(op)),
-                      stacklevel=4)
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.instant("guard.trip", cat="guard", op=op, impl=impl, error=err,
+                           tolerance=tol, fallback=fallback)
+        warnings.warn(GuardTripWarning(op, impl, err, tol, fallback), stacklevel=4)
 
     # -- guarded ops ---------------------------------------------------------
 

@@ -201,6 +201,37 @@ register("paged_attention", "pallas_paged", _paged_pallas_paged,
          "int8/fp8 pages (kernels.paged_attention)")
 
 
+def paged_gather_bytes(
+    impl: str,
+    *,
+    table_width: int,
+    block_size: int,
+    live_lens,
+    num_kv_heads: int,
+    head_dim: int,
+    dtype_bytes: int = 4,
+    scale_bytes_per_block: int = 0,
+) -> int:
+    """Counted K+V bytes one paged decode step reads from the page pool
+    (port of the reference's ``ops.paged_gather_bytes``): a traffic model,
+    not a measurement.
+
+    The gather adapters (``reference`` / ``xla`` / ``pallas``) materialize
+    every slot's whole table window, ``S * W * bs`` rows.  The gather-free
+    kernel route ``pallas_paged`` reads only each slot's live pages,
+    ``sum(ceil(live / bs)) * bs`` rows (a free slot still counts its one
+    clamped page).  ``dtype_bytes`` is the pool leaf's itemsize (1 for
+    int8 / fp8 codes); ``scale_bytes_per_block`` adds the K+V scale bytes a
+    quantized layout reads per touched block."""
+    row_bytes = 2 * num_kv_heads * head_dim * dtype_bytes  # K and V
+    lens = [int(x) for x in live_lens]
+    if impl == "pallas_paged":
+        blocks = sum(max(-(-live // block_size), 1) for live in lens)
+    else:
+        blocks = len(lens) * table_width
+    return blocks * (block_size * row_bytes + scale_bytes_per_block)
+
+
 # ---------------------------------------------------------------------------
 # matmul
 

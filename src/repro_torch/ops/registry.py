@@ -127,3 +127,10 @@ def active_impl(op: str) -> Optional[str]:
     for frame in _OVERRIDE_FRAMES.get():
         impl = frame.get(op, impl)
     return impl
+
+
+def active_impls() -> Tuple[Tuple[str, str], ...]:
+    """``(op, impl)`` for every op a ``use()`` frame forces, in a fixed
+    order: the overrides a captured CUDA graph resolved its routes under."""
+    forced = ((op, active_impl(op)) for op in _OVERRIDE_KEYS)
+    return tuple((op, impl) for op, impl in forced if impl is not None)

@@ -20,17 +20,25 @@ One ``step()`` tick of the continuous engine::
               on exhaustion cold trie leaves are evicted first, then the
               latest-admitted slot is preempted (requeued at the front
               with its tokens kept)
-    decode:   one decode_step_paged over all S slots [S, 1] -> [S, 1, V],
-              sample one token per active slot
+    decode:   the fused device tick (DESIGN.md §11): the dirty rows of the
+              device-resident ``[S, W]`` block table are flushed, the
+              ``[S, 1]`` int32 token inputs go up, and one CUDA graph
+              replays decode over all S slots plus sampling; one transfer
+              brings the sampled tokens down
     retire:   finished slots release their blocks; their tables go back to
               the scratch block and their counters to 0
 
-Sampling at temperature > 0 runs the STAR softmax through
-``ops.softmax`` (``ops.use(softmax="pallas")`` selects the Hopper kernels),
-one batched call over the active slots' rows per tick, then a categorical
-draw from each request's own seeded ``torch.Generator``, so a request's
-draws depend neither on its co-tenants nor on preemption.  The draws are not
-the reference's ``jax.random`` draws.
+The tick's graph (``serve.graph.StepGraphs``) is keyed by the routes it
+resolved; ``graph_entries()`` counts the captures.  Inside it, greedy
+decoding takes the ``argmax``; at temperature > 0 without a guard the
+sampling softmax runs there too (``ops.softmax`` over ``logits / T``, the
+STAR kernel under ``ops.use(softmax="pallas")``), and each active request
+then draws its token outside the graph from its own seeded
+``torch.Generator`` (``draw``), so a request's draws depend neither on its
+co-tenants nor on preemption.  The draws are not the reference's
+``jax.random`` draws.  Under a guard the sampling runs eagerly after the
+graphed decode, as the reference's guarded path does.  Prefill and prefill
+chunks stay eager.  On the CPU the same tick runs eagerly.
 
 A fault in the config's softmax spec (``FaultModel``) degrades every STAR
 softmax of the model, attention rows and sampling alike.  With
@@ -38,9 +46,18 @@ softmax of the model, attention rows and sampling alike.  With
 sampling softmax to the exact oracle, falls back to the clean ``reference``
 backend on a trip, and reports its counters in ``stats()["guard"]``.
 
+Observability (DESIGN.md §10): the reference's tracer spans and instants
+under its names (``serve.submit`` / ``admit`` / ``prefill`` /
+``prefill_chunk`` / ``decode`` / ``preempt`` / ``finish``, the
+``serve.sched`` and ``kv.blocks`` counter tracks, one async ``request``
+track per uid), and its transfer counters: ``serve.bytes.h2d`` and
+``serve.bytes.d2h`` (the bytes the engine moves across the host-device
+boundary) and ``kv.gather.bytes`` (``ops.paged_gather_bytes``, a traffic
+model).  The engines compute with ``models.param.compute_params``: weights
+cast to the compute dtype once.
+
 Not ported yet: the dense per-slot layout (and so the lockstep engine for
-attention models), ring (sliding-window) caches, tracing and the transfer
-counters.
+attention models) and ring (sliding-window) caches.
 """
 
 from __future__ import annotations
@@ -55,12 +72,75 @@ import torch
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvquant import validate_kv_dtype
+from repro_torch.models.param import compute_params, tree_map
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NullTracer, Tracer, get_tracer
+from repro_torch.ops import registry
 from repro_torch.ops.platform import Device, resolve_device
+from repro_torch.serve.graph import StepGraphs
 from repro_torch.serve.paged import SCRATCH_BLOCK, BlockPool, PrefixCache, bucket_blocks
 from repro_torch.serve.scheduler import Request, Slot, SlotScheduler
+
+
+def scaled_logits(logits: torch.Tensor, temperature: torch.Tensor) -> torch.Tensor:
+    """``logits / T`` in float32, divided by a tensor on the logits' device:
+    an IEEE division on the card as on the CPU.  (A Python float divisor
+    becomes a multiply by its reciprocal on CUDA, which can move the last
+    bit.)"""
+    return logits.float() / temperature
+
+
+def sampling_probs(
+    logits: torch.Tensor,  # [..., V]
+    temperature: torch.Tensor,  # 0-dim float32 on the logits' device
+    cfg: ModelConfig,
+    guard: Optional[ops.AccuracyGuard] = None,
+    star_sampling: bool = True,
+) -> torch.Tensor:
+    """The sampling distribution: one softmax over ``logits / T`` with the
+    config's softmax spec (the STAR engine unless its kind is exact or
+    ``star_sampling`` is off; held to the exact oracle by ``guard`` when
+    given)."""
+    scaled = scaled_logits(logits, temperature)
+    spec = cfg.softmax_spec
+    if spec.kind == "exact" or not star_sampling:
+        return torch.softmax(scaled, dim=-1)
+    return ops.softmax(scaled, spec, guard=guard)
+
+
+INVALID_TOKEN = -1  # what :func:`draw` gives a row that is not a distribution
+
+
+def draw(probs: torch.Tensor, generators: Sequence[torch.Generator]) -> torch.Tensor:
+    """One categorical draw per row of ``probs`` ``[..., V]`` from that
+    row's generator: ``argmax(p / q)`` with ``q ~ Exp(1)``, the algorithm
+    and generator use of ``torch.multinomial(p, 1)`` without its host-side
+    checks (each a device-to-host sync).  Their check runs on the device
+    instead: a row that ``torch.multinomial`` refuses (a NaN, an infinity
+    or a negative entry, or no entry above zero) draws ``INVALID_TOKEN``,
+    which comes down with the tokens and :func:`check_drawn` raises on.
+    int32 ``probs.shape[:-1]``."""
+    rows = probs.reshape(-1, probs.shape[-1])
+    if rows.shape[0] != len(generators):
+        raise ValueError(f"{rows.shape[0]} rows but {len(generators)} generators")
+    out = torch.stack([
+        torch.argmax(r / torch.empty_like(r).exponential_(1.0, generator=g))
+        for r, g in zip(rows, generators)])
+    valid = ((rows >= 0) & torch.isfinite(rows)).all(-1) & (rows.sum(-1) > 0)
+    out = torch.where(valid, out, INVALID_TOKEN)
+    return out.to(torch.int32).reshape(probs.shape[:-1])
+
+
+def check_drawn(tokens: np.ndarray) -> None:
+    """Raise where a draw met a row that is not a distribution (its token
+    is ``INVALID_TOKEN``), as ``torch.multinomial`` raises on one."""
+    bad = np.argwhere(np.asarray(tokens) == INVALID_TOKEN)
+    if bad.size:
+        raise RuntimeError(
+            f"sampling distribution at {bad[:8].tolist()} holds a NaN, an infinity or a "
+            "negative probability, or nothing above zero: no token drawn")
 
 
 def sample_token(
@@ -72,23 +152,22 @@ def sample_token(
     star_sampling: bool = True,
 ) -> torch.Tensor:
     """Greedy (``temperature <= 0``: argmax) or temperature sampling:
-    probabilities from one ``ops.softmax`` over ``logits / T`` with the
-    config's softmax spec (the STAR engine unless its kind is exact or
-    ``star_sampling`` is off; held to the exact oracle by ``guard`` when
-    given), then one categorical draw per row from that row's generator."""
+    :func:`sampling_probs`, then one :func:`draw` per row."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    scaled = logits.float() / temperature
-    spec = cfg.softmax_spec
-    if spec.kind == "exact" or not star_sampling:
-        probs = torch.softmax(scaled, dim=-1)
-    else:
-        probs = ops.softmax(scaled, spec, guard=guard)
-    rows = probs.reshape(-1, probs.shape[-1])
-    if rows.shape[0] != len(generators):
-        raise ValueError(f"{rows.shape[0]} rows but {len(generators)} generators")
-    out = torch.stack([torch.multinomial(r, 1, generator=g)[0] for r, g in zip(rows, generators)])
-    return out.to(torch.int32).reshape(probs.shape[:-1])
+    t = torch.full((), temperature, dtype=torch.float32, device=logits.device)
+    return draw(sampling_probs(logits, t, cfg, guard, star_sampling), generators)
+
+
+@dataclasses.dataclass
+class LockstepState:
+    """A lockstep ``generate``'s decode state.  The cache and the token
+    buffer are the decode graph's static state, updated in place."""
+    cache: Dict[str, Any]
+    tokens: torch.Tensor  # [B, 1] int32: the last tokens, the graph's input
+    generators: List[torch.Generator]  # one per row
+    temperature: Optional[torch.Tensor]  # 0-dim float32; None: greedy
+    route: Any  # the graph's key
 
 
 @dataclasses.dataclass
@@ -103,7 +182,15 @@ class ServeEngine:
     ``device`` (the card unless ``device="cpu"``); ``params`` must live
     there.  Batch row ``i`` samples from its own ``torch.Generator`` seeded
     ``seed + i`` (not the reference's ``jax.random`` draws: greedy tokens
-    are the parity oracle)."""
+    are the parity oracle).
+
+    Each ``generate`` (``begin``, then ``decode`` per step) captures its
+    decode step once (the counterpart of the reference's
+    ``jax.jit(decode_step)``): the prefill's cache and a ``[B, 1]`` token
+    buffer are the graph's static state (:class:`LockstepState`), updated in
+    place by every replay; greedy decoding takes the ``argmax`` inside the
+    graph, sampling its softmax, and the draws run outside it.  ``graphs``
+    is the last ``begin``'s :class:`StepGraphs`."""
 
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, Any],
                  serve_cfg: ServeConfig = ServeConfig(), *, device: Device = None,
@@ -113,35 +200,70 @@ class ServeEngine:
         if table.device.type != self.device.type:
             raise ValueError(f"params are on {table.device}, the engine on {self.device}")
         self.cfg = model_cfg
-        self.params = params
         self.serve_cfg = serve_cfg
         self.model = build_model(model_cfg)
         if isinstance(self.model, DecoderLM):
             raise NotImplementedError(
                 "the lockstep engine needs the dense per-slot KV layout for attention "
-                "models, which is not ported yet (ROADMAP A.2); serve "
+                "models, which is not ported yet (ROADMAP A.1); serve "
                 f"{model_cfg.family!r} models with ContinuousBatchingEngine")
+        self.params = compute_params(params, model_cfg)
         self.seed = seed
+        self.graphs: Optional[StepGraphs] = None
 
-    def generate(self, prompts, num_tokens: int):
-        """prompts ``[B, T]`` -> (generated ``[B, num_tokens]`` int32,
-        ``{"cache_len": ...}``)."""
+    def _step(self, cache, tokens, temperature):
+        """One decode step over the batch, then greedy tokens ``[B]`` or the
+        sampling distribution ``[B, V]``."""
+        logits, _ = self.model.decode_step(self.params, cache, tokens)
+        last = logits[:, -1]
+        if temperature is None:
+            return torch.argmax(last, dim=-1).to(torch.int32)
+        return sampling_probs(last, temperature, self.cfg,
+                              star_sampling=self.serve_cfg.star_sampling)
+
+    @torch.no_grad()
+    def begin(self, prompts) -> LockstepState:
+        """Prefill ``prompts`` ``[B, T]`` and sample each row's first token
+        (left in ``state.tokens``); ``graphs`` starts anew."""
         prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         sc = self.serve_cfg
         gens = [torch.Generator(device=self.device).manual_seed(self.seed + i)
                 for i in range(prompts.shape[0])]
+        greedy = sc.temperature <= 0.0
+        temperature = None if greedy else torch.full(
+            (), sc.temperature, dtype=torch.float32, device=self.device)
+        self.graphs = StepGraphs(self.device)
+        logits, cache = self.model.prefill(self.params, prompts, sc.max_len)
+        tok = sample_token(logits[:, -1], gens, self.cfg, sc.temperature,
+                           star_sampling=sc.star_sampling)
+        route = ("lockstep decode", tuple(prompts.shape), "greedy" if greedy else "sampled",
+                 self.cfg.softmax_spec.impl)
+        return LockstepState(cache, tok[:, None].clone(), gens, temperature, route)
 
-        def sample(logits):
-            return sample_token(logits[:, -1], gens, self.cfg, sc.temperature,
-                                star_sampling=sc.star_sampling)[:, None]
+    @torch.no_grad()
+    def decode(self, state: LockstepState) -> torch.Tensor:
+        """One decode step by replay of the step's graph (captured at the
+        first call after ``begin``), the draws outside it: the next tokens
+        ``[B]`` int32, also written into ``state.tokens``."""
+        cache, tokens, temperature = state.cache, state.tokens, state.temperature
+        out = self.graphs.run(
+            state.route, lambda: self._step(cache, tokens, temperature),
+            lambda: self._step(tree_map(torch.clone, cache), tokens.clone(), temperature))
+        tok = out.clone() if temperature is None else draw(out, state.generators)
+        tokens.copy_(tok[:, None])
+        return tok
 
-        with torch.no_grad():
-            logits, cache = self.model.prefill(self.params, prompts, sc.max_len)
-            outs = [sample(logits)]
-            for _ in range(num_tokens - 1):
-                logits, cache = self.model.decode_step(self.params, cache, outs[-1])
-                outs.append(sample(logits))
-        return torch.cat(outs, dim=1), {"cache_len": int(cache["len"])}
+    def generate(self, prompts, num_tokens: int):
+        """prompts ``[B, T]`` -> (generated ``[B, num_tokens]`` int32,
+        ``{"cache_len": ...}``): ``begin``, then ``num_tokens - 1`` steps of
+        ``decode``; the tokens are checked once, at the end."""
+        state = self.begin(prompts)
+        outs = [state.tokens[:, 0].clone()]
+        for _ in range(num_tokens - 1):
+            outs.append(self.decode(state))
+        out = torch.stack(outs, dim=1)
+        check_drawn(out.cpu().numpy())
+        return out, {"cache_len": int(state.cache["len"])}
 
 
 @dataclasses.dataclass
@@ -173,7 +295,9 @@ class TokenEvent:
 
 class ContinuousBatchingEngine:
     """Slot-pool serving over a paged KV cache on ``device`` (the card
-    unless ``device="cpu"``); ``params`` must live there."""
+    unless ``device="cpu"``); ``params`` must live there.  ``tracer``
+    defaults to the global one at construction (``obs.get_tracer()``: the
+    no-op tracer unless ``obs.enable_tracing()`` ran first)."""
 
     def __init__(
         self,
@@ -183,6 +307,7 @@ class ContinuousBatchingEngine:
         *,
         device: Device = None,
         seed: int = 0,
+        tracer: Optional[Tracer | NullTracer] = None,
     ):
         self.device = resolve_device(device)
         table = params["embed"]["table"]
@@ -193,15 +318,19 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1, got {cb_cfg.prefill_chunk_tokens}")
         self.cfg = model_cfg
-        self.params = params
         self.cb = cb_cfg
         self.model = build_model(model_cfg)
         if not isinstance(self.model, DecoderLM):
             raise ValueError(
                 "continuous batching needs the per-slot KV-cache pool, which only "
                 f"attention-family models implement (got {model_cfg.family!r})")
+        self.params = compute_params(params, model_cfg)
+        self.tracer = tracer if tracer is not None else get_tracer()
         self.metrics = MetricsRegistry()
         reg = self.metrics
+        self._m_submitted = reg.counter("serve.requests.submitted")
+        self._m_admitted = reg.counter(
+            "serve.requests.admitted", "admissions incl. re-admissions")
         self._m_tokens = reg.counter("serve.tokens.generated")
         self._m_finished = reg.counter("serve.requests.finished")
         self._m_prefills = reg.counter(
@@ -211,6 +340,21 @@ class ContinuousBatchingEngine:
         self._h_ttft = reg.histogram("serve.ttft_s", "submit -> first token")
         self._h_itl = reg.histogram("serve.itl_s", "inter-token latency")
         self._h_queue = reg.histogram("serve.queue_wait_s", "pending-queue wait per stint")
+        self._g_queue = reg.gauge("serve.queue.depth")
+        self._g_active = reg.gauge("serve.slots.active")
+        self._m_h2d = reg.counter(
+            "serve.bytes.h2d", "host->device bytes: prompt tokens, admission write tables, "
+            "dirty table rows, the [S, 1] int32 token inputs")
+        self._m_d2h = reg.counter(
+            "serve.bytes.d2h", "device->host bytes: the sampled tokens (one per admission, "
+            "one vector per tick), the guard's error per check")
+        self._m_gather = reg.counter(
+            "kv.gather.bytes", "counted K+V bytes decode reads from the page pool "
+            "(ops.paged_gather_bytes traffic model)")
+        self._m_rows_flushed = reg.counter(
+            "serve.tables.rows_flushed", "dirty block-table rows uploaded before a tick")
+        self._g_graphs = reg.gauge(
+            "serve.graph.entries", "captured CUDA graphs of the decode tick")
         self.scheduler = SlotScheduler(cb_cfg.num_slots)
         self._cache_t = self.model.cache_len(cb_cfg.max_len)
         bs = cb_cfg.kv_block_size
@@ -227,17 +371,42 @@ class ContinuousBatchingEngine:
         # either flag routes admission through the staging path
         self._chunked = cb_cfg.prefill_chunk_tokens is not None or cb_cfg.prefix_cache
         self._staging: Dict[int, Dict[str, Any]] = {}
-        self._tables = np.full((cb_cfg.num_slots, self._slot_blocks), SCRATCH_BLOCK, np.int32)
-        self._rows = np.zeros(cb_cfg.num_slots, np.int64)  # KV rows written per slot
-        self._inputs = np.zeros((cb_cfg.num_slots, 1), np.int32)  # next token per slot
+        s_count = cb_cfg.num_slots
+        self._tables = np.full((s_count, self._slot_blocks), SCRATCH_BLOCK, np.int32)
+        # the device-resident mirror the tick reads: allocator edits mark
+        # their slot dirty and only dirty rows go up (steady decode: none)
+        self._tables_dev = torch.full((s_count, self._slot_blocks), SCRATCH_BLOCK,
+                                      dtype=torch.int32, device=self.device)
+        self._dirty: set = set()
+        self._rows = np.zeros(s_count, np.int64)  # KV rows written per slot
+        self._inputs = np.zeros((s_count, 1), np.int32)  # next token per slot
+        self._inputs_dev = torch.zeros((s_count, 1), dtype=torch.int32, device=self.device)
         self._seed = seed
         self._generators: Dict[int, torch.Generator] = {}
         # one guard for the engine's lifetime: counters accumulate and the
         # trip latch persists across ticks
         self.guard = ops.AccuracyGuard(cb_cfg.guard) if cb_cfg.guard is not None else None
+        # the tick's sampling: greedy and temperature sampling run in the
+        # graph; the guard compares on the host, so under it the sampling
+        # softmax runs eagerly after the graph (as the reference's guard path)
+        self._greedy = cb_cfg.temperature <= 0.0
+        self._eager_sampling = (not self._greedy and self.guard is not None
+                                and model_cfg.softmax_spec.kind != "exact")
+        self._temperature = None if self._greedy else torch.full(
+            (), cb_cfg.temperature, dtype=torch.float32, device=self.device)
+        sampling = ("greedy" if self._greedy else
+                    "eager sampling" if self._eager_sampling else "sampled")
+        self._route = ("tick", s_count, self._slot_blocks, cb_cfg.kv_dtype, sampling,
+                       model_cfg.paged_attention_spec.impl, model_cfg.softmax_spec.impl)
+        self.graphs = StepGraphs(self.device)
         self.ticks = 0
         self.preemptions = 0
         self.peak_used_blocks = 0
+
+    def graph_entries(self) -> int:
+        """Captured graphs of the tick (the reference's
+        ``jit_cache_entries``): one per route a tick resolved."""
+        return self.graphs.entries()
 
     # -- submission -------------------------------------------------------------
 
@@ -260,6 +429,12 @@ class ContinuousBatchingEngine:
         uid = self.scheduler.submit(prompt, max_new_tokens)
         req = self.scheduler.pending[-1]
         req.submit_time = req.enqueued_at = time.perf_counter()
+        self._m_submitted.inc()
+        self._g_queue.set(len(self.scheduler.pending))
+        if self.tracer.enabled:
+            self.tracer.instant("serve.submit", uid=uid, prompt_len=len(prompt),
+                                max_new_tokens=max_new_tokens)
+            self.tracer.async_begin("request", uid)
         return uid
 
     # -- helpers ----------------------------------------------------------------
@@ -296,9 +471,18 @@ class ContinuousBatchingEngine:
             self._finish(slot)
 
     def _sample_first(self, slot: Slot, logits: torch.Tensor, events: List[TokenEvent]) -> None:
+        checks = self.guard.checks if self.guard is not None else 0
         tok = sample_token(logits[0, -1], [self._generator(slot.request)], self.cfg,
                            self.cb.temperature, guard=self.guard)
-        self._record(slot, int(tok), events)
+        host = tok.cpu().numpy()  # one token down
+        self._m_d2h.inc(4 + 4 * self._guard_checks_since(checks))
+        check_drawn(host)
+        self._record(slot, int(host), events)
+
+    def _guard_checks_since(self, checks: int) -> int:
+        """Oracle checks the guard ran since it counted ``checks``: each
+        brings its error down as one float32."""
+        return self.guard.checks - checks if self.guard is not None else 0
 
     def _observe_queue_wait(self, req: Request) -> None:
         # consume the stamp: a later preemption opens a new stint
@@ -306,8 +490,14 @@ class ContinuousBatchingEngine:
             self._h_queue.observe(time.perf_counter() - req.enqueued_at)
             req.enqueued_at = None
 
+    def _set_table(self, idx: int, blocks: Sequence[int] = ()) -> None:
+        """The slot's host table row: ``blocks`` then scratch; marks it dirty."""
+        self._tables[idx, :] = SCRATCH_BLOCK
+        self._tables[idx, :len(blocks)] = blocks
+        self._dirty.add(idx)
+
     def _clear_slot(self, slot: Slot) -> None:
-        self._tables[slot.index, :] = SCRATCH_BLOCK
+        self._set_table(slot.index)
         self.model.reset_slot(self.pool, slot.index)
 
     def _finish(self, slot: Slot) -> None:
@@ -316,6 +506,10 @@ class ContinuousBatchingEngine:
         self.block_pool.release(req.uid)
         self._clear_slot(slot)
         self._m_finished.inc()
+        if self.tracer.enabled:
+            self.tracer.instant("serve.finish", uid=req.uid,
+                                tokens=len(self.scheduler.finished[req.uid]))
+            self.tracer.async_end("request", req.uid)
 
     def _note_peak(self) -> None:
         self.peak_used_blocks = max(self.peak_used_blocks, self.block_pool.used_blocks)
@@ -326,6 +520,11 @@ class ContinuousBatchingEngine:
         if req.generated_prefix:
             return np.concatenate([req.prompt, np.asarray(req.generated_prefix, np.int32)])
         return np.asarray(req.prompt, np.int32)
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """An int32 host array on the device, counted in ``serve.bytes.h2d``."""
+        self._m_h2d.inc(host.size * 4)
+        return torch.as_tensor(np.asarray(host, np.int32), device=self.device)
 
     # -- block management and preemption ------------------------------------------
 
@@ -342,6 +541,8 @@ class ContinuousBatchingEngine:
         self._m_preempted.inc()
         if req.enqueued_at is None:  # the previous stint was observed
             req.enqueued_at = time.perf_counter()
+        self.tracer.instant("serve.preempt", uid=req.uid,
+                            generated=len(req.generated_prefix))
 
     def _lowest_priority_victim(self, min_uid: int) -> Optional[Slot]:
         """The occupied slot with the largest uid above ``min_uid``: the
@@ -369,9 +570,7 @@ class ContinuousBatchingEngine:
         if not self._reclaim_blocks(n, req.uid):
             self.scheduler.pending.appendleft(slot.release())
             return False
-        blocks = self.block_pool.allocate(req.uid, n)
-        self._tables[slot.index, :] = SCRATCH_BLOCK
-        self._tables[slot.index, :n] = blocks
+        self._set_table(slot.index, self.block_pool.allocate(req.uid, n))
         self._note_peak()
         return True
 
@@ -392,6 +591,7 @@ class ContinuousBatchingEngine:
                 return False
             self._preempt(victim)
         self._tables[slot.index, rows // bs] = self.block_pool.append(slot.request.uid)
+        self._dirty.add(slot.index)
         self._note_peak()
         return True
 
@@ -406,15 +606,19 @@ class ContinuousBatchingEngine:
         if not self._admit_blocks(slot, rows):
             return  # pool full even after preemption: wait in line
         self._observe_queue_wait(req)
+        self._m_admitted.inc()
+        if self.tracer.enabled:
+            self.tracer.instant("serve.admit", uid=req.uid, slot=slot.index, rows=rows)
         bs = self.block_pool.block_size
         # the prefill cache spans the bucketed block grid; grid rows past
         # the allocated blocks land in the scratch block
         width = bucket_blocks(self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
-        t = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)[None]
-        logits, cache1 = self.model.prefill(self.params, t, width * bs)
-        self._m_prefills.inc()
-        table = torch.as_tensor(self._tables[slot.index, :width], device=self.device)
-        self.model.write_slot_paged(self.pool, cache1, slot.index, table)
+        with self.tracer.span("serve.prefill", uid=req.uid, rows=rows):
+            logits, cache1 = self.model.prefill(self.params, self._upload(tokens)[None],
+                                                width * bs)
+            self._m_prefills.inc()
+            table = self._upload(self._tables[slot.index, :width])
+            self.model.write_slot_paged(self.pool, cache1, slot.index, table)
         self._rows[slot.index] = rows
         self._sample_first(slot, logits, events)
 
@@ -444,6 +648,10 @@ class ContinuousBatchingEngine:
         }
         slot.prefilling = True
         self._observe_queue_wait(req)
+        self._m_admitted.inc()
+        if self.tracer.enabled:
+            self.tracer.instant("serve.admit", uid=req.uid, slot=slot.index,
+                                rows=len(tokens), prefix_rows=p0)
 
     def _run_prefill_chunks(self) -> List[TokenEvent]:
         """Feed this tick's prompt-token budget through the staging slots
@@ -461,18 +669,19 @@ class ContinuousBatchingEngine:
             while budget > 0 and st["done"] < len(suffix):
                 c = min(len(suffix) - st["done"], budget)
                 c = 1 << (int(c).bit_length() - 1)  # power of two
-                chunk = torch.as_tensor(suffix[st["done"]:st["done"] + c],
-                                        dtype=torch.int64, device=self.device)[None]
-                if st["cache"] is None and st["p0"]:
-                    # seed the staging buffer with the cached prefix rows
-                    st["cache"] = self.model.gather_prefix_cache(
-                        self.pool, st["shared"], st["p0"], st["Ts"])
-                if st["cache"] is None:
-                    st["logits"], st["cache"] = self.model.prefill(
-                        self.params, chunk, self.cb.max_len, cache_t=st["Ts"])
-                else:
-                    st["logits"], st["cache"] = self.model.prefill_extend(
-                        self.params, st["cache"], chunk)
+                with self.tracer.span("serve.prefill_chunk", uid=st["req"].uid, tokens=c,
+                                      done=st["done"] + c, total=len(suffix)):
+                    chunk = self._upload(suffix[st["done"]:st["done"] + c])[None]
+                    if st["cache"] is None and st["p0"]:
+                        # seed the staging buffer with the cached prefix rows
+                        st["cache"] = self.model.gather_prefix_cache(
+                            self.pool, st["shared"], st["p0"], st["Ts"])
+                    if st["cache"] is None:
+                        st["logits"], st["cache"] = self.model.prefill(
+                            self.params, chunk, self.cb.max_len, cache_t=st["Ts"])
+                    else:
+                        st["logits"], st["cache"] = self.model.prefill_extend(
+                            self.params, st["cache"], chunk)
                 self._m_prefills.inc()
                 st["done"] += c
                 budget -= c
@@ -499,17 +708,15 @@ class ContinuousBatchingEngine:
         else:
             fresh = bp.allocate(req.uid, n_fresh)
         table_row = st["shared"] + fresh
-        self._tables[idx, :] = SCRATCH_BLOCK
-        self._tables[idx, :n_real] = table_row
+        self._set_table(idx, table_row)
         self._note_peak()
         # the adopted prefix rows already live in the pool: their write goes
         # to scratch so shared blocks stay untouched; pad to the bucketed grid
         width = st["Ts"] // bp.block_size
         write_table = ([SCRATCH_BLOCK] * len(st["shared"]) + fresh
                        + [SCRATCH_BLOCK] * (width - n_real))
-        self.model.write_slot_paged(
-            self.pool, st["cache"], idx,
-            torch.as_tensor(write_table, dtype=torch.int32, device=self.device))
+        self.model.write_slot_paged(self.pool, st["cache"], idx,
+                                    self._upload(np.asarray(write_table, np.int32)))
         self._rows[idx] = rows
         if self.prefix is not None:
             self.prefix.insert(st["tokens"], table_row)
@@ -526,9 +733,75 @@ class ContinuousBatchingEngine:
 
     # -- the tick -----------------------------------------------------------------
 
+    def _tick_body(self, pool, inputs, tables):
+        """Decode over the whole pool, then the tick's sampling: greedy
+        tokens ``[S]`` int32, or the sampling distribution ``[S, V]``, or
+        (eager sampling) nothing; and the last-position logits ``[S, V]``."""
+        logits, _ = self.model.decode_step_paged(self.params, pool, inputs, tables,
+                                                 cache_t=self._cache_t)
+        last = logits[:, -1]
+        if self._greedy:
+            return torch.argmax(last, dim=-1).to(torch.int32), last
+        if self._eager_sampling:
+            return None, last
+        return sampling_probs(last, self._temperature, self.cfg), last
+
+    def _upload_tick_inputs(self) -> None:
+        """The tick's only uploads: the dirty table rows (none in steady
+        decode) and the ``[S, 1]`` int32 token inputs, into the graph's
+        static tensors."""
+        for i in sorted(self._dirty):
+            self._tables_dev[i].copy_(torch.from_numpy(self._tables[i]))
+            self._m_h2d.inc(self._slot_blocks * 4)
+            self._m_rows_flushed.inc()
+        self._dirty.clear()
+        self._inputs_dev.copy_(torch.from_numpy(self._inputs))
+        self._m_h2d.inc(self._inputs.size * 4)
+
+    def _decode(self):
+        """Replay the tick's graph (captured at the first tick of a route,
+        after an eager warm-up on copies of the pool and inputs)."""
+        return self.graphs.run(
+            self._route,
+            lambda: self._tick_body(self.pool, self._inputs_dev, self._tables_dev),
+            lambda: self._tick_body(tree_map(torch.clone, self.pool),
+                                    self._inputs_dev.clone(), self._tables_dev.clone()))
+
+    def _sample_tick(self, out, active: List[Slot]) -> Dict[int, int]:
+        """The active slots' tokens from the tick's outputs: one transfer
+        down (greedy: the ``[S]`` vector; sampled: the active rows' draws)."""
+        sampled, last = out
+        if self._greedy:
+            host = sampled.cpu().numpy()
+            self._m_d2h.inc(host.size * 4)
+            return {s.index: int(host[s.index]) for s in active}
+        gens = [self._generator(s.request) for s in active]
+        checks = self.guard.checks if self.guard is not None else 0
+        if self._eager_sampling:
+            # one batched guarded softmax over the active rows (one check)
+            rows = torch.stack([last[s.index] for s in active])
+            drawn = sample_token(rows, gens, self.cfg, self.cb.temperature, guard=self.guard)
+        else:
+            drawn = draw(torch.stack([sampled[s.index] for s in active]), gens)
+        host = drawn.cpu().numpy()
+        self._m_d2h.inc(host.size * 4 + 4 * self._guard_checks_since(checks))
+        check_drawn(host)
+        return {s.index: int(t) for s, t in zip(active, host)}
+
+    def _count_gather(self) -> None:
+        layers = self.pool["layers"]
+        pk = layers["k"]
+        impl = registry.active_impl("paged_attention") or self.cfg.paged_attention_spec.impl
+        self._m_gather.inc(pk.shape[0] * ops.paged_gather_bytes(
+            impl, table_width=self._slot_blocks, block_size=self.block_pool.block_size,
+            live_lens=np.minimum(self._rows, self._cache_t), num_kv_heads=pk.shape[3],
+            head_dim=pk.shape[4], dtype_bytes=pk.element_size(),
+            # the K+V scale rows a quantized read touches per block
+            scale_bytes_per_block=8 * pk.shape[3] if "k_scale" in layers else 0))
+
     def step(self) -> List[TokenEvent]:
         """One engine tick: admissions, prefill chunks, block upkeep, then
-        one decode over the pool.  Returns the tokens emitted."""
+        the fused decode tick over the pool.  Returns the tokens emitted."""
         events: List[TokenEvent] = []
         for slot in self.scheduler.admit():
             if slot.free:
@@ -543,25 +816,28 @@ class ContinuousBatchingEngine:
             if not slot.free:
                 self._ensure_decode_block(slot)
         active = self.scheduler.active_slots
-        if not active:
-            return events
-        tables = torch.as_tensor(self._tables, device=self.device)
-        inputs = torch.as_tensor(self._inputs, dtype=torch.int64, device=self.device)
-        logits, self.pool = self.model.decode_step_paged(
-            self.params, self.pool, inputs, tables, cache_t=self._cache_t
-        )
-        for slot in active:
-            self._rows[slot.index] += 1
-        # one batched sampling softmax over the active rows (one guard check)
-        rows = torch.as_tensor([s.index for s in active], device=self.device)
-        sampled = sample_token(
-            logits[rows, -1], [self._generator(s.request) for s in active],
-            self.cfg, self.cb.temperature, guard=self.guard,
-        )
-        toks = sampled.cpu().numpy()  # the tick's one device -> host transfer
-        for slot, tok in zip(active, toks):
-            self._record(slot, int(tok), events)
-        self.ticks += 1
+        if active:
+            if self.tracer.enabled:
+                self.tracer.begin("serve.decode", tick=self.ticks,
+                                  uids=[s.request.uid for s in active])
+            self._upload_tick_inputs()
+            out = self._decode()
+            for slot in active:
+                self._rows[slot.index] += 1
+            toks = self._sample_tick(out, active)
+            self._count_gather()
+            for slot in active:
+                self._record(slot, toks[slot.index], events)
+            if self.tracer.enabled:
+                self.tracer.end("serve.decode")
+            self.ticks += 1
+        self._g_queue.set(len(self.scheduler.pending))
+        self._g_active.set(len(self.scheduler.active_slots))
+        self._g_graphs.set(self.graph_entries())
+        if self.tracer.enabled:
+            self.tracer.counter("serve.sched", pending=len(self.scheduler.pending),
+                                active=len(self.scheduler.active_slots))
+            self.tracer.counter("kv.blocks", used=self.block_pool.used_blocks)
         return events
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, List[int]]:
@@ -610,6 +886,7 @@ class ContinuousBatchingEngine:
                       "evicted": p.evicted, "nodes": len(p)}
         # a block's footprint: its token rows plus its scale rows
         block_bytes = bs * self.kv_row_bytes() + self.kv_scale_bytes_per_block()
+        gather = self._m_gather.value()
         return {
             "prefix": prefix,
             "layout": "paged",
@@ -623,12 +900,19 @@ class ContinuousBatchingEngine:
             "peak_kv_bytes": self.peak_used_blocks * block_bytes,
             "preemptions": self.preemptions,
             "peak_used_blocks": self.peak_used_blocks,
+            # counted decode traffic (ops.paged_gather_bytes)
+            "gather_bytes": gather,
+            "gather_bytes_per_token": gather / max(self._m_tokens.value(), 1.0),
         }
 
     def stats(self) -> Dict[str, Any]:
         """Ticks, KV accounting, the accuracy guard's counters (calls /
         checks / trips / fallbacks / tripped / last_error; None without a
-        guard) and the engine's metrics snapshot."""
+        guard), the tick's graphs (entries, replays, warm-up launches) and
+        the engine's metrics snapshot."""
         return {"ticks": self.ticks, "kv": self.kv_stats(),
                 "guard": self.guard.stats() if self.guard is not None else None,
+                "graphs": {"entries": self.graphs.entries(), "replays": self.graphs.replays,
+                           "capture_seconds": self.graphs.capture_seconds,
+                           "warmup_launches": self.graphs.warmup_launches()},
                 "metrics": self.metrics.snapshot()}

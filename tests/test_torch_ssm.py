@@ -341,7 +341,7 @@ def test_engines_refuse_the_other_family(pair):
     from repro_torch.models.param import materialize
 
     dense_params = materialize(build_model(dense).param_specs(), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
         ServeEngine(dense, dense_params, device="cpu")
 
 
