@@ -69,7 +69,12 @@ Phases (any failure exits non-zero before the result lines):
    128] as slices of one conv output, bf16 and float32, chunk 128) and at a
    ragged T = 2000, with the device time of each of its three kernels and
    two bounds (its FLOP on FP32 FMAs, and as three tf32 tensor-core products
-   each; the share is taken against the lower);
+   each; the share is taken against the lower).  flash_star at the dense
+   decode shapes (``Tq = 1``): q [4, 32, 1, 128] over the [4, 8, 544, 128]
+   pool row with kv_valid 515/387/259/131 and ``causal=False`` (the dense
+   tick), and at q_offset 512, ``causal=True``, kv_valid 513 (the lockstep
+   step), bf16 and float32, STAR and exact, with the bound of the live K/V
+   rows and SDPA at ``Tq = 1`` with a boolean mask (library time only);
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens (the config computes in float32, so every
@@ -86,7 +91,14 @@ Phases (any failure exits non-zero before the result lines):
    Every continuous engine here decodes by CUDA graph replay (on the CPU the
    same tick runs eagerly): one capture per engine and route, one replay per
    tick, the paged kernel once per layer of every tick counted through the
-   replays; the lockstep engine captures its decode step once per generate;
+   replays; the lockstep engine captures its decode step once per generate.
+   Every engine above names the paged layout.  Then the dense layout and
+   rings, card == CPU greedy tokens: the dense continuous engine (flash_star
+   once per layer of every prefill and every tick, the paged kernel never),
+   dense with 8-token chunks, the lockstep engine on granite (flash_star
+   once per layer of the prefill and of each replay), and the
+   ``sliding_window=16`` ring on the dense and the paged layout and on the
+   lockstep engine;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed and cast to bf16 once
    (``compute_params``, shared by every engine after it), the
@@ -116,6 +128,17 @@ Phases (any failure exits non-zero before the result lines):
    (counters zeroed just before: the variant launches once per layer),
    held against the float P.V prefill, and traced (the V pre-pass and the
    attention kernel in one group);
+5b. dense serve: the same weights and traffic on the dense per-slot pool
+   (544 rows a slot).  Counters zeroed just before and read just after:
+   flash_star once per layer of every prefill and of every tick (counted
+   through the replays), the STAR softmax once per admission and per tick,
+   the paged kernel never; tok/s with and without the capture, TTFT p50,
+   peak memory.  One steady dense tick traced as in phase 5 (its replay
+   bit-equal to the eager tick, 16 bytes up and 16 down).  Then a lockstep
+   ``generate`` of 4 x 512-token prompts and 32 tokens at temperature 0.8:
+   flash_star once per layer of the prefill and of each of its 31 replays,
+   the softmax once per step; tok/s with and without the capture, peak
+   memory;
 6. quantized serve: the same weights over an int8 page pool with the
    prefix cache and 128-token prefill chunks, 8 requests of a common
    256-token system prefix plus their own 64-256-token suffix, 16-32 new
@@ -164,7 +187,9 @@ Phases (any failure exits non-zero before the result lines):
    parts, the reference's top-2 margin at that step must stay within
    SSD_DIVERGENCE_FACTOR x the bf16 prefill logits' max_abs difference; one
    prefill is traced;
-9. the ``{"kernels": [...]}`` line and, last, the device line.
+9. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+   each path's own count under ``launches_by_path``) and, last, the device
+   line.
 
 Tolerances.  float32 outputs: |kernel - plain| <= 5e-5 + 1e-4 |plain|;
 bfloat16 outputs: <= 1e-2 + 8e-3 |plain| (two bf16 ulps: both round one
@@ -585,7 +610,8 @@ def check_softmax_build(ptxas_log):
 # phase 3: each kernel against its plain version
 
 
-def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_block=None):
+def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_block=None,
+                    causal=True):
     """flash_star against its plain version on ``base`` (q, k, v float32)
     in bf16 and f32, STAR and exact; ``sdpa`` times the library call for
     the exact variant.  With ``pv_int8_block`` the int8 P.V variant over
@@ -594,7 +620,7 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
     (``design``), its device time from the profiler (pv_int8: the V
     pre-pass and the attention kernel apart), and the achieved TFLOP/s and
     share of its bound at that time.  The bound: bytes q + out + the K/V
-    rows some row sees, at 3.35 TB/s, or the products as the kernel issues
+    rows some row of each batch sees, at 3.35 TB/s, or the products as the kernel issues
     them, 2 x live scores x D for QK^T and as much for P.V: bf16 at the bf16
     tensor-core peak, float32 as three tf32 products each at the tf32 peak
     (the FP32-FMA bound beside it), pv_int8's P.V at the int8 peak."""
@@ -605,7 +631,7 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
 
     b, hq, hkv, d = base[0].shape[0], base[0].shape[1], base[1].shape[1], base[0].shape[3]
     n_live = int(live.sum())
-    kv_rows = int(live.reshape(-1, live.shape[-1]).any(dim=0).sum())
+    kv_rows = int(live.any(dim=2).any(dim=1).sum())  # summed over the batch
     flips_key = "grid_flip_rows" if pv_int8_block is None else "code_flip_rows"
     variants = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -615,7 +641,7 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
         for fmt in (FMT, None):
             mode = "star" if fmt is not None else "exact"
             name = f"{label} {mode} {dtype}"
-            kw = dict(fmt=fmt, causal=True)
+            kw = dict(fmt=fmt, causal=causal)
             amb = None
             if pv_int8_block is not None:
                 kw.update(block_k=pv_int8_block, pv_int8=True)
@@ -650,7 +676,7 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
                 variant["bf16_diff_elems"] = n_diff
             call = lambda: fk.flash_star_attention(q, k, v, info, **kw)  # noqa: E731
             flops = 4 * n_live * d
-            nbytes = (2 * q.numel() + 2 * b * hkv * kv_rows * d) * q.element_size() + 4 * info.numel()
+            nbytes = (2 * q.numel() + 2 * hkv * kv_rows * d) * q.element_size() + 4 * info.numel()
             bf16 = dtype == torch.bfloat16
             t_qk = flops / 2 / (H100_BF16_FLOPS if bf16 else H100_TF32_FLOPS / 3)
             if pv_int8_block is None:
@@ -715,6 +741,7 @@ def parity_flash(results):
 
     variants = _flash_variants("flash_star", base, info, live, sdpa=sdpa)
     variants += parity_flash_append()
+    variants += parity_flash_decode()
     elem = 2  # bf16, the main path's type
     bytes_moved = (2 * b * hq * t * d + 2 * b * hkv * t * d) * elem + info.numel() * 4
     flops = 2 * 2 * n_live * d  # QK^T and P.V over the live (causal) scores
@@ -783,6 +810,47 @@ def parity_flash_append():
         "flash_star append", (q0, k0, v0), info, live.expand(b, hq, tq, tk), sdpa=sdpa,
         shape=f"append q[{b},{hq},{tq},{d}] at q_offset {q_off}, "
               f"kv[{b},{hkv},{tk},{d}] valid {valid}")
+
+
+DECODE_VALID = (515, 387, 259, 131)  # the full-width dense tick's slots, after the write
+DECODE_ROWS = 512 + 32  # the dense pool's rows: max_len of the phase 5 traffic
+
+
+def parity_flash_decode():
+    """flash_star at the dense decode shapes (``Tq = 1``): q ``[4, 32, 1,
+    128]`` over the ``[4, 8, 544, 128]`` pool row, every row filled (a
+    pool's rows past a slot's length hold stale data).  The dense tick:
+    ``causal=False`` with per-slot kv_valid ``DECODE_VALID``; the lockstep
+    step: ``q_offset`` 512, ``causal=True``, kv_valid 513 each.  SDPA is
+    timed at ``Tq = 1`` with a boolean mask (library time only: no path
+    calls it)."""
+    import torch
+
+    b, hq, hkv, tk, d = 4, 32, 8, DECODE_ROWS, 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    base = (torch.randn((b, hq, 1, d), device=dev, generator=gen),
+            *(torch.randn((b, hkv, tk, d), device=dev, generator=gen) for _ in range(2)))
+    cols = torch.arange(tk, device=dev)
+    variants = []
+    for label, q_off, valid, causal in (("dense decode", 0, DECODE_VALID, False),
+                                        ("lockstep decode", 512, (513,) * b, True)):
+        info = torch.tensor([q_off, *valid], dtype=torch.int32, device=dev)
+        live = cols[None, :] < info[1:, None]
+        if causal:
+            live &= cols[None, :] <= q_off
+        live = live[:, None, None, :]  # [B, 1, 1, Tk]
+
+        def sdpa(q, k, v, live=live):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=live, enable_gqa=True)
+
+        variants += _flash_variants(
+            f"flash_star {label}", base, info, live.expand(b, hq, 1, tk), sdpa=sdpa,
+            causal=causal,
+            shape=f"{label} q[{b},{hq},1,{d}] over kv[{b},{hkv},{tk},{d}], q_offset {q_off}, "
+                  f"kv_valid {list(valid)}, causal={causal}")
+    return variants
 
 
 def _pv_int8_ambiguous(scores64, live, bk, fmt):
@@ -1282,7 +1350,8 @@ def small_reference():
     with ops.use(softmax="pallas"):
         for dev, params in devices:
             eng = ContinuousBatchingEngine(
-                cfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4),
+                cfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_layout="paged",
+                                              kv_block_size=4),
                 device=dev)
             reset_launch_counts()
             outs[dev] = eng.serve(prompts, gens)
@@ -1310,8 +1379,9 @@ def small_reference():
                for n in (3, 7, 2, 11, 5)]
     gens = [6, 4, 7, 5, 3]
     for kv_dtype in ("int8", "fp8_e4m3"):
-        cb = ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4, kv_pool_blocks=7,
-                              kv_dtype=kv_dtype, prefix_cache=True, prefill_chunk_tokens=8)
+        cb = ContinuousConfig(num_slots=2, max_len=40, kv_layout="paged", kv_block_size=4,
+                              kv_pool_blocks=7, kv_dtype=kv_dtype, prefix_cache=True,
+                              prefill_chunk_tokens=8)
         outs, stats = {}, {}
         with ops.use(softmax="pallas"):
             for dev, params in devices:
@@ -1343,7 +1413,8 @@ def small_reference():
     outs = {}
     for dev, params in devices:
         eng = ContinuousBatchingEngine(
-            fcfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4), device=dev)
+            fcfg, params, ContinuousConfig(num_slots=2, max_len=40, kv_layout="paged",
+                                           kv_block_size=4), device=dev)
         outs[dev] = eng.serve(prompts, gens)
         check_graphs(eng, f"smoke serve mild fault on {dev}")
     check(outs["cuda"] == outs["cpu"],
@@ -1358,8 +1429,9 @@ def small_reference():
         mcfg = dataclasses.replace(cfg, softmax_mode=mode)
         with ops.use(softmax="pallas"):
             eng = ContinuousBatchingEngine(
-                mcfg, params_gpu, ContinuousConfig(num_slots=2, max_len=40, kv_block_size=4,
-                                                   temperature=0.8), device="cuda", seed=SEED)
+                mcfg, params_gpu, ContinuousConfig(num_slots=2, max_len=40, kv_layout="paged",
+                                                   kv_block_size=4, temperature=0.8),
+                device="cuda", seed=SEED)
             reset_launch_counts()
             out = eng.serve(prompts, gens)
             counts = launch_counts()
@@ -1383,6 +1455,91 @@ def small_reference():
             f"{batches} sampled batches; first sample's probabilities vs cpu plain version "
             f"max_abs_err={err:.3e}")
     return f32_launches
+
+
+def small_reference_dense():
+    """Phase 4, the dense layout and rings: greedy smoke tokens on the card
+    (kernels) equal the CPU's (plain versions) for the dense continuous
+    engine, monolithic (flash_star once per layer of every prefill and of
+    every tick, counted through the replays) and with 8-token chunks, the
+    lockstep engine on granite, and the ``sliding_window=16`` ring on the
+    dense and the paged layout and on the lockstep engine.  Returns the
+    dense engine's flash_star launches on the card."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import materialize, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import (
+        ContinuousBatchingEngine,
+        ContinuousConfig,
+        ServeConfig,
+        ServeEngine,
+    )
+
+    cfg = dataclasses.replace(get_smoke_config("granite_8b"), attn_impl="pallas")
+    ring = dataclasses.replace(cfg, sliding_window=16)
+    params_cpu = materialize(build_model(cfg).param_specs(), SEED, "cpu")
+    params_gpu = tree_map(lambda x: x.cuda(), params_cpu)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 11, 8, 3, 19)]
+    gens = [4, 2, 5, 3, 6]
+    ring_prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (6, 23, 13, 30)]
+    ring_gens = [14, 9, 12, 5]
+    lock_prompts = rng.integers(0, cfg.vocab_size, (3, 9))
+    ring_lock = rng.integers(0, cfg.vocab_size, (2, 23))
+    continuous = {
+        "dense": (cfg, dict(kv_layout="dense"), prompts, gens),
+        "dense, 8-token chunks": (cfg, dict(kv_layout="dense", prefill_chunk_tokens=8),
+                                  prompts, gens),
+        "dense ring": (ring, dict(kv_layout="dense"), ring_prompts, ring_gens),
+        "paged ring": (ring, dict(kv_layout="paged", kv_block_size=4), ring_prompts, ring_gens),
+    }
+    dense_launches = None
+    with ops.use(softmax="pallas"):
+        for label, (c, kw, ps, gs) in continuous.items():
+            outs = {}
+            for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+                eng = ContinuousBatchingEngine(c, params, ContinuousConfig(
+                    num_slots=2, max_len=40, **kw), device=dev)
+                reset_launch_counts()
+                outs[dev] = eng.serve(ps, gs)
+                check_graphs(eng, f"smoke serve {label} on {dev}")
+                if dev == "cuda" and label == "dense":
+                    dense_launches = launch_counts().get("flash_star", 0)
+                    want = c.num_layers * (len(ps) + eng.ticks)
+                    check(dense_launches == want and not launch_counts().get("paged_attention"),
+                          f"smoke serve dense: flash_star launched {dense_launches} times, "
+                          f"expected {want} (one per layer of {len(ps)} prefills and "
+                          f"{eng.ticks} ticks), paged_attention "
+                          f"{launch_counts().get('paged_attention', 0)}")
+            check(outs["cuda"] == outs["cpu"],
+                  f"smoke {label} greedy tokens differ card vs cpu: {outs['cuda']} vs "
+                  f"{outs['cpu']}")
+            log(f"small reference {label}: greedy tokens identical on card and cpu "
+                f"({sum(gs)} tokens, {len(ps)} requests)")
+        for label, c, ps, n in (("lockstep", cfg, lock_prompts, 12),
+                                ("lockstep ring", ring, ring_lock, 9)):
+            outs = {}
+            for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+                eng = ServeEngine(c, params, ServeConfig(max_len=40), device=dev)
+                reset_launch_counts()
+                outs[dev], info = eng.generate(ps, n)
+                if dev == "cuda":
+                    got = launch_counts().get("flash_star", 0)
+                    check(got == c.num_layers * n and eng.graphs.replays == n - 1,
+                          f"smoke {label}: flash_star launched {got} times, expected "
+                          f"{c.num_layers * n} (prefill and {n - 1} replays)")
+            check(bool((outs["cuda"].cpu() == outs["cpu"]).all()),
+                  f"smoke {label} greedy tokens differ card vs cpu: {outs['cuda'].tolist()} vs "
+                  f"{outs['cpu'].tolist()}")
+            log(f"small reference {label}: greedy tokens identical on card and cpu "
+                f"({tuple(outs['cpu'].shape)}, cache_len {info['cache_len']})")
+    log(f"small reference dense: flash_star (float32 kernel, D {cfg.resolved_head_dim}) "
+        f"launched {dense_launches} times on the card")
+    return dense_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1448,6 +1605,16 @@ def host_spans(tracer, wall_s):
     return out
 
 
+def serve_plan(vocab):
+    """The phase 5 traffic: 8 requests, prompts of 128-512 tokens, 16-32 new
+    tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, vocab, (int(n),)) for n in rng.integers(128, 513, 8)]
+    return prompts, [int(g) for g in rng.integers(16, 33, 8)]
+
+
 def serve(results):
     import numpy as np
     import torch
@@ -1474,10 +1641,9 @@ def serve(results):
     torch.cuda.synchronize()
     log(f"serve: weights cast to {cfg.compute_dtype} once in {time.perf_counter() - t0:.2f}s, "
         f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(128, 513, 8)]
-    gens = [int(g) for g in rng.integers(16, 33, 8)]
-    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16)
+    prompts, gens = serve_plan(cfg.vocab_size)
+    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_layout="paged",
+                          kv_block_size=16)
     tracer = obs.enable_tracing()  # before the engine: it binds the tracer when built
     with ops.use(softmax="pallas"):
         eng = ContinuousBatchingEngine(cfg, cparams, cb, device="cuda", seed=SEED)
@@ -1555,6 +1721,105 @@ def serve(results):
             "host_spans": spans, "transfers": moved,
             "tick": tick, "prefill_profile": prefill_prof,
             "prefill_pv_int8": pv_int8}, params, cparams
+
+
+def serve_dense(results, cparams):
+    """Phase 5b: full-width granite-8b on the dense per-slot pool, the phase
+    5 traffic and weights (cast once).  Counters zeroed just before and read
+    just after: flash_star once per layer of every prefill and of every tick
+    (counted through the replays), the STAR softmax once per admission and
+    per tick, the paged kernel never.  Then one steady dense tick traced
+    (``profile_tick``: its replay bit-equal to the eager tick from a copy of
+    its state, 16 bytes up and down), and a lockstep ``generate`` of 4 x
+    512-token prompts and 32 tokens (flash_star once per layer of the
+    prefill and of each of its 31 replays)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import (
+        ContinuousBatchingEngine,
+        ContinuousConfig,
+        ServeConfig,
+        ServeEngine,
+    )
+
+    cfg = dataclasses.replace(get_config("granite_8b"), attn_impl="pallas")
+    prompts, gens = serve_plan(cfg.vocab_size)
+    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_layout="dense")
+    with ops.use(softmax="pallas"):
+        eng = ContinuousBatchingEngine(cfg, cparams, cb, device="cuda", seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, ttft_p50 = serve_requests(eng, prompts, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    toks = [t for seq in out for t in seq]
+    check([len(o) for o in out] == gens and all(0 <= t < cfg.vocab_size for t in toks),
+          f"dense serve: bad output lengths {[len(o) for o in out]} or a token outside the "
+          f"vocabulary")
+    check_graphs(eng, "dense serve")
+    peak = torch.cuda.max_memory_allocated()
+    capture = eng.graphs.capture_seconds
+    want = {"flash_star": cfg.num_layers * (len(prompts) + eng.ticks),
+            "star_softmax": len(prompts) + eng.ticks, "paged_attention": 0}
+    for name, n in want.items():
+        check(counts.get(name, 0) == n,
+              f"dense serve: {name} launched {counts.get(name, 0)} times, expected {n} "
+              f"({len(prompts)} prefills, {eng.ticks} ticks of {cfg.num_layers} layers)")
+    st = eng.kv_stats()
+    log(f"dense serve: {len(prompts)} requests, {len(toks)} tokens in {wall:.3f}s = "
+        f"{len(toks) / wall:.2f} tok/s ({len(toks) / (wall - capture):.2f} tok/s without the "
+        f"warm-up and capture, {capture:.3f}s), {eng.ticks} decode ticks by graph replay "
+        f"({eng.graph_entries()} capture), ttft p50={1e3 * ttft_p50:.1f}ms, "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB, kv pinned "
+        f"{st['kv_bytes_in_use'] / 2**30:.3f} GiB; launches {counts} (warm-up, not counted: "
+        f"{eng.graphs.warmup_launches()})")
+    for entry in results:
+        entry["launches_by_path"]["serve_dense"] = counts.get(entry["name"], 0)
+    tick = profile_tick(cfg, cparams, kv_layout="dense")
+    check(tick["logits_bit_equal"], "dense tick: the replay is not bit-equal to the eager tick")
+
+    lock_prompts = np.random.default_rng(SEED + 10).integers(0, cfg.vocab_size, (4, 512))
+    n = 32
+    with ops.use(softmax="pallas"):
+        lock = ServeEngine(cfg, cparams, ServeConfig(max_len=512 + 32, temperature=0.8),
+                           device="cuda", seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got, info = lock.generate(lock_prompts, n)
+        torch.cuda.synchronize()
+        lwall = time.perf_counter() - t0
+        lcounts = launch_counts()
+    lcap = lock.graphs.capture_seconds
+    check(tuple(got.shape) == (4, n) and bool(((got >= 0) & (got < cfg.vocab_size)).all()),
+          f"lockstep granite: bad output {tuple(got.shape)}")
+    check(lcounts.get("flash_star", 0) == cfg.num_layers * n and lock.graphs.replays == n - 1,
+          f"lockstep granite: flash_star launched {lcounts.get('flash_star', 0)} times, "
+          f"expected {cfg.num_layers * n}; {lock.graphs.replays} replays")
+    check(lcounts.get("star_softmax", 0) == n, f"lockstep granite: star_softmax launched "
+          f"{lcounts.get('star_softmax', 0)} times for {n} sampled steps")
+    lpeak = torch.cuda.max_memory_allocated()
+    log(f"lockstep granite: 4 x {lock_prompts.shape[1]}-token prompts, {4 * n} tokens in "
+        f"{lwall:.3f}s = {4 * n / lwall:.2f} tok/s ({4 * n / (lwall - lcap):.2f} tok/s without "
+        f"the warm-up and capture, {lcap:.3f}s), cache_len {info['cache_len']}, "
+        f"max_memory_allocated={lpeak / 2**30:.2f} GiB; launches {lcounts}")
+    for entry in results:
+        entry["launches_by_path"]["lockstep_granite"] = lcounts.get(entry["name"], 0)
+    return {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
+            "capture_s": capture, "tok_per_s_without_capture": len(toks) / (wall - capture),
+            "ticks": eng.ticks, "ttft_p50_s": ttft_p50, "max_memory_allocated": peak,
+            "kv_bytes_pinned": st["kv_bytes_in_use"], "launches": counts, "tick": tick,
+            "lockstep": {"tokens": 4 * n, "wall_s": lwall, "tok_per_s": 4 * n / lwall,
+                         "capture_s": lcap, "tok_per_s_without_capture": 4 * n / (lwall - lcap),
+                         "max_memory_allocated": lpeak, "launches": lcounts}}
 
 
 def prefill_pv_int8(results, cfg, params, prompt):
@@ -1673,7 +1938,7 @@ def tick_vs_eager(eng):
     from repro_torch.models.param import tree_map
 
     eng._upload_tick_inputs()
-    state = (tree_map(torch.clone, eng.pool), eng._inputs_dev.clone(), eng._tables_dev.clone())
+    state = [None if t is None else tree_map(torch.clone, t) for t in eng._tick_state()]
     _, eager = eng._tick_body(*state)
     replays = eng.graphs.replays
     _, replay = eng._decode()
@@ -1713,10 +1978,11 @@ def check_cast_once(eng, label) -> None:
     check(not wrong, f"{label}: weights {wrong} are not in {dtype}: cast at every use")
 
 
-def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label=""):
+def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="", kv_layout="paged"):
     """One full-width decode tick with 4 active slots, by graph replay, from
     a steady state (no block opens): traced (device busy by group; on the
-    paged kernel no copy/cast kernel as long as ``WEIGHT_CAST_BOUND_US``),
+    paged kernel, or on flash_star over the dense pool, no copy/cast kernel
+    as long as ``WEIGHT_CAST_BOUND_US``),
     then the next one timed alone (wall time, host clock after a
     synchronize: the profiler's own start and stop inflate the traced
     window's wall), the bytes of each (the ``[S, 1]`` int32 inputs and no
@@ -1729,15 +1995,15 @@ def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label=""):
     from repro_torch import ops
     from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
 
-    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_block_size=16,
-                          kv_dtype=kv_dtype, guard=guard)
+    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_layout=kv_layout,
+                          kv_block_size=16, kv_dtype=kv_dtype, guard=guard)
     eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
     check_cast_once(eng, "profile tick")
     rng = np.random.default_rng(SEED + 3)
     for n in (512, 384, 256, 128):  # the first tick opens a block; the next ones none
         eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 8)
     h2d, d2h = (eng.metrics.counter(n) for n in ("serve.bytes.h2d", "serve.bytes.d2h"))
-    name = f"one decode tick by replay, 4 slots, {kv_dtype} pool{label}"
+    name = f"one decode tick by replay, 4 slots, {kv_layout} {kv_dtype} pool{label}"
     moved = []
 
     def steady(step):
@@ -1763,7 +2029,8 @@ def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label=""):
         check(eng.graph_entries() == 1 and eng.graphs.replays == eng.ticks == 3,
               f"{name}: {eng.graph_entries()} graphs, {eng.graphs.replays} replays, "
               f"{eng.ticks} ticks")
-        on_kernel = cfg.paged_attention_spec.impl == "pallas_paged"
+        on_kernel = (cfg.paged_attention_spec.impl == "pallas_paged" if eng.kv_layout == "paged"
+                     else cfg.attention_spec.impl == "pallas")
         if prof is not None and on_kernel:
             check(prof["longest_cast_us"] < WEIGHT_CAST_BOUND_US,
                   f"{name}: a copy/cast kernel of {prof['longest_cast_us']:.2f} us: a weight is "
@@ -1831,7 +2098,7 @@ def serve_quant(results, params):
     model = build_model(cfg)
     prompts, gens = quant_serve_plan(cfg.vocab_size)
     cb = ContinuousConfig(num_slots=4, max_len=256 + 256 + 32, temperature=0.8,
-                          kv_block_size=16, kv_pool_blocks=QUANT_POOL_BLOCKS,
+                          kv_layout="paged", kv_block_size=16, kv_pool_blocks=QUANT_POOL_BLOCKS,
                           kv_dtype="int8", prefix_cache=True, prefill_chunk_tokens=128)
     with ops.use(softmax="pallas"):
         eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
@@ -1944,8 +2211,8 @@ def _degraded_engine(params, fault_kw, mode, guard):
     cfg = get_config("granite_8b")  # attention xla: faulty rows -> the reference path
     cfg = dataclasses.replace(cfg, softmax=dataclasses.replace(
         cfg.softmax_spec, fault=FaultModel(**fault_kw), mode=mode))
-    cb = ContinuousConfig(num_slots=4, max_len=256 + 16, temperature=0.8, kv_block_size=16,
-                          guard=guard)
+    cb = ContinuousConfig(num_slots=4, max_len=256 + 16, temperature=0.8, kv_layout="paged",
+                          kv_block_size=16, guard=guard)
     return cfg, ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
 
 
@@ -2522,9 +2789,12 @@ def main() -> int:
     parity_ssd_scan(results)
     realization_bits()
     f32_launches = small_reference()
-    next(e for e in results if e["name"] == "flash_star")["launches_float32_smoke"] = f32_launches
+    flash = next(e for e in results if e["name"] == "flash_star")
+    flash["launches_float32_smoke"] = f32_launches
+    flash["launches_float32_smoke_dense"] = small_reference_dense()
     small_reference_mamba()
     summary, params, cparams = serve(results)
+    summary_dense = serve_dense(results, cparams)
     summary_quant = serve_quant(results, cparams)
     summary_degraded = degraded_serve(results, params, cparams)
     del params, cparams
@@ -2534,7 +2804,7 @@ def main() -> int:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
         f"{PROFILES_RETAKEN}")
-    log(json.dumps({"serve": summary, "serve_int8": summary_quant,
+    log(json.dumps({"serve": summary, "serve_dense": summary_dense, "serve_int8": summary_quant,
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
                     "card": card}))
     log(json.dumps({"kernels": results}))

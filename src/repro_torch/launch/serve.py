@@ -1,32 +1,43 @@
-"""Serving launcher of the port: continuous batching over the paged KV cache
-(attention models), or the lockstep engine (the ssm family).
+"""Serving launcher of the port: the lockstep engine (the default, as the
+reference's: one batch prefilled and decoded together, attention models and
+the ssm family), or continuous batching (attention models) over the dense
+per-slot KV pool (the default layout) or the paged block pool.
 
-  # on the card, all three kernels (flash_star prefill, paged decode,
-  # STAR sampling softmax)
+  # granite-8b on the lockstep engine, on the card: flash_star prefill and
+  # decode (Tq = 1 over the scalar-len cache), the STAR sampling softmax
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \\
-      --engine continuous --attn-impl pallas --softmax-impl pallas \\
-      --temperature 0.8
+      --attn-impl pallas --softmax-impl pallas --temperature 0.8
+
+  # continuous batching over the dense pool: flash_star decode at Tq = 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \\
+      --engine continuous --attn-impl pallas --softmax-impl pallas
+
+  # the paged pool: flash_star prefill, the paged decode kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \\
+      --engine continuous --kv-layout paged --attn-impl pallas --softmax-impl pallas
 
   # smoke config on the CPU (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
       --device cpu --engine continuous --attn-impl pallas --softmax-impl pallas
 
-  # quantized pages, shared-prefix cache, chunked prefill
+  # quantized pages, shared-prefix cache, chunked prefill (paged only)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
-      --device cpu --attn-impl pallas --kv-dtype int8 --prefix-cache \\
-      --prefill-chunk-tokens 8
+      --device cpu --engine continuous --kv-layout paged --attn-impl pallas \\
+      --kv-dtype int8 --prefix-cache --prefill-chunk-tokens 8
 
   # mamba2-130m on the lockstep engine: the SSD chunk-scan kernel in every
   # layer of the prefill, the STAR sampling softmax at every step
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
-      --engine lockstep --batch 8 --prompt-len 2048 --gen 32 --softmax-impl pallas
+      --batch 8 --prompt-len 2048 --gen 32 --softmax-impl pallas
 
-``--attn-impl`` sets the config's attention impl, so prefill and paged
-decode follow it (``pallas`` -> ``flash_star`` + ``pallas_paged``);
-``--softmax-impl`` retargets every softmax dispatch via ``ops.use``.
-``--kv-dtype`` int8 / fp8_e4m3 stores the page pool as codes plus scale
-pages; ``--kv-pool-blocks`` bounds the pool (exhaustion preempts).
-Weights are random, drawn on the device from ``--seed``.
+``--attn-impl`` sets the config's attention impl, so prefill and decode
+follow it (``pallas`` -> ``flash_star`` for prefill and dense decode,
+``pallas_paged`` for paged decode); ``--attn-impl paged`` is the reference's
+marker: dense invocations run ``xla`` and the continuous engine takes the
+paged layout.  ``--softmax-impl`` retargets every softmax dispatch via
+``ops.use``.  ``--kv-dtype`` int8 / fp8_e4m3 stores the page pool as codes
+plus scale pages; ``--kv-pool-blocks`` bounds the pool (exhaustion
+preempts).  Weights are random, drawn on the device from ``--seed``.
 
 ``--trace-out PATH`` enables tracing before the engine is built and writes
 the run's Chrome trace-event JSON there (load it in https://ui.perfetto.dev);
@@ -34,7 +45,8 @@ the run's Chrome trace-event JSON there (load it in https://ui.perfetto.dev);
 process registry's snapshot (dispatch and guard counters)}``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --smoke \\
-      --device cpu --trace-out build/trace.json --metrics-out build/metrics.json
+      --device cpu --engine continuous --trace-out build/trace.json \\
+      --metrics-out build/metrics.json
 """
 
 from __future__ import annotations
@@ -52,8 +64,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
-    ap.add_argument("--engine", choices=("continuous", "lockstep"), default="continuous",
-                    help="lockstep: one batch prefilled and decoded together (ssm family)")
+    ap.add_argument("--engine", choices=("lockstep", "continuous"), default="lockstep",
+                    help="lockstep: one batch prefilled and decoded together; continuous: "
+                    "slot-pool batching (attention models)")
     ap.add_argument("--batch", type=int, default=4, help="lockstep: batch size")
     ap.add_argument("--requests", type=int, default=8, help="continuous: request count")
     ap.add_argument("--slots", type=int, default=4, help="continuous: KV slot pool size")
@@ -61,6 +74,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--max-len", type=int, default=None)
+    ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
+                    help="continuous-engine KV layout (--attn-impl paged also selects "
+                    "'paged')")
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--kv-pool-blocks", type=int, default=None,
                     help="usable blocks in the pool (default: slots * ceil(max_len / "
@@ -74,7 +90,8 @@ def main(argv=None) -> int:
                     help="prompt tokens prefilled per tick, in power-of-two chunks "
                     "interleaved with decode")
     ap.add_argument("--attn-impl", default=None, metavar="IMPL",
-                    help="attention impl of the config: reference|xla|pallas")
+                    help="attention impl of the config: reference|xla|pallas; 'paged' "
+                    "also flips the continuous engine to the paged layout")
     ap.add_argument("--softmax-impl", default=None, metavar="IMPL",
                     help="force the softmax backend: reference|xla|pallas")
     ap.add_argument("--seed", type=int, default=0)
@@ -112,7 +129,7 @@ def main(argv=None) -> int:
         eng = ContinuousBatchingEngine(
             cfg, params,
             ContinuousConfig(num_slots=args.slots, max_len=max_len,
-                             temperature=args.temperature,
+                             temperature=args.temperature, kv_layout=args.kv_layout,
                              kv_block_size=args.kv_block_size,
                              kv_pool_blocks=args.kv_pool_blocks,
                              kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
@@ -133,14 +150,20 @@ def main(argv=None) -> int:
 
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
+    st = eng.kv_stats()
+    layout = (f"kv=paged bs={args.kv_block_size}" if st["layout"] == "paged"
+              else "kv=dense")
     print(f"served {args.requests} requests / {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s on {device}) over {eng.ticks} decode ticks "
-          f"({args.slots} slots, paged kv bs={args.kv_block_size})")
-    st = eng.kv_stats()
-    print(f"paged kv: kv_dtype={st['kv_dtype']}, peak {st['peak_used_blocks']}/"
-          f"{st['total_blocks']} blocks ({st['peak_kv_bytes'] / 1e6:.2f} MB), "
-          f"{st['preemptions']} preemptions")
-    if st["prefix"] is not None:
+          f"({args.slots} slots, {layout})")
+    if st["layout"] == "dense":
+        print(f"dense kv: {st['kv_bytes_in_use'] / 1e6:.2f} MB pinned "
+              f"({args.slots} slots x {eng.pool['layers']['k'].shape[2]} rows)")
+    else:
+        print(f"paged kv: kv_dtype={st['kv_dtype']}, peak {st['peak_used_blocks']}/"
+              f"{st['total_blocks']} blocks ({st['peak_kv_bytes'] / 1e6:.2f} MB), "
+              f"{st['preemptions']} preemptions")
+    if st.get("prefix") is not None:
         p = st["prefix"]
         print(f"prefix cache: {p['hits']} hits, {p['tokens_saved']} prefill tokens saved, "
               f"{p['evicted']} evicted ({p['nodes']} trie nodes)")

@@ -137,56 +137,110 @@ def attention_block(
     cache: Optional[Params] = None,
     paged_cache_t: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention in one of three forms:
+    """Causal self-attention in one of these forms:
 
     * ``cache=None`` — dense prefill;
-    * a *linear staging* cache ``{"k", "v", "len"}`` (``[B, Ts, Hkv, D]``,
-      ``len`` a Python int) — chunked prefill: the ``tq`` fresh rows land at
-      ``[len, len + tq)`` and the queries attend at ``q_offset = len``,
-      causally, over ``len + tq`` valid rows;
+    * a *scalar-``len``* cache ``{"k", "v", "len"}`` (``[B, T, Hkv, D]``):
+      the ``tq`` fresh rows land at ``[len, len + tq)`` and the queries
+      attend at ``q_offset = len``, causally, over ``len + tq`` valid rows.
+      ``len`` is a Python int for chunked prefill's linear staging cache and
+      a 0-dim device tensor for the lockstep decode cache (the write index
+      stays on the device);
+    * a *scalar ring* (the lockstep cache of a sliding-window model, ``T <=
+      window``): one token at row ``len % T``, then attention over
+      ``min(len + 1, T)`` rows, unmasked by position;
+    * a *per-slot dense* pool (``len`` an ``[S]`` vector): one token per
+      slot at its own row ``len`` (a ring: ``len % T``), then attention over
+      each slot's ``len + 1`` rows (a ring: ``min(len + 1, T)``);
     * a *paged* cache ``{"k", "v", "len", "tables"}`` (+ ``k_scale`` /
       ``v_scale`` for a quantized pool) — one decode token per slot,
-      written at ``(tables[s, len // bs], len % bs)``, then attention over
-      each slot's ``len + 1`` rows.
+      written at ``(tables[s, idx // bs], idx % bs)``, ``idx`` = ``len`` or,
+      on a ring, ``len % paged_cache_t``.
 
     Cache writes are **in place** (the reference returns new arrays).  A
     quantized pool stores codes: a block's scale is stamped from its first
-    row (``row == 0``) and later rows reuse it with a clipped encode, so a
-    block's codes always decode through the scale they were written with.
+    row (``row == 0``; on a ring only in the first lap) and later rows reuse
+    it with a clipped encode, so a block's codes always decode through the
+    scale they were written with.
 
     Returns ``(out [B, T, Hq*D], cache', (k, v))``."""
     b, tq, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window
 
     if cache is None:
-        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=True,
-                            sliding_window=cfg.sliding_window)
+        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=True, sliding_window=window)
         return ctx.reshape(b, tq, -1), None, (k, v)
+    if "tables" in cache:
+        return _paged_decode(q, k, v, cfg, cache, paged_cache_t)
 
-    if "tables" not in cache:
-        # linear staging cache (chunked prefill): append, then attend
-        start = int(cache["len"])
-        ck, cv = cache["k"], cache["v"]
-        if start + tq > ck.shape[1]:
-            raise ValueError(f"staging cache of {ck.shape[1]} rows cannot take "
-                             f"{tq} rows at {start}")
-        ck[:, start:start + tq] = k.to(ck.dtype)
-        cv[:, start:start + tq] = v.to(cv.dtype)
-        valid = torch.full((b,), start + tq, dtype=torch.int32, device=x.device)
-        ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=True,
-                            sliding_window=cfg.sliding_window, q_offset=start,
-                            kv_valid_len=valid)
-        return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": start + tq}, (k, v)
+    ck, cv, ln = cache["k"], cache["v"], cache["len"]
+    cache_t = ck.shape[1]
+    ring = window is not None and cache_t <= window
+    per_slot = torch.is_tensor(ln) and ln.ndim == 1
+    if (per_slot or ring) and tq != 1:
+        raise ValueError("per-slot and ring caches take one decode token per row")
+    if per_slot or ring:
+        if isinstance(ln, int):
+            ln = torch.tensor(ln, dtype=torch.int32, device=x.device)
+        new_len = ln + 1
+        idx = ln.long() % cache_t if ring else ln.long()
+        if per_slot:
+            _write_rows(ck, cv, idx, k[:, 0], v[:, 0])
+        else:
+            ck.index_copy_(1, idx.reshape(1), k.to(ck.dtype))
+            cv.index_copy_(1, idx.reshape(1), v.to(cv.dtype))
+        # one token: "attend to the first len + 1 rows" is the causal mask,
+        # and a ring holds min(len + 1, T) live rows in slot order
+        valid = torch.clamp(new_len, max=cache_t) if ring else new_len
+        ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=False, sliding_window=None,
+                            q_offset=0, kv_valid_len=valid.expand(b))
+        return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": new_len}, (k, v)
 
+    if isinstance(ln, int):  # linear staging cache (chunked prefill)
+        if ln + tq > cache_t:
+            raise ValueError(f"staging cache of {cache_t} rows cannot take {tq} rows at {ln}")
+        ck[:, ln:ln + tq] = k.to(ck.dtype)
+        cv[:, ln:ln + tq] = v.to(cv.dtype)
+        valid = torch.full((b,), ln + tq, dtype=torch.int32, device=x.device)
+    else:  # the lockstep cache: its device len indexes the write
+        rows = ln.long() + torch.arange(tq, device=x.device)
+        ck.index_copy_(1, rows, k.to(ck.dtype))
+        cv.index_copy_(1, rows, v.to(cv.dtype))
+        valid = (ln + tq).expand(b)
+    ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=True, sliding_window=window,
+                        q_offset=ln, kv_valid_len=valid)
+    return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": ln + tq}, (k, v)
+
+
+def _write_rows(ck: torch.Tensor, cv: torch.Tensor, idx: torch.Tensor,
+                k_row: torch.Tensor, v_row: torch.Tensor) -> None:
+    """Per-slot dense write: slot ``s``'s row ``idx[s]`` takes its fresh K/V
+    row, in place.  A free slot's counters keep growing (the scheduler, not
+    ``len``, owns occupancy), so ``idx`` may pass the pool's rows: such a
+    write is dropped, as the reference's one-hot hit mask drops it — the
+    index is clamped into range and the old row written back."""
+    cache_t = ck.shape[1]
+    slots = torch.arange(ck.shape[0], device=ck.device)
+    safe = torch.clamp(idx, max=cache_t - 1)
+    live = (idx < cache_t)[:, None, None]
+    for pool, row in ((ck, k_row), (cv, v_row)):
+        pool[slots, safe] = torch.where(live, row.to(pool.dtype), pool[slots, safe])
+
+
+def _paged_decode(q, k, v, cfg: ModelConfig, cache: Params, paged_cache_t: Optional[int]):
+    b, tq = q.shape[0], q.shape[1]
     if tq != 1 or paged_cache_t is None:
         raise ValueError("the paged cache takes one decode token per slot and paged_cache_t")
-    if cfg.sliding_window is not None and paged_cache_t <= cfg.sliding_window:
-        raise NotImplementedError("sliding-window ring caches are not ported yet")
+    cache_t = paged_cache_t
+    ring = cfg.sliding_window is not None and cache_t <= cfg.sliding_window
     ck, cv, tables = cache["k"], cache["v"], cache["tables"]
     bs = ck.shape[1]
-    idx = cache["len"].long()
+    idx = cache["len"].long() % cache_t if ring else cache["len"].long()
+    # free slots' counters regrow past their (scratch-only) tables; the
+    # clamp keeps the gather in range, their writes land in scratch
     col = torch.clamp(idx // bs, 0, tables.shape[1] - 1)
     blk = tables.gather(1, col[:, None])[:, 0].long()
     row = idx % bs
@@ -195,7 +249,10 @@ def attention_block(
     kv_scales = None
     if kv_dtype != "fp32":
         ks_pages, vs_pages = cache["k_scale"], cache["v_scale"]
-        fresh = (row == 0)[:, None]
+        fresh = row == 0
+        if ring:  # a later lap's rows decode through the first lap's stamp
+            fresh = fresh & (cache["len"] < cache_t)
+        fresh = fresh[:, None]
         for rows_f32, pages, scales in ((k[:, 0].float(), ck, ks_pages),
                                         (v[:, 0].float(), cv, vs_pages)):
             sc = torch.where(fresh, kvquant.row_scale(rows_f32, kv_dtype), scales[blk])
@@ -206,13 +263,31 @@ def attention_block(
     else:
         ck[blk, row] = k[:, 0].to(ck.dtype)
         cv[blk, row] = v[:, 0].to(cv.dtype)
+    valid = torch.clamp(new_len, max=cache_t) if ring else new_len
     spec = dataclasses.replace(cfg.paged_attention_spec, block_size=bs, kv_dtype=kv_dtype)
-    ctx = ops.paged_attention(q, ck, cv, tables, spec, kv_valid_len=new_len,
-                              kv_len=paged_cache_t, kv_scales=kv_scales)
+    ctx = ops.paged_attention(q, ck, cv, tables, spec, kv_valid_len=valid,
+                              kv_len=cache_t, kv_scales=kv_scales)
     new_cache = {"k": ck, "v": cv, "len": new_len}
     if kv_scales is not None:
         new_cache["k_scale"], new_cache["v_scale"] = kv_scales
     return ctx.reshape(b, tq, -1), new_cache, (k, v)
+
+
+def fit_window_cache(k: torch.Tensor, v: torch.Tensor, seq_axis: int, wlen: int,
+                     seq_len: int):
+    """Trim prefill K/V to a ``wlen``-row cache with slot = position %
+    ``wlen`` (port of the reference's ``layers.fit_window_cache``).  Decode
+    writes at ``len % wlen``, so the kept window is *rolled* so that token
+    ``j`` sits at slot ``j % wlen``; a prompt shorter than ``wlen`` is
+    zero-padded."""
+    seq = k.shape[seq_axis]
+    assert seq == seq_len
+    if seq >= wlen:
+        kk, vv = k.narrow(seq_axis, seq - wlen, wlen), v.narrow(seq_axis, seq - wlen, wlen)
+        shift = (seq_len - wlen) % wlen
+        return torch.roll(kk, shift, dims=seq_axis), torch.roll(vv, shift, dims=seq_axis)
+    pad = [0, 0] * (k.ndim - 1 - seq_axis) + [0, wlen - seq]
+    return torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
 
 
 def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

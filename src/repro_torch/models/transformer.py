@@ -1,7 +1,8 @@
 """Decoder-only transformer LM, dense family (port of
 ``repro.models.transformer.DecoderLM``: forward, prefill, chunked
-``prefill_extend``, and the paged decode path over fp32 or quantized page
-pools).  The reference's ``scan`` over stacked layers is a Python loop over
+``prefill_extend``, the lockstep decode cache, the dense per-slot pool and
+the paged pool over fp32 or quantized pages, and sliding-window rings on
+each).  The reference's ``scan`` over stacked layers is a Python loop over
 the ``[L]`` axis of the parameter tree.
 """
 
@@ -83,13 +84,13 @@ class DecoderLM:
         """Process a prompt: (last-position logits ``[B, 1, V]``, cache with
         K/V ``[L, B, ct, Hkv, D]``, zero past the prompt).  ``ct`` is
         ``cache_t`` when given (chunked prefill sizes its linear staging
-        buffer so later chunks can append), else ``cache_len(max_len)``."""
+        buffer so later chunks can append), else ``cache_len(max_len)``.  A
+        sliding window shorter than the prompt keeps its last ``ct`` rows in
+        ring order (``layers.fit_window_cache``)."""
         cfg = self.cfg
         b, t = tokens.shape
         ct = cache_t if cache_t is not None else self.cache_len(max_len)
-        if cfg.sliding_window is not None:
-            raise NotImplementedError("sliding-window prefill caches are not ported yet")
-        if t > ct:
+        if cfg.sliding_window is None and t > ct:
             raise ValueError(f"prefill length {t} exceeds cache capacity {ct}; "
                              "pass a larger max_len")
         h = L.embed(params["embed"], tokens, cfg)
@@ -99,8 +100,10 @@ class DecoderLM:
         vs = torch.zeros_like(ks)
         for i in range(cfg.num_layers):
             h, _, (k, v) = self._block(layer(params["blocks"], i), h, pos)
-            ks[i, :, :t] = k
-            vs[i, :, :t] = v
+            if t > ct:  # a window shorter than the prompt: the rolled last ct rows
+                k, v = L.fit_window_cache(k, v, 1, ct, t)
+            ks[i, :, :k.shape[1]] = k
+            vs[i, :, :v.shape[1]] = v
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         seq = torch.tensor(t, dtype=torch.int32, device=tokens.device)
@@ -129,6 +132,73 @@ class DecoderLM:
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         return logits, {"layers": layers, "len": cache["len"] + c, "pos": cache["pos"] + c}
+
+    # -- dense slot pool (continuous batching) and the lockstep decode ---------
+
+    def init_pool_cache(self, num_slots: int, max_len: int, device: Device = None) -> Params:
+        """Zeroed per-slot pool: K/V ``[L, S, T, Hkv, D]`` in ``compute_dtype``
+        (``T = cache_len(max_len)``), per-slot ``len`` / ``pos``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        kv = (cfg.num_layers, num_slots, self.cache_len(max_len), cfg.num_kv_heads,
+              cfg.resolved_head_dim)
+        return {
+            "layers": {"k": torch.zeros(kv, dtype=L.cdtype(cfg), device=dev),
+                       "v": torch.zeros(kv, dtype=L.cdtype(cfg), device=dev)},
+            "len": torch.zeros(num_slots, dtype=torch.int32, device=dev),
+            "pos": torch.zeros(num_slots, dtype=torch.int32, device=dev),
+        }
+
+    def write_slot(self, pool: Params, cache: Params, slot: int) -> Params:
+        """Copy a batch-1 prefill cache into pool ``slot``, in place (the
+        prefill must have used the pool's ``max_len``, so the rows line up);
+        the slot decodes from its own length on the next tick."""
+        k1, pk = cache["layers"]["k"], pool["layers"]["k"]
+        if k1.shape[1] != 1:
+            raise ValueError(f"write_slot expects a batch-1 prefill cache, got {tuple(k1.shape)}")
+        if k1.shape[2] != pk.shape[2]:
+            raise ValueError(f"prefill cache length {k1.shape[2]} != pool length {pk.shape[2]}; "
+                             "prefill with the pool's max_len")
+        for name in ("k", "v"):
+            pool["layers"][name][:, slot] = cache["layers"][name][:, 0]
+        pool["len"][slot] = cache["len"]
+        pool["pos"][slot] = cache["pos"]
+        return pool
+
+    def finalize_ring_cache(self, cache: Params, wlen: int) -> Params:
+        """Fold a linear staging cache into the ring layout (slot = position
+        % ``wlen``): ring slot ``s`` takes the latest staged row congruent to
+        ``s``, ``j = s + floor((T - 1 - s) / wlen) * wlen`` with ``T`` the
+        cache's device ``len``; slots ``s >= T`` clamp to row 0 (masked:
+        decode trusts ``min(len, wlen)`` rows)."""
+        k = cache["layers"]["k"]
+        s = torch.arange(wlen, device=k.device)
+        j = torch.clamp(s + ((cache["len"].long() - 1 - s) // wlen) * wlen, 0, k.shape[2] - 1)
+        return {"layers": {name: leaf.index_select(2, j)
+                           for name, leaf in cache["layers"].items()},
+                "len": cache["len"], "pos": cache["pos"]}
+
+    def decode_step(self, params: Params, cache: Params,
+                    tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+        """One token step over a lockstep cache (scalar ``len`` / ``pos``)
+        or a dense per-slot pool (``[S]`` counters): tokens ``[B, 1]`` ->
+        (logits ``[B, 1, V]``, the same cache).  Every state update is in
+        place — each row's KV write, then ``len`` and ``pos`` advance by
+        one — so a CUDA graph of the step owns the cache."""
+        cfg = self.cfg
+        b = tokens.shape[0]
+        h = L.embed(params["embed"], tokens, cfg)
+        pos = cache["pos"]
+        pos = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(b, 1)
+        layers = cache["layers"]
+        for i in range(cfg.num_layers):
+            layer_cache = {"k": layers["k"][i], "v": layers["v"][i], "len": cache["len"]}
+            h, _, _ = self._block(layer(params["blocks"], i), h, pos, cache=layer_cache)
+        h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], h, cfg, params["embed"])
+        cache["len"].add_(1)
+        cache["pos"].add_(1)
+        return logits, cache
 
     # -- paged slot pool --------------------------------------------------------
 
@@ -226,8 +296,10 @@ class DecoderLM:
         return {"layers": out, "len": seq, "pos": seq.clone()}
 
     def reset_slot(self, pool: Params, slot: int) -> Params:
-        """Retire ``slot``: zero its counters (its table goes to scratch on
-        the host)."""
+        """Retire ``slot`` of a dense or paged pool: zero its counters (a
+        paged slot's table goes to scratch on the host).  A free slot's
+        counters regrow with every tick; the scheduler, not ``len``, owns
+        occupancy."""
         pool["len"][slot] = 0
         pool["pos"][slot] = 0
         return pool

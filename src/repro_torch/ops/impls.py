@@ -105,17 +105,28 @@ def _attention_xla(spec: AttentionSpec, q, k, v, *, q_offset=0,
     )
 
 
+def _flash_info(q_offset, kv_valid_len, b: int, tk: int, device) -> torch.Tensor:
+    """The kernel's int32 info vector ``[q_offset, kv_valid…]``, made on
+    ``device`` with no host upload (a CUDA graph cannot capture one): a
+    Python ``q_offset`` (the dense decode's 0, a chunk's start) becomes a
+    device-side fill, a tensor one (the lockstep cache's ``len``) is read
+    where it lives."""
+    if isinstance(q_offset, torch.Tensor):
+        offset = q_offset.to(device=device, dtype=torch.int32).reshape(1)
+    else:
+        offset = torch.full((1,), int(q_offset), dtype=torch.int32, device=device)
+    if kv_valid_len is None:
+        valid = torch.full((b,), tk, dtype=torch.int32, device=device)
+    else:
+        valid = torch.as_tensor(kv_valid_len, device=device).to(torch.int32).reshape(b)
+    return torch.cat([offset, valid])
+
+
 def _attention_pallas(spec: AttentionSpec, q, k, v, *, q_offset=0,
                       kv_valid_len=None, scale=None):
     # [B, T, H, D] -> the kernel's heads-major views (no copy), with
     # (q_offset, per-batch valid lengths) packed into the info vector
-    b, tk = q.shape[0], k.shape[1]
-    if kv_valid_len is None:
-        kv_valid_len = torch.full((b,), tk, dtype=torch.int32, device=q.device)
-    info = torch.cat([
-        torch.as_tensor(q_offset, dtype=torch.int32, device=q.device).reshape(1),
-        torch.as_tensor(kv_valid_len, device=q.device).to(torch.int32).reshape(b),
-    ])
+    info = _flash_info(q_offset, kv_valid_len, q.shape[0], k.shape[1], q.device)
     out = flash_star_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), info,
         fmt=spec.softmax.fmt, causal=spec.causal,
@@ -135,6 +146,10 @@ register("attention", "pallas", _attention_pallas,
          # online-rescale kernel: no per-cell fault path
          capabilities={"softmax.kind": ("star", "exact"), "softmax.fault": (None,)},
          description="CUDA flash_star kernel (kernels.flash_star)")
+register("attention", "paged", _attention_xla, capabilities={"pv_int8": (False,)},
+         description="paged KV-cache marker impl: dense invocations (prefill, lockstep) "
+         "run the xla pipeline; the continuous engine reads this impl as 'use the "
+         "block-pool cache' and decodes through the paged_attention op")
 
 
 # ---------------------------------------------------------------------------

@@ -1,44 +1,56 @@
 """Serving engines (port of the reference's ``repro.serve.engine``):
 ``sample_token``; the lockstep ``ServeEngine`` (one prefill, then
-synchronized decode) for models with a constant-size state cache (the ssm
-family); and ``ContinuousBatchingEngine`` on the paged layout, with
-quantized page pools, the shared-prefix cache, chunked prefill and
-preemption, for the attention family.
+synchronized decode) for attention models and the ssm family; and
+``ContinuousBatchingEngine`` for the attention family, over the dense
+per-slot KV pool (the default layout) or the paged block pool, with
+quantized page pools, the shared-prefix cache and preemption on the paged
+layout, chunked prefill and sliding-window ring caches on both.
+
+The layout: ``ContinuousConfig.kv_layout`` picks it, and the ``"paged"``
+marker impl of ``attention`` — through ``ops.use(attention="paged")`` or the
+config's own attention spec — flips the engine to the block pool, as in
+the reference.  The dense pool holds ``[L, S, T, Hkv, D]`` with ``T =
+cache_len(max_len)``: every slot's row is pinned whatever its length, and
+decode runs ``ops.attention`` over it at ``Tq = 1`` (the flash_star kernel
+under ``impl="pallas"``), masked by each slot's valid length.
 
 One ``step()`` tick of the continuous engine::
 
-    admit:    pending -> free slot.  Monolithic: allocate blocks, prefill
-              (batch 1), write_slot_paged, sample token 0.  Chunked (a
-              prefix cache or a chunk budget): adopt the trie's cached
-              prefix blocks and queue the rest of the prompt for staging
+    admit:    pending -> free slot.  Monolithic: (paged: allocate blocks)
+              prefill (batch 1), write_slot / write_slot_paged, sample token
+              0.  Chunked (a prefix cache or a chunk budget): adopt the
+              trie's cached prefix blocks (paged) and queue the rest of the
+              prompt for staging
     prefill:  chunked only — this tick's prompt-token budget flows through
               the staging slots in power-of-two chunks (``prefill`` then
               ``prefill_extend`` into a linear staging cache); a finished
-              prompt gets fresh blocks, is written into the pool, indexed
-              in the trie, and samples token 0
-    upkeep:   every active slot whose next KV row opens a block gets one;
-              on exhaustion cold trie leaves are evicted first, then the
-              latest-admitted slot is preempted (requeued at the front
-              with its tokens kept)
-    decode:   the fused device tick (DESIGN.md §11): the dirty rows of the
-              device-resident ``[S, W]`` block table are flushed, the
+              prompt (a ring: folded by ``finalize_ring_cache``) is written
+              into the pool (paged: fresh blocks, indexed in the trie) and
+              samples token 0
+    upkeep:   paged, not a ring: every active slot whose next KV row opens a
+              block gets one; on exhaustion cold trie leaves are evicted
+              first, then the latest-admitted slot is preempted (requeued at
+              the front with its tokens kept)
+    decode:   the fused device tick (DESIGN.md §11): (paged: the dirty rows
+              of the device-resident ``[S, W]`` block table are flushed) the
               ``[S, 1]`` int32 token inputs go up, and one CUDA graph
               replays decode over all S slots plus sampling; one transfer
               brings the sampled tokens down
-    retire:   finished slots release their blocks; their tables go back to
-              the scratch block and their counters to 0
+    retire:   finished slots' counters go back to 0 (paged: their blocks are
+              released and their tables point at the scratch block)
 
 The tick's graph (``serve.graph.StepGraphs``) is keyed by the routes it
-resolved; ``graph_entries()`` counts the captures.  Inside it, greedy
-decoding takes the ``argmax``; at temperature > 0 without a guard the
-sampling softmax runs there too (``ops.softmax`` over ``logits / T``, the
-STAR kernel under ``ops.use(softmax="pallas")``), and each active request
-then draws its token outside the graph from its own seeded
-``torch.Generator`` (``draw``), so a request's draws depend neither on its
-co-tenants nor on preemption.  The draws are not the reference's
-``jax.random`` draws.  Under a guard the sampling runs eagerly after the
-graphed decode, as the reference's guarded path does.  Prefill and prefill
-chunks stay eager.  On the CPU the same tick runs eagerly.
+resolved (the layout and the pool's rows among them); ``graph_entries()``
+counts the captures.  Inside it, greedy decoding takes the ``argmax``; at
+temperature > 0 without a guard the sampling softmax runs there too
+(``ops.softmax`` over ``logits / T``, the STAR kernel under
+``ops.use(softmax="pallas")``), and each active request then draws its
+token outside the graph from its own seeded ``torch.Generator`` (``draw``),
+so a request's draws depend neither on its co-tenants nor on preemption.
+The draws are not the reference's ``jax.random`` draws.  Under a guard the
+sampling runs eagerly after the graphed decode, as the reference's guarded
+path does.  Prefill and prefill chunks stay eager.  On the CPU the same
+tick runs eagerly.
 
 A fault in the config's softmax spec (``FaultModel``) degrades every STAR
 softmax of the model, attention rows and sampling alike.  With
@@ -49,15 +61,12 @@ backend on a trip, and reports its counters in ``stats()["guard"]``.
 Observability (DESIGN.md §10): the reference's tracer spans and instants
 under its names (``serve.submit`` / ``admit`` / ``prefill`` /
 ``prefill_chunk`` / ``decode`` / ``preempt`` / ``finish``, the
-``serve.sched`` and ``kv.blocks`` counter tracks, one async ``request``
-track per uid), and its transfer counters: ``serve.bytes.h2d`` and
-``serve.bytes.d2h`` (the bytes the engine moves across the host-device
-boundary) and ``kv.gather.bytes`` (``ops.paged_gather_bytes``, a traffic
-model).  The engines compute with ``models.param.compute_params``: weights
-cast to the compute dtype once.
-
-Not ported yet: the dense per-slot layout (and so the lockstep engine for
-attention models) and ring (sliding-window) caches.
+``serve.sched`` counter track and, paged, ``kv.blocks``, one async
+``request`` track per uid), and its transfer counters: ``serve.bytes.h2d``
+and ``serve.bytes.d2h`` (the bytes the engine moves across the host-device
+boundary) and, paged only, ``kv.gather.bytes`` (``ops.paged_gather_bytes``,
+a traffic model).  The engines compute with ``models.param.compute_params``:
+weights cast to the compute dtype once.
 """
 
 from __future__ import annotations
@@ -182,7 +191,10 @@ class ServeEngine:
     ``device`` (the card unless ``device="cpu"``); ``params`` must live
     there.  Batch row ``i`` samples from its own ``torch.Generator`` seeded
     ``seed + i`` (not the reference's ``jax.random`` draws: greedy tokens
-    are the parity oracle).
+    are the parity oracle).  An attention model decodes over a scalar-
+    ``len`` cache of ``cache_len(max_len)`` rows (a ring under a sliding
+    window); ``generate`` refuses a run that would write past it, where the
+    reference's ``dynamic_update_slice`` silently clamps the write.
 
     Each ``generate`` (``begin``, then ``decode`` per step) captures its
     decode step once (the counterpart of the reference's
@@ -202,11 +214,6 @@ class ServeEngine:
         self.cfg = model_cfg
         self.serve_cfg = serve_cfg
         self.model = build_model(model_cfg)
-        if isinstance(self.model, DecoderLM):
-            raise NotImplementedError(
-                "the lockstep engine needs the dense per-slot KV layout for attention "
-                "models, which is not ported yet (ROADMAP A.1); serve "
-                f"{model_cfg.family!r} models with ContinuousBatchingEngine")
         self.params = compute_params(params, model_cfg)
         self.seed = seed
         self.graphs: Optional[StepGraphs] = None
@@ -237,7 +244,7 @@ class ServeEngine:
         tok = sample_token(logits[:, -1], gens, self.cfg, sc.temperature,
                            star_sampling=sc.star_sampling)
         route = ("lockstep decode", tuple(prompts.shape), "greedy" if greedy else "sampled",
-                 self.cfg.softmax_spec.impl)
+                 self.cfg.softmax_spec.impl, self.cfg.attention_spec.impl)
         return LockstepState(cache, tok[:, None].clone(), gens, temperature, route)
 
     @torch.no_grad()
@@ -256,7 +263,17 @@ class ServeEngine:
     def generate(self, prompts, num_tokens: int):
         """prompts ``[B, T]`` -> (generated ``[B, num_tokens]`` int32,
         ``{"cache_len": ...}``): ``begin``, then ``num_tokens - 1`` steps of
-        ``decode``; the tokens are checked once, at the end."""
+        ``decode``; the tokens are checked once, at the end.  An attention
+        model without a ring needs ``T + num_tokens - 1`` cache rows: more
+        raises a ValueError before the prefill."""
+        if isinstance(self.model, DecoderLM):
+            rows = np.shape(prompts)[1] + num_tokens - 1
+            cache_t = self.model.cache_len(self.serve_cfg.max_len)
+            if self.cfg.sliding_window is None and rows > cache_t:
+                raise ValueError(
+                    f"generate needs {rows} cache rows (prompt {np.shape(prompts)[1]} + "
+                    f"{num_tokens} new tokens - 1) but the cache holds {cache_t} "
+                    f"(max_len={self.serve_cfg.max_len}); pass a larger max_len")
         state = self.begin(prompts)
         outs = [state.tokens[:, 0].clone()]
         for _ in range(num_tokens - 1):
@@ -271,14 +288,20 @@ class ContinuousConfig:
     num_slots: int = 8
     max_len: int = 512  # per-slot capacity (prompt + generation)
     temperature: float = 0.0  # 0 = greedy
+    # KV layout: "dense" per-slot rows of cache_len(max_len), or "paged"
+    # blocks behind per-request tables; ops.use(attention="paged") or a
+    # config whose attention impl is "paged" flips it to "paged"
+    kv_layout: str = "dense"
     kv_block_size: int = 16
     # usable blocks (scratch excluded); None = num_slots * ceil(cache_len / bs)
     kv_pool_blocks: Optional[int] = None
     # shared-prefix KV cache: a radix trie over block-size token chunks
+    # (paged layout only; rings opt out)
     prefix_cache: bool = False
     # chunked prefill: prompt tokens prefilled per tick (None: monolithic)
     prefill_chunk_tokens: Optional[int] = None
-    # page-pool storage: fp32 (compute dtype) | int8 | fp8_e4m3
+    # page-pool storage: fp32 (compute dtype) | int8 | fp8_e4m3 (quantized:
+    # paged layout only)
     kv_dtype: str = "fp32"
     # accuracy guard on the sampling softmax: sampled comparison against the
     # exact oracle, fallback to a clean backend; counters in stats()["guard"]
@@ -294,8 +317,8 @@ class TokenEvent:
 
 
 class ContinuousBatchingEngine:
-    """Slot-pool serving over a paged KV cache on ``device`` (the card
-    unless ``device="cpu"``); ``params`` must live there.  ``tracer``
+    """Slot-pool serving over a dense or paged KV cache on ``device`` (the
+    card unless ``device="cpu"``); ``params`` must live there.  ``tracer``
     defaults to the global one at construction (``obs.get_tracer()``: the
     no-op tracer unless ``obs.enable_tracing()`` ran first)."""
 
@@ -356,27 +379,63 @@ class ContinuousBatchingEngine:
         self._g_graphs = reg.gauge(
             "serve.graph.entries", "captured CUDA graphs of the decode tick")
         self.scheduler = SlotScheduler(cb_cfg.num_slots)
+        # the layout: the config picks it; the "paged" marker impl of
+        # attention (an ops.use frame or the config's spec) flips it
+        layout = cb_cfg.kv_layout
+        if "paged" in (registry.active_impl("attention"), model_cfg.attention_spec.impl):
+            layout = "paged"
+        if layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', got {layout!r}")
+        self.kv_layout = layout
+        self._paged = layout == "paged"
         self._cache_t = self.model.cache_len(cb_cfg.max_len)
-        bs = cb_cfg.kv_block_size
-        self._slot_blocks = -(-self._cache_t // bs)  # table width W
-        usable = cb_cfg.kv_pool_blocks
-        if usable is None:
-            usable = cb_cfg.num_slots * self._slot_blocks
-        self.block_pool = BlockPool(usable + 1, bs, kv_dtype=cb_cfg.kv_dtype,
-                                    metrics=self.metrics)
-        self.pool = self.model.init_paged_cache(usable + 1, bs, cb_cfg.num_slots,
-                                                device=self.device, kv_dtype=cb_cfg.kv_dtype)
-        self.prefix = (PrefixCache(self.block_pool, metrics=self.metrics)
-                       if cb_cfg.prefix_cache else None)
+        # a ring (sliding window no longer than max_len) wraps in place: its
+        # blocks are allocated once per admission, never appended
+        self._ring = (model_cfg.sliding_window is not None
+                      and self._cache_t <= model_cfg.sliding_window)
+        s_count = cb_cfg.num_slots
+        self.block_pool: Optional[BlockPool] = None
+        self.prefix: Optional[PrefixCache] = None
+        self._tables_dev: Optional[torch.Tensor] = None
+        if self._paged:
+            bs = cb_cfg.kv_block_size
+            self._slot_blocks = -(-self._cache_t // bs)  # table width W
+            usable = cb_cfg.kv_pool_blocks
+            if usable is None:
+                usable = cb_cfg.num_slots * self._slot_blocks
+            self.block_pool = BlockPool(usable + 1, bs, kv_dtype=cb_cfg.kv_dtype,
+                                        metrics=self.metrics)
+            if self._ring and self._slot_blocks > self.block_pool.usable_blocks:
+                raise ValueError(
+                    f"a sliding-window ring needs {self._slot_blocks} blocks per slot but "
+                    f"the pool only has {self.block_pool.usable_blocks}; raise kv_pool_blocks")
+            self.pool = self.model.init_paged_cache(usable + 1, bs, cb_cfg.num_slots,
+                                                    device=self.device,
+                                                    kv_dtype=cb_cfg.kv_dtype)
+            self._tables = np.full((s_count, self._slot_blocks), SCRATCH_BLOCK, np.int32)
+            # the device-resident mirror the tick reads: allocator edits mark
+            # their slot dirty and only dirty rows go up (steady decode: none)
+            self._tables_dev = torch.full((s_count, self._slot_blocks), SCRATCH_BLOCK,
+                                          dtype=torch.int32, device=self.device)
+            # rings opt out of sharing: a wrapped window no longer holds the
+            # prefix rows a later request would adopt
+            if cb_cfg.prefix_cache and not self._ring:
+                self.prefix = PrefixCache(self.block_pool, metrics=self.metrics)
+        else:
+            if cb_cfg.kv_dtype != "fp32":
+                raise ValueError(
+                    f"kv_dtype={cb_cfg.kv_dtype!r} requires kv_layout='paged' (scales are "
+                    "per-block; the dense per-slot pool has no blocks) — pass "
+                    "kv_layout='paged' or drop kv_dtype")
+            if cb_cfg.prefix_cache:
+                raise ValueError(
+                    "prefix_cache requires kv_layout='paged' (the dense pool has no "
+                    "shareable blocks); pass kv_layout='paged' or drop the flag")
+            self._slot_blocks = 0
+            self.pool = self.model.init_pool_cache(s_count, cb_cfg.max_len, device=self.device)
         # either flag routes admission through the staging path
         self._chunked = cb_cfg.prefill_chunk_tokens is not None or cb_cfg.prefix_cache
         self._staging: Dict[int, Dict[str, Any]] = {}
-        s_count = cb_cfg.num_slots
-        self._tables = np.full((s_count, self._slot_blocks), SCRATCH_BLOCK, np.int32)
-        # the device-resident mirror the tick reads: allocator edits mark
-        # their slot dirty and only dirty rows go up (steady decode: none)
-        self._tables_dev = torch.full((s_count, self._slot_blocks), SCRATCH_BLOCK,
-                                      dtype=torch.int32, device=self.device)
         self._dirty: set = set()
         self._rows = np.zeros(s_count, np.int64)  # KV rows written per slot
         self._inputs = np.zeros((s_count, 1), np.int32)  # next token per slot
@@ -397,7 +456,8 @@ class ContinuousBatchingEngine:
         sampling = ("greedy" if self._greedy else
                     "eager sampling" if self._eager_sampling else "sampled")
         self._route = ("tick", s_count, self._slot_blocks, cb_cfg.kv_dtype, sampling,
-                       model_cfg.paged_attention_spec.impl, model_cfg.softmax_spec.impl)
+                       model_cfg.paged_attention_spec.impl, model_cfg.softmax_spec.impl,
+                       layout, self._cache_t, model_cfg.attention_spec.impl)
         self.graphs = StepGraphs(self.device)
         self.ticks = 0
         self.preemptions = 0
@@ -413,19 +473,20 @@ class ContinuousBatchingEngine:
     def submit(self, prompt: Sequence[int] | np.ndarray, max_new_tokens: int) -> int:
         """Queue a request (never blocks); returns its uid."""
         need = len(prompt) + max_new_tokens - 1
-        if need > self.cb.max_len:
+        # decode writes prompt + (max_new_tokens - 1) rows; a ring wraps
+        if self.cfg.sliding_window is None and need > self.cb.max_len:
             raise ValueError(
                 f"request needs {need} cache rows (prompt {len(prompt)} + "
                 f"{max_new_tokens} new tokens) but the pool was built with "
                 f"max_len={self.cb.max_len}"
             )
-        blocks = self.block_pool.blocks_for_tokens(need)
-        if blocks > self.block_pool.usable_blocks:
-            # larger than the whole pool: no preemption could ever fit it
-            raise ValueError(
-                f"request needs {blocks} KV blocks but the pool only has "
-                f"{self.block_pool.usable_blocks}; raise kv_pool_blocks"
-            )
+        if self._paged:
+            bp = self.block_pool
+            blocks = self._slot_blocks if self._ring else bp.blocks_for_tokens(need)
+            if blocks > bp.usable_blocks:
+                # larger than the whole pool: no preemption could ever fit it
+                raise ValueError(f"request needs {blocks} KV blocks but the pool only has "
+                                 f"{bp.usable_blocks}; raise kv_pool_blocks")
         uid = self.scheduler.submit(prompt, max_new_tokens)
         req = self.scheduler.pending[-1]
         req.submit_time = req.enqueued_at = time.perf_counter()
@@ -497,13 +558,15 @@ class ContinuousBatchingEngine:
         self._dirty.add(idx)
 
     def _clear_slot(self, slot: Slot) -> None:
-        self._set_table(slot.index)
+        if self._paged:
+            self._set_table(slot.index)
         self.model.reset_slot(self.pool, slot.index)
 
     def _finish(self, slot: Slot) -> None:
         req = self.scheduler.retire(slot)
         self._generators.pop(req.uid, None)
-        self.block_pool.release(req.uid)
+        if self._paged:
+            self.block_pool.release(req.uid)
         self._clear_slot(slot)
         self._m_finished.inc()
         if self.tracer.enabled:
@@ -566,7 +629,7 @@ class ContinuousBatchingEngine:
         """Allocate the admission table for ``rows`` prefill rows,
         preempting on exhaustion; False (request requeued) if it cannot fit."""
         req = slot.request
-        n = self.block_pool.blocks_for_tokens(rows)
+        n = self._slot_blocks if self._ring else self.block_pool.blocks_for_tokens(rows)
         if not self._reclaim_blocks(n, req.uid):
             self.scheduler.pending.appendleft(slot.release())
             return False
@@ -577,7 +640,10 @@ class ContinuousBatchingEngine:
     def _ensure_decode_block(self, slot: Slot) -> bool:
         """Grow the slot's table when this tick's KV write opens a block;
         preempt on exhaustion (the slot itself when it is the
-        lowest-priority occupant).  False if the slot was evicted."""
+        lowest-priority occupant).  False if the slot was evicted.  A ring
+        holds its blocks from admission on."""
+        if self._ring:
+            return True
         rows = int(self._rows[slot.index])
         bs = self.block_pool.block_size
         if rows % bs != 0:
@@ -598,37 +664,52 @@ class ContinuousBatchingEngine:
     # -- monolithic admission -----------------------------------------------------
 
     def _admit(self, slot: Slot, events: List[TokenEvent]) -> None:
-        """Allocate the slot's blocks, prefill its prompt, write the KV rows
-        into the pool and sample the next token."""
+        """(Paged: allocate the slot's blocks.)  Prefill its prompt, write
+        the KV rows into the pool and sample the next token."""
         req = slot.request
         tokens = self._tokens(req)
         rows = len(tokens)
-        if not self._admit_blocks(slot, rows):
-            return  # pool full even after preemption: wait in line
+        prefill_len = self.cb.max_len
+        if self._paged:
+            if not self._admit_blocks(slot, rows):
+                return  # pool full even after preemption: wait in line
+            # the prefill cache spans the bucketed block grid; grid rows past
+            # the allocated blocks land in the scratch block (a ring keeps its
+            # whole window: it wraps in place)
+            width = self._slot_blocks if self._ring else bucket_blocks(
+                self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
+            if not self._ring:
+                prefill_len = width * self.block_pool.block_size
         self._observe_queue_wait(req)
         self._m_admitted.inc()
         if self.tracer.enabled:
             self.tracer.instant("serve.admit", uid=req.uid, slot=slot.index, rows=rows)
-        bs = self.block_pool.block_size
-        # the prefill cache spans the bucketed block grid; grid rows past
-        # the allocated blocks land in the scratch block
-        width = bucket_blocks(self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
         with self.tracer.span("serve.prefill", uid=req.uid, rows=rows):
             logits, cache1 = self.model.prefill(self.params, self._upload(tokens)[None],
-                                                width * bs)
+                                                prefill_len)
             self._m_prefills.inc()
-            table = self._upload(self._tables[slot.index, :width])
-            self.model.write_slot_paged(self.pool, cache1, slot.index, table)
+            if self._paged:
+                table = self._upload(self._tables[slot.index, :width])
+                self.model.write_slot_paged(self.pool, cache1, slot.index, table)
+            else:
+                self.model.write_slot(self.pool, cache1, slot.index)
         self._rows[slot.index] = rows
         self._sample_first(slot, logits, events)
 
     # -- chunked prefill and the prefix cache -------------------------------------
 
     def _staging_rows(self, rows: int) -> int:
-        """Linear staging-cache capacity: the bucketed admission block grid
-        (the same widths as the monolithic write)."""
-        nb = bucket_blocks(self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
-        return nb * self.block_pool.block_size
+        """Linear staging-cache capacity.  A ring stages past its window (the
+        power of two >= max(rows, window + 1)), so chunks append linearly
+        before ``finalize_ring_cache`` folds the buffer; the paged layout
+        stages the bucketed admission block grid (the widths of the
+        monolithic write); the dense layout the pool row itself."""
+        if self._ring:
+            return 1 << (max(rows, self.cfg.sliding_window + 1) - 1).bit_length()
+        if self._paged:
+            nb = bucket_blocks(self.block_pool.blocks_for_tokens(rows), self._slot_blocks)
+            return nb * self.block_pool.block_size
+        return self._cache_t
 
     def _admit_staging(self, slot: Slot) -> None:
         """Bind an admitted request to the chunked path: adopt any cached
@@ -697,29 +778,42 @@ class ContinuousBatchingEngine:
         st = self._staging.pop(idx)
         slot = self.scheduler.slots[idx]
         req, rows = st["req"], st["rows"]
-        bp = self.block_pool
-        n_real = bp.blocks_for_tokens(rows)
-        n_fresh = n_real - len(st["shared"])
-        if not self._reclaim_blocks(n_fresh, req.uid):
-            self._requeue_staging(slot, st)
-            return
-        if req.uid in bp.owners():  # adopted a prefix at admission
-            fresh = [bp.append(req.uid) for _ in range(n_fresh)]
+        cache = st["cache"]
+        if self._ring:
+            cache = self.model.finalize_ring_cache(cache, self._cache_t)
+        if not self._paged:
+            self.model.write_slot(self.pool, cache, idx)
         else:
-            fresh = bp.allocate(req.uid, n_fresh)
-        table_row = st["shared"] + fresh
-        self._set_table(idx, table_row)
-        self._note_peak()
-        # the adopted prefix rows already live in the pool: their write goes
-        # to scratch so shared blocks stay untouched; pad to the bucketed grid
-        width = st["Ts"] // bp.block_size
-        write_table = ([SCRATCH_BLOCK] * len(st["shared"]) + fresh
-                       + [SCRATCH_BLOCK] * (width - n_real))
-        self.model.write_slot_paged(self.pool, st["cache"], idx,
-                                    self._upload(np.asarray(write_table, np.int32)))
+            bp = self.block_pool
+            if self._ring:
+                n_real = n_fresh = self._slot_blocks  # rings never adopt
+            else:
+                n_real = bp.blocks_for_tokens(rows)
+                n_fresh = n_real - len(st["shared"])
+            if not self._reclaim_blocks(n_fresh, req.uid):
+                self._requeue_staging(slot, st)
+                return
+            if req.uid in bp.owners():  # adopted a prefix at admission
+                fresh = [bp.append(req.uid) for _ in range(n_fresh)]
+            else:
+                fresh = bp.allocate(req.uid, n_fresh)
+            table_row = st["shared"] + fresh
+            self._set_table(idx, table_row)
+            self._note_peak()
+            if self._ring:
+                write_table = table_row
+            else:
+                # the adopted prefix rows already live in the pool: their
+                # write goes to scratch so shared blocks stay untouched; pad
+                # to the bucketed grid
+                width = st["Ts"] // bp.block_size
+                write_table = ([SCRATCH_BLOCK] * len(st["shared"]) + fresh
+                               + [SCRATCH_BLOCK] * (width - n_real))
+            self.model.write_slot_paged(self.pool, cache, idx,
+                                        self._upload(np.asarray(write_table, np.int32)))
+            if self.prefix is not None:
+                self.prefix.insert(st["tokens"], table_row)
         self._rows[idx] = rows
-        if self.prefix is not None:
-            self.prefix.insert(st["tokens"], table_row)
         slot.prefilling = False
         self._sample_first(slot, st["logits"], events)
 
@@ -733,12 +827,16 @@ class ContinuousBatchingEngine:
 
     # -- the tick -----------------------------------------------------------------
 
-    def _tick_body(self, pool, inputs, tables):
-        """Decode over the whole pool, then the tick's sampling: greedy
-        tokens ``[S]`` int32, or the sampling distribution ``[S, V]``, or
-        (eager sampling) nothing; and the last-position logits ``[S, V]``."""
-        logits, _ = self.model.decode_step_paged(self.params, pool, inputs, tables,
-                                                 cache_t=self._cache_t)
+    def _tick_body(self, pool, inputs, tables=None):
+        """Decode over the whole pool (paged: through ``tables``), then the
+        tick's sampling: greedy tokens ``[S]`` int32, or the sampling
+        distribution ``[S, V]``, or (eager sampling) nothing; and the
+        last-position logits ``[S, V]``."""
+        if self._paged:
+            logits, _ = self.model.decode_step_paged(self.params, pool, inputs, tables,
+                                                     cache_t=self._cache_t)
+        else:
+            logits, _ = self.model.decode_step(self.params, pool, inputs)
         last = logits[:, -1]
         if self._greedy:
             return torch.argmax(last, dim=-1).to(torch.int32), last
@@ -747,9 +845,9 @@ class ContinuousBatchingEngine:
         return sampling_probs(last, self._temperature, self.cfg), last
 
     def _upload_tick_inputs(self) -> None:
-        """The tick's only uploads: the dirty table rows (none in steady
-        decode) and the ``[S, 1]`` int32 token inputs, into the graph's
-        static tensors."""
+        """The tick's only uploads: the dirty table rows (paged; none in
+        steady decode) and the ``[S, 1]`` int32 token inputs, into the
+        graph's static tensors."""
         for i in sorted(self._dirty):
             self._tables_dev[i].copy_(torch.from_numpy(self._tables[i]))
             self._m_h2d.inc(self._slot_blocks * 4)
@@ -758,14 +856,19 @@ class ContinuousBatchingEngine:
         self._inputs_dev.copy_(torch.from_numpy(self._inputs))
         self._m_h2d.inc(self._inputs.size * 4)
 
+    def _tick_state(self):
+        """The tick's static state: the pool, the token inputs and (paged)
+        the device block table."""
+        return self.pool, self._inputs_dev, self._tables_dev
+
     def _decode(self):
         """Replay the tick's graph (captured at the first tick of a route,
         after an eager warm-up on copies of the pool and inputs)."""
         return self.graphs.run(
             self._route,
-            lambda: self._tick_body(self.pool, self._inputs_dev, self._tables_dev),
-            lambda: self._tick_body(tree_map(torch.clone, self.pool),
-                                    self._inputs_dev.clone(), self._tables_dev.clone()))
+            lambda: self._tick_body(*self._tick_state()),
+            lambda: self._tick_body(*(None if t is None else tree_map(torch.clone, t)
+                                      for t in self._tick_state())))
 
     def _sample_tick(self, out, active: List[Slot]) -> Dict[int, int]:
         """The active slots' tokens from the tick's outputs: one transfer
@@ -812,9 +915,10 @@ class ContinuousBatchingEngine:
                 self._admit(slot, events)
         if self._staging:
             events.extend(self._run_prefill_chunks())
-        for slot in sorted(self.scheduler.active_slots, key=lambda s: s.request.uid):
-            if not slot.free:
-                self._ensure_decode_block(slot)
+        if self._paged:
+            for slot in sorted(self.scheduler.active_slots, key=lambda s: s.request.uid):
+                if not slot.free:
+                    self._ensure_decode_block(slot)
         active = self.scheduler.active_slots
         if active:
             if self.tracer.enabled:
@@ -825,7 +929,8 @@ class ContinuousBatchingEngine:
             for slot in active:
                 self._rows[slot.index] += 1
             toks = self._sample_tick(out, active)
-            self._count_gather()
+            if self._paged:
+                self._count_gather()
             for slot in active:
                 self._record(slot, toks[slot.index], events)
             if self.tracer.enabled:
@@ -837,7 +942,8 @@ class ContinuousBatchingEngine:
         if self.tracer.enabled:
             self.tracer.counter("serve.sched", pending=len(self.scheduler.pending),
                                 active=len(self.scheduler.active_slots))
-            self.tracer.counter("kv.blocks", used=self.block_pool.used_blocks)
+            if self._paged:
+                self.tracer.counter("kv.blocks", used=self.block_pool.used_blocks)
         return events
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, List[int]]:
@@ -877,13 +983,23 @@ class ContinuousBatchingEngine:
         return ks.shape[0] * ks.shape[2] * (ks.element_size() + vs.element_size())
 
     def kv_stats(self) -> Dict[str, Any]:
+        """KV memory accounting, the reference's keys: ``kv_bytes_in_use`` is
+        what the pool pins now — the dense layout its whole ``S x T`` rows
+        whatever the occupancy, the paged layout its allocated blocks (and,
+        paged, the counted decode traffic)."""
+        if not self._paged:
+            pinned = self.cb.num_slots * self._cache_t * self.kv_row_bytes()
+            return {"layout": "dense", "kv_dtype": "fp32",
+                    "kv_bytes_per_token": float(self.kv_row_bytes()),
+                    "kv_bytes_in_use": pinned, "kv_bytes_capacity": pinned,
+                    "peak_kv_bytes": pinned}
         bp = self.block_pool
         bs = bp.block_size
         prefix = None
-        if self.prefix is not None:
+        if self.cb.prefix_cache:  # a ring opts out: its counters stay 0
             p = self.prefix
-            prefix = {"hits": p.hits, "tokens_saved": p.tokens_saved,
-                      "evicted": p.evicted, "nodes": len(p)}
+            prefix = {"hits": p.hits if p else 0, "tokens_saved": p.tokens_saved if p else 0,
+                      "evicted": p.evicted if p else 0, "nodes": len(p) if p else 0}
         # a block's footprint: its token rows plus its scale rows
         block_bytes = bs * self.kv_row_bytes() + self.kv_scale_bytes_per_block()
         gather = self._m_gather.value()

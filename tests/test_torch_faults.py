@@ -486,7 +486,7 @@ def test_greedy_tokens_under_a_mild_fault_equal_the_reference(pair):
     expected = JaxEngine(cfg_j, params_j, JaxConfig(
         num_slots=2, max_len=32, kv_layout="paged", kv_block_size=4)).serve(prompts, gens)
     eng = ContinuousBatchingEngine(cfg_t, params_t, ContinuousConfig(
-        num_slots=2, max_len=32, kv_block_size=4), device="cpu")
+        num_slots=2, max_len=32, kv_layout="paged", kv_block_size=4), device="cpu")
     assert eng.serve(prompts, gens) == expected
     assert eng.stats()["guard"] is None
     # the fault is live in every attention row: prefill logits move
@@ -504,7 +504,8 @@ def test_engine_stats_surface_guard_counters(pair):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (6,)), rng.integers(0, cfg.vocab_size, (4,))]
     eng = ContinuousBatchingEngine(cfg, params_t, ContinuousConfig(
-        num_slots=2, max_len=48, temperature=1.0, guard=ops.GuardConfig(tolerance=0.02)),
+        num_slots=2, max_len=48, temperature=1.0, kv_layout="paged",
+        guard=ops.GuardConfig(tolerance=0.02)),
         device="cpu")
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
@@ -525,7 +526,8 @@ def test_guard_checks_every_sampling_call_without_latch(pair):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (7, 5, 9)]
     eng = ContinuousBatchingEngine(cfg, params_t, ContinuousConfig(
-        num_slots=2, max_len=40, temperature=0.8, guard=ops.GuardConfig(latch=False)),
+        num_slots=2, max_len=40, temperature=0.8, kv_layout="paged",
+        guard=ops.GuardConfig(latch=False)),
         device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")

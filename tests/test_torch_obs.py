@@ -247,7 +247,7 @@ REFERENCE_NAMES = {"serve.submit", "serve.admit", "serve.prefill", "serve.decode
 def test_launcher_writes_trace_and_metrics_json(tmp_path, capsys, extra, names):
     trace, metrics = tmp_path / "trace.json", tmp_path / "metrics.json"
     rc = launcher.main(["--arch", "granite_8b", "--smoke", "--device", "cpu",
-                        "--requests", "4", "--prompt-len", "24", "--gen", "6",
+                        "--engine", "continuous", "--kv-layout", "paged", "--requests", "4", "--prompt-len", "24", "--gen", "6",
                         "--trace-out", str(trace), "--metrics-out", str(metrics), *extra])
     out = capsys.readouterr().out
     assert rc == 0, out

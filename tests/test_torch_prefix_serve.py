@@ -358,7 +358,8 @@ def _run_pair(pair, kv_dtype, mode):
             eng_j = JaxEngine(cfg_j, params_j, JaxConfig(kv_layout="paged", **kw))
             _JAX_RUNS[key] = (eng_j.serve(prompts, gens), eng_j)
     with ops.use(softmax="pallas"):
-        eng_t = ContinuousBatchingEngine(cfg_t, params_t, ContinuousConfig(**kw), device="cpu")
+        eng_t = ContinuousBatchingEngine(cfg_t, params_t,
+                                         ContinuousConfig(kv_layout="paged", **kw), device="cpu")
         got = eng_t.serve(prompts, gens)
     want, eng_j = _JAX_RUNS[key]
     return got, want, eng_t, eng_j
@@ -415,7 +416,8 @@ def test_engine_int8_prefix_cache_two_phase_parity(pair):
     with jops.use(paged_attention="pallas_paged"):
         eng_j = JaxEngine(cfg_j, params_j, JaxConfig(kv_layout="paged", **kw))
         want = two_phase(eng_j)
-    eng_t = ContinuousBatchingEngine(cfg_t, params_t, ContinuousConfig(**kw), device="cpu")
+    eng_t = ContinuousBatchingEngine(cfg_t, params_t, ContinuousConfig(kv_layout="paged", **kw),
+                                     device="cpu")
     got = two_phase(eng_t)
     assert got == want
     assert eng_t.kv_stats()["prefix"]["hits"] == eng_j.kv_stats()["prefix"]["hits"] == 1
@@ -433,11 +435,12 @@ def test_preemption_evicts_latest_first_and_keeps_outputs(port_model):
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (7, 9, 5)]
     gens = [8, 7, 6]
     alone = [ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-        num_slots=1, max_len=MAX_LEN, kv_block_size=4), device="cpu").serve([p], [g])[0]
+        num_slots=1, max_len=MAX_LEN, kv_layout="paged", kv_block_size=4), device="cpu").serve([p], [g])[0]
         for p, g in zip(prompts, gens)]
     for fields in ({}, dict(prefix_cache=True, prefill_chunk_tokens=4)):
         eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-            num_slots=3, max_len=MAX_LEN, kv_block_size=4, kv_pool_blocks=6, **fields),
+            num_slots=3, max_len=MAX_LEN, kv_layout="paged", kv_block_size=4, kv_pool_blocks=6,
+            **fields),
             device="cpu")
         victims = []
         orig = eng._preempt
@@ -455,7 +458,8 @@ def test_sampled_stream_survives_preemption(port_model):
 
     def engine(**kw):
         return ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-            num_slots=2, max_len=MAX_LEN, temperature=1.0, kv_block_size=4, **kw),
+            num_slots=2, max_len=MAX_LEN, temperature=1.0, kv_layout="paged", kv_block_size=4,
+            **kw),
             device="cpu")
 
     filler = np.arange(7)  # uid 0: grows into the last free block
@@ -473,15 +477,18 @@ def test_sampled_stream_survives_preemption(port_model):
 def test_engine_config_validation(port_model):
     cfg, _, params = port_model
     with pytest.raises(ValueError, match="prefill_chunk_tokens"):
-        ContinuousBatchingEngine(cfg, params, ContinuousConfig(prefill_chunk_tokens=0),
+        ContinuousBatchingEngine(cfg, params, ContinuousConfig(kv_layout="paged",
+                                                                prefill_chunk_tokens=0),
                                  device="cpu")
     with pytest.raises(ValueError, match="kv_dtype"):
-        ContinuousBatchingEngine(cfg, params, ContinuousConfig(kv_dtype="int4"), device="cpu")
+        ContinuousBatchingEngine(cfg, params, ContinuousConfig(kv_layout="paged", kv_dtype="int4"),
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
 def test_launcher_quantized_prefix_chunked_on_cpu(kv_dtype, capsys):
     rc = launcher.main(["--arch", "granite_8b", "--smoke", "--device", "cpu",
+                        "--engine", "continuous", "--kv-layout", "paged",
                         "--attn-impl", "pallas", "--softmax-impl", "pallas",
                         "--kv-dtype", kv_dtype, "--prefix-cache",
                         "--prefill-chunk-tokens", "8", "--kv-pool-blocks", "12",

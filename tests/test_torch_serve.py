@@ -39,7 +39,8 @@ def pair():
 
 
 def _engine(cfg_t, params_t, **kw):
-    cb = ContinuousConfig(num_slots=2, max_len=MAX_LEN, kv_block_size=4, **kw)
+    cb = ContinuousConfig(num_slots=2, max_len=MAX_LEN, kv_layout="paged", kv_block_size=4,
+                          **kw)
     return ContinuousBatchingEngine(cfg_t, params_t, cb, device="cpu")
 
 
@@ -125,12 +126,12 @@ def test_engine_without_device_needs_cuda(pair, monkeypatch):
     _, _, cfg_t, params_t = pair
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ContinuousBatchingEngine(cfg_t, params_t, ContinuousConfig(num_slots=2))
+        ContinuousBatchingEngine(cfg_t, params_t, ContinuousConfig(num_slots=2, kv_layout="paged"))
 
 
 def test_launcher_smoke_on_cpu(capsys):
     rc = launcher.main(["--arch", "granite_8b", "--smoke", "--device", "cpu",
-                        "--engine", "continuous", "--attn-impl", "pallas",
+                        "--engine", "continuous", "--kv-layout", "paged", "--attn-impl", "pallas",
                         "--softmax-impl", "pallas", "--temperature", "0.8",
                         "--requests", "3"])
     assert rc == 0

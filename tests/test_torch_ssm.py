@@ -337,12 +337,6 @@ def test_engines_refuse_the_other_family(pair):
     *_, cfg_t, _, params_t = pair
     with pytest.raises(ValueError, match="attention-family"):
         ContinuousBatchingEngine(cfg_t, params_t, device="cpu")
-    dense = get_smoke_config("granite_8b")
-    from repro_torch.models.param import materialize
-
-    dense_params = materialize(build_model(dense).param_specs(), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        ServeEngine(dense, dense_params, device="cpu")
 
 
 def test_lockstep_launcher_smoke_on_cpu(capsys):

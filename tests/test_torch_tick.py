@@ -161,7 +161,7 @@ def test_counters_trace_and_tokens_match_the_jax_engine(pair, plan):
         want = ej.serve(prompts, gens)
     with ops.use(softmax="pallas"):
         et = ContinuousBatchingEngine(
-            cfg_t, params_t, ContinuousConfig(num_slots=2, max_len=MAX_LEN,
+            cfg_t, params_t, ContinuousConfig(num_slots=2, max_len=MAX_LEN, kv_layout="paged",
                                               kv_block_size=4, **kw),
             device="cpu", tracer=tt)
         got = et.serve(prompts, gens)
@@ -190,7 +190,7 @@ def test_steady_decode_uploads_only_the_token_inputs():
     params = materialize(build_model(cfg).param_specs(), 0, "cpu")
     s, bs = 2, 16
     eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-        num_slots=s, max_len=MAX_LEN, kv_block_size=bs), device="cpu")
+        num_slots=s, max_len=MAX_LEN, kv_layout="paged", kv_block_size=bs), device="cpu")
     w = eng._slot_blocks
     for n in (12, 5):
         eng.submit(np.arange(1, n + 1), 12)
@@ -215,8 +215,8 @@ def test_disabled_tracer_records_nothing_during_serve():
     cfg = get_smoke_config("granite_8b")
     params = materialize(build_model(cfg).param_specs(), 0, "cpu")
     assert obs.get_tracer() is obs.NULL_TRACER
-    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(num_slots=2, max_len=MAX_LEN),
-                                   device="cpu")
+    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+        num_slots=2, max_len=MAX_LEN, kv_layout="paged"), device="cpu")
     assert eng.tracer is obs.NULL_TRACER
     assert all(len(o) == 3 for o in eng.serve([np.arange(4), np.arange(6)], 3))
     assert obs.NULL_TRACER.events == [] and obs.NULL_TRACER.chrome_trace()["traceEvents"] == []
@@ -319,8 +319,8 @@ def test_engine_graph_key_follows_the_ops_use_route():
     decided from the config."""
     cfg = dataclasses.replace(get_smoke_config("granite_8b"), attn_impl="pallas")
     params = materialize(build_model(cfg).param_specs(), 0, "cpu")
-    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(num_slots=2, max_len=MAX_LEN),
-                                   device="cpu")
+    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+        num_slots=2, max_len=MAX_LEN, kv_layout="paged"), device="cpu")
     eng.submit(np.arange(5), 6)
     eng.step()
     with ops.use(paged_attention="reference"):
@@ -329,7 +329,8 @@ def test_engine_graph_key_follows_the_ops_use_route():
     assert eng.graph_entries() == 2 and eng.graphs.replays == eng.ticks == 3
     assert eng.metrics.gauge("serve.graph.entries").value() == 2
     guarded = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-        num_slots=2, max_len=MAX_LEN, temperature=0.8, guard=ops.GuardConfig()), device="cpu")
+        num_slots=2, max_len=MAX_LEN, temperature=0.8, kv_layout="paged",
+        guard=ops.GuardConfig()), device="cpu")
     assert guarded._route[4] == "eager sampling" and eng._route[4] == "greedy"
     guarded.serve([np.arange(5)], 4)
     assert guarded.guard.calls == 4  # every sampled batch went through the guard
@@ -437,7 +438,7 @@ def test_continuous_serve_raises_on_a_nan_distribution(n_real, monkeypatch):
     cfg = dataclasses.replace(get_smoke_config("granite_8b"), attn_impl="pallas")
     params = materialize(build_model(cfg).param_specs(), 0, "cpu")
     eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-        num_slots=2, max_len=MAX_LEN, temperature=0.8), device="cpu")
+        num_slots=2, max_len=MAX_LEN, temperature=0.8, kv_layout="paged"), device="cpu")
     eng.submit(np.arange(5), 6)
     _nan_after(n_real, monkeypatch)
     with pytest.raises(RuntimeError, match="NaN"):
@@ -462,7 +463,7 @@ def _eager_vs_replay(eng):
     """The tick's outputs by graph replay against the eager tick from a copy
     of the same state (pool, inputs, tables)."""
     eng._upload_tick_inputs()
-    state = (tree_map(torch.clone, eng.pool), eng._inputs_dev.clone(), eng._tables_dev.clone())
+    state = [None if t is None else tree_map(torch.clone, t) for t in eng._tick_state()]
     eager = eng._tick_body(*state)
     replay = eng._decode()
     return eager, replay, state
@@ -491,7 +492,7 @@ def test_graph_tick_equals_the_eager_tick_on_card(cuda, kv_dtype, fault):
         temperature = 0.8
     params = materialize(build_model(cfg).param_specs(), 0, "cuda")
     eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
-        num_slots=2, max_len=MAX_LEN, kv_block_size=4, kv_dtype=kv_dtype,
+        num_slots=2, max_len=MAX_LEN, kv_layout="paged", kv_block_size=4, kv_dtype=kv_dtype,
         temperature=temperature), device="cuda")
     prompts, _ = _prompts(lens=(9, 6))
     with ops.use(softmax="pallas"):
@@ -512,6 +513,45 @@ def test_graph_tick_equals_the_eager_tick_on_card(cuda, kv_dtype, fault):
 
 
 @pytest.mark.cuda
+def test_dense_tick_and_lockstep_graphs_on_card(cuda):
+    """The dense layout on the card: a tick's replay equals the eager tick
+    from a copy of the same state and leaves the same pool; served greedy,
+    flash_star launches once per layer of every prefill and every tick
+    (through the replays) and the tokens equal the CPU's; the lockstep
+    granite engine's tokens too."""
+    cfg = dataclasses.replace(get_smoke_config("granite_8b"), attn_impl="pallas")
+    params = materialize(build_model(cfg).param_specs(), 0, "cpu")
+    gpu = tree_map(lambda t: t.cuda(), params)
+    eng = ContinuousBatchingEngine(cfg, gpu, ContinuousConfig(num_slots=2, max_len=MAX_LEN),
+                                   device="cuda")
+    for p in _prompts(lens=(9, 6))[0]:
+        eng.submit(p, 20)
+    for _ in range(3):
+        eng.step()
+    (out_e, last_e), (out_r, last_r), state = _eager_vs_replay(eng)
+    torch.cuda.synchronize()
+    assert torch.equal(last_r, last_e) and torch.equal(out_r, out_e)
+    for name, leaf in eng.pool["layers"].items():
+        assert torch.equal(leaf, state[0]["layers"][name]), name
+    prompts, gens = _prompts()
+    outs = {}
+    for dev, p in (("cuda", gpu), ("cpu", params)):
+        e = ContinuousBatchingEngine(cfg, p, ContinuousConfig(num_slots=2, max_len=MAX_LEN),
+                                     device=dev)
+        reset_launch_counts()
+        outs[dev] = e.serve(prompts, gens)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert e.graph_entries() == 1 and e.graphs.replays == e.ticks
+            assert launch_counts()["flash_star"] == cfg.num_layers * (len(prompts) + e.ticks)
+    assert outs["cuda"] == outs["cpu"]
+    lock = np.random.default_rng(12).integers(0, 256, (2, 9))
+    got = [ServeEngine(cfg, p, ServeConfig(max_len=MAX_LEN), device=dev).generate(lock, 8)[0]
+           for dev, p in (("cuda", gpu), ("cpu", params))]
+    assert torch.equal(got[0].cpu(), got[1])
+
+
+@pytest.mark.cuda
 def test_launch_counts_hold_under_replay_on_card(cuda):
     """Served greedy on the card: one capture, replays == ticks, the paged
     kernel once per layer of every tick (counted through replays), tokens
@@ -523,7 +563,7 @@ def test_launch_counts_hold_under_replay_on_card(cuda):
     for dev in ("cuda", "cpu"):
         p = params if dev == "cpu" else tree_map(lambda t: t.cuda(), params)
         eng = ContinuousBatchingEngine(cfg, p, ContinuousConfig(
-            num_slots=2, max_len=MAX_LEN, kv_block_size=4), device=dev)
+            num_slots=2, max_len=MAX_LEN, kv_layout="paged", kv_block_size=4), device=dev)
         reset_launch_counts()
         outs[dev] = eng.serve(prompts, gens)
         if dev == "cuda":
