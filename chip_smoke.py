@@ -74,7 +74,12 @@ Phases (any failure exits non-zero before the result lines):
    pool row with kv_valid 515/387/259/131 and ``causal=False`` (the dense
    tick), and at q_offset 512, ``causal=True``, kv_valid 513 (the lockstep
    step), bf16 and float32, STAR and exact, with the bound of the live K/V
-   rows and SDPA at ``Tq = 1`` with a boolean mask (library time only);
+   rows and SDPA at ``Tq = 1`` with a boolean mask (library time only).
+   The STAR softmax at the MoE router's shapes (ROUTER_SHAPES: [512, 32],
+   [4, 32] and [64, 4]), float32 and bfloat16: one CTA a row, the
+   probabilities bit-equal to the plain version's (which adds a row in the
+   kernel's order) and the CPU's, the top-k experts equal, device time and
+   the bound of its bytes;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens (the config computes in float32, so every
@@ -98,7 +103,12 @@ Phases (any failure exits non-zero before the result lines):
    dense with 8-token chunks, the lockstep engine on granite (flash_star
    once per layer of the prefill and of each replay), and the
    ``sliding_window=16`` ring on the dense and the paged layout and on the
-   lockstep engine;
+   lockstep engine.  Then the MoE family, card == CPU greedy tokens:
+   granite-moe-1b-a400m's and mixtral-8x22b's smoke configs (mixtral's
+   window of 16: every path a ring) on the dense, paged and chunked
+   (``prefix_cache=True``, which a MoE arch declines) continuous paths and
+   the lockstep engine, the router's softmax kernel once per layer of every
+   prefill or chunk and of every tick;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed and cast to bf16 once
    (``compute_params``, shared by every engine after it), the
@@ -187,7 +197,22 @@ Phases (any failure exits non-zero before the result lines):
    parts, the reference's top-2 margin at that step must stay within
    SSD_DIVERGENCE_FACTOR x the bf16 prefill logits' max_abs difference; one
    prefill is traced;
-9. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+9. MoE serve: granite-moe-1b-a400m at its published widths and all 24
+   layers (32 experts, top-8), random weights drawn on the card from a seed
+   and cast to bf16 once, after granite-8b's weights are freed.  The phase
+   5 traffic on the dense pool, then on the paged pool in 128-token chunks
+   with ``prefix_cache=True``.  Counters zeroed just before and read just
+   after: the STAR softmax once per layer of every prefill or chunk and of
+   every tick (the router) plus once per admission and per tick (sampling),
+   counted through the replays; flash_star and the paged kernel as in
+   phases 5 and 5b.  Tok/s with and without the capture, TTFT p50, peak
+   memory.  One 512-token prefill: each layer's router probabilities from
+   the kernel bit-equal to the plain version's on the same logits, the
+   top-8 experts equal.  4 x 512-token greedy lockstep generations of 32
+   tokens with ``softmax`` ``pallas`` and ``reference``: the same tokens.
+   One steady dense and one steady paged tick traced as in phase 5 (replay
+   bit-equal to the eager tick, device time by group);
+10. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
    each path's own count under ``launches_by_path``) and, last, the device
    line.
 
@@ -250,6 +275,10 @@ MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
             adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
 SEVERE = dict(stuck_on_rate=0.6, stuck_off_rate=0.2, seed=3)
 SOFTMAX_SHAPES = ((4, 49152), (8, 50688))  # sampling: granite-8b's 4 slots, Mamba2's 8 rows
+# the MoE router's rows, experts and top-k: granite-moe-1b-a400m's 512-token
+# prefill and 4-slot tick, and mixtral's smoke config over a 64-token prefill
+ROUTER_SHAPES = ((512, 32, 8), (4, 32, 8), (64, 4, 2))
+MOE_ARCH = "granite_moe_1b_a400m"
 SOFTMAX_DESIGN = ("one thread-block cluster a row (up to 8 CTAs, 16-byte slices in registers), "
                   "row max and denominator through distributed shared memory")
 CROSSBAR_DESIGN = ("128 x 32/64 CTA tiles, cp.async stage; clean s8 mma.sync into int32; faulty "
@@ -1280,6 +1309,51 @@ def parity_softmax_lut(results):
     results[-1].update(design=SOFTMAX_DESIGN, device_ms=main["device_ms"])
 
 
+def parity_softmax_router():
+    """The STAR softmax kernel at the MoE router's shapes (ROUTER_SHAPES),
+    float32 and bfloat16: one CTA a row (``cluster_size(d) == 1``), the
+    probabilities bit-equal to the plain version's (which adds a row in the
+    kernel's order) and to the CPU plain version's, the top-k experts equal;
+    device time per launch and the bound of its bytes.  Returns the
+    variants, kept under the ``star_softmax`` entry."""
+    import torch
+
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.kernels.star_softmax import kernel as sk
+    from repro_torch.models.layers import top_k
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    variants = []
+    for rows, d, k in ROUTER_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(rows, d, device=dev, generator=gen) * 4).to(dtype)
+            name = f"star_softmax router {str(dtype).split('.')[-1]} [{rows}, {d}] top-{k}"
+            got, ref = sk.star_softmax_kernel(x, FMT), sk.star_softmax_ref(x, FMT)
+            torch.cuda.synchronize()
+            check(sk.cluster_size(d) == 1, f"{name}: cluster of {sk.cluster_size(d)} CTAs")
+            check(torch.equal(got, ref), f"{name}: {int((got != ref).sum())} probabilities "
+                  f"differ from the plain version (max {float((got - ref).abs().max()):.3e})")
+            check(torch.equal(got.cpu(), sk.star_softmax_ref(x.cpu(), FMT)),
+                  f"{name}: the cpu plain version differs")
+            check(torch.equal(top_k(got, k)[1], top_k(ref, k)[1]), f"{name}: top-{k} differ")
+            fn = lambda: sk.star_softmax_kernel(x, FMT)  # noqa: E731
+            ms, plain_ms = time_ms(fn), time_ms(lambda: sk.star_softmax_ref(x, FMT))
+            dev_ms = device_ms_per_launch(fn, "star_softmax_lut_kernel")
+            nbytes = x.numel() * (x.element_size() + 4) + 3 * FMT.num_levels * 4
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = 16 * x.numel() / H100_FP32_FLOPS * 1e3
+            log(f"{name}: 1 CTA a row ({rows} CTAs), bit-equal to the plain version and to "
+                f"the cpu plain version, top-{k} experts equal; ms={ms:.4f} device_ms={dev_ms} "
+                f"plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.6f} (bytes {nbytes})")
+            variants.append(dict(shape=str([rows, d]), dtype=str(dtype).split(".")[-1],
+                                 top_k=k, cluster=1, bit_equal=True, max_abs_err=0.0, ms=ms,
+                                 device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                                 bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                                 bound_by="bytes" if t_bytes >= t_ops else "operations"))
+    return variants
+
+
 def realization_bits() -> None:
     """A fault realization is the same bits on the card and on the CPU: the
     softmax tables, the tile offsets, and the weight-cell factor and masks
@@ -1540,6 +1614,83 @@ def small_reference_dense():
     log(f"small reference dense: flash_star (float32 kernel, D {cfg.resolved_head_dim}) "
         f"launched {dense_launches} times on the card")
     return dense_launches
+
+
+def small_reference_moe():
+    """Phase 4, the MoE family: greedy smoke tokens on the card (kernels)
+    equal the CPU's (plain versions) for granite-moe-1b-a400m on the dense,
+    paged and chunked (paged, 8-token chunks, ``prefix_cache=True``: MoE
+    opts out) continuous paths and the lockstep engine, and for mixtral's
+    smoke config (a window of 16 under ``max_len`` 40: every path a ring)
+    on the same paths.  On the card the router's STAR softmax kernel
+    launches once per layer of every prefill or chunk and of every tick
+    (counted through the replays)."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import materialize, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import (
+        ContinuousBatchingEngine,
+        ContinuousConfig,
+        ServeConfig,
+        ServeEngine,
+    )
+
+    paths = {"dense": dict(kv_layout="dense"),
+             "paged": dict(kv_layout="paged", kv_block_size=4),
+             "chunked": dict(kv_layout="paged", kv_block_size=4, prefill_chunk_tokens=8,
+                             prefix_cache=True)}
+    plans = (("granite_moe_1b_a400m", (5, 11, 8, 3, 19), [4, 2, 5, 3, 6]),
+             ("mixtral_8x22b", (20, 11, 18, 3), [14, 9, 12, 5]))
+    for arch, lens, gens in plans:
+        cfg = dataclasses.replace(get_smoke_config(arch), attn_impl="pallas")
+        nl = cfg.num_layers
+        params_cpu = materialize(build_model(cfg).param_specs(), SEED, "cpu")
+        params_gpu = tree_map(lambda x: x.cuda(), params_cpu)
+        rng = np.random.default_rng(SEED + 4)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+        lock = rng.integers(0, cfg.vocab_size, (3, 9))
+        with ops.use(softmax="pallas"):
+            for label, kw in paths.items():
+                outs = {}
+                for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+                    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+                        num_slots=2, max_len=40, **kw), device=dev)
+                    reset_launch_counts()
+                    outs[dev] = eng.serve(prompts, gens)
+                    check_graphs(eng, f"smoke {arch} {label} on {dev}")
+                    check(eng.prefix is None, f"smoke {arch} {label}: a MoE arch kept a "
+                          f"prefix cache")
+                    if dev == "cuda":
+                        calls = int(eng.metrics.counter("serve.prefill.calls").value())
+                        got = launch_counts().get("star_softmax", 0)
+                        check(got == nl * (calls + eng.ticks),
+                              f"smoke {arch} {label}: star_softmax launched {got} times, "
+                              f"expected {nl * (calls + eng.ticks)} (one per layer of {calls} "
+                              f"prefills or chunks and {eng.ticks} ticks)")
+                check(outs["cuda"] == outs["cpu"],
+                      f"smoke {arch} {label} greedy tokens differ card vs cpu: {outs['cuda']} "
+                      f"vs {outs['cpu']}")
+                log(f"small reference {arch} {label}{' (rings)' if eng._ring else ''}: greedy "
+                    f"tokens identical on card and cpu ({sum(gens)} tokens, {len(prompts)} "
+                    f"requests)")
+            outs = {}
+            for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+                eng = ServeEngine(cfg, params, ServeConfig(max_len=40), device=dev)
+                reset_launch_counts()
+                outs[dev], info = eng.generate(lock, 12)
+                if dev == "cuda":
+                    got = launch_counts().get("star_softmax", 0)
+                    check(got == nl * 12 and eng.graphs.replays == 11,
+                          f"smoke {arch} lockstep: star_softmax launched {got} times, expected "
+                          f"{nl * 12} (the prefill and 11 replays)")
+            check(bool((outs["cuda"].cpu() == outs["cpu"]).all()),
+                  f"smoke {arch} lockstep greedy tokens differ card vs cpu")
+            log(f"small reference {arch} lockstep: greedy tokens identical on card and cpu "
+                f"({tuple(outs['cpu'].shape)}, cache_len {info['cache_len']})")
 
 
 # ---------------------------------------------------------------------------
@@ -1878,6 +2029,8 @@ def _kernel_group(name: str) -> str:
         return "star_softmax"
     if "crossbar_tc_kernel" in name or "crossbar_scalar_kernel" in name:
         return "crossbar_matmul"
+    if "sort" in name:  # the MoE router's top-k (a stable sort)
+        return "sort"
     if any(g in name for g in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "gemm"
     if "copy" in name or "cast" in name or "convert" in name:
@@ -2729,6 +2882,207 @@ def serve_mamba(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: granite-moe-1b-a400m at full width, the STAR router on every layer
+
+
+def moe_serve_once(cfg, cparams, cb, prompts, gens, label):
+    """One continuous serve of the phase 5 traffic under
+    ``ops.use(softmax="pallas")``, counters zeroed just before and read just
+    after: the router's STAR softmax once per layer of every prefill (or
+    chunk) and of every tick, and the sampling softmax once per admission and
+    per tick (ticks counted through the replays); flash_star once per layer
+    of every prefill or chunk and, on the dense pool, of every tick; the
+    paged kernel once per layer of every tick on the paged pool, else
+    never."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    with ops.use(softmax="pallas"):
+        eng = ContinuousBatchingEngine(cfg, cparams, cb, device="cuda", seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, ttft_p50 = serve_requests(eng, prompts, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    toks = [t for seq in out for t in seq]
+    check([len(o) for o in out] == gens and all(0 <= t < cfg.vocab_size for t in toks),
+          f"{label}: bad output lengths {[len(o) for o in out]} or a token outside the "
+          f"vocabulary")
+    check_graphs(eng, label)
+    check(eng.prefix is None, f"{label}: a MoE arch kept a prefix cache")
+    nl = cfg.num_layers
+    calls = int(eng.metrics.counter("serve.prefill.calls").value())
+    admitted = int(eng.metrics.counter("serve.requests.admitted").value())
+    paged = eng.kv_layout == "paged"
+    want = {"star_softmax": nl * (calls + eng.ticks) + admitted + eng.ticks,
+            "flash_star": nl * calls + (0 if paged else nl * eng.ticks),
+            "paged_attention": nl * eng.ticks if paged else 0}
+    for name, n in want.items():
+        check(counts.get(name, 0) == n,
+              f"{label}: {name} launched {counts.get(name, 0)} times, expected {n} ({calls} "
+              f"prefills or chunks, {admitted} admissions, {eng.ticks} ticks of {nl} layers)")
+    peak = torch.cuda.max_memory_allocated()
+    capture = eng.graphs.capture_seconds
+    log(f"{label}: {len(prompts)} requests, {len(toks)} tokens in {wall:.3f}s = "
+        f"{len(toks) / wall:.2f} tok/s ({len(toks) / (wall - capture):.2f} tok/s without the "
+        f"warm-up and capture, {capture:.3f}s), {calls} prefills or chunks, {eng.ticks} decode "
+        f"ticks by graph replay ({eng.graph_entries()} capture), ttft p50={1e3 * ttft_p50:.1f}ms, "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB; launches {counts} (warm-up, not "
+        f"counted: {eng.graphs.warmup_launches()})")
+    return counts, {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
+                    "capture_s": capture,
+                    "tok_per_s_without_capture": len(toks) / (wall - capture),
+                    "prefill_calls": calls, "ticks": eng.ticks, "ttft_p50_s": ttft_p50,
+                    "max_memory_allocated": peak, "launches": counts}
+
+
+def serve_moe(results):
+    """Phase 9: granite-moe-1b-a400m at its published widths and all 24
+    layers (32 experts, top-8), random weights drawn on the card from the
+    seed and cast to bf16 once; the phase 5 traffic on the dense pool, then
+    as a paged serve in 128-token chunks with ``prefix_cache=True`` (a MoE
+    arch opts out of sharing: chunked, no trie); one 512-token prefill whose
+    router probabilities from the kernel equal the plain version's bit for
+    bit with equal top-8 experts, in all 24 layers; 4 x 512-token greedy
+    lockstep generations of 32 tokens with the router on the kernel
+    (``softmax`` ``pallas``) and on ``reference``, token for token; one
+    steady tick on each layout traced (device time by group, its replay
+    bit-equal to the eager tick)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.star_softmax import kernel as sk
+    from repro_torch.models import layers as L
+    from repro_torch.models.param import compute_params, count_params, materialize
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ContinuousConfig, ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attn_impl="pallas")
+    model = build_model(cfg)
+    nl = cfg.num_layers
+    t0 = time.perf_counter()
+    params = materialize(model.param_specs(), SEED, "cuda")
+    cparams = compute_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"moe serve: {MOE_ARCH} {nl}L d={cfg.d_model} {cfg.num_experts} experts top-"
+        f"{cfg.top_k} {count_params(model.param_specs()) / 1e9:.3f}B params drawn and cast to "
+        f"{cfg.compute_dtype} once in {time.perf_counter() - t0:.3f}s, memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts, gens = serve_plan(cfg.vocab_size)
+    plans = {
+        "moe serve dense": ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8,
+                                            kv_layout="dense"),
+        "moe serve paged, 128-token chunks": ContinuousConfig(
+            num_slots=4, max_len=512 + 32, temperature=0.8, kv_layout="paged",
+            kv_block_size=16, prefix_cache=True, prefill_chunk_tokens=128),
+    }
+    summary = {}
+    for (label, cb), key in zip(plans.items(), ("moe_dense", "moe_paged_chunked")):
+        counts, summary[key] = moe_serve_once(cfg, cparams, cb, prompts, gens, label)
+        for entry in results:
+            entry["launches_by_path"][key] = counts.get(entry["name"], 0)
+
+    # one 512-token prefill: every layer's router probabilities from the
+    # kernel against the plain version on the same logits
+    fmt = cfg.softmax_spec.fmt
+    routers = []
+    real_softmax = ops.softmax
+
+    def spy(x, spec=None, **kw):
+        out = real_softmax(x, spec, **kw)
+        routers.append((x, out))
+        return out
+
+    tokens = torch.as_tensor(max(prompts, key=len)[:512], device="cuda")[None]
+    ops.softmax = spy
+    try:
+        with torch.no_grad(), ops.use(softmax="pallas"):
+            reset_launch_counts()
+            model.prefill(cparams, tokens, 512 + 32)
+            torch.cuda.synchronize()
+            pre_counts = launch_counts()
+    finally:
+        ops.softmax = real_softmax
+    check(len(routers) == nl and pre_counts.get("star_softmax", 0) == nl,
+          f"moe prefill: {len(routers)} router softmax calls, {pre_counts.get('star_softmax', 0)} "
+          f"kernel launches, expected {nl} of each")
+    unequal = 0
+    for i, (x, probs) in enumerate(routers):
+        check(tuple(x.shape) == (1, tokens.shape[1], cfg.num_experts) and x.dtype == torch.float32,
+              f"moe prefill layer {i}: router logits {tuple(x.shape)} {x.dtype}")
+        plain = sk.star_softmax_ref(x, fmt)
+        unequal += int((probs != plain).sum())
+        check(torch.equal(L.top_k(probs, cfg.top_k)[1], L.top_k(plain, cfg.top_k)[1]),
+              f"moe prefill layer {i}: top-{cfg.top_k} experts differ kernel vs plain")
+    check(unequal == 0, f"moe prefill: {unequal} router probabilities differ from the plain "
+          f"version's")
+    log(f"moe prefill, {tokens.shape[1]} tokens: the router kernel's probabilities bit-equal to "
+        f"the plain version's in all {nl} layers ([1, {tokens.shape[1]}, {cfg.num_experts}] each), "
+        f"top-{cfg.top_k} experts equal")
+    for entry in results:
+        entry["launches_by_path"]["moe_prefill_512"] = pre_counts.get(entry["name"], 0)
+
+    # greedy lockstep: the router on the kernel vs on the reference impl
+    lock_prompts = np.random.default_rng(SEED + 12).integers(0, cfg.vocab_size, (4, 512))
+    n = 32
+    gens_by, lock = {}, {}
+    for impl in ("pallas", "reference"):
+        with ops.use(softmax=impl):
+            eng = ServeEngine(cfg, cparams, ServeConfig(max_len=512 + 32), device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got, info = eng.generate(lock_prompts, n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        gens_by[impl] = got.cpu()
+        cap = eng.graphs.capture_seconds
+        lock[impl] = {"tokens": 4 * n, "wall_s": wall, "tok_per_s": 4 * n / wall,
+                      "capture_s": cap, "tok_per_s_without_capture": 4 * n / (wall - cap),
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": counts}
+        want = nl * n if impl == "pallas" else 0
+        check(counts.get("star_softmax", 0) == want and eng.graphs.replays == n - 1,
+              f"moe lockstep ({impl}): star_softmax launched {counts.get('star_softmax', 0)} "
+              f"times, expected {want}; {eng.graphs.replays} replays")
+        log(f"moe lockstep greedy, softmax {impl}: 4 x 512-token prompts, {4 * n} tokens in "
+            f"{wall:.3f}s = {4 * n / wall:.2f} tok/s ({4 * n / (wall - cap):.2f} without the "
+            f"warm-up and capture), cache_len {info['cache_len']}; launches {counts}")
+        if impl == "pallas":
+            for entry in results:
+                entry["launches_by_path"]["moe_lockstep"] = counts.get(entry["name"], 0)
+    same = torch.equal(gens_by["pallas"], gens_by["reference"])
+    check(same, f"moe lockstep: greedy tokens under the router kernel differ from the "
+          f"reference impl's in {int((gens_by['pallas'] != gens_by['reference']).sum())} of "
+          f"{4 * n}")
+    log(f"moe lockstep: {4 * n} greedy tokens under softmax pallas equal those under reference")
+
+    ticks = {}
+    for layout in ("dense", "paged"):
+        tick = profile_tick(cfg, cparams, kv_layout=layout, label=f", {MOE_ARCH}")
+        check(tick["logits_bit_equal"], f"moe {layout} tick: the replay is not bit-equal to "
+              f"the eager tick")
+        ticks[layout] = tick
+    summary.update(lockstep=lock, ticks=ticks, params_b=count_params(model.param_specs()) / 1e9)
+    del cparams
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2786,6 +3140,8 @@ def main() -> int:
     parity_paged(results)
     parity_softmax(results)
     parity_softmax_lut(results)
+    router = parity_softmax_router()
+    next(e for e in results if e["name"] == "star_softmax")["router_variants"] = router
     parity_ssd_scan(results)
     realization_bits()
     f32_launches = small_reference()
@@ -2793,6 +3149,7 @@ def main() -> int:
     flash["launches_float32_smoke"] = f32_launches
     flash["launches_float32_smoke_dense"] = small_reference_dense()
     small_reference_mamba()
+    small_reference_moe()
     summary, params, cparams = serve(results)
     summary_dense = serve_dense(results, cparams)
     summary_quant = serve_quant(results, cparams)
@@ -2800,13 +3157,14 @@ def main() -> int:
     del params, cparams
     torch.cuda.empty_cache()
     summary_mamba = serve_mamba(results)
+    summary_moe = serve_moe(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
         f"{PROFILES_RETAKEN}")
     log(json.dumps({"serve": summary, "serve_dense": summary_dense, "serve_int8": summary_quant,
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
-                    "card": card}))
+                    "serve_moe": summary_moe, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

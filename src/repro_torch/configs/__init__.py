@@ -8,7 +8,7 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCH_IDS: List[str] = ["granite_8b", "mamba2_130m"]
+ARCH_IDS: List[str] = ["granite_8b", "granite_moe_1b_a400m", "mamba2_130m", "mixtral_8x22b"]
 
 
 def _mod(arch: str):

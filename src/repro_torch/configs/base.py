@@ -1,5 +1,5 @@
-"""Model configuration (port of ``repro.configs.base``: the dense and ssm
-fields).
+"""Model configuration (port of ``repro.configs.base``: the dense, moe and
+ssm fields).
 
 A config carries its op contract as ``repro_torch.ops`` specs; the legacy
 loose fields (``softmax_kind``, ``attn_impl``, ...) stay as constructor
@@ -22,7 +22,7 @@ _ATTN_IMPLS = {"naive": "reference", "blocked": "xla", "flash": "pallas"}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm (the families ported so far)
+    family: str  # dense | moe | ssm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -36,6 +36,15 @@ class ModelConfig:
     norm_eps: float = 1e-6
     mlp_type: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = False
+
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # names the reference's sharding of the experts (tp: expert weights
+    # column-parallel; ep: expert-parallel); on one card it changes nothing
+    moe_style: str = "tp"
+    star_router: bool = True  # the router's softmax through the STAR engine too
 
     # --- SSM (mamba2) ---
     ssm_state: int = 0
@@ -123,6 +132,9 @@ class ModelConfig:
                 f"GQA needs num_heads % num_kv_heads == 0, got "
                 f"{self.num_heads} % {self.num_kv_heads}"
             )
+        if self.family == "moe" and (self.num_experts <= 0 or self.top_k <= 0):
+            raise ValueError(f"the moe family needs num_experts > 0 and top_k > 0, got "
+                             f"{self.num_experts} and {self.top_k}")
         if self.family == "ssm" and self.ssm_state <= 0:
             raise ValueError(f"the ssm family needs ssm_state > 0, got {self.ssm_state}")
         return self

@@ -19,7 +19,7 @@ differ, as the hardware paths they model do.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -51,12 +51,15 @@ def star_softmax(
     where: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
     fault: Optional[FaultModel] = None,
+    row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Quantized LUT softmax along ``axis``.
 
     ``where`` masks entries out (probability 0, not counted in the
     denominator); fully masked rows come out as zeros.  ``fault`` injects
-    the seeded device non-idealities (``None``: ideal device).
+    the seeded device non-idealities (``None``: ideal device).  ``row_sum``
+    (the numerators ``[..., d]`` -> their sums ``[..., 1]``) fixes the order
+    of the ``gather`` / ``onehot`` denominator; default ``sum(-1)``.
     """
     if mode not in Modes:
         raise ValueError(f"mode must be one of {Modes}, got {mode!r}")
@@ -102,7 +105,7 @@ def star_softmax(
             if gain is not None:
                 den = den * gain
     else:
-        den = num.sum(dim=-1, keepdim=True)
+        den = row_sum(num) if row_sum is not None else num.sum(dim=-1, keepdim=True)
     den = torch.where(den <= 0.0, torch.ones_like(den), den)
     return torch.movedim(num / den, -1, axis).to(out_dtype)
 

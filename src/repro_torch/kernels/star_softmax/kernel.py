@@ -23,7 +23,10 @@ as ``star_softmax`` (clean ``gather`` / ``onehot``) or ``star_softmax_lut``
 (``histogram`` and every faulty call).
 
 On a CPU tensor the plain version (``star_softmax_ref``: the reference
-engine ``core.star_softmax`` with the same realization) runs instead.
+engine ``core.star_softmax`` with the same realization) runs instead.  In
+``gather`` / ``onehot`` mode it adds the row's numerators in the kernel's
+order (``kernel_order_sum``), so the two agree bit for bit; the histogram
+denominator is the engine's own dot.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ MAX_LEVELS = 4096  # three tables and the counters in shared memory: 16 L bytes
 CLUSTER_MAX = 8  # CTAs a row: the portable cluster size
 SLICE_TARGET = 4096  # columns a CTA takes before a row is split over more
 SLICE_ALIGN = 8  # slices start on 16 bytes of float32 or bfloat16 x
+NT = 256  # the kernel's threads a CTA (``NT`` in the source)
+WARP = 32
 
 
 def cluster_size(d: int) -> int:
@@ -65,10 +70,51 @@ def slice_len(d: int, cluster: int) -> int:
     return -(-per_cta // SLICE_ALIGN) * SLICE_ALIGN
 
 
+def kernel_order_sum(p: torch.Tensor, x_dtype: torch.dtype) -> torch.Tensor:
+    """Sums over the last axis of ``p`` ``[..., d]`` (float32), keepdim, in
+    the order the kernel adds a row's numerators for an input of
+    ``x_dtype``: rank ``q`` of the row's cluster takes columns ``[q * slice,
+    (q + 1) * slice)``; thread ``t`` of a CTA adds, from 0, the elements
+    ``(g * NT + t) * V + e`` of its slice (``V`` of them in 16 bytes of x)
+    for ``g``, then ``e``, ascending; a warp adds its lanes' partials by the
+    butterfly (lane ``l`` + lane ``l + o`` for ``o`` = 16 .. 1), the CTA its
+    warps' the same way, and the row its ranks' partials in rank order,
+    from 0.  Every step is one float32 addition, so the result is the
+    kernel's on any device."""
+    d = p.shape[-1]
+    rows = p.reshape(-1, d)
+    n = rows.shape[0]
+    c = cluster_size(d)
+    s = slice_len(d, c)
+    v = 16 // x_dtype.itemsize if x_dtype in DTYPES else 4
+    span = NT * v
+    groups = -(-s // span)
+    sliced = torch.nn.functional.pad(rows, (0, c * s - d)).reshape(n, c, s)
+    t = torch.nn.functional.pad(sliced, (0, groups * span - s)).reshape(n, c, groups, NT, v)
+    part = torch.zeros((n, c, NT), dtype=p.dtype, device=p.device)
+    for g in range(groups):
+        for e in range(v):
+            part = part + t[:, :, g, :, e]
+    lanes = part.reshape(n, c, NT // WARP, WARP)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    warps = lanes[..., 0]
+    o = NT // WARP // 2
+    while o:
+        warps = warps[..., :o] + warps[..., o:2 * o]
+        o //= 2
+    den = torch.zeros((n,), dtype=p.dtype, device=p.device)
+    for q in range(c):
+        den = den + warps[:, q, 0]
+    return den.reshape(p.shape[:-1] + (1,))
+
+
 def star_softmax_ref(x: torch.Tensor, fmt: FixedPointFormat, *, mode: str = "gather",
                      fault: Optional[FaultModel] = None) -> torch.Tensor:
-    """The plain version of the kernel: the reference engine."""
-    return star_softmax(x, fmt, mode=mode, fault=fault, dtype=torch.float32)
+    """The plain version of the kernel: the reference engine, the row sum
+    of ``gather`` / ``onehot`` mode taken in the kernel's order."""
+    return star_softmax(x, fmt, mode=mode, fault=fault, dtype=torch.float32,
+                        row_sum=lambda num: kernel_order_sum(num, x.dtype))
 
 
 def star_softmax_kernel(

@@ -1,5 +1,6 @@
-"""Model building blocks (port of ``repro.models.layers``: the dense subset
-and the causal depthwise conv of the ssm family).
+"""Model building blocks (port of ``repro.models.layers``: the dense subset,
+the MoE block with its STAR router and the causal depthwise conv of the ssm
+family).
 
 Functional style as in the reference: parameters are dicts of tensors,
 layers are functions.  Weights are read through ``.to(compute_dtype)``
@@ -315,6 +316,116 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu default
     return h @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE (granite-moe: 32 experts; mixtral: 8)
+
+
+def spec_moe(cfg: ModelConfig) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pd = pdtype(cfg)
+    return {"router": ParamSpec((d, e), pd), "wi": ParamSpec((e, d, f), pd),
+            "wg": ParamSpec((e, d, f), pd), "wo": ParamSpec((e, f, d), pd)}
+
+
+def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Per-expert queue capacity of a ``tokens_per_group``-token call.  A
+    chunked prefill passes the capacity of the whole prompt into every chunk
+    (with the carried queue counts, ``moe(state=...)``), so its drops are
+    those of one monolithic prefill."""
+    return max(1, int(cfg.capacity_factor * cfg.top_k * tokens_per_group / cfg.num_experts))
+
+
+def router_spec(cfg: ModelConfig) -> ops.SoftmaxSpec:
+    """The router's softmax: the config's spec (the STAR engine), its exact
+    oracle when ``star_router`` is off; an exact router goes to the
+    ``reference`` impl, since the kernel backend is STAR only."""
+    spec = cfg.softmax_spec
+    if not cfg.star_router:
+        spec = dataclasses.replace(spec, kind="exact")
+    if spec.kind == "exact":
+        spec = dataclasses.replace(spec, impl="reference")
+    return spec
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of the last axis and their indices, ties to
+    the lower index (``jax.lax.top_k``'s order; ``torch.topk`` breaks ties
+    otherwise, and quantized STAR probabilities tie often)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 one-hot of ``idx`` over ``n`` classes by comparison with an
+    ``arange``: an index outside ``[0, n)`` is a zero row (as
+    ``jax.nn.one_hot``), with no range check read back to the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    state: Optional[torch.Tensor] = None,
+    capacity: Optional[int] = None,
+):
+    """Grouped one-hot dispatch MoE (GShard-style, capacity-dropped); one
+    group per batch row.  The router softmax goes through ``ops.softmax``
+    with ``router_spec(cfg)``: the STAR engine (the kernel under
+    ``impl="pallas"``).
+
+    ``state`` (``[groups, experts]`` int32: the per-expert counts of earlier
+    chunks of the same sequences) and ``capacity`` (the whole sequence's)
+    make the drops chunk-invariant: every (token, choice) takes its global
+    queue position.  Given either, the call returns ``(y, new_state)``,
+    whose counts include dropped choices; the bare form returns ``y``.
+
+    The dense products (dispatch, the experts, combine) are the reference's
+    einsums.  Every step stays on the device: the one-hots compare against
+    an ``arange`` and nothing is read back, so a CUDA graph captures it."""
+    dt = cdtype(cfg)
+    b, t, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    groups, tg = b, t
+    xg = x.reshape(groups, tg, d)
+    stateful = state is not None or capacity is not None
+
+    logits = (xg @ p["router"].to(dt)).float()
+    probs = ops.softmax(logits, router_spec(cfg))
+    gate_vals, gate_idx = top_k(probs, k)  # [g, t, k]
+    total = gate_vals[..., 0]
+    for i in range(1, k):  # the reference's order of the sum over k
+        total = total + gate_vals[..., i]
+    gate_vals = gate_vals / torch.clamp(total, min=1e-9)[..., None]
+
+    cap = capacity if capacity is not None else moe_capacity(cfg, tg)
+    # each (token, choice)'s position in its expert's queue
+    onehot = _one_hot(gate_idx, e)  # [g, t, k, e]
+    flat = onehot.reshape(groups, tg * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(groups, tg, k, e)
+    if state is not None:  # offset by the earlier chunks' counts: global positions
+        pos = pos + state.float()[:, None, None, :]
+    pos = (pos * onehot).sum(dim=-1)  # [g, t, k]
+    keep = pos < cap
+    gate_vals = gate_vals * keep
+
+    pos_oh = _one_hot(pos.long(), cap)  # [g, t, k, cap]: a dropped choice is a zero row
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot * keep[..., None], pos_oh)
+    combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gate_vals)
+
+    xin = torch.einsum("gtec,gtd->egcd", dispatch, xg.float()).to(dt)
+    h = torch.einsum("egcd,edf->egcf", xin, p["wi"].to(dt))
+    g_ = torch.einsum("egcd,edf->egcf", xin, p["wg"].to(dt))
+    h = torch.nn.functional.silu(g_) * h
+    out = torch.einsum("egcf,efd->egcd", h, p["wo"].to(dt))
+    y = torch.einsum("gtec,egcd->gtd", combine.to(dt), out).reshape(b, t, d)
+    if not stateful:
+        return y
+    counts = onehot.sum(dim=(1, 2)).to(torch.int32)  # [g, e], dropped choices included
+    return y, counts if state is None else state + counts
 
 
 # ---------------------------------------------------------------------------

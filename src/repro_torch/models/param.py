@@ -96,12 +96,13 @@ def from_reference(np_params, cfg, device: Device = None) -> Params:
 
 
 # the leaves the layers read only through ``.to(compute_dtype)``: the
-# attention and MLP projections (and biases), the unembed kernel, the embed
-# table (gather-then-cast equals cast-then-gather, ``layers.embed``) and
-# Mamba2's in / out projections and conv kernel.  Norm scales, ``A_log``,
-# ``D``, ``dt_bias`` and ``out_norm`` are read through ``.float()`` and stay.
+# attention and MLP projections (and biases), the MoE router and experts, the
+# unembed kernel, the embed table (gather-then-cast equals cast-then-gather,
+# ``layers.embed``) and Mamba2's in / out projections and conv kernel.  Norm
+# scales, ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` are read through
+# ``.float()`` and stay.
 CAST_ONCE = frozenset({
-    "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg", "kernel", "table",
+    "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg", "router", "kernel", "table",
     "in_proj", "out_proj",
 })
 

@@ -1,4 +1,5 @@
-"""Model registry: family -> implementation class (dense and ssm so far)."""
+"""Model registry: family -> implementation class (dense, moe and ssm so
+far)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)
-    raise ValueError(f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+    raise ValueError(f"family {cfg.family!r} is not ported yet (dense, moe and ssm only)")

@@ -1,9 +1,15 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM, dense and MoE families (port of
 ``repro.models.transformer.DecoderLM``: forward, prefill, chunked
 ``prefill_extend``, the lockstep decode cache, the dense per-slot pool and
 the paged pool over fp32 or quantized pages, and sliding-window rings on
 each).  The reference's ``scan`` over stacked layers is a Python loop over
 the ``[L]`` axis of the parameter tree.
+
+A MoE block (``layers.moe``) replaces the MLP.  Prefill and chunks given
+``moe_capacity`` (the whole prompt's, ``moe_prefill_capacity``) carry the
+per-layer expert counts in the cache (``layers["moe"]``, ``[L, B, E]``
+int32) so that a chunked prefill drops the tokens a monolithic one drops;
+decode is stateless (one token a group: capacity 1, no drop).
 """
 
 from __future__ import annotations
@@ -23,20 +29,21 @@ Params = Dict[str, Any]
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
-            raise ValueError(f"only the dense family is ported, got {cfg.family!r}")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"DecoderLM is the dense and moe families, got {cfg.family!r}")
         self.cfg = cfg.validate()
 
     # -- parameters -----------------------------------------------------------
 
     def block_spec(self) -> Params:
         cfg = self.cfg
-        return {
-            "ln1": L.spec_rmsnorm(cfg),
-            "attn": L.spec_attention(cfg),
-            "ln2": L.spec_rmsnorm(cfg),
-            "mlp": L.spec_mlp(cfg),
-        }
+        spec = {"ln1": L.spec_rmsnorm(cfg), "attn": L.spec_attention(cfg),
+                "ln2": L.spec_rmsnorm(cfg)}
+        if cfg.family == "moe":
+            spec["moe"] = L.spec_moe(cfg)
+        else:
+            spec["mlp"] = L.spec_mlp(cfg)
+        return spec
 
     def param_specs(self) -> Params:
         cfg = self.cfg
@@ -49,15 +56,27 @@ class DecoderLM:
 
     # -- blocks ---------------------------------------------------------------
 
-    def _block(self, bp: Params, h: torch.Tensor, positions, cache=None, paged_cache_t=None):
+    def _block(self, bp: Params, h: torch.Tensor, positions, cache=None, paged_cache_t=None,
+               moe_capacity: Optional[int] = None, moe_state: Optional[torch.Tensor] = None):
+        """One block: ``(h, cache', (k, v), moe counts)``.  The MoE block runs
+        stateful (chunk-invariant drops, its counts returned) when given the
+        prior counts or a capacity, else bare (counts None)."""
         cfg = self.cfg
         a, new_cache, kv = L.attention_block(
             bp["attn"], L.rmsnorm(bp["ln1"], h, cfg.norm_eps), cfg,
             positions=positions, cache=cache, paged_cache_t=paged_cache_t,
         )
         h = h + L.attention_out(bp["attn"], a, cfg)
-        h = h + L.mlp(bp["mlp"], L.rmsnorm(bp["ln2"], h, cfg.norm_eps), cfg)
-        return h, new_cache, kv
+        hn = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
+        counts = None
+        if cfg.family != "moe":
+            h = h + L.mlp(bp["mlp"], hn, cfg)
+        elif moe_state is not None or moe_capacity is not None:
+            y, counts = L.moe(bp["moe"], hn, cfg, state=moe_state, capacity=moe_capacity)
+            h = h + y
+        else:
+            h = h + L.moe(bp["moe"], hn, cfg)
+        return h, new_cache, kv, counts
 
     def _positions(self, b: int, t: int, device) -> torch.Tensor:
         return torch.arange(t, dtype=torch.int32, device=device)[None].expand(b, t)
@@ -70,7 +89,7 @@ class DecoderLM:
         h = L.embed(params["embed"], tokens, cfg)
         pos = self._positions(*tokens.shape, tokens.device)
         for i in range(cfg.num_layers):
-            h, _, _ = self._block(layer(params["blocks"], i), h, pos)
+            h = self._block(layer(params["blocks"], i), h, pos)[0]
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         return L.unembed(params["unembed"], h, cfg, params["embed"])
 
@@ -80,13 +99,16 @@ class DecoderLM:
         return max_len
 
     def prefill(self, params: Params, tokens: torch.Tensor, max_len: int, *,
-                cache_t: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+                cache_t: Optional[int] = None,
+                moe_capacity: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
         """Process a prompt: (last-position logits ``[B, 1, V]``, cache with
         K/V ``[L, B, ct, Hkv, D]``, zero past the prompt).  ``ct`` is
         ``cache_t`` when given (chunked prefill sizes its linear staging
         buffer so later chunks can append), else ``cache_len(max_len)``.  A
         sliding window shorter than the prompt keeps its last ``ct`` rows in
-        ring order (``layers.fit_window_cache``)."""
+        ring order (``layers.fit_window_cache``).  ``moe_capacity`` (a MoE
+        model) sets the experts' queue capacity and adds the per-layer
+        expert counts ``layers["moe"]`` to the cache."""
         cfg = self.cfg
         b, t = tokens.shape
         ct = cache_t if cache_t is not None else self.cache_len(max_len)
@@ -98,25 +120,34 @@ class DecoderLM:
         shape = (cfg.num_layers, b, ct, cfg.num_kv_heads, cfg.resolved_head_dim)
         ks = torch.zeros(shape, dtype=L.cdtype(cfg), device=tokens.device)
         vs = torch.zeros_like(ks)
+        counts = []
         for i in range(cfg.num_layers):
-            h, _, (k, v) = self._block(layer(params["blocks"], i), h, pos)
+            h, _, (k, v), c = self._block(layer(params["blocks"], i), h, pos,
+                                          moe_capacity=moe_capacity)
             if t > ct:  # a window shorter than the prompt: the rolled last ct rows
                 k, v = L.fit_window_cache(k, v, 1, ct, t)
             ks[i, :, :k.shape[1]] = k
             vs[i, :, :v.shape[1]] = v
+            counts.append(c)
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         seq = torch.tensor(t, dtype=torch.int32, device=tokens.device)
-        return logits, {"layers": {"k": ks, "v": vs}, "len": seq, "pos": seq.clone()}
+        layers = {"k": ks, "v": vs}
+        if counts[0] is not None:
+            layers["moe"] = torch.stack(counts)
+        return logits, {"layers": layers, "len": seq, "pos": seq.clone()}
 
-    def prefill_extend(self, params: Params, cache: Params,
-                       tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    def prefill_extend(self, params: Params, cache: Params, tokens: torch.Tensor, *,
+                       moe_capacity: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
         """Append a prompt chunk to a linear staging cache, in place.
 
         tokens ``[1, c]`` land at rows ``[len, len + c)`` (queries at offset
         ``len``, causal against every cached row), so ``prefill`` plus
         ``prefill_extend`` chunks give the KV rows and final logits of one
-        monolithic ``prefill``.  Returns (last-position logits, cache')."""
+        monolithic ``prefill``.  A MoE model continues the cache's expert
+        counts (``layers["moe"]``) under ``moe_capacity``, so the chunks
+        drop what the monolithic prefill drops.  Returns (last-position
+        logits, cache')."""
         cfg = self.cfg
         b, c = tokens.shape
         start = int(cache["len"])
@@ -124,14 +155,22 @@ class DecoderLM:
         pos = (int(cache["pos"]) + torch.arange(c, dtype=torch.int32, device=tokens.device))
         pos = pos[None].expand(b, c)
         layers = cache["layers"]
+        prior = layers.get("moe")
+        counts = []
         for i in range(cfg.num_layers):
             layer_cache = {"k": layers["k"][i], "v": layers["v"][i], "len": start}
-            h, _, _ = self._block(layer(params["blocks"], i), h, pos, cache=layer_cache)
+            h, _, _, cnt = self._block(
+                layer(params["blocks"], i), h, pos, cache=layer_cache,
+                moe_capacity=moe_capacity, moe_state=None if prior is None else prior[i])
+            counts.append(cnt)
         # rmsnorm is positionwise: norming the last row alone matches the
         # monolithic norm-then-slice
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
-        return logits, {"layers": layers, "len": cache["len"] + c, "pos": cache["pos"] + c}
+        out = {"k": layers["k"], "v": layers["v"]}
+        if counts[0] is not None:
+            out["moe"] = torch.stack(counts)
+        return logits, {"layers": out, "len": cache["len"] + c, "pos": cache["pos"] + c}
 
     # -- dense slot pool (continuous batching) and the lockstep decode ---------
 
@@ -170,13 +209,21 @@ class DecoderLM:
         % ``wlen``): ring slot ``s`` takes the latest staged row congruent to
         ``s``, ``j = s + floor((T - 1 - s) / wlen) * wlen`` with ``T`` the
         cache's device ``len``; slots ``s >= T`` clamp to row 0 (masked:
-        decode trusts ``min(len, wlen)`` rows)."""
+        decode trusts ``min(len, wlen)`` rows).  Only K and V are kept: a
+        MoE staging cache's expert counts are dropped, as decode is
+        stateless."""
         k = cache["layers"]["k"]
         s = torch.arange(wlen, device=k.device)
         j = torch.clamp(s + ((cache["len"].long() - 1 - s) // wlen) * wlen, 0, k.shape[2] - 1)
-        return {"layers": {name: leaf.index_select(2, j)
-                           for name, leaf in cache["layers"].items()},
+        return {"layers": {name: cache["layers"][name].index_select(2, j) for name in ("k", "v")},
                 "len": cache["len"], "pos": cache["pos"]}
+
+    def moe_prefill_capacity(self, rows: int) -> Optional[int]:
+        """The expert capacity of a ``rows``-row prompt (None for a dense
+        model): what every chunk of that prompt must use."""
+        if self.cfg.family != "moe":
+            return None
+        return L.moe_capacity(self.cfg, rows)
 
     def decode_step(self, params: Params, cache: Params,
                     tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
@@ -184,7 +231,8 @@ class DecoderLM:
         or a dense per-slot pool (``[S]`` counters): tokens ``[B, 1]`` ->
         (logits ``[B, 1, V]``, the same cache).  Every state update is in
         place — each row's KV write, then ``len`` and ``pos`` advance by
-        one — so a CUDA graph of the step owns the cache."""
+        one — so a CUDA graph of the step owns the cache.  A MoE block runs
+        bare (one token a group: capacity 1)."""
         cfg = self.cfg
         b = tokens.shape[0]
         h = L.embed(params["embed"], tokens, cfg)
@@ -193,7 +241,7 @@ class DecoderLM:
         layers = cache["layers"]
         for i in range(cfg.num_layers):
             layer_cache = {"k": layers["k"][i], "v": layers["v"][i], "len": cache["len"]}
-            h, _, _ = self._block(layer(params["blocks"], i), h, pos, cache=layer_cache)
+            h = self._block(layer(params["blocks"], i), h, pos, cache=layer_cache)[0]
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         cache["len"].add_(1)
@@ -321,8 +369,8 @@ class DecoderLM:
         for i in range(cfg.num_layers):
             layer_cache = {name: leaf[i] for name, leaf in layers.items()}
             layer_cache.update(len=cache["len"], tables=block_tables)
-            h, _, _ = self._block(layer(params["blocks"], i), h, pos,
-                                  cache=layer_cache, paged_cache_t=cache_t)
+            h = self._block(layer(params["blocks"], i), h, pos,
+                            cache=layer_cache, paged_cache_t=cache_t)[0]
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         cache["len"].add_(1)

@@ -4,7 +4,10 @@ synchronized decode) for attention models and the ssm family; and
 ``ContinuousBatchingEngine`` for the attention family, over the dense
 per-slot KV pool (the default layout) or the paged block pool, with
 quantized page pools, the shared-prefix cache and preemption on the paged
-layout, chunked prefill and sliding-window ring caches on both.
+layout, chunked prefill and sliding-window ring caches on both.  Dense and
+MoE models serve alike; a MoE prompt's chunks share its whole-prompt expert
+capacity, and a MoE arch opts out of the prefix cache, as in the
+reference.
 
 The layout: ``ContinuousConfig.kv_layout`` picks it, and the ``"paged"``
 marker impl of ``attention`` — through ``ops.use(attention="paged")`` or the
@@ -296,7 +299,7 @@ class ContinuousConfig:
     # usable blocks (scratch excluded); None = num_slots * ceil(cache_len / bs)
     kv_pool_blocks: Optional[int] = None
     # shared-prefix KV cache: a radix trie over block-size token chunks
-    # (paged layout only; rings opt out)
+    # (paged layout only; rings and MoE archs opt out)
     prefix_cache: bool = False
     # chunked prefill: prompt tokens prefilled per tick (None: monolithic)
     prefill_chunk_tokens: Optional[int] = None
@@ -418,8 +421,9 @@ class ContinuousBatchingEngine:
             self._tables_dev = torch.full((s_count, self._slot_blocks), SCRATCH_BLOCK,
                                           dtype=torch.int32, device=self.device)
             # rings opt out of sharing: a wrapped window no longer holds the
-            # prefix rows a later request would adopt
-            if cb_cfg.prefix_cache and not self._ring:
+            # prefix rows a later request would adopt; MoE archs opt out as
+            # the reference's do (the requests still take the chunked path)
+            if cb_cfg.prefix_cache and not self._ring and model_cfg.family != "moe":
                 self.prefix = PrefixCache(self.block_pool, metrics=self.metrics)
         else:
             if cb_cfg.kv_dtype != "fp32":
@@ -726,6 +730,8 @@ class ContinuousBatchingEngine:
             "req": req, "tokens": tokens, "rows": len(tokens), "p0": p0,
             "shared": list(shared), "suffix": tokens[p0:], "done": 0,
             "cache": None, "logits": None, "Ts": self._staging_rows(len(tokens)),
+            # a MoE prompt's expert capacity, the same in every chunk
+            "moe_cap": self.model.moe_prefill_capacity(len(tokens)),
         }
         slot.prefilling = True
         self._observe_queue_wait(req)
@@ -759,10 +765,11 @@ class ContinuousBatchingEngine:
                             self.pool, st["shared"], st["p0"], st["Ts"])
                     if st["cache"] is None:
                         st["logits"], st["cache"] = self.model.prefill(
-                            self.params, chunk, self.cb.max_len, cache_t=st["Ts"])
+                            self.params, chunk, self.cb.max_len, cache_t=st["Ts"],
+                            moe_capacity=st["moe_cap"])
                     else:
                         st["logits"], st["cache"] = self.model.prefill_extend(
-                            self.params, st["cache"], chunk)
+                            self.params, st["cache"], chunk, moe_capacity=st["moe_cap"])
                 self._m_prefills.inc()
                 st["done"] += c
                 budget -= c
@@ -781,6 +788,8 @@ class ContinuousBatchingEngine:
         cache = st["cache"]
         if self._ring:
             cache = self.model.finalize_ring_cache(cache, self._cache_t)
+        elif "moe" in cache["layers"]:
+            cache = self._strip_staging_cache(cache)
         if not self._paged:
             self.model.write_slot(self.pool, cache, idx)
         else:
@@ -816,6 +825,13 @@ class ContinuousBatchingEngine:
         self._rows[idx] = rows
         slot.prefilling = False
         self._sample_first(slot, st["logits"], events)
+
+    @staticmethod
+    def _strip_staging_cache(cache: Dict[str, Any]) -> Dict[str, Any]:
+        """Drop the staging cache's MoE expert counts before the pool write:
+        decode is stateless, as after a monolithic prefill."""
+        return {"layers": {"k": cache["layers"]["k"], "v": cache["layers"]["v"]},
+                "len": cache["len"], "pos": cache["pos"]}
 
     def _requeue_staging(self, slot: Slot, st: Dict[str, Any]) -> None:
         req = st["req"]
@@ -996,7 +1012,7 @@ class ContinuousBatchingEngine:
         bp = self.block_pool
         bs = bp.block_size
         prefix = None
-        if self.cb.prefix_cache:  # a ring opts out: its counters stay 0
+        if self.cb.prefix_cache:  # a ring or a MoE arch opts out: its counters stay 0
             p = self.prefix
             prefix = {"hits": p.hits if p else 0, "tokens_saved": p.tokens_saved if p else 0,
                       "evicted": p.evicted if p else 0, "nodes": len(p) if p else 0}

@@ -90,7 +90,7 @@ def _shared_prefix_prompts(seed=0):
 # weights cast once
 
 
-@pytest.mark.parametrize("arch", ["granite_8b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["granite_8b", "granite_moe_1b_a400m", "mamba2_130m"])
 def test_cast_once_gives_the_bits_of_casting_at_use(arch):
     """bf16 compute over float32 weights: prefill and decode logits from
     the compute-dtype tree equal, bit for bit, those that cast every weight
@@ -104,7 +104,7 @@ def test_cast_once_gives_the_bits_of_casting_at_use(arch):
     outs = []
     for p in (params, cast):
         logits, cache = model.prefill(p, tokens, 16)
-        if arch == "granite_8b":
+        if arch != "mamba2_130m":
             pool = model.init_paged_cache(9, 4, 2, device="cpu")
             tables = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
             for slot in range(2):
@@ -121,6 +121,9 @@ def test_cast_once_gives_the_bits_of_casting_at_use(arch):
     if arch == "granite_8b":
         bf16 = [blocks["attn"]["wq"], blocks["mlp"]["wg"], cast["embed"]["table"]]
         f32 = [blocks["ln1"]["scale"], cast["final_norm"]["scale"]]
+    elif arch == "granite_moe_1b_a400m":  # the router and the experts
+        bf16 = [blocks["moe"][n] for n in ("router", "wi", "wg", "wo")]
+        f32 = [blocks["ln2"]["scale"], cast["final_norm"]["scale"]]
     else:
         bf16 = [blocks["in_proj"], blocks["out_proj"], blocks["conv"]["kernel"],
                 cast["unembed"]["kernel"]]
