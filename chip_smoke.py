@@ -13,14 +13,14 @@ Phases (any failure exits non-zero before the result lines):
    (a library built earlier, by a test or an earlier run, is reused with
    the compiler log kept beside it); each kernel's registers and spills
    from ptxas; for flash_star's bf16 tensor-core kernel
-   (``flash_star_mma_kernel``, 8 instantiations) 0 spill bytes and bf16
-   HMMA instructions in its SASS (``cuobjdump -sass``); for its float32
-   kernel (``flash_star_tf32_kernel``, 8) 0 spill bytes and tf32 HMMA, for
-   the int8 P.V kernel (``flash_star_pv_int8_kernel``, 16: float32 and bf16
-   q/k) 0 spill bytes, s8 IMMA and tf32 / bf16 HMMA, for its V pre-pass
-   (``flash_star_quantize_v_kernel``, 2) 0 spill bytes; for the split-KV
-   paged kernels (48 ``paged_split_kernel`` and 4 ``paged_combine_kernel``
-   instantiations) 0 spill bytes; for the SSD scan's three kernels (5
+   (``flash_star_mma_kernel``, 10 instantiations: head dims 8-128) 0 spill
+   bytes and bf16 HMMA instructions in its SASS (``cuobjdump -sass``); for
+   its float32 kernel (``flash_star_tf32_kernel``, 10) 0 spill bytes and
+   tf32 HMMA, for the int8 P.V kernel (``flash_star_pv_int8_kernel``, 20:
+   float32 and bf16 q/k) 0 spill bytes, s8 IMMA and tf32 / bf16 HMMA, for
+   its V pre-pass (``flash_star_quantize_v_kernel``, 2) 0 spill bytes; for
+   the split-KV paged kernels (60 ``paged_split_kernel`` and 4
+   ``paged_combine_kernel`` instantiations) 0 spill bytes; for the SSD scan's three kernels (5
    instantiations) 0 spill bytes, and tf32 HMMA in the SASS of the chunk
    state and chunk scan kernels; for the crossbar (8 tensor-core and 2
    scalar instantiations) 0 spill bytes, s8 IMMA in the clean and bf16 HMMA
@@ -79,7 +79,18 @@ Phases (any failure exits non-zero before the result lines):
    [4, 32] and [64, 4]), float32 and bfloat16: one CTA a row, the
    probabilities bit-equal to the plain version's (which adds a row in the
    kernel's order) and the CPU's, the top-k experts equal, device time and
-   the bound of its bytes;
+   the bound of its bytes.  This slice's shapes, each against its plain
+   version with device times, SDPA's beside the exact variants and the
+   bound (``parity_flash_new``, ``parity_paged_new``): flash_star at
+   qwen2-vl-7b's prefill (q [1, 28, 768, 128] causal over Hkv 4: 256 patch
+   rows and 512 tokens, a GQA group of 7) and its dense decode (q [4, 28, 1,
+   128] over [4, 4, 800, 128] pool rows, kv_valid VLM_DECODE_VALID), and at
+   head_dim 8 (G 7 and G 4, 256 causal rows: float32, bf16 and the int8
+   P.V variant); the paged kernel at qwen2-vl's tick (S 4, Hq 28, Hkv 4, D
+   128, W 50, bf16 pages) and at D 8 (G 7 and G 4, the smoke shape's lens)
+   over float32, bf16, int8 and fp8_e4m3 pages; the STAR softmax in gather
+   mode at the sampling shapes, qwen2-vl's [4, 152064] among them, each
+   bit-equal to its plain version;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens (the config computes in float32, so every
@@ -108,7 +119,17 @@ Phases (any failure exits non-zero before the result lines):
    window of 16: every path a ring) on the dense, paged and chunked
    (``prefix_cache=True``, which a MoE arch declines) continuous paths and
    the lockstep engine, the router's softmax kernel once per layer of every
-   prefill or chunk and of every tick;
+   prefill or chunk and of every tick.  Then the VLM family: qwen2-vl-7b's
+   smoke config (M-RoPE, 16 stub patches of 32), every request with its own
+   patch embeddings, on the dense, paged, int8 paged and chunked + prefix
+   continuous paths (text-only requests with a common prefix beside the VLM
+   ones: the text-only ones share, the card's trie counters equal the
+   CPU's) and the lockstep engine; and the last three dense archs at their
+   smoke configs, qwen2-72b (D 16), deepseek-coder-33b (D 8, G 7) and
+   llama3-405b (D 8, G 4), on the dense, paged and lockstep paths, the two
+   D-8 configs also over an int8 paged pool (rows of 8 one-byte codes):
+   card == CPU tokens, flash_star once per layer of every prefill (and of
+   every dense tick), the paged kernel once per layer of every paged tick;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed and cast to bf16 once
    (``compute_params``, shared by every engine after it), the
@@ -212,9 +233,30 @@ Phases (any failure exits non-zero before the result lines):
    tokens with ``softmax`` ``pallas`` and ``reference``: the same tokens.
    One steady dense and one steady paged tick traced as in phase 5 (replay
    bit-equal to the eager tick, device time by group);
-10. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
-   each path's own count under ``launches_by_path``) and, last, the device
-   line.
+10. VLM serve: qwen2-vl-7b at its published widths and all 28 layers
+   (d_model 3584, 28 q / 4 kv heads: D 128, G 7; vocab 152064; M-RoPE
+   sections (16, 24, 24)), 7.62 B random float32 weights drawn on the card
+   from a seed and cast to bf16 once, after granite-moe's weights are
+   freed.  Phase 5's 8 requests on the dense pool (800 rows a slot), each
+   with its own [1, 256, 1280] patch embeddings; then on the paged pool in
+   128-token chunks with ``prefix_cache=True``, four VLM requests
+   interleaved with four text-only ones of a common 256-token prefix (the
+   text-only ones share: prefix hits are required).  Counters zeroed just
+   before and read just after: flash_star once per layer of every prefill
+   or chunk and of every dense tick, the paged kernel once per layer of
+   every paged tick, the STAR softmax once per admission and per tick.
+   Tok/s with and without the capture, TTFT p50, peak memory.  One steady
+   dense and one steady paged tick with VLM requests traced as in phase 5
+   (replay bit-equal to the eager tick); a 4 x (256 patches + 512 tokens)
+   greedy lockstep generate of 32 tokens (flash_star once per layer of the
+   prefill and of each replay); one prefill (256 patches + 128 tokens)
+   through the kernels against ``ops.use(attention="reference")`` within
+   rel_l2 < 3e-2, its cache's ``len`` / ``pos`` = 384 / 144;
+11. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+   each path's own count under ``launches_by_path``: every serve phase and
+   the phase 4 smoke paths) and, last, the device line.  Each phase's wall
+   seconds are printed as it ends (``phase <name>: <s>``) and gathered
+   under ``phase_seconds``.
 
 Tolerances.  float32 outputs: |kernel - plain| <= 5e-5 + 1e-4 |plain|;
 bfloat16 outputs: <= 1e-2 + 8e-3 |plain| (two bf16 ulps: both round one
@@ -240,6 +282,7 @@ version before: an ulp).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -274,7 +317,8 @@ SSD_DIVERGENCE_FACTOR = 10  # a greedy divergence fails above this x the prefill
 MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
             adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
 SEVERE = dict(stuck_on_rate=0.6, stuck_off_rate=0.2, seed=3)
-SOFTMAX_SHAPES = ((4, 49152), (8, 50688))  # sampling: granite-8b's 4 slots, Mamba2's 8 rows
+# sampling: granite-8b's 4 slots, Mamba2's 8 rows, qwen2-vl-7b's 4 slots
+SOFTMAX_SHAPES = ((4, 49152), (8, 50688), (4, 152064))
 # the MoE router's rows, experts and top-k: granite-moe-1b-a400m's 512-token
 # prefill and 4-slot tick, and mixtral's smoke config over a 64-token prefill
 ROUTER_SHAPES = ((512, 32, 8), (4, 32, 8), (64, 4, 2))
@@ -296,6 +340,17 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECONDS = {}  # phase -> wall seconds, printed as each phase ends
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +561,8 @@ def check_mma_build(ptxas_log, library):
     of HMMA instructions in the SASS of the built library."""
     mma = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
            if "flash_star_mma_kernel" in f}
-    check(len(mma) == 8, f"expected 8 flash_star_mma_kernel instantiations, ptxas shows {len(mma)}")
+    check(len(mma) == 10, f"expected 10 flash_star_mma_kernel instantiations, ptxas shows "
+                          f"{len(mma)}")
     hmma = sass_hmma(library)
     for func, lines in sorted(mma.items()):
         m = re.search(r"ILi(\d+)ELb([01])E", func)
@@ -521,17 +577,17 @@ def check_mma_build(ptxas_log, library):
 
 def check_tc_build(ptxas_log, library):
     """flash_star's float32 and int8 P.V kernels run on the tensor cores and
-    spill nothing: ``flash_star_tf32_kernel`` (4 head dims x STAR / exact)
+    spill nothing: ``flash_star_tf32_kernel`` (5 head dims x STAR / exact)
     with tf32 HMMA in its SASS, ``flash_star_pv_int8_kernel`` (float32 and
-    bf16 q/k: 16) with s8 IMMA (its P.V) and tf32 / bf16 HMMA (its QK^T),
+    bf16 q/k: 20) with s8 IMMA (its P.V) and tf32 / bf16 HMMA (its QK^T),
     and the two ``flash_star_quantize_v_kernel`` instantiations (its V
     pre-pass, float32 and bf16 V); each one's ptxas line is printed."""
     funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
              if "flash_star_tf32_kernel" in f or any(k in f for k in PV_INT8_KERNELS)}
     n = {k: sum(k in f for f in funcs) for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS)}
-    check(n == {"flash_star_tf32_kernel": 8, "flash_star_quantize_v_kernel": 2,
-                "flash_star_pv_int8_kernel": 16},
-          f"expected 8 tf32, 2 quantize_v and 16 pv_int8 instantiations, ptxas shows {n}")
+    check(n == {"flash_star_tf32_kernel": 10, "flash_star_quantize_v_kernel": 2,
+                "flash_star_pv_int8_kernel": 20},
+          f"expected 10 tf32, 2 quantize_v and 20 pv_int8 instantiations, ptxas shows {n}")
     mma = sass_hmma(library)
     for func, lines in sorted(funcs.items()):
         name = next(k for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS) if k in func)
@@ -574,13 +630,13 @@ def check_ssd_build(ptxas_log, library):
 
 def check_paged_build(ptxas_log):
     """Every instantiation of the paged split kernel (2 q types x 3 pool
-    types for the fp entry and the two code types, 4 head dims, STAR and
-    exact: 48) and of its combine (4) spills nothing."""
+    types for the fp entry and the two code types, 5 head dims, STAR and
+    exact: 60) and of its combine (4) spills nothing."""
     funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
              if "paged_split_kernel" in f or "paged_combine_kernel" in f}
     n_split = sum("paged_split_kernel" in f for f in funcs)
-    check(n_split == 48 and len(funcs) == 52,
-          f"expected 48 paged_split_kernel and 4 paged_combine_kernel instantiations, "
+    check(n_split == 60 and len(funcs) == 64,
+          f"expected 60 paged_split_kernel and 4 paged_combine_kernel instantiations, "
           f"ptxas shows {n_split} and {len(funcs) - n_split}")
     for func, lines in sorted(funcs.items()):
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
@@ -1208,6 +1264,143 @@ def parity_paged(results):
         results[-1].update(design=PAGED_DESIGN, splits=splits, device_ms=main["device_ms"])
 
 
+VLM_ARCH = "qwen2_vl_7b"
+VLM_MAX_LEN = 256 + 512 + 32  # the phase 10 pool's rows: 256 patch rows + the phase 5 traffic
+VLM_DECODE_VALID = (771, 643, 515, 387)  # a phase 10 tick's slots (patches + prompt + 3)
+# head_dim 8: deepseek-coder-33b's smoke group (7 q heads over 1 KV head) and
+# llama3-405b's (8 over 2)
+D8_GROUPS = ((7, 1), (8, 2))
+D8_PAGED_LENS = ([0, 1, 17, 600], 38)  # the smoke shape's lens and table width
+
+
+def _causal_sdpa(q, k, v):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+
+def parity_flash_new(results):
+    """flash_star at this slice's shapes, as variants of the ``flash_star``
+    and ``flash_star_pv_int8`` entries: qwen2-vl-7b's prefill, q [1, 28,
+    768, 128] causal over Hkv 4 (256 patch rows and 512 tokens, G 7), and its
+    dense decode, q [4, 28, 1, 128] over [4, 4, 800, 128] pool rows
+    (kv_valid VLM_DECODE_VALID, not causal), SDPA timed beside each exact
+    variant; head_dim 8 at the two smoke groups (q [1, 7, 256, 8] over [1,
+    1, 256, 8], q [1, 8, 256, 8] over [1, 2, 256, 8], causal; SDPA beside
+    the exact variant), and its int8 P.V variant there (block_k 128)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    variants, pv_variants = [], []
+    b, hq, hkv, t, d = 1, 28, 4, 768, 128
+    base = [torch.randn(sh, device=dev, generator=gen) for sh in
+            ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
+    info = torch.tensor([0, t], dtype=torch.int32, device=dev)
+    rows = torch.arange(t, device=dev)
+    live = (rows[None, :] <= rows[:, None])[None, None].expand(b, hq, t, t)
+    variants += _flash_variants(
+        "flash_star qwen2-vl prefill", base, info, live, sdpa=_causal_sdpa,
+        shape=f"qwen2-vl prefill q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal")
+
+    s, tk = 4, VLM_MAX_LEN
+    base = (torch.randn((s, hq, 1, d), device=dev, generator=gen),
+            *(torch.randn((s, hkv, tk, d), device=dev, generator=gen) for _ in range(2)))
+    info = torch.tensor([0, *VLM_DECODE_VALID], dtype=torch.int32, device=dev)
+    cols = torch.arange(tk, device=dev)
+    live = (cols[None, :] < info[1:, None])[:, None, None, :]
+
+    def sdpa_decode(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=live, enable_gqa=True)
+
+    variants += _flash_variants(
+        "flash_star qwen2-vl dense decode", base, info, live.expand(s, hq, 1, tk),
+        sdpa=sdpa_decode, causal=False,
+        shape=f"qwen2-vl dense decode q[{s},{hq},1,{d}] over kv[{s},{hkv},{tk},{d}], "
+              f"kv_valid {list(VLM_DECODE_VALID)}, causal=False")
+
+    t, d = 256, 8
+    rows = torch.arange(t, device=dev)
+    for hq8, hkv8 in D8_GROUPS:
+        base = [torch.randn(sh, device=dev, generator=gen) for sh in
+                ((1, hq8, t, d), (1, hkv8, t, d), (1, hkv8, t, d))]
+        info = torch.tensor([0, t], dtype=torch.int32, device=dev)
+        live = (rows[None, :] <= rows[:, None])[None, None].expand(1, hq8, t, t)
+        shape = f"D 8, G {hq8 // hkv8}: q[1,{hq8},{t},{d}] kv[1,{hkv8},{t},{d}] causal"
+        variants += _flash_variants(f"flash_star D8 G{hq8 // hkv8}", base, info, live,
+                                    sdpa=_causal_sdpa, shape=shape)
+        pv_variants += _flash_variants(f"flash_star_pv_int8 D8 G{hq8 // hkv8}", base, info,
+                                       live, shape=shape + " block_k 128", pv_int8_block=128)
+    for name, new in (("flash_star", variants), ("flash_star_pv_int8", pv_variants)):
+        next(e for e in results if e["name"] == name)["variants"] += new
+
+
+def parity_paged_new(results):
+    """The paged kernels at this slice's shapes, as variants of the
+    ``paged_attention`` / ``paged_attention_quant`` entries: qwen2-vl-7b's
+    tick (S 4, Hq 28, Hkv 4: G 7, D 128, bs 16, lens VLM_DECODE_VALID, W
+    50) over bf16 pages, bf16 q; and D 8 at G 7 and G 4 (S 4, bs 16, lens
+    0/1/17/600, W 38) over float32 and bf16 pages (q of the pool's type)
+    and over int8 and fp8_e4m3 pages (float32 q, as the smoke configs
+    compute: rows of 8 one-byte codes), STAR and exact."""
+    import torch
+
+    from repro_torch.core import kvquant
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    dev = torch.device("cuda")
+    bs = 16
+    cases = [("qwen2-vl tick", 28, 4, 128, list(VLM_DECODE_VALID), VLM_MAX_LEN // bs,
+              (("bf16", torch.bfloat16),))]
+    for hq, hkv in D8_GROUPS:
+        cases.append((f"D8 G{hq // hkv}", hq, hkv, 8, *D8_PAGED_LENS,
+                      (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                       ("int8", torch.float32), ("fp8_e4m3", torch.float32))))
+    fp, quant = [], []
+    for label, hq, hkv, d, lens, w, pools in cases:
+        s, n = len(lens), len(lens) * w + 1
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        base = [torch.randn(sh, device=dev, generator=gen) for sh in
+                ((s, hq, d), (n, bs, hkv, d), (n, bs, hkv, d))]
+        tables = (torch.randperm(n - 1, device=dev, generator=gen)[: s * w] + 1)
+        tables = tables.reshape(s, w).to(torch.int32).contiguous()
+        valid = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cols = torch.arange(w * bs, device=dev)
+        live = (cols[None, :] < valid[:, None])[:, None, :].expand(s, hq, w * bs)
+        live_pages = sum(-(-x // bs) for x in lens)
+        for pool, qdtype in pools:
+            q = base[0].to(qdtype)
+            if pool in ("fp32", "bf16"):
+                kp, vp = base[1].to(qdtype), base[2].to(qdtype)
+                kw_pages, elem, scaled, kdq = {}, q.element_size(), 0, kp
+            else:
+                (kp, ks), (vp, vs) = (kvquant.quantize_blocks(x, pool) for x in base[1:])
+                kw_pages, elem, scaled = dict(k_scale=ks, v_scale=vs), 1, live_pages
+                kdq = kvquant.decode(kp, ks[:, None, :, None])
+            k64 = gather_pages(kdq, kdq, tables)[0].double().repeat_interleave(hq // hkv, 2)
+            scores64 = torch.einsum("shd,sthd->sht", q.double(), k64) * d ** -0.5
+            nbytes, flops = _paged_work(q, lens, w, hkv, elem, scaled)
+            for fmt in (FMT, None):
+                mode = "star" if fmt is not None else "exact"
+                tag = "paged" if not kw_pages else f"paged_quant {pool}"
+                name = f"{tag} {label} {mode} {qdtype}"
+                kw = dict(fmt=fmt, **kw_pages)
+                extra = dict(shape=f"{label}: S={s} Hq={hq} Hkv={hkv} D={d} bs={bs} lens {lens} "
+                                   f"W {w}", dtype=str(qdtype).split(".")[-1], mode=mode,
+                             pool=pool, splits=pk.num_splits(w, bs), split_rows=pk.SPLIT_ROWS)
+                got, variant = _paged_variant(
+                    name, lambda: pk.paged_flash_attention(q, kp, vp, tables, valid, **kw),
+                    lambda: pk.paged_attention_ref(q, kp, vp, tables, valid, **kw),
+                    qdtype, scores64, live, fmt, nbytes, flops, extra)
+                check(not bool(got[valid == 0].any()), f"{name}: free slot not zero")
+                (quant if kw_pages else fp).append(variant)
+    for name, new in (("paged_attention", fp), ("paged_attention_quant", quant)):
+        next(e for e in results if e["name"] == name)["variants"] += new
+
+
 def _softmax_variant(name, fn, ref_fn, x, extra):
     """One STAR softmax variant: parity against the plain version (rtol
     1e-5, atol 1e-9), CUDA-event and device time, the cluster it ran on."""
@@ -1226,17 +1419,24 @@ def _softmax_variant(name, fn, ref_fn, x, extra):
     dev = device_ms_per_launch(fn, "star_softmax_lut_kernel")
     d = x.shape[-1]
     cluster, slice_ = sk.cluster_size(d), sk.slice_len(d, sk.cluster_size(d))
+    t_bytes = extra["bytes"] / H100_BYTES_PER_S * 1e3
+    t_ops = 16 * x.numel() / H100_FP32_FLOPS * 1e3  # as the star_softmax entry counts them
+    bound = max(t_bytes, t_ops)
     log(f"{name}: cluster {cluster} CTAs a row ({x.shape[0] * cluster} CTAs, slices of "
-        f"{slice_}) max_abs_err={err:.3e} ms={ms:.4f} device_ms={dev} plain_ms={plain_ms:.4f}")
+        f"{slice_}) max_abs_err={err:.3e} ms={ms:.4f} device_ms={dev} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.6f}")
     return dict(extra, shape=str(list(x.shape)), cluster=cluster, slice=slice_,
                 max_abs_err=err, grid_flip_rows=0, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                library_ms=None)
+                library_ms=None, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def parity_softmax(results):
-    """The STAR softmax kernel in clean ``gather`` mode at the two sampling
-    shapes (granite [4, 49152], Mamba2 [8, 50688]), ``-inf`` columns
-    saturating as the plain version does, ``onehot`` bit-equal to it."""
+    """The STAR softmax kernel in clean ``gather`` mode at the sampling
+    shapes (granite [4, 49152], Mamba2 [8, 50688], qwen2-vl [4, 152064]),
+    bit-equal to the plain version (which adds a row in the kernel's
+    order), ``-inf`` columns saturating as the plain version does,
+    ``onehot`` bit-equal to it."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
@@ -1251,6 +1451,11 @@ def parity_softmax(results):
             f"star_softmax gather clean float32 [{rows}, {d}]",
             lambda: sk.star_softmax_kernel(x, FMT), lambda: sk.star_softmax_ref(x, FMT), x,
             dict(dtype="float32", mode="gather", fault=None, bytes=2 * x.numel() * 4)))
+        got, ref = sk.star_softmax_kernel(x, FMT), sk.star_softmax_ref(x, FMT)
+        check(torch.equal(got, ref), f"star_softmax [{rows}, {d}]: {int((got != ref).sum())} "
+              f"probabilities differ from the plain version's")
+        variants[-1]["bit_equal"] = True
+        log(f"star_softmax gather [{rows}, {d}] f32: bit-equal to the plain version")
         xi = x.clone()
         xi[:, :512] = -float("inf")  # saturates to the last level, never wraps
         gi = sk.star_softmax_kernel(xi, FMT)
@@ -1265,7 +1470,8 @@ def parity_softmax(results):
     results.append(_entry(
         "star_softmax", "cuda", "src/repro_torch/kernels/star_softmax/csrc/star_softmax_lut.cu",
         "src/repro/kernels/star_softmax/kernel.py:177", main, main["bytes"],
-        ops, H100_FP32_FLOPS, variants, shape="[4, 49152] f32 (main); [8, 50688] in variants"))
+        ops, H100_FP32_FLOPS, variants,
+        shape="[4, 49152] f32 (main); [8, 50688] and [4, 152064] in variants"))
     results[-1].update(design=SOFTMAX_DESIGN, device_ms=main["device_ms"])
 
 
@@ -1693,20 +1899,180 @@ def small_reference_moe():
                 f"({tuple(outs['cpu'].shape)}, cache_len {info['cache_len']})")
 
 
+def _smoke_pair(arch):
+    """A smoke config on the kernels' route (``attn_impl="pallas"``) with
+    weights drawn on the CPU from the seed and copied to the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.param import materialize, tree_map
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), attn_impl="pallas")
+    params_cpu = materialize(build_model(cfg).param_specs(), SEED, "cpu")
+    return cfg, (("cuda", tree_map(lambda x: x.cuda(), params_cpu)), ("cpu", params_cpu))
+
+
+def _smoke_card_vs_cpu(label, cfg, devices, kw, requests, waves=1):
+    """``requests`` (prompt, new tokens, frontend kwargs) through the
+    continuous engine on the card and on the CPU (``waves``: submitted in
+    that many groups, each drained before the next), greedy: the tokens must
+    be equal.  On the card the launches are counted and checked: flash_star
+    once per layer of every prefill or chunk (and of every dense tick), the
+    paged kernel (fp or quantized) once per layer of every paged tick.
+    Returns the card's counts and engine."""
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    outs, engines, counts = {}, {}, None
+    per = -(-len(requests) // waves)
+    with ops.use(softmax="pallas"):
+        for dev, params in devices:
+            eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+                num_slots=2, max_len=48, **kw), device=dev)
+            reset_launch_counts()
+            out = []
+            for i in range(0, len(requests), per):
+                uids = [eng.submit(p, g, **fe) for p, g, fe in requests[i:i + per]]
+                done = eng.run()
+                out += [done[u] for u in uids]
+            outs[dev], engines[dev] = out, eng
+            check_graphs(eng, f"smoke {label} on {dev}")
+            if dev == "cuda":
+                counts = launch_counts()
+    eng = engines["cuda"]
+    check(outs["cuda"] == outs["cpu"],
+          f"smoke {label} greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
+    nl = cfg.num_layers
+    calls = int(eng.metrics.counter("serve.prefill.calls").value())
+    paged = eng.kv_layout == "paged"
+    quant = kw.get("kv_dtype", "fp32") != "fp32"
+    want = {"flash_star": nl * (calls + (0 if paged else eng.ticks)),
+            "paged_attention": nl * eng.ticks if paged and not quant else 0,
+            "paged_attention_quant": nl * eng.ticks if quant else 0}
+    for name, n in want.items():
+        check(counts.get(name, 0) == n,
+              f"smoke {label}: {name} launched {counts.get(name, 0)} times, expected {n} "
+              f"({calls} prefills or chunks, {eng.ticks} ticks of {nl} layers)")
+    log(f"small reference {label}: greedy tokens identical on card and cpu "
+        f"({sum(len(o) for o in outs['cpu'])} tokens, {len(requests)} requests); launches "
+        f"{counts}")
+    return counts, eng, engines["cpu"]
+
+
+def _smoke_lockstep(label, cfg, devices, prompts, n, **frontend):
+    """A greedy lockstep ``generate`` on the card and the CPU: equal tokens,
+    flash_star once per layer of the prefill and of each replay."""
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    outs = {}
+    with ops.use(softmax="pallas"):
+        for dev, params in devices:
+            eng = ServeEngine(cfg, params, ServeConfig(max_len=48), device=dev)
+            reset_launch_counts()
+            outs[dev], info = eng.generate(prompts, n, **frontend)
+            if dev == "cuda":
+                counts = launch_counts()
+                check(counts.get("flash_star", 0) == cfg.num_layers * n
+                      and eng.graphs.replays == n - 1,
+                      f"smoke {label}: flash_star launched {counts.get('flash_star', 0)} times, "
+                      f"expected {cfg.num_layers * n} (the prefill and {n - 1} replays)")
+    check(bool((outs["cuda"].cpu() == outs["cpu"]).all()),
+          f"smoke {label} greedy tokens differ card vs cpu")
+    log(f"small reference {label}: greedy tokens identical on card and cpu "
+        f"({tuple(outs['cpu'].shape)}, cache_len {info['cache_len']})")
+    return counts
+
+
+def small_reference_vlm():
+    """Phase 4, the VLM family: qwen2-vl-7b's smoke config (M-RoPE, 16 stub
+    patches of 32, D 16) greedy on the card (kernels) and on the CPU (plain
+    versions) with the same weights, each request with its own patch
+    embeddings: the dense, paged, chunked + prefix (paged, 8-token chunks;
+    text-only requests with a common prefix beside the VLM ones, in two
+    waves: the text-only ones share, the VLM ones never look up) and int8
+    paged continuous paths, and the lockstep engine; card == CPU tokens and
+    trie counters.  Returns the card's launch counts by path."""
+    import numpy as np
+
+    cfg, devices = _smoke_pair(VLM_ARCH)
+    rng = np.random.default_rng(SEED + 5)
+
+    def patches():
+        return {"patch_embeds": rng.standard_normal(
+            (1, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+
+    vlm = [(rng.integers(0, cfg.vocab_size, (n,)), g, patches())
+           for n, g in ((5, 4), (11, 2), (8, 5), (3, 3))]
+    pre = rng.integers(0, cfg.vocab_size, (12,))
+    text = [(np.concatenate([pre, rng.integers(0, cfg.vocab_size, (n,))]), g, {})
+            for n, g in ((3, 4), (5, 3), (2, 5))]
+    paths = {
+        "qwen2-vl dense": (dict(kv_layout="dense"), vlm, 1),
+        "qwen2-vl paged": (dict(kv_layout="paged", kv_block_size=4), vlm, 1),
+        "qwen2-vl int8 paged": (dict(kv_layout="paged", kv_block_size=4, kv_dtype="int8"),
+                                vlm, 1),
+        "qwen2-vl chunked + prefix": (dict(kv_layout="paged", kv_block_size=4,
+                                           prefill_chunk_tokens=8, prefix_cache=True),
+                                      [text[0], vlm[0], text[1], vlm[1], text[2]], 2),
+    }
+    by_path = {}
+    for label, (kw, reqs, waves) in paths.items():
+        by_path[label], eng, cpu = _smoke_card_vs_cpu(label, cfg, devices, kw, reqs, waves)
+        if kw.get("prefix_cache"):
+            st, st_cpu = eng.kv_stats()["prefix"], cpu.kv_stats()["prefix"]
+            check(st == st_cpu and st["hits"] >= 1,
+                  f"smoke {label}: trie counters {st} (cpu {st_cpu}); the text-only requests "
+                  f"must share")
+    lock = rng.integers(0, cfg.vocab_size, (2, 9))
+    pe = rng.standard_normal((2, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
+    by_path["qwen2-vl lockstep"] = _smoke_lockstep("qwen2-vl lockstep", cfg, devices, lock, 12,
+                                                   patch_embeds=pe)
+    return by_path
+
+
+def small_reference_archs():
+    """Phase 4, the last three dense archs at their smoke configs: qwen2-72b
+    (D 16, G 2), deepseek-coder-33b (D 8, G 7) and llama3-405b (D 8, G 4)
+    greedy on the dense and paged continuous paths and the lockstep engine,
+    and the two D-8 configs over an int8 paged pool (rows of 8 one-byte
+    codes); card == CPU tokens.  Returns the card's launch counts by path."""
+    import numpy as np
+
+    by_path = {}
+    for arch in ("qwen2_72b", "deepseek_coder_33b", "llama3_405b"):
+        cfg, devices = _smoke_pair(arch)
+        rng = np.random.default_rng(SEED + 6)
+        reqs = [(rng.integers(0, cfg.vocab_size, (n,)), g, {})
+                for n, g in ((5, 4), (11, 2), (8, 5), (3, 3), (19, 6))]
+        paths = {"dense": dict(kv_layout="dense"),
+                 "paged": dict(kv_layout="paged", kv_block_size=4)}
+        if cfg.resolved_head_dim == 8:
+            paths["int8 paged"] = dict(kv_layout="paged", kv_block_size=4, kv_dtype="int8")
+        for label, kw in paths.items():
+            by_path[f"{arch} {label}"] = _smoke_card_vs_cpu(
+                f"{arch} {label} (D {cfg.resolved_head_dim})", cfg, devices, kw, reqs)[0]
+        by_path[f"{arch} lockstep"] = _smoke_lockstep(
+            f"{arch} lockstep", cfg, devices, rng.integers(0, cfg.vocab_size, (3, 9)), 12)
+    return by_path
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve granite-8b at full width and depth
 
 
-def serve_requests(eng, prompts, gens):
+def serve_requests(eng, prompts, gens, frontends=None):
     """``eng.serve(prompts, gens)``, keeping each request: returns the
     outputs and the exact TTFT p50 over the requests (nearest rank; the
     ``serve.ttft_s`` histogram's p50 follows the reference's bucket rule, 5
-    buckets a decade, and reads a bucket edge)."""
+    buckets a decade, and reads a bucket edge).  ``frontends``: per request
+    the keyword arguments of its frontend (a VLM's ``patch_embeds``)."""
     import math
 
     uids, reqs = [], []
-    for prompt, gen in zip(prompts, gens):
-        uids.append(eng.submit(prompt, int(gen)))
+    for i, (prompt, gen) in enumerate(zip(prompts, gens)):
+        uids.append(eng.submit(prompt, int(gen), **(frontends[i] if frontends else {})))
         reqs.append(eng.scheduler.pending[-1])
     done = eng.run()
     ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
@@ -2131,7 +2497,8 @@ def check_cast_once(eng, label) -> None:
     check(not wrong, f"{label}: weights {wrong} are not in {dtype}: cast at every use")
 
 
-def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="", kv_layout="paged"):
+def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="", kv_layout="paged",
+                 max_len=512 + 32, frontend=None):
     """One full-width decode tick with 4 active slots, by graph replay, from
     a steady state (no block opens): traced (device busy by group; on the
     paged kernel, or on flash_star over the dense pool, no copy/cast kernel
@@ -2141,20 +2508,22 @@ def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="", kv_layout="
     window's wall), the bytes of each (the ``[S, 1]`` int32 inputs and no
     table row up, the sampled tokens and the guard's error per check down),
     the replay held against the eager tick from a copy of its state, and the
-    replay timed with CUDA events."""
+    replay timed with CUDA events.  ``frontend(rng)``, where given, makes
+    each request's frontend kwargs (a VLM's patch embeddings)."""
     import numpy as np
     import torch
 
     from repro_torch import ops
     from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
 
-    cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, kv_layout=kv_layout,
+    cb = ContinuousConfig(num_slots=4, max_len=max_len, temperature=0.8, kv_layout=kv_layout,
                           kv_block_size=16, kv_dtype=kv_dtype, guard=guard)
     eng = ContinuousBatchingEngine(cfg, params, cb, device="cuda", seed=SEED)
     check_cast_once(eng, "profile tick")
     rng = np.random.default_rng(SEED + 3)
     for n in (512, 384, 256, 128):  # the first tick opens a block; the next ones none
-        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 8)
+        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), 8,
+                   **(frontend(rng) if frontend else {}))
     h2d, d2h = (eng.metrics.counter(n) for n in ("serve.bytes.h2d", "serve.bytes.d2h"))
     name = f"one decode tick by replay, 4 slots, {kv_layout} {kv_dtype} pool{label}"
     moved = []
@@ -2885,15 +3254,15 @@ def serve_mamba(results):
 # phase 9: granite-moe-1b-a400m at full width, the STAR router on every layer
 
 
-def moe_serve_once(cfg, cparams, cb, prompts, gens, label):
-    """One continuous serve of the phase 5 traffic under
-    ``ops.use(softmax="pallas")``, counters zeroed just before and read just
-    after: the router's STAR softmax once per layer of every prefill (or
-    chunk) and of every tick, and the sampling softmax once per admission and
-    per tick (ticks counted through the replays); flash_star once per layer
-    of every prefill or chunk and, on the dense pool, of every tick; the
-    paged kernel once per layer of every tick on the paged pool, else
-    never."""
+def serve_once(cfg, cparams, cb, prompts, gens, label, frontends=None):
+    """One continuous serve of a traffic (``frontends``: per request its
+    frontend kwargs) under ``ops.use(softmax="pallas")``, counters zeroed
+    just before and read just after: a MoE model's router STAR softmax once
+    per layer of every prefill (or chunk) and of every tick, and the sampling
+    softmax once per admission and per tick (ticks counted through the
+    replays); flash_star once per layer of every prefill or chunk and, on the
+    dense pool, of every tick; the paged kernel once per layer of every tick
+    on the paged pool, else never."""
     import torch
 
     from repro_torch import ops
@@ -2906,7 +3275,7 @@ def moe_serve_once(cfg, cparams, cb, prompts, gens, label):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        out, ttft_p50 = serve_requests(eng, prompts, gens)
+        out, ttft_p50 = serve_requests(eng, prompts, gens, frontends)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
@@ -2915,12 +3284,14 @@ def moe_serve_once(cfg, cparams, cb, prompts, gens, label):
           f"{label}: bad output lengths {[len(o) for o in out]} or a token outside the "
           f"vocabulary")
     check_graphs(eng, label)
-    check(eng.prefix is None, f"{label}: a MoE arch kept a prefix cache")
+    moe = cfg.family == "moe"
+    check(eng.prefix is None or not moe, f"{label}: a MoE arch kept a prefix cache")
     nl = cfg.num_layers
     calls = int(eng.metrics.counter("serve.prefill.calls").value())
     admitted = int(eng.metrics.counter("serve.requests.admitted").value())
     paged = eng.kv_layout == "paged"
-    want = {"star_softmax": nl * (calls + eng.ticks) + admitted + eng.ticks,
+    routers = nl * (calls + eng.ticks) if moe else 0
+    want = {"star_softmax": routers + admitted + eng.ticks,
             "flash_star": nl * calls + (0 if paged else nl * eng.ticks),
             "paged_attention": nl * eng.ticks if paged else 0}
     for name, n in want.items():
@@ -2935,11 +3306,13 @@ def moe_serve_once(cfg, cparams, cb, prompts, gens, label):
         f"ticks by graph replay ({eng.graph_entries()} capture), ttft p50={1e3 * ttft_p50:.1f}ms, "
         f"max_memory_allocated={peak / 2**30:.2f} GiB; launches {counts} (warm-up, not "
         f"counted: {eng.graphs.warmup_launches()})")
-    return counts, {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
-                    "capture_s": capture,
-                    "tok_per_s_without_capture": len(toks) / (wall - capture),
-                    "prefill_calls": calls, "ticks": eng.ticks, "ttft_p50_s": ttft_p50,
-                    "max_memory_allocated": peak, "launches": counts}
+    summary = {"tokens": len(toks), "wall_s": wall, "tok_per_s": len(toks) / wall,
+               "capture_s": capture, "tok_per_s_without_capture": len(toks) / (wall - capture),
+               "prefill_calls": calls, "ticks": eng.ticks, "ttft_p50_s": ttft_p50,
+               "max_memory_allocated": peak, "launches": counts}
+    if eng.prefix is not None:
+        summary["prefix"] = eng.kv_stats()["prefix"]
+    return counts, summary
 
 
 def serve_moe(results):
@@ -2989,7 +3362,7 @@ def serve_moe(results):
     }
     summary = {}
     for (label, cb), key in zip(plans.items(), ("moe_dense", "moe_paged_chunked")):
-        counts, summary[key] = moe_serve_once(cfg, cparams, cb, prompts, gens, label)
+        counts, summary[key] = serve_once(cfg, cparams, cb, prompts, gens, label)
         for entry in results:
             entry["launches_by_path"][key] = counts.get(entry["name"], 0)
 
@@ -3083,6 +3456,163 @@ def serve_moe(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: qwen2-vl-7b at full width, M-RoPE and the stub patch prefix
+
+
+def vlm_plan(cfg):
+    """Phase 10's traffic.  Dense: phase 5's 8 requests, each with its own
+    [1, 256, 1280] patch embeddings.  Paged: 4 of those VLM requests
+    interleaved with 4 text-only ones of a common 256-token prefix plus
+    64-256 tokens of their own (the later two admitted after the first two
+    have written their blocks, so they share); 16-32 new tokens each."""
+    import numpy as np
+
+    prompts, gens = serve_plan(cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 23)
+    frontends = [{"patch_embeds": rng.standard_normal(
+        (1, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)} for _ in prompts]
+    pre = rng.integers(0, cfg.vocab_size, (256,))
+    text = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, (int(n),))])
+            for n in rng.integers(64, 257, 4)]
+    mixed = [None] * 8
+    mixed[0::2] = [(prompts[i], gens[i], frontends[i]) for i in range(4)]
+    mixed[1::2] = [(text[i], gens[4 + i], {}) for i in range(4)]
+    return (prompts, gens, frontends), tuple(zip(*mixed))
+
+
+def serve_vlm(results):
+    """Phase 10: qwen2-vl-7b at its published widths and all 28 layers
+    (d_model 3584, 28 q / 4 kv heads: D 128, a GQA group of 7; d_ff 18944;
+    vocab 152064; M-RoPE sections (16, 24, 24)), 7.62 B random float32
+    weights drawn on the card from the seed and cast to bf16 once, after
+    granite-moe's weights are freed.  A dense serve of ``vlm_plan``'s VLM
+    traffic (4 slots, 800 rows a slot, temperature 0.8), then the mixed
+    traffic on the paged pool in 128-token chunks with ``prefix_cache=True``
+    (the text-only requests share, the VLM ones never look up); counters
+    zeroed just before and read just after (``serve_once``).  One steady
+    dense and one steady paged tick with VLM requests traced
+    (``profile_tick``: replay bit-equal to the eager tick, device time by
+    group); a 4 x (256 patches + 512 tokens) greedy lockstep generate of 32
+    tokens (flash_star once per layer of the prefill and of each of its 31
+    replays); one prefill with patches, kernels against
+    ``ops.use(attention="reference")``, within rel_l2 < 3e-2."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import compute_params, count_params, materialize
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ContinuousConfig, ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="pallas")
+    model = build_model(cfg)
+    nl = cfg.num_layers
+    t0 = time.perf_counter()
+    params = materialize(model.param_specs(), SEED, "cuda")
+    cparams = compute_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_params = count_params(model.param_specs())
+    log(f"vlm serve: {VLM_ARCH} {nl}L d={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"D {cfg.resolved_head_dim} vocab {cfg.vocab_size} {n_params / 1e9:.3f}B params drawn "
+        f"and cast to {cfg.compute_dtype} once in {time.perf_counter() - t0:.3f}s, memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    (prompts, gens, frontends), (mprompts, mgens, mfront) = vlm_plan(cfg)
+    plans = {
+        "vlm_dense": ("vlm serve dense", ContinuousConfig(
+            num_slots=4, max_len=VLM_MAX_LEN, temperature=0.8, kv_layout="dense"),
+            prompts, gens, frontends),
+        "vlm_paged_chunked": ("vlm serve paged, 128-token chunks, prefix cache", ContinuousConfig(
+            num_slots=4, max_len=VLM_MAX_LEN, temperature=0.8, kv_layout="paged",
+            kv_block_size=16, prefix_cache=True, prefill_chunk_tokens=128),
+            list(mprompts), list(mgens), list(mfront)),
+    }
+    summary = {"params_b": n_params / 1e9}
+    for key, (label, cb, ps, gs, fes) in plans.items():
+        counts, summary[key] = serve_once(cfg, cparams, cb, ps, gs, label, frontends=fes)
+        for entry in results:
+            entry.setdefault("launches_by_path", {})[key] = counts.get(entry["name"], 0)
+    prefix = summary["vlm_paged_chunked"]["prefix"]
+    check(prefix["hits"] >= 1, f"vlm paged serve: the text-only requests shared nothing "
+          f"through the trie: {prefix}")
+    log(f"vlm paged serve: prefix cache {prefix} (text-only requests only)")
+
+    def patches(rng):
+        return {"patch_embeds": rng.standard_normal(
+            (1, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+
+    ticks = {}
+    for layout in ("dense", "paged"):
+        tick = profile_tick(cfg, cparams, kv_layout=layout, label=f", {VLM_ARCH} with patches",
+                            max_len=VLM_MAX_LEN, frontend=patches)
+        check(tick["logits_bit_equal"], f"vlm {layout} tick: the replay is not bit-equal to "
+              f"the eager tick")
+        ticks[layout] = tick
+
+    rng = np.random.default_rng(SEED + 24)
+    lock_prompts = rng.integers(0, cfg.vocab_size, (4, 512))
+    lock_pe = rng.standard_normal((4, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
+    n = 32
+    with ops.use(softmax="pallas"):
+        lock = ServeEngine(cfg, cparams, ServeConfig(max_len=VLM_MAX_LEN), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got, info = lock.generate(lock_prompts, n, patch_embeds=lock_pe)
+        torch.cuda.synchronize()
+        lwall = time.perf_counter() - t0
+        lcounts = launch_counts()
+    lcap = lock.graphs.capture_seconds
+    check(tuple(got.shape) == (4, n) and bool(((got >= 0) & (got < cfg.vocab_size)).all()),
+          f"vlm lockstep: bad output {tuple(got.shape)}")
+    check(lcounts.get("flash_star", 0) == nl * n and lock.graphs.replays == n - 1,
+          f"vlm lockstep: flash_star launched {lcounts.get('flash_star', 0)} times, expected "
+          f"{nl * n}; {lock.graphs.replays} replays")
+    check(info["cache_len"] == cfg.num_patches + 512 + n - 1,
+          f"vlm lockstep: cache_len {info['cache_len']}")
+    lpeak = torch.cuda.max_memory_allocated()
+    log(f"vlm lockstep greedy: 4 x ({cfg.num_patches} patches + 512 tokens), {4 * n} tokens in "
+        f"{lwall:.3f}s = {4 * n / lwall:.2f} tok/s ({4 * n / (lwall - lcap):.2f} without the "
+        f"warm-up and capture, {lcap:.3f}s), cache_len {info['cache_len']}, "
+        f"max_memory_allocated={lpeak / 2**30:.2f} GiB; launches {lcounts}")
+    for entry in results:
+        entry.setdefault("launches_by_path", {})["vlm_lockstep"] = lcounts.get(entry["name"], 0)
+
+    tokens = torch.as_tensor(prompts[0][:128], device="cuda")[None]
+    pe = frontends[0]["patch_embeds"]
+    with torch.no_grad():
+        reset_launch_counts()
+        kern, cache = model.prefill(cparams, tokens, VLM_MAX_LEN, patch_embeds=pe)
+        pcounts = launch_counts()
+        with ops.use(attention="reference"):
+            ref, _ = model.prefill(cparams, tokens, VLM_MAX_LEN, patch_embeds=pe)
+    kern, ref = kern.float(), ref.float()
+    check(bool(torch.isfinite(kern).all()), "vlm prefill: non-finite logits")
+    check(pcounts.get("flash_star", 0) == nl, f"vlm prefill: flash_star launched "
+          f"{pcounts.get('flash_star', 0)} times, expected {nl}")
+    side = int(cfg.num_patches ** 0.5)
+    check((int(cache["len"]), int(cache["pos"])) == (cfg.num_patches + 128, side + 128),
+          f"vlm prefill: cache len / pos {int(cache['len'])} / {int(cache['pos'])}")
+    rel = float((kern - ref).norm() / ref.norm())
+    log(f"vlm prefill ({cfg.num_patches} patches + 128 tokens) logits, kernels vs reference "
+        f"impls: rel_l2={rel:.3e} max_abs={float((kern - ref).abs().max()):.3e}; cache len "
+        f"{int(cache['len'])}, pos {int(cache['pos'])}")
+    check(rel < 3e-2, f"vlm prefill logits differ from the reference: rel_l2={rel:.3e}")
+    summary.update(ticks=ticks, prefill_rel_l2=rel,
+                   lockstep={"tokens": 4 * n, "wall_s": lwall, "tok_per_s": 4 * n / lwall,
+                             "capture_s": lcap,
+                             "tok_per_s_without_capture": 4 * n / (lwall - lcap),
+                             "max_memory_allocated": lpeak, "launches": lcounts})
+    del cparams
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3121,50 +3651,68 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import kernel as ssk
     from repro_torch.kernels.star_softmax import kernel as sk
 
-    t0 = time.perf_counter()
-    logs = _cuda.build([fk.SOURCE, pk.SOURCE, sk.LUT_SOURCE, xk.SOURCE, ssk.SOURCE])
-    log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, all five sources at once)")
-    for path, text in logs.items():
-        for func, lines in ptxas_by_function(text).items():
-            log(f"  {path.name} {func}: {'; '.join(lines)}")
-    check_mma_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
-    check_tc_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
-    check_paged_build(logs[pk.SOURCE])
-    check_ssd_build(logs[ssk.SOURCE], _cuda.library_path(ssk.SOURCE))
-    check_crossbar_build(logs[xk.SOURCE], _cuda.library_path(xk.SOURCE))
-    check_softmax_build(logs[sk.LUT_SOURCE])
+    with phase("2 build"):
+        t0 = time.perf_counter()
+        logs = _cuda.build([fk.SOURCE, pk.SOURCE, sk.LUT_SOURCE, xk.SOURCE, ssk.SOURCE])
+        log(f"build: {time.perf_counter() - t0:.1f}s (nvcc, all five sources at once)")
+        for path, text in logs.items():
+            for func, lines in ptxas_by_function(text).items():
+                log(f"  {path.name} {func}: {'; '.join(lines)}")
+        check_mma_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
+        check_tc_build(logs[fk.SOURCE], _cuda.library_path(fk.SOURCE))
+        check_paged_build(logs[pk.SOURCE])
+        check_ssd_build(logs[ssk.SOURCE], _cuda.library_path(ssk.SOURCE))
+        check_crossbar_build(logs[xk.SOURCE], _cuda.library_path(xk.SOURCE))
+        check_softmax_build(logs[sk.LUT_SOURCE])
 
     results = []
-    parity_flash(results)
-    parity_pv_int8(results)
-    parity_paged(results)
-    parity_softmax(results)
-    parity_softmax_lut(results)
-    router = parity_softmax_router()
-    next(e for e in results if e["name"] == "star_softmax")["router_variants"] = router
-    parity_ssd_scan(results)
-    realization_bits()
-    f32_launches = small_reference()
-    flash = next(e for e in results if e["name"] == "flash_star")
-    flash["launches_float32_smoke"] = f32_launches
-    flash["launches_float32_smoke_dense"] = small_reference_dense()
-    small_reference_mamba()
-    small_reference_moe()
-    summary, params, cparams = serve(results)
-    summary_dense = serve_dense(results, cparams)
-    summary_quant = serve_quant(results, cparams)
-    summary_degraded = degraded_serve(results, params, cparams)
+    with phase("3 parity"):
+        parity_flash(results)
+        parity_pv_int8(results)
+        parity_flash_new(results)
+        parity_paged(results)
+        parity_paged_new(results)
+        parity_softmax(results)
+        parity_softmax_lut(results)
+        router = parity_softmax_router()
+        next(e for e in results if e["name"] == "star_softmax")["router_variants"] = router
+        parity_ssd_scan(results)
+        realization_bits()
+    with phase("4 small reference"):
+        f32_launches = small_reference()
+        flash = next(e for e in results if e["name"] == "flash_star")
+        flash["launches_float32_smoke"] = f32_launches
+        flash["launches_float32_smoke_dense"] = small_reference_dense()
+        small_reference_mamba()
+        small_reference_moe()
+        smoke_paths = {**small_reference_vlm(), **small_reference_archs()}
+    with phase("5 serve"):
+        summary, params, cparams = serve(results)
+    for entry in results:
+        entry["launches_by_path"].update(
+            {f"smoke {k}": v.get(entry["name"], 0) for k, v in smoke_paths.items()})
+    with phase("5b dense serve"):
+        summary_dense = serve_dense(results, cparams)
+    with phase("6 int8 serve"):
+        summary_quant = serve_quant(results, cparams)
+    with phase("7 degraded serve"):
+        summary_degraded = degraded_serve(results, params, cparams)
     del params, cparams
     torch.cuda.empty_cache()
-    summary_mamba = serve_mamba(results)
-    summary_moe = serve_moe(results)
+    with phase("8 mamba2 serve"):
+        summary_mamba = serve_mamba(results)
+    with phase("9 moe serve"):
+        summary_moe = serve_moe(results)
+    with phase("10 vlm serve"):
+        summary_vlm = serve_vlm(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
         f"{PROFILES_RETAKEN}")
     log(json.dumps({"serve": summary, "serve_dense": summary_dense, "serve_int8": summary_quant,
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
-                    "serve_moe": summary_moe, "card": card}))
+                    "serve_moe": summary_moe, "serve_vlm": summary_vlm,
+                    "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCH_IDS: List[str] = ["granite_8b", "granite_moe_1b_a400m", "mamba2_130m", "mixtral_8x22b"]
+ARCH_IDS: List[str] = [
+    "deepseek_coder_33b", "granite_8b", "granite_moe_1b_a400m", "llama3_405b", "mamba2_130m",
+    "mixtral_8x22b", "qwen2_72b", "qwen2_vl_7b",
+]
 
 
 def _mod(arch: str):

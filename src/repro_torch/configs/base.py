@@ -1,5 +1,5 @@
-"""Model configuration (port of ``repro.configs.base``: the dense, moe and
-ssm fields).
+"""Model configuration (port of ``repro.configs.base``: the dense, moe, ssm
+and vlm fields).
 
 A config carries its op contract as ``repro_torch.ops`` specs; the legacy
 loose fields (``softmax_kind``, ``attn_impl``, ...) stay as constructor
@@ -10,7 +10,7 @@ inputs that the ``*_spec`` properties fold in, so the reference's
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.fixedpoint import FixedPointFormat
 from repro_torch.ops.specs import AttentionSpec, PagedAttentionSpec, SoftmaxSpec
@@ -22,7 +22,7 @@ _ATTN_IMPLS = {"naive": "reference", "blocked": "xla", "flash": "pallas"}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm (the families ported so far)
+    family: str  # dense | moe | ssm | vlm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,6 +45,11 @@ class ModelConfig:
     # column-parallel; ep: expert-parallel); on one card it changes nothing
     moe_style: str = "tp"
     star_router: bool = True  # the router's softmax through the STAR engine too
+
+    # --- vlm (qwen2-vl: stub patch embeddings, M-RoPE) ---
+    frontend_dim: Optional[int] = None  # stub patch embedding width
+    num_patches: int = 0  # stub patch positions prepended
+    mrope_sections: Tuple[int, ...] = ()  # M-RoPE split of the rotary half-dim (t, h, w)
 
     # --- SSM (mamba2) ---
     ssm_state: int = 0
@@ -137,4 +142,9 @@ class ModelConfig:
                              f"{self.num_experts} and {self.top_k}")
         if self.family == "ssm" and self.ssm_state <= 0:
             raise ValueError(f"the ssm family needs ssm_state > 0, got {self.ssm_state}")
+        half = self.resolved_head_dim // 2
+        if self.mrope_sections and sum(self.mrope_sections) != half:
+            # the reference asserts this inside apply_mrope; here at build time
+            raise ValueError(f"mrope_sections {self.mrope_sections} must sum to head_dim // 2 "
+                             f"= {half}")
         return self

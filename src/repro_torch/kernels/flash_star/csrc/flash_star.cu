@@ -34,6 +34,16 @@
 // tf32 planes (float32) or their P.V through a block of int8 codes, so tile
 // sizes, shared memory and the P.V step all differ, while the score tiles'
 // layout and the softmax (block_softmax) are the same in all three.
+//
+// Head dims 8, 16, 32, 64 and 128.  At D 8 (the smoke configs of
+// deepseek-coder-33b and llama3-405b) a bf16 QK^T still needs k in steps of
+// 16 (m16n8k16): the bf16 kernels keep Q and K rows of DK = 16 columns in
+// shared memory, the last 8 zero-filled by the same cp.async copies (a
+// source size of 0), so every dot product is the 8-term one exactly; the
+// wrapper's sm_scale keeps the true D.  V and the output stay 8 wide: one n8
+// tile, NO = 1, its B fragments by ldmatrix .x2.  The float32 kernel's
+// m16n8k8 tf32 step fits D 8 as it is; the int8 P.V variant folds its s8
+// sums into 8 features (V's codes keep their layout).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,6 +107,19 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* ptr)
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(ptr)));
 }
+// Two matrices: lanes 0-15 give the addresses (those of lanes 16-31 are not
+// read), register i as in ldsm_x4.  The B fragments of one n8 tile at D 8.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(ptr)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(ptr)));
+}
+
+// The k width of a bf16 QK^T: D, or 16 at D 8 (columns D .. 15 zero)
+__host__ __device__ constexpr int kdim(int d) { return d < 16 ? 16 : d; }
 
 // c += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulators (not
 // volatile: the compiler may interleave independent products)
@@ -378,20 +401,22 @@ constexpr int MSTAGES = 2;          // K/V ring depth
 
 template <int D>
 constexpr size_t smem_bytes_mma() {
-  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * MK) * (D + 8);
+  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * MK) * (kdim(D) + 8);
 }
 
 // minBlocks 1: without it ptxas caps small-D instantiations at 128
 // registers (four CTAs an SM) and spills
 template <int D, bool STAR>
 __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int first_round) {
-  constexpr int PITCH = D + 8;    // bf16 per shared row: 16 bytes of padding
+  constexpr int DK = kdim(D);     // columns of a shared row (D 8: 8 of them zero)
+  constexpr int PITCH = DK + 8;   // bf16 per shared row: 16 bytes of padding
   constexpr int TILE = MK * PITCH;
-  constexpr int CH = D / 8;       // 16-byte chunks per row
+  constexpr int CH = DK / 8;      // 16-byte chunks per row (past D: zero-filled)
   constexpr int NS = MK / 8;      // score n-tiles per warp
   constexpr int NO = D / 8;       // output n-tiles per warp
   constexpr int VG = D >= 32 ? 2 : 1;  // V column groups per P.V step
-  constexpr int QK_STEPS = (D / 16) * (NS / 2);
+  constexpr int QK_STEPS = (DK / 16) * (NS / 2);
+  static_assert(D % 8 == 0 && DK % 16 == 0, "head_dim 8 or a multiple of 16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MQ][PITCH]
   __nv_bfloat16* ring = Qs + MQ * PITCH;  // stage s: K at ring + 2 s TILE, V after it
@@ -423,7 +448,7 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
     const __nv_bfloat16* row = src + (c0 + r_t) * st + c_t;
 #pragma unroll
     for (int i = 0; i < MK / RS; ++i) {
-      const bool in = c0 + r_t + i * RS < p.Tk;
+      const bool in = c0 + r_t + i * RS < p.Tk && c_t < D;
       cp_async16(dst + (r_t + i * RS) * PITCH + c_t, in ? row + i * RS * st : src, in ? 16 : 0);
     }
   };
@@ -434,7 +459,7 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
 #pragma unroll
     for (int i = 0; i < MQ / RS; ++i) {
       const int t = iq * MQ + r_t + i * RS;
-      const bool in = t < p.Tq;
+      const bool in = t < p.Tq && c_t < D;
       cp_async16(Qs + (r_t + i * RS) * PITCH + c_t, in ? qg + t * p.q_st + c_t : qg, in ? 16 : 0);
     }
     load_k(ring, kg, p.k_st, kv_start);
@@ -449,7 +474,7 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
     cp_async_commit();
   }
 
-  uint32_t qa[D / 16][4];
+  uint32_t qa[DK / 16][4];
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -483,7 +508,7 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
     cp_async_commit();  // empty past the last tile: V0's wait below stays exact
     if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DK / 16; ++kk)
         ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH +
                             16 * kk + 8 * (lane >> 4));
     }
@@ -544,20 +569,27 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
       split3(s[2 * kk][2], s[2 * kk][3], pc[0][1], pc[1][1], pc[2][1]);
       split3(s[2 * kk + 1][0], s[2 * kk + 1][1], pc[0][2], pc[1][2], pc[2][2]);
       split3(s[2 * kk + 1][2], s[2 * kk + 1][3], pc[0][3], pc[1][3], pc[2][3]);
+      if constexpr (D < 16) {  // one n8 tile: V's columns 0 .. 7 of the 16 keys
+        uint32_t vb[2];
+        ldsm_x2_trans(vb, vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; dp += VG) {
-        uint32_t vb[VG][4];
+        for (int piece = 0; piece < 3; ++piece) mma_bf16(o[0], pc[piece], vb[0], vb[1]);
+      } else {
 #pragma unroll
-        for (int u = 0; u < VG; ++u)
-          ldsm_x4_trans(vb[u], vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH +
-                                   16 * (dp + u) + 8 * (lane >> 4));
+        for (int dp = 0; dp < D / 16; dp += VG) {
+          uint32_t vb[VG][4];
 #pragma unroll
-        for (int piece = 0; piece < 3; ++piece)
+          for (int u = 0; u < VG; ++u)
+            ldsm_x4_trans(vb[u], vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH +
+                                     16 * (dp + u) + 8 * (lane >> 4));
 #pragma unroll
-          for (int u = 0; u < VG; ++u) {
-            mma_bf16(o[2 * (dp + u)], pc[piece], vb[u][0], vb[u][1]);
-            mma_bf16(o[2 * (dp + u) + 1], pc[piece], vb[u][2], vb[u][3]);
-          }
+          for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+            for (int u = 0; u < VG; ++u) {
+              mma_bf16(o[2 * (dp + u)], pc[piece], vb[u][0], vb[u][1]);
+              mma_bf16(o[2 * (dp + u) + 1], pc[piece], vb[u][2], vb[u][3]);
+            }
+        }
       }
     }
   }
@@ -641,7 +673,8 @@ __host__ __device__ constexpr int pad32(int bk) { return (bk + 31) / 32 * 32; }
 template <typename T, int D, bool PV8>
 struct TcSmem {
   static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int QP = F32 ? D + 4 : D + 8;  // elements per row of Q and the ring
+  static constexpr int DK = F32 ? D : kdim(D);  // row width in shared memory (bf16 D 8: 16)
+  static constexpr int QP = F32 ? D + 4 : DK + 8;  // elements per row of Q and the ring
   static constexpr int VTP = SUB + 4;             // floats per row of the split V^T
   static constexpr size_t q = sizeof(T) * (F32 ? 2 : 1) * MQ * QP;        // Q (hi, lo)
   static constexpr size_t stage = sizeof(T) * (PV8 ? 1 : 2) * SUB * QP;   // K (and V)
@@ -696,10 +729,11 @@ template <typename T, int D, bool STAR, bool PV8>
 __device__ __forceinline__ void tc_attention(const Params& p, int first_round, const V8Args& w) {
   using S = TcSmem<T, D, PV8>;
   constexpr bool F32 = S::F32;
-  constexpr int QP = S::QP, VTP = S::VTP;
+  constexpr int QP = S::QP, VTP = S::VTP, DK = S::DK;
   constexpr int NS = PV8 ? BK8 / 8 : SUB / 8;  // score n-tiles of a block
   constexpr int NO = D / 8;                    // output n-tiles per warp
-  constexpr int CH = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int CH = DK * (int)sizeof(T) / 16;  // 16-byte chunks per row (past D: zero)
+  static_assert(D % 8 == 0 && (F32 || DK % 16 == 0), "head_dim 8 or a multiple of 16");
   constexpr int STAGE = (int)(S::stage / sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);                 // [MQ][QP] (F32: then lo)
@@ -732,7 +766,7 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
   const int n_it = n_blocks * nsub;
 
   // ROWS rows of src (row stride st) from row r0 into dst (pitch QP), 16
-  // bytes a copy; rows at or past lim zero-filled
+  // bytes a copy; rows at or past lim, and columns past D, zero-filled
   auto load_rows = [&](T* dst, const T* src, long long st, int r0, int lim, auto rows) {
     constexpr int ROWS = decltype(rows)::value;
 #pragma unroll
@@ -740,7 +774,7 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
       const int idx = tid + i * MT;
       if ((ROWS * CH) % MT == 0 || idx < ROWS * CH) {
         const int r = idx / CH, c = (16 / (int)sizeof(T)) * (idx - r * CH);
-        const bool in = r0 + r < lim;
+        const bool in = r0 + r < lim && c < D;
         cp_async16(dst + r * QP + c, in ? src + (r0 + r) * st + c : src, in ? 16 : 0);
       }
     }
@@ -854,7 +888,7 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
         const T* qf = Qs + a_row * QP + 8 * (lane >> 4);
         const T* kf = ks + b_row * QP + 8 * b_half;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           uint32_t qa[4];
           ldsm_x4(qa, qf + 16 * kk);
 #pragma unroll
@@ -895,6 +929,19 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
       }
       const float vs = __ldg(w.scales + ((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk);
       const int8_t* vf = V8s + (blk & 1) * D * V8_PITCH + b_row * V8_PITCH + 16 * b_half;
+      if constexpr (D < 16) {  // the fold cut to 8 features: one n8 tile of codes
+        int c[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int kk = 0; kk < NS / 4; ++kk) {
+          if (32 * kk >= w.kpad) break;
+          uint32_t vb[2];
+          ldsm_x2(vb, vf + 32 * kk);
+          mma_s8(c, pa[kk], vb[0], vb[1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[0][e] = __fadd_rn(__fmul_rn(o[0][e], r[e >> 1]), __fmul_rn(static_cast<float>(c[e]), vs));
+      }
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         int c[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
@@ -926,6 +973,14 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
         split_tf32(s[j][2], ph[1], pl[1]);
         split_tf32(s[j][1], ph[2], pl[2]);
         split_tf32(s[j][3], ph[3], pl[3]);
+        if constexpr (D < 16) {  // one n8 tile: V^T's 8 feature rows
+          uint32_t vh[2], vl[2];
+          ldsm_x2(vh, vt + 8 * j);
+          ldsm_x2(vl, vt + D * VTP + 8 * j);
+          mma_tf32(o[0], pl, vh[0], vh[1]);
+          mma_tf32(o[0], ph, vl[0], vl[1]);
+          mma_tf32(o[0], ph, vh[0], vh[1]);
+        }
 #pragma unroll
         for (int dp = 0; dp < D / 16; dp += VG) {
           uint32_t vh[VG][4], vl[VG][4];
@@ -1129,6 +1184,7 @@ template <int KIND>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t s, const V8Args& w = V8Args{}) {
   const bool star = p.lut != nullptr;
   switch (d) {
+    case 8: return star ? launch_kind<KIND, true, 8>(p, s, w) : launch_kind<KIND, false, 8>(p, s, w);
     case 16: return star ? launch_kind<KIND, true, 16>(p, s, w) : launch_kind<KIND, false, 16>(p, s, w);
     case 32: return star ? launch_kind<KIND, true, 32>(p, s, w) : launch_kind<KIND, false, 32>(p, s, w);
     case 64: return star ? launch_kind<KIND, true, 64>(p, s, w) : launch_kind<KIND, false, 64>(p, s, w);
@@ -1214,7 +1270,7 @@ extern "C" int flash_star_quantize_v_launch(
     const void* v, long long v_sb, long long v_sh, long long v_st,
     int B, int Hkv, int Tk, int D, int dtype, int bk, void* codes, void* scales,
     void* stream) {
-  if (bk < 1 || bk > BK8 || (dtype != 0 && dtype != 1) || D < 16 || D > 128 || D % 16)
+  if (bk < 1 || bk > BK8 || (dtype != 0 && dtype != 1) || D < 8 || D > 128 || D % 8)
     return (int)cudaErrorInvalidValue;
   if (Tk <= 0 || B <= 0 || Hkv <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);

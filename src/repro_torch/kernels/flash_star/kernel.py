@@ -21,6 +21,11 @@ q/k/v must start on a 16-byte boundary with batch, head and T strides of
 16 bytes each; a view that does not is refused with a ValueError before
 any launch (the ops layer's transposed ``[B, T, H, D]`` views pass).
 
+Head dims ``HEAD_DIMS``: 8, 16, 32, 64 and 128.  At 8 the bf16 products
+still take k in steps of 16: the kernels zero-fill Q and K to 16 columns in
+shared memory, and ``sm_scale`` keeps the true D, so every score is the
+8-term dot (a bf16 row of 8 is one 16-byte piece).
+
 ``block_k`` is the KV block of the plain version's loop; the CUDA kernels
 use their own fixed tiles (64 q rows; 64 KV rows in bf16, 32 in float32),
 which changes only the float summation order.  ``pv_int8=True`` runs the
@@ -42,7 +47,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_star.ref import V8_GROUP, flash_star_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_star.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PV_INT8_MAX_BLOCK = 128  # the kernel's BK8
 LAUNCHES = _cuda.launch_counter("flash_star")

@@ -76,6 +76,13 @@
 // dequantizes with __fmul_rn((float)code, scale), kvquant.decode's
 // expression, so the operands equal the reference's dequantized K/V bit for
 // bit (every int8 and e4m3 value converts to float exactly).
+//
+// Head dims 8, 16, 32, 64 and 128.  A head row is copied in pieces of 16
+// bytes, or of its whole size where it is shorter: 8 bytes for the 1-byte
+// codes of a D 8 row (cp.async.ca takes 4, 8 or 16 bytes); every
+// instantiation's row splits into whole pieces (a static_assert), so no
+// head dim or type can copy nothing.  The tile's padded pitch RB + 16 keeps
+// each widen() vector load aligned to its size.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -161,8 +168,16 @@ __device__ __forceinline__ int snap(float s, float scale) {
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_addr(dst)), "l"(src));
+// N bytes global -> shared: 16 through L2 only (.cg), 4 or 8 through L1
+// (.ca: .cg takes 16 alone); dst and src aligned to N
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_addr(dst)), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(N));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -208,17 +223,21 @@ __host__ __device__ inline Layout layout(int G, int D, int elem) {
 }
 
 // Copy the split's `rows` pool rows of this CTA's KV head into a tile of
-// SPLIT_ROWS rows with a padded stride (16-byte pieces).
+// SPLIT_ROWS rows with a padded stride, in pieces of PIECE bytes: 16, or the
+// whole row where it is shorter (8 bytes: D 8 over 1-byte codes).
 template <typename C, int D>
 __device__ __forceinline__ void issue_rows(unsigned char* dst, const C* pool, const int* row_sh,
                                            int rows, int Hkv, int hk, int tid) {
   constexpr int RB = D * (int)sizeof(C);  // bytes of one head row
-  constexpr int CPR = RB / 16;
+  constexpr int PIECE = RB < 16 ? RB : 16;
+  constexpr int CPR = RB / PIECE;         // pieces a row
+  static_assert(CPR >= 1 && CPR * PIECE == RB && (PIECE == 16 || PIECE == 8 || PIECE == 4),
+                "a head row must split into whole cp.async pieces of 4, 8 or 16 bytes");
   const unsigned char* base = reinterpret_cast<const unsigned char*>(pool) + (long long)hk * RB;
   for (int idx = tid; idx < rows * CPR; idx += NTHREADS) {
     const int r = idx / CPR, c = idx % CPR;
     const long long row = row_sh[r];
-    cp_async16(dst + r * (RB + 16) + c * 16, base + row * Hkv * RB + c * 16);
+    cp_async<PIECE>(dst + r * (RB + 16) + c * PIECE, base + row * Hkv * RB + c * PIECE);
   }
 }
 
@@ -505,6 +524,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 template <typename T, typename C, bool STAR>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
+    case 8: return launch<T, C, 8, STAR>(p, stream);
     case 16: return launch<T, C, 16, STAR>(p, stream);
     case 32: return launch<T, C, 32, STAR>(p, stream);
     case 64: return launch<T, C, 64, STAR>(p, stream);

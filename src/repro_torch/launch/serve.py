@@ -30,6 +30,11 @@ per-slot KV pool (the default layout) or the paged block pool.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
       --batch 8 --prompt-len 2048 --gen 32 --softmax-impl pallas
 
+  # qwen2-vl-7b: every request brings stub patch embeddings (num_patches x
+  # frontend_dim, seeded), prepended with M-RoPE positions
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_7b \\
+      --engine continuous --attn-impl pallas --softmax-impl pallas
+
 ``--attn-impl`` sets the config's attention impl, so prefill and decode
 follow it (``pallas`` -> ``flash_star`` for prefill and dense decode,
 ``pallas_paged`` for paged decode); ``--attn-impl paged`` is the reference's
@@ -37,7 +42,11 @@ marker: dense invocations run ``xla`` and the continuous engine takes the
 paged layout.  ``--softmax-impl`` retargets every softmax dispatch via
 ``ops.use``.  ``--kv-dtype`` int8 / fp8_e4m3 stores the page pool as codes
 plus scale pages; ``--kv-pool-blocks`` bounds the pool (exhaustion
-preempts).  Weights are random, drawn on the device from ``--seed``.
+preempts).  Weights are random, drawn on the device from ``--seed``.  A
+VLM arch's requests carry stub patch embeddings drawn from the same seeded
+generator (the lockstep batch one ``[B, P, frontend_dim]`` tensor, each
+continuous request its own ``[1, P, frontend_dim]``), and ``--max-len``
+defaults to ``prompt_len + gen + num_patches + 8``.
 
 ``--trace-out PATH`` enables tracing before the engine is built and writes
 the run's Chrome trace-event JSON there (load it in https://ui.perfetto.dev);
@@ -57,6 +66,15 @@ import sys
 import time
 
 import numpy as np
+
+
+def _frontend_kwargs(cfg, rng, batch):
+    """A VLM's stub patch embeddings ``[batch, P, frontend_dim]`` (float32,
+    from ``rng``); no frontend for any other family."""
+    if cfg.family != "vlm":
+        return {}
+    return {"patch_embeds": rng.standard_normal(
+        (batch, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
 
 
 def main(argv=None) -> int:
@@ -123,7 +141,7 @@ def main(argv=None) -> int:
     with ops.use(**overrides):
         ops.validate(cfg.softmax_spec)
         params = materialize(build_model(cfg).param_specs(), args.seed, device)
-        max_len = args.max_len or (args.prompt_len + args.gen + 8)
+        max_len = args.max_len or (args.prompt_len + args.gen + cfg.num_patches + 8)
         if args.engine == "lockstep":
             return run_lockstep(args, cfg, params, device, max_len)
         eng = ContinuousBatchingEngine(
@@ -141,7 +159,8 @@ def main(argv=None) -> int:
         for _ in range(args.requests):
             plen = max(1, int(rng.integers(args.prompt_len // 2, args.prompt_len + 1)))
             gen = max(1, int(rng.integers(args.gen // 2, args.gen + 1)))
-            eng.submit(rng.integers(0, cfg.vocab_size, (plen,)), gen)
+            prompt = rng.integers(0, cfg.vocab_size, (plen,))
+            eng.submit(prompt, gen, **_frontend_kwargs(cfg, rng, 1))  # per-request patches
             total += gen
         t0 = time.perf_counter()
         done = eng.run()
@@ -187,11 +206,12 @@ def run_lockstep(args, cfg, params, device, max_len) -> int:
 
     eng = ServeEngine(cfg, params, ServeConfig(max_len=max_len, temperature=args.temperature),
                       device=device, seed=args.seed)
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    kw = _frontend_kwargs(cfg, rng, args.batch)
     t0 = time.perf_counter()
     with obs.get_tracer().span("serve.generate", batch=args.batch, gen=args.gen):
-        toks, info = eng.generate(prompts, args.gen)
+        toks, info = eng.generate(prompts, args.gen, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

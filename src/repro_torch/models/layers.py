@@ -1,6 +1,6 @@
-"""Model building blocks (port of ``repro.models.layers``: the dense subset,
-the MoE block with its STAR router and the causal depthwise conv of the ssm
-family).
+"""Model building blocks (port of ``repro.models.layers``: the dense subset
+with RoPE and M-RoPE, the MoE block with its STAR router and the causal
+depthwise conv of the ssm family).
 
 Functional style as in the reference: parameters are dicts of tensors,
 layers are functions.  Weights are read through ``.to(compute_dtype)``
@@ -12,6 +12,7 @@ tree, cast once, so those reads copy nothing.  Projections are plain
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -73,7 +74,7 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig, embed_params: Params) 
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (standard + M-RoPE)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -90,6 +91,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def mrope_streams(sections: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Which positional stream (t / h / w) drives each frequency of the
+    rotary half: stream ``i`` repeated ``sections[i]`` times.  Static, so it
+    is made once per device (by the first eager call, before any capture of
+    a decode step reads it) and never uploaded again."""
+    streams = torch.repeat_interleave(torch.arange(len(sections)), torch.tensor(sections))
+    return streams.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x ``[B, T, H, D]`` rotated by positions
+    ``[B, T, 3]`` = (t, h, w) ids; ``sections`` splits the half-dim into
+    per-stream frequency bands.  Where the three streams are equal, the
+    angles (and so the output) are bit for bit ``apply_rope``'s at that
+    position: the same float32 product goes through the same cos and sin."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope_sections {tuple(sections)} must sum to head_dim // 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    pos = positions.float().index_select(-1, mrope_streams(tuple(sections), x.device))
+    angles = pos * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rotate(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k rotated by ``positions`` ``[B, T]`` or ``[B, T, 3]``, the
+    reference's choice: M-RoPE where the config has sections and the
+    positions are 3-D; a 3-D position on a config without sections uses its
+    stream 0; otherwise ``apply_rope``."""
+    if cfg.mrope_sections and positions.ndim == 3:
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
+    if positions.ndim == 3:
+        positions = positions[..., 0]
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +178,7 @@ def attention_block(
     x: torch.Tensor,
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,  # [B, T]
+    positions: torch.Tensor,  # [B, T], or [B, T, 3] (t, h, w) for M-RoPE
     cache: Optional[Params] = None,
     paged_cache_t: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Tuple[torch.Tensor, torch.Tensor]]:
@@ -167,8 +211,7 @@ def attention_block(
     Returns ``(out [B, T, Hq*D], cache', (k, v))``."""
     b, tq, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = rotate(q, k, positions, cfg)
     window = cfg.sliding_window
 
     if cache is None:

@@ -86,7 +86,8 @@ def materialize(specs, seed: int = 0, device: Device = None) -> Params:
 def from_reference(np_params, cfg, device: Device = None) -> Params:
     """The JAX reference's parameter pytree, given as nested dicts of numpy
     arrays (stacked ``[L, ...]`` blocks), as the port's parameters on
-    ``device`` in ``cfg.param_dtype``."""
+    ``device`` in ``cfg.param_dtype``: every leaf of the tree, a VLM's
+    ``patch_proj`` among them, under the same names."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     return tree_map(
@@ -97,8 +98,9 @@ def from_reference(np_params, cfg, device: Device = None) -> Params:
 
 # the leaves the layers read only through ``.to(compute_dtype)``: the
 # attention and MLP projections (and biases), the MoE router and experts, the
-# unembed kernel, the embed table (gather-then-cast equals cast-then-gather,
-# ``layers.embed``) and Mamba2's in / out projections and conv kernel.  Norm
+# unembed kernel and a VLM's ``patch_proj`` kernel, the embed table
+# (gather-then-cast equals cast-then-gather, ``layers.embed``) and Mamba2's
+# in / out projections and conv kernel.  Norm
 # scales, ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` are read through
 # ``.float()`` and stay.
 CAST_ONCE = frozenset({

@@ -1,5 +1,5 @@
-"""Model registry: family -> implementation class (dense, moe and ssm so
-far)."""
+"""Model registry: family -> implementation class (dense, moe, vlm and ssm
+so far)."""
 
 from __future__ import annotations
 
@@ -9,8 +9,8 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)
-    raise ValueError(f"family {cfg.family!r} is not ported yet (dense, moe and ssm only)")
+    raise ValueError(f"family {cfg.family!r} is not ported yet (dense, moe, vlm and ssm only)")

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and MoE families (port of
+"""Decoder-only transformer LM: the dense, MoE and VLM families (port of
 ``repro.models.transformer.DecoderLM``: forward, prefill, chunked
 ``prefill_extend``, the lockstep decode cache, the dense per-slot pool and
 the paged pool over fp32 or quantized pages, and sliding-window rings on
@@ -10,6 +10,15 @@ A MoE block (``layers.moe``) replaces the MLP.  Prefill and chunks given
 per-layer expert counts in the cache (``layers["moe"]``, ``[L, B, E]``
 int32) so that a chunked prefill drops the tokens a monolithic one drops;
 decode is stateless (one token a group: capacity 1, no drop).
+
+The VLM family (qwen2-vl) is the dense backbone behind a stub vision
+frontend: ``forward`` and ``prefill`` take ``patch_embeds`` ``[B, P,
+frontend_dim]``, project them with ``patch_proj`` in the compute dtype and
+prepend them (``_embed_inputs``), with M-RoPE (t, h, w) position ids.  The
+cache's ``"len"`` then counts ``P + T`` rows and its ``"pos"`` is the next
+temporal position ``side + T``; every later step (chunks, decode) continues
+from ``"pos"`` with three equal streams, which M-RoPE rotates exactly as the
+1-D rope.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvquant
 from repro_torch.models import layers as L
-from repro_torch.models.param import layer, stack_specs
+from repro_torch.models.param import ParamSpec, layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
 
 Params = Dict[str, Any]
@@ -29,8 +38,9 @@ Params = Dict[str, Any]
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"DecoderLM is the dense and moe families, got {cfg.family!r}")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM is the dense and moe families and the vlm backbone, "
+                             f"got {cfg.family!r}")
         self.cfg = cfg.validate()
 
     # -- parameters -----------------------------------------------------------
@@ -47,12 +57,16 @@ class DecoderLM:
 
     def param_specs(self) -> Params:
         cfg = self.cfg
-        return {
+        specs = {
             "embed": L.spec_embedding(cfg),
             "blocks": stack_specs(self.block_spec(), cfg.num_layers),
             "final_norm": L.spec_rmsnorm(cfg),
             "unembed": L.spec_unembed(cfg),
         }
+        if cfg.family == "vlm":  # its leaf is a "kernel": cast once with the others
+            specs["patch_proj"] = {"kernel": ParamSpec(
+                (cfg.frontend_dim or cfg.d_model, cfg.d_model), L.pdtype(cfg), "fan_in")}
+        return specs
 
     # -- blocks ---------------------------------------------------------------
 
@@ -81,13 +95,46 @@ class DecoderLM:
     def _positions(self, b: int, t: int, device) -> torch.Tensor:
         return torch.arange(t, dtype=torch.int32, device=device)[None].expand(b, t)
 
+    def _streams(self, pos: torch.Tensor) -> torch.Tensor:
+        """Positions ``[B, T]`` as the three equal M-RoPE streams ``[B, T,
+        3]`` on a config with sections (text rows and decode steps), else as
+        they are."""
+        return torch.stack([pos, pos, pos], dim=-1) if self.cfg.mrope_sections else pos
+
+    def _embed_inputs(self, params: Params, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor]):
+        """``(x, positions)``.  A VLM given ``patch_embeds`` ``[B,
+        P, frontend_dim]`` prepends the projected patches (in the compute
+        dtype) and builds M-RoPE ids ``[B, P + T, 3]``: patch ``p`` is ``(0,
+        p // side, p % side)`` on a stub grid of ``side = max(1, int(P **
+        0.5))`` (the reference's float square root, kept as it is), text
+        token ``i`` is ``(side + i)`` in all three streams.  Otherwise 1-D
+        positions ``[B, T]`` from 0."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], tokens, cfg)
+        b, t = tokens.shape
+        dev = tokens.device
+        if cfg.family != "vlm" or patch_embeds is None:
+            return x, self._positions(b, t, dev)
+        dt = L.cdtype(cfg)
+        pe = torch.as_tensor(patch_embeds, device=dev)
+        patches = pe.to(dt) @ params["patch_proj"]["kernel"].to(dt)
+        n_patch = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+        side = max(1, int(n_patch ** 0.5))
+        idx = torch.arange(n_patch, dtype=torch.int32, device=dev)
+        ppos = torch.stack([torch.zeros_like(idx), idx // side, idx % side], dim=-1)
+        text = side + torch.arange(t, dtype=torch.int32, device=dev)
+        pos = torch.cat([ppos, torch.stack([text, text, text], dim=-1)], dim=0)
+        return x, pos[None].expand(b, n_patch + t, 3)
+
     # -- public API -------------------------------------------------------------
 
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal forward -> logits ``[B, T, V]``."""
+    def forward(self, params: Params, tokens: torch.Tensor, *,
+                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence causal forward -> logits ``[B, T (+ P), V]``."""
         cfg = self.cfg
-        h = L.embed(params["embed"], tokens, cfg)
-        pos = self._positions(*tokens.shape, tokens.device)
+        h, pos = self._embed_inputs(params, tokens, patch_embeds)
         for i in range(cfg.num_layers):
             h = self._block(layer(params["blocks"], i), h, pos)[0]
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
@@ -99,6 +146,7 @@ class DecoderLM:
         return max_len
 
     def prefill(self, params: Params, tokens: torch.Tensor, max_len: int, *,
+                patch_embeds: Optional[torch.Tensor] = None,
                 cache_t: Optional[int] = None,
                 moe_capacity: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
         """Process a prompt: (last-position logits ``[B, 1, V]``, cache with
@@ -108,15 +156,17 @@ class DecoderLM:
         sliding window shorter than the prompt keeps its last ``ct`` rows in
         ring order (``layers.fit_window_cache``).  ``moe_capacity`` (a MoE
         model) sets the experts' queue capacity and adds the per-layer
-        expert counts ``layers["moe"]`` to the cache."""
+        expert counts ``layers["moe"]`` to the cache.  A VLM's
+        ``patch_embeds`` prepend ``P`` rows: ``len`` counts ``P + T`` and
+        ``pos`` is the next temporal position."""
         cfg = self.cfg
-        b, t = tokens.shape
+        b = tokens.shape[0]
+        h, pos = self._embed_inputs(params, tokens, patch_embeds)
+        t = h.shape[1]
         ct = cache_t if cache_t is not None else self.cache_len(max_len)
         if cfg.sliding_window is None and t > ct:
-            raise ValueError(f"prefill length {t} exceeds cache capacity {ct}; "
-                             "pass a larger max_len")
-        h = L.embed(params["embed"], tokens, cfg)
-        pos = self._positions(b, t, tokens.device)
+            raise ValueError(f"prefill length {t} (with any patch prefix) exceeds cache "
+                             f"capacity {ct}; pass a larger max_len")
         shape = (cfg.num_layers, b, ct, cfg.num_kv_heads, cfg.resolved_head_dim)
         ks = torch.zeros(shape, dtype=L.cdtype(cfg), device=tokens.device)
         vs = torch.zeros_like(ks)
@@ -132,10 +182,12 @@ class DecoderLM:
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         seq = torch.tensor(t, dtype=torch.int32, device=tokens.device)
+        # the next rope position: past the patch grid's extent for a VLM
+        nxt = (pos[0, -1, 0] + 1).to(torch.int32) if pos.ndim == 3 else seq.clone()
         layers = {"k": ks, "v": vs}
         if counts[0] is not None:
             layers["moe"] = torch.stack(counts)
-        return logits, {"layers": layers, "len": seq, "pos": seq.clone()}
+        return logits, {"layers": layers, "len": seq, "pos": nxt}
 
     def prefill_extend(self, params: Params, cache: Params, tokens: torch.Tensor, *,
                        moe_capacity: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
@@ -153,7 +205,7 @@ class DecoderLM:
         start = int(cache["len"])
         h = L.embed(params["embed"], tokens, cfg)
         pos = (int(cache["pos"]) + torch.arange(c, dtype=torch.int32, device=tokens.device))
-        pos = pos[None].expand(b, c)
+        pos = self._streams(pos[None].expand(b, c))
         layers = cache["layers"]
         prior = layers.get("moe")
         counts = []
@@ -237,7 +289,7 @@ class DecoderLM:
         b = tokens.shape[0]
         h = L.embed(params["embed"], tokens, cfg)
         pos = cache["pos"]
-        pos = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(b, 1)
+        pos = self._streams(pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(b, 1))
         layers = cache["layers"]
         for i in range(cfg.num_layers):
             layer_cache = {"k": layers["k"][i], "v": layers["v"][i], "len": cache["len"]}
@@ -364,7 +416,7 @@ class DecoderLM:
         pool's state (the reference returns new arrays)."""
         cfg = self.cfg
         h = L.embed(params["embed"], tokens, cfg)
-        pos = cache["pos"][:, None]
+        pos = self._streams(cache["pos"][:, None])
         layers = cache["layers"]
         for i in range(cfg.num_layers):
             layer_cache = {name: leaf[i] for name, leaf in layers.items()}

@@ -4,10 +4,16 @@ synchronized decode) for attention models and the ssm family; and
 ``ContinuousBatchingEngine`` for the attention family, over the dense
 per-slot KV pool (the default layout) or the paged block pool, with
 quantized page pools, the shared-prefix cache and preemption on the paged
-layout, chunked prefill and sliding-window ring caches on both.  Dense and
-MoE models serve alike; a MoE prompt's chunks share its whole-prompt expert
-capacity, and a MoE arch opts out of the prefix cache, as in the
-reference.
+layout, chunked prefill and sliding-window ring caches on both.  Dense,
+MoE and VLM models serve alike; a MoE prompt's chunks share its whole-prompt
+expert capacity, and a MoE arch opts out of the prefix cache, as in the
+reference.  A VLM request brings its stub patch embeddings (``submit(...,
+patch_embeds=...)``; ``ServeEngine.generate`` takes them for the batch): they
+are kept per request until it finishes, so a preempted request re-prefills
+with them, go with the monolithic prefill or the first chunk, and count
+``num_patches`` rows in every capacity check; such a request never looks up
+or inserts into the prefix trie, while a text-only request on the same
+engine still shares.
 
 The layout: ``ContinuousConfig.kv_layout`` picks it, and the ``"paged"``
 marker impl of ``attention`` — through ``ops.use(attention="paged")`` or the
@@ -171,6 +177,17 @@ def sample_token(
     return draw(sampling_probs(logits, t, cfg, guard, star_sampling), generators)
 
 
+def prefix_rows(cfg: ModelConfig, frontend: Dict[str, Any]) -> int:
+    """KV rows the frontend prepends before the prompt: a VLM's
+    ``num_patches`` when the request brings ``patch_embeds``, else 0 (the
+    reference's ``ContinuousBatchingEngine._prefix_rows``).  The one
+    definition that every capacity check, block count and staging size
+    reads, in both engines."""
+    if cfg.family == "vlm" and "patch_embeds" in frontend:
+        return cfg.num_patches
+    return 0
+
+
 @dataclasses.dataclass
 class LockstepState:
     """A lockstep ``generate``'s decode state.  The cache and the token
@@ -232,9 +249,10 @@ class ServeEngine:
                               star_sampling=self.serve_cfg.star_sampling)
 
     @torch.no_grad()
-    def begin(self, prompts) -> LockstepState:
-        """Prefill ``prompts`` ``[B, T]`` and sample each row's first token
-        (left in ``state.tokens``); ``graphs`` starts anew."""
+    def begin(self, prompts, **frontend) -> LockstepState:
+        """Prefill ``prompts`` ``[B, T]`` (a VLM: with ``patch_embeds`` ``[B,
+        P, frontend_dim]``, the stub patch prefix) and sample each row's
+        first token (left in ``state.tokens``); ``graphs`` starts anew."""
         prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         sc = self.serve_cfg
         gens = [torch.Generator(device=self.device).manual_seed(self.seed + i)
@@ -243,7 +261,7 @@ class ServeEngine:
         temperature = None if greedy else torch.full(
             (), sc.temperature, dtype=torch.float32, device=self.device)
         self.graphs = StepGraphs(self.device)
-        logits, cache = self.model.prefill(self.params, prompts, sc.max_len)
+        logits, cache = self.model.prefill(self.params, prompts, sc.max_len, **frontend)
         tok = sample_token(logits[:, -1], gens, self.cfg, sc.temperature,
                            star_sampling=sc.star_sampling)
         route = ("lockstep decode", tuple(prompts.shape), "greedy" if greedy else "sampled",
@@ -263,21 +281,23 @@ class ServeEngine:
         tokens.copy_(tok[:, None])
         return tok
 
-    def generate(self, prompts, num_tokens: int):
+    def generate(self, prompts, num_tokens: int, **frontend):
         """prompts ``[B, T]`` -> (generated ``[B, num_tokens]`` int32,
         ``{"cache_len": ...}``): ``begin``, then ``num_tokens - 1`` steps of
-        ``decode``; the tokens are checked once, at the end.  An attention
-        model without a ring needs ``T + num_tokens - 1`` cache rows: more
-        raises a ValueError before the prefill."""
+        ``decode``; the tokens are checked once, at the end.  ``frontend``:
+        a VLM's ``patch_embeds`` stubs.  An attention model without a ring
+        needs ``P + T + num_tokens - 1`` cache rows (``P`` the patch rows):
+        more raises a ValueError before the prefill."""
         if isinstance(self.model, DecoderLM):
-            rows = np.shape(prompts)[1] + num_tokens - 1
+            prefix = prefix_rows(self.cfg, frontend)
+            rows = prefix + np.shape(prompts)[1] + num_tokens - 1
             cache_t = self.model.cache_len(self.serve_cfg.max_len)
             if self.cfg.sliding_window is None and rows > cache_t:
                 raise ValueError(
                     f"generate needs {rows} cache rows (prompt {np.shape(prompts)[1]} + "
-                    f"{num_tokens} new tokens - 1) but the cache holds {cache_t} "
-                    f"(max_len={self.serve_cfg.max_len}); pass a larger max_len")
-        state = self.begin(prompts)
+                    f"prefix {prefix} + {num_tokens} new tokens - 1) but the cache holds "
+                    f"{cache_t} (max_len={self.serve_cfg.max_len}); pass a larger max_len")
+        state = self.begin(prompts, **frontend)
         outs = [state.tokens[:, 0].clone()]
         for _ in range(num_tokens - 1):
             outs.append(self.decode(state))
@@ -369,8 +389,9 @@ class ContinuousBatchingEngine:
         self._g_queue = reg.gauge("serve.queue.depth")
         self._g_active = reg.gauge("serve.slots.active")
         self._m_h2d = reg.counter(
-            "serve.bytes.h2d", "host->device bytes: prompt tokens, admission write tables, "
-            "dirty table rows, the [S, 1] int32 token inputs")
+            "serve.bytes.h2d", "host->device bytes: prompt tokens, a VLM request's patch "
+            "embeddings (once, at submit), admission write tables, dirty table rows, the "
+            "[S, 1] int32 token inputs")
         self._m_d2h = reg.counter(
             "serve.bytes.d2h", "device->host bytes: the sampled tokens (one per admission, "
             "one vector per tick), the guard's error per check")
@@ -446,6 +467,10 @@ class ContinuousBatchingEngine:
         self._inputs_dev = torch.zeros((s_count, 1), dtype=torch.int32, device=self.device)
         self._seed = seed
         self._generators: Dict[int, torch.Generator] = {}
+        # per-request frontend inputs (a VLM's patch embeddings, on the
+        # device), kept until the request finishes: a preempted request
+        # re-prefills with them
+        self._frontend: Dict[int, Dict[str, torch.Tensor]] = {}
         # one guard for the engine's lifetime: counters accumulate and the
         # trip latch persists across ticks
         self.guard = ops.AccuracyGuard(cb_cfg.guard) if cb_cfg.guard is not None else None
@@ -474,14 +499,18 @@ class ContinuousBatchingEngine:
 
     # -- submission -------------------------------------------------------------
 
-    def submit(self, prompt: Sequence[int] | np.ndarray, max_new_tokens: int) -> int:
-        """Queue a request (never blocks); returns its uid."""
-        need = len(prompt) + max_new_tokens - 1
+    def submit(self, prompt: Sequence[int] | np.ndarray, max_new_tokens: int,
+               **frontend) -> int:
+        """Queue a request (never blocks); returns its uid.  ``frontend``: a
+        VLM's ``patch_embeds`` ``[1, P, frontend_dim]``, prepended as ``P``
+        KV rows (such a request never shares through the prefix trie)."""
+        prefix = prefix_rows(self.cfg, frontend)
+        need = prefix + len(prompt) + max_new_tokens - 1
         # decode writes prompt + (max_new_tokens - 1) rows; a ring wraps
         if self.cfg.sliding_window is None and need > self.cb.max_len:
             raise ValueError(
-                f"request needs {need} cache rows (prompt {len(prompt)} + "
-                f"{max_new_tokens} new tokens) but the pool was built with "
+                f"request needs {need} cache rows (prompt {len(prompt)} + prefix "
+                f"{prefix} + {max_new_tokens} new tokens) but the pool was built with "
                 f"max_len={self.cb.max_len}"
             )
         if self._paged:
@@ -492,6 +521,11 @@ class ContinuousBatchingEngine:
                 raise ValueError(f"request needs {blocks} KV blocks but the pool only has "
                                  f"{bp.usable_blocks}; raise kv_pool_blocks")
         uid = self.scheduler.submit(prompt, max_new_tokens)
+        if frontend:
+            fe = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                  for k, v in frontend.items()}
+            self._m_h2d.inc(sum(t.numel() * 4 for t in fe.values()))
+            self._frontend[uid] = fe
         req = self.scheduler.pending[-1]
         req.submit_time = req.enqueued_at = time.perf_counter()
         self._m_submitted.inc()
@@ -569,6 +603,7 @@ class ContinuousBatchingEngine:
     def _finish(self, slot: Slot) -> None:
         req = self.scheduler.retire(slot)
         self._generators.pop(req.uid, None)
+        self._frontend.pop(req.uid, None)
         if self._paged:
             self.block_pool.release(req.uid)
         self._clear_slot(slot)
@@ -672,7 +707,8 @@ class ContinuousBatchingEngine:
         the KV rows into the pool and sample the next token."""
         req = slot.request
         tokens = self._tokens(req)
-        rows = len(tokens)
+        fe = self._frontend.get(req.uid, {})
+        rows = prefix_rows(self.cfg, fe) + len(tokens)
         prefill_len = self.cb.max_len
         if self._paged:
             if not self._admit_blocks(slot, rows):
@@ -690,7 +726,7 @@ class ContinuousBatchingEngine:
             self.tracer.instant("serve.admit", uid=req.uid, slot=slot.index, rows=rows)
         with self.tracer.span("serve.prefill", uid=req.uid, rows=rows):
             logits, cache1 = self.model.prefill(self.params, self._upload(tokens)[None],
-                                                prefill_len)
+                                                prefill_len, **fe)
             self._m_prefills.inc()
             if self._paged:
                 table = self._upload(self._tables[slot.index, :width])
@@ -721,24 +757,28 @@ class ContinuousBatchingEngine:
         prompt for ``_run_prefill_chunks``."""
         req = slot.request
         tokens = self._tokens(req)
+        fe = self._frontend.get(req.uid, {})
+        rows = prefix_rows(self.cfg, fe) + len(tokens)
         p0, shared = 0, []
-        if self.prefix is not None:
+        if self.prefix is not None and not fe:
+            # a frontend prefix (VLM patches) shifts the rows past the token
+            # grid: such a request never looks up or inserts
             shared, p0 = self.prefix.lookup(tokens)
             if shared:
                 self.block_pool.adopt(req.uid, shared)
         self._staging[slot.index] = {
-            "req": req, "tokens": tokens, "rows": len(tokens), "p0": p0,
+            "req": req, "fe": fe, "tokens": tokens, "rows": rows, "p0": p0,
             "shared": list(shared), "suffix": tokens[p0:], "done": 0,
-            "cache": None, "logits": None, "Ts": self._staging_rows(len(tokens)),
+            "cache": None, "logits": None, "Ts": self._staging_rows(rows),
             # a MoE prompt's expert capacity, the same in every chunk
-            "moe_cap": self.model.moe_prefill_capacity(len(tokens)),
+            "moe_cap": self.model.moe_prefill_capacity(rows),
         }
         slot.prefilling = True
         self._observe_queue_wait(req)
         self._m_admitted.inc()
         if self.tracer.enabled:
             self.tracer.instant("serve.admit", uid=req.uid, slot=slot.index,
-                                rows=len(tokens), prefix_rows=p0)
+                                rows=rows, prefix_rows=p0)
 
     def _run_prefill_chunks(self) -> List[TokenEvent]:
         """Feed this tick's prompt-token budget through the staging slots
@@ -764,9 +804,10 @@ class ContinuousBatchingEngine:
                         st["cache"] = self.model.gather_prefix_cache(
                             self.pool, st["shared"], st["p0"], st["Ts"])
                     if st["cache"] is None:
+                        # the frontend goes with the first chunk only
                         st["logits"], st["cache"] = self.model.prefill(
                             self.params, chunk, self.cb.max_len, cache_t=st["Ts"],
-                            moe_capacity=st["moe_cap"])
+                            moe_capacity=st["moe_cap"], **st["fe"])
                     else:
                         st["logits"], st["cache"] = self.model.prefill_extend(
                             self.params, st["cache"], chunk, moe_capacity=st["moe_cap"])
@@ -820,7 +861,7 @@ class ContinuousBatchingEngine:
                                + [SCRATCH_BLOCK] * (width - n_real))
             self.model.write_slot_paged(self.pool, cache, idx,
                                         self._upload(np.asarray(write_table, np.int32)))
-            if self.prefix is not None:
+            if self.prefix is not None and not st["fe"]:
                 self.prefix.insert(st["tokens"], table_row)
         self._rows[idx] = rows
         slot.prefilling = False
