@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the result lines):
    (a library built earlier, by a test or an earlier run, is reused with
    the compiler log kept beside it); each kernel's registers and spills
    from ptxas; for flash_star's bf16 tensor-core kernel
-   (``flash_star_mma_kernel``, 10 instantiations: head dims 8-128) 0 spill
+   (``flash_star_mma_kernel``, 12 instantiations: head dims 8-256, D 256
+   with Q's fragments from shared memory and 32-row KV tiles) 0 spill
    bytes and bf16 HMMA instructions in its SASS (``cuobjdump -sass``); for
    its float32 kernel (``flash_star_tf32_kernel``, 10) 0 spill bytes and
    tf32 HMMA, for the int8 P.V kernel (``flash_star_pv_int8_kernel``, 20:
@@ -90,7 +91,14 @@ Phases (any failure exits non-zero before the result lines):
    128, W 50, bf16 pages) and at D 8 (G 7 and G 4, the smoke shape's lens)
    over float32, bf16, int8 and fp8_e4m3 pages; the STAR softmax in gather
    mode at the sampling shapes, qwen2-vl's [4, 152064] among them, each
-   bit-equal to its plain version;
+   bit-equal to its plain version.  Then (``parity_flash_d256``) the bf16
+   flash_star kernel at head_dim 256, STAR and exact, at recurrentgemma-2b's
+   prefill (q [1, 10, 3072, 256] causal over one KV head, window 2048: the
+   window masks) and its ring decode (q [4, 10, 1, 256] over a full [4, 1,
+   2048, 256] ring), SDPA beside each exact variant; the float32 and int8
+   P.V kernels refusing D 256 with their named errors; and the STAR softmax
+   at the two new sampling shapes, [4, 256000] and [4, 256512] (306 padded
+   columns at -1e30), bit-equal;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens (the config computes in float32, so every
@@ -130,6 +138,12 @@ Phases (any failure exits non-zero before the result lines):
    D-8 configs also over an int8 paged pool (rows of 8 one-byte codes):
    card == CPU tokens, flash_star once per layer of every prefill (and of
    every dense tick), the paged kernel once per layer of every paged tick;
+   and the hybrid and enc-dec families on the lockstep engine (the only one
+   either runs on): recurrentgemma-2b's smoke config (prompts of 20 past
+   its window of 16: the ring wraps) and seamless-m4t-large-v2's (64 stub
+   frames a row), card == CPU greedy tokens, flash_star once per attention
+   block of the prefill and of each replay (seamless: 6 a prefill, 4 a
+   step);
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed and cast to bf16 once
    (``compute_params``, shared by every engine after it), the
@@ -252,7 +266,30 @@ Phases (any failure exits non-zero before the result lines):
    prefill and of each replay); one prefill (256 patches + 128 tokens)
    through the kernels against ``ops.use(attention="reference")`` within
    rel_l2 < 3e-2, its cache's ``len`` / ``pos`` = 384 / 144;
-11. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+11. hybrid serve: recurrentgemma-2b at its published widths and all 26
+   layers (8 periods of two RG-LRU blocks and a local-attention block, a
+   2-layer RG-LRU tail; D 256, 10 q heads over 1 KV head; window 2048;
+   vocab 256000), ~3.5 B random weights cast to bf16 once (the RG-LRU
+   gates' weights stay float32), after qwen2-vl's are freed, on the
+   lockstep engine: 4 x 512-token prompts, 32 new tokens, sampled at T 0.8,
+   then greedy; then 4 x 3072-token prompts, greedy, 32 tokens (the window
+   masks the prefill, the 2048-row rings wrap).  Counters zeroed just
+   before and read just after each: flash_star 8 times a prefill and 8 a
+   step, the STAR softmax once a sampled step (counted through the 31
+   replays).  Tok/s with and without the capture, peak memory, the time to
+   first token, a steady step's wall, device busy and CUDA-event time; the
+   replayed step against the eager step from a copy of its state (output
+   and every cache leaf bit-equal); one 3072-token prefill against
+   ``ops.use(attention="reference")`` within rel_l2 < 3e-2;
+12. enc-dec serve: seamless-m4t-large-v2 at its published widths (24 + 24
+   layers, d_model 1024, 16 heads: D 64, vocab 256206 padded to 256512),
+   random weights cast to bf16 once, on the lockstep engine: 4 x 256-token
+   prompts with [4, 64, 1024] stub frames, 32 new tokens, sampled at T 0.8
+   and greedy: flash_star 72 times a prefill (24 encoder, 24 self, 24
+   cross) and 48 a step, the STAR softmax once a sampled step; the same
+   measurements and checks as phase 11 (a 4 x 256 prefill against the
+   reference attention);
+13. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
    each path's own count under ``launches_by_path``: every serve phase and
    the phase 4 smoke paths) and, last, the device line.  Each phase's wall
    seconds are printed as it ends (``phase <name>: <s>``) and gathered
@@ -317,8 +354,12 @@ SSD_DIVERGENCE_FACTOR = 10  # a greedy divergence fails above this x the prefill
 MILD = dict(g_sigma=0.05, stuck_on_rate=0.01, stuck_off_rate=0.01,
             adc_offset_sigma=0.1, read_disturb=0.01, seed=7)
 SEVERE = dict(stuck_on_rate=0.6, stuck_off_rate=0.2, seed=3)
-# sampling: granite-8b's 4 slots, Mamba2's 8 rows, qwen2-vl-7b's 4 slots
-SOFTMAX_SHAPES = ((4, 49152), (8, 50688), (4, 152064))
+# sampling (rows, columns, padded columns at -1e30 as ``unembed`` masks
+# them): granite-8b's 4 slots, Mamba2's 8 rows, qwen2-vl-7b's 4 slots,
+# recurrentgemma-2b's 4 rows and seamless-m4t-large-v2's (256206 padded to
+# 256512)
+SOFTMAX_SHAPES = ((4, 49152, 0), (8, 50688, 0), (4, 152064, 0), (4, 256000, 0),
+                  (4, 256512, 256512 - 256206))
 # the MoE router's rows, experts and top-k: granite-moe-1b-a400m's 512-token
 # prefill and 4-slot tick, and mixtral's smoke config over a 64-token prefill
 ROUTER_SHAPES = ((512, 32, 8), (4, 32, 8), (64, 4, 2))
@@ -343,6 +384,7 @@ def log(msg: str) -> None:
 
 
 PHASE_SECONDS = {}  # phase -> wall seconds, printed as each phase ends
+CARD = None  # nvidia-smi's name and power limit, set by main
 
 
 @contextlib.contextmanager
@@ -561,8 +603,8 @@ def check_mma_build(ptxas_log, library):
     of HMMA instructions in the SASS of the built library."""
     mma = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
            if "flash_star_mma_kernel" in f}
-    check(len(mma) == 10, f"expected 10 flash_star_mma_kernel instantiations, ptxas shows "
-                          f"{len(mma)}")
+    check(len(mma) == 12, f"expected 12 flash_star_mma_kernel instantiations (D 8-256), "
+                          f"ptxas shows {len(mma)}")
     hmma = sass_hmma(library)
     for func, lines in sorted(mma.items()):
         m = re.search(r"ILi(\d+)ELb([01])E", func)
@@ -696,7 +738,7 @@ def check_softmax_build(ptxas_log):
 
 
 def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_block=None,
-                    causal=True):
+                    causal=True, window=None, dtypes=None):
     """flash_star against its plain version on ``base`` (q, k, v float32)
     in bf16 and f32, STAR and exact; ``sdpa`` times the library call for
     the exact variant.  With ``pv_int8_block`` the int8 P.V variant over
@@ -708,7 +750,9 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
     rows some row of each batch sees, at 3.35 TB/s, or the products as the kernel issues
     them, 2 x live scores x D for QK^T and as much for P.V: bf16 at the bf16
     tensor-core peak, float32 as three tf32 products each at the tf32 peak
-    (the FP32-FMA bound beside it), pv_int8's P.V at the int8 peak."""
+    (the FP32-FMA bound beside it), pv_int8's P.V at the int8 peak.
+    ``window``: the sliding window (``live`` must mask it too); ``dtypes``:
+    the types to run (default bfloat16 and float32)."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
@@ -719,14 +763,14 @@ def _flash_variants(label, base, info, live, sdpa=None, shape=None, pv_int8_bloc
     kv_rows = int(live.any(dim=2).any(dim=1).sum())  # summed over the batch
     flips_key = "grid_flip_rows" if pv_int8_block is None else "code_flip_rows"
     variants = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         q, k, v = (x.to(dtype) for x in base)
         kr = k.double().repeat_interleave(hq // hkv, dim=1)
         scores64 = (q.double() @ kr.transpose(-1, -2)) * d ** -0.5
         for fmt in (FMT, None):
             mode = "star" if fmt is not None else "exact"
             name = f"{label} {mode} {dtype}"
-            kw = dict(fmt=fmt, causal=causal)
+            kw = dict(fmt=fmt, causal=causal, sliding_window=window)
             amb = None
             if pv_int8_block is not None:
                 kw.update(block_k=pv_int8_block, pv_int8=True)
@@ -1336,6 +1380,73 @@ def parity_flash_new(results):
         next(e for e in results if e["name"] == name)["variants"] += new
 
 
+HYBRID_ARCH = "recurrentgemma_2b"
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+HYBRID_PREFILL = 3072  # phase 11's long prompts: past the window, so it masks and the ring wraps
+HYBRID_WINDOW = 2048
+
+
+def parity_flash_d256(results):
+    """flash_star's bf16 kernel at head_dim 256, as variants of the
+    ``flash_star`` entry: recurrentgemma-2b's prefill, q [1, 10, 3072, 256]
+    causal over one KV head with its window of 2048 (rows past 2048 see a
+    window, not the whole prefix), SDPA beside the exact variant with the
+    same boolean mask; and its ring decode, q [4, 10, 1, 256] over [4, 1,
+    2048, 256] (a full ring, not causal), SDPA beside it.  Then the
+    float32 and int8 P.V kernels, which refuse D 256, must raise their named
+    ValueErrors on the card before any launch."""
+    import torch
+
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.kernels.flash_star import kernel as fk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    b, hq, hkv, t, d, w = 1, 10, 1, HYBRID_PREFILL, 256, HYBRID_WINDOW
+    base = [torch.randn(sh, device=dev, generator=gen) for sh in
+            ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
+    info = torch.tensor([0, t], dtype=torch.int32, device=dev)
+    rows = torch.arange(t, device=dev)
+    mask = (rows[None, :] <= rows[:, None]) & (rows[None, :] > rows[:, None] - w)
+
+    def sdpa_window(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+
+    variants = _flash_variants(
+        "flash_star recurrentgemma prefill D256", base, info, mask[None, None].expand(b, hq, t, t),
+        sdpa=sdpa_window, window=w, dtypes=(torch.bfloat16,),
+        shape=f"recurrentgemma prefill q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal, "
+              f"window {w}")
+    s = 4
+    base = (torch.randn((s, hq, 1, d), device=dev, generator=gen),
+            *(torch.randn((s, hkv, w, d), device=dev, generator=gen) for _ in range(2)))
+    info = torch.tensor([0] + [w] * s, dtype=torch.int32, device=dev)
+    live = torch.ones((s, hq, 1, w), dtype=torch.bool, device=dev)
+
+    def sdpa_ring(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+
+    variants += _flash_variants(
+        "flash_star recurrentgemma ring decode D256", base, info, live, sdpa=sdpa_ring,
+        causal=False, dtypes=(torch.bfloat16,),
+        shape=f"recurrentgemma ring decode q[{s},{hq},1,{d}] over kv[{s},{hkv},{w},{d}], "
+              f"a full ring, causal=False")
+    next(e for e in results if e["name"] == "flash_star")["variants"] += variants
+    q, k, v = (x.float() for x in base)
+    before = fk.LAUNCHES.count + fk.PV_INT8_LAUNCHES.count
+    for kw, named in ((dict(), "float32 kernel"), (dict(pv_int8=True), "int8 P.V kernel")):
+        try:
+            fk.flash_star_attention(q, k, v, info, fmt=FMT, causal=False, **kw)
+            check(False, f"flash_star's {named} took head_dim 256")
+        except ValueError as exc:
+            check(named in str(exc), f"flash_star D 256 refusal names no {named}: {exc}")
+    check(fk.LAUNCHES.count + fk.PV_INT8_LAUNCHES.count == before,
+          "flash_star: a refused D-256 call launched")
+    log("flash_star D 256: the float32 and int8 P.V kernels refuse it with their named "
+        "ValueErrors, nothing launched")
+
+
 def parity_paged_new(results):
     """The paged kernels at this slice's shapes, as variants of the
     ``paged_attention`` / ``paged_attention_quant`` entries: qwen2-vl-7b's
@@ -1433,10 +1544,11 @@ def _softmax_variant(name, fn, ref_fn, x, extra):
 
 def parity_softmax(results):
     """The STAR softmax kernel in clean ``gather`` mode at the sampling
-    shapes (granite [4, 49152], Mamba2 [8, 50688], qwen2-vl [4, 152064]),
-    bit-equal to the plain version (which adds a row in the kernel's
-    order), ``-inf`` columns saturating as the plain version does,
-    ``onehot`` bit-equal to it."""
+    shapes (granite [4, 49152], Mamba2 [8, 50688], qwen2-vl [4, 152064],
+    recurrentgemma [4, 256000], seamless [4, 256512] with its 306 padded
+    columns at -1e30), bit-equal to the plain version (which adds a row in
+    the kernel's order), ``-inf`` columns saturating as the plain version
+    does, ``onehot`` bit-equal to it."""
     import torch
 
     from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
@@ -1445,10 +1557,12 @@ def parity_softmax(results):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     variants = []
-    for rows, d in SOFTMAX_SHAPES:
+    for rows, d, pad in SOFTMAX_SHAPES:
         x = torch.randn(rows, d, device=dev, generator=gen) * 4
+        x[:, d - pad:] = -1e30  # the vocabulary's padding columns, as unembed masks them
         variants.append(_softmax_variant(
-            f"star_softmax gather clean float32 [{rows}, {d}]",
+            f"star_softmax gather clean float32 [{rows}, {d}]"
+            + (f" ({pad} columns at -1e30)" if pad else ""),
             lambda: sk.star_softmax_kernel(x, FMT), lambda: sk.star_softmax_ref(x, FMT), x,
             dict(dtype="float32", mode="gather", fault=None, bytes=2 * x.numel() * 4)))
         got, ref = sk.star_softmax_kernel(x, FMT), sk.star_softmax_ref(x, FMT)
@@ -1471,7 +1585,8 @@ def parity_softmax(results):
         "star_softmax", "cuda", "src/repro_torch/kernels/star_softmax/csrc/star_softmax_lut.cu",
         "src/repro/kernels/star_softmax/kernel.py:177", main, main["bytes"],
         ops, H100_FP32_FLOPS, variants,
-        shape="[4, 49152] f32 (main); [8, 50688] and [4, 152064] in variants"))
+        shape="[4, 49152] f32 (main); [8, 50688], [4, 152064], [4, 256000] and [4, 256512] "
+              "in variants"))
     results[-1].update(design=SOFTMAX_DESIGN, device_ms=main["device_ms"])
 
 
@@ -1959,13 +2074,16 @@ def _smoke_card_vs_cpu(label, cfg, devices, kw, requests, waves=1):
     return counts, eng, engines["cpu"]
 
 
-def _smoke_lockstep(label, cfg, devices, prompts, n, **frontend):
+def _smoke_lockstep(label, cfg, devices, prompts, n, flash=None, **frontend):
     """A greedy lockstep ``generate`` on the card and the CPU: equal tokens,
-    flash_star once per layer of the prefill and of each replay."""
+    flash_star ``flash`` = (launches a prefill, a step) times: once per
+    layer of the prefill and of each replay unless given."""
     from repro_torch import ops
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+    per_prefill, per_step = flash or (cfg.num_layers, cfg.num_layers)
+    want = per_prefill + per_step * (n - 1)
     outs = {}
     with ops.use(softmax="pallas"):
         for dev, params in devices:
@@ -1974,10 +2092,9 @@ def _smoke_lockstep(label, cfg, devices, prompts, n, **frontend):
             outs[dev], info = eng.generate(prompts, n, **frontend)
             if dev == "cuda":
                 counts = launch_counts()
-                check(counts.get("flash_star", 0) == cfg.num_layers * n
-                      and eng.graphs.replays == n - 1,
+                check(counts.get("flash_star", 0) == want and eng.graphs.replays == n - 1,
                       f"smoke {label}: flash_star launched {counts.get('flash_star', 0)} times, "
-                      f"expected {cfg.num_layers * n} (the prefill and {n - 1} replays)")
+                      f"expected {want} (the prefill and {n - 1} replays)")
     check(bool((outs["cuda"].cpu() == outs["cpu"]).all()),
           f"smoke {label} greedy tokens differ card vs cpu")
     log(f"small reference {label}: greedy tokens identical on card and cpu "
@@ -2055,6 +2172,33 @@ def small_reference_archs():
                 f"{arch} {label} (D {cfg.resolved_head_dim})", cfg, devices, kw, reqs)[0]
         by_path[f"{arch} lockstep"] = _smoke_lockstep(
             f"{arch} lockstep", cfg, devices, rng.integers(0, cfg.vocab_size, (3, 9)), 12)
+    return by_path
+
+
+def small_reference_hybrid_encdec():
+    """Phase 4, the hybrid and enc-dec families on the lockstep engine (the
+    only engine either runs on): recurrentgemma-2b's smoke config (window
+    16, prompts of 20: the ring wraps; one attention block, so flash_star
+    once a prefill and once a step) and seamless-m4t-large-v2's (2 + 2
+    layers, [2, 64, 32] stub frames: flash_star 6 times a prefill, 2
+    encoder, 2 self and 2 cross, and 4 times a step) greedy on the card and
+    the CPU, equal tokens.  Returns the card's launch counts by path."""
+    import numpy as np
+
+    by_path = {}
+    rng = np.random.default_rng(SEED + 8)
+    cfg, devices = _smoke_pair(HYBRID_ARCH)
+    attn = sum(k == "attention" for k in cfg.block_pattern)
+    by_path["recurrentgemma lockstep"] = _smoke_lockstep(
+        "recurrentgemma lockstep (ring of 16)", cfg, devices,
+        rng.integers(0, cfg.vocab_size, (3, 20)), 12, flash=(attn, attn))
+    cfg, devices = _smoke_pair(ENCDEC_ARCH)
+    src = rng.standard_normal((2, 64, cfg.frontend_dim)).astype(np.float32)
+    nd = cfg.num_decoder_layers
+    by_path["seamless lockstep"] = _smoke_lockstep(
+        "seamless lockstep (64 stub frames)", cfg, devices,
+        rng.integers(0, cfg.vocab_size, (2, 9)), 12, flash=(cfg.num_layers + 2 * nd, 2 * nd),
+        src_embeds=src)
     return by_path
 
 
@@ -2482,19 +2626,26 @@ WEIGHT_CAST_BOUND_US = 25.17e6 / 3.35e12 * 1e6
 
 def check_cast_once(eng, label) -> None:
     """Every leaf the layers read through ``.to(compute_dtype)`` is in the
-    compute dtype already: no weight is cast at use."""
+    compute dtype already (no weight is cast at use), and every leaf they
+    read in float32 (an RG-LRU block's ``wa`` / ``wi`` / ``lam``, the norms)
+    is still float32 (``param.casts_once``, which goes by the leaf's
+    place)."""
     import torch
 
-    from repro_torch.models.param import CAST_ONCE
+    from repro_torch.models.param import casts_once
 
     dtype = getattr(torch, eng.cfg.compute_dtype)
 
-    def leaves(tree):
+    def leaves(tree, path=()):
         for k, v in tree.items():
-            yield from (leaves(v) if isinstance(v, dict) else [(k, v)])
+            yield from (leaves(v, path + (k,)) if isinstance(v, dict)
+                        else [(path + (k,), tree, v)])
 
-    wrong = sorted({k for k, v in leaves(eng.params) if k in CAST_ONCE and v.dtype != dtype})
-    check(not wrong, f"{label}: weights {wrong} are not in {dtype}: cast at every use")
+    wrong = sorted({"/".join(path) for path, parent, v in leaves(eng.params)
+                    if (v.dtype == dtype) != casts_once(path[-1], parent) and v.is_floating_point()
+                    and dtype != torch.float32})
+    check(not wrong, f"{label}: weights {wrong[:8]} are not in the dtype they are read in "
+                     f"({dtype} if cast once, else float32)")
 
 
 def profile_tick(cfg, params, kv_dtype="fp32", guard=None, label="", kv_layout="paged",
@@ -3106,7 +3257,8 @@ def mamba_greedy_divergence(cfg, model, params, tokens, max_len, steps, noise):
             "rows_identical": int(tk.shape[0]) - len(divergences), "divergences": divergences}
 
 
-def mamba_decode_step(eng, prompts, steps=8):
+def lockstep_decode_step(eng, prompts, steps=8, label="mamba2 decode step by replay, batch 8",
+                         **frontend):
     """The engine's own decode step (``ServeEngine.decode``: its graph's
     replay, the draws outside it, the token copy) from a full-width
     ``begin``: the time to first token (``begin``: the prefill and the first
@@ -3117,7 +3269,7 @@ def mamba_decode_step(eng, prompts, steps=8):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = eng.begin(prompts)
+    state = eng.begin(prompts, **frontend)
     torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
     eng.decode(state)  # the capture
@@ -3127,9 +3279,9 @@ def mamba_decode_step(eng, prompts, steps=8):
         eng.decode(state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    prof = profile_window("mamba2 decode step by replay, batch 8", lambda: eng.decode(state))
+    prof = profile_window(label, lambda: eng.decode(state))
     event_ms = time_ms(lambda: eng.decode(state))
-    check(eng.graphs.entries() == 1, f"mamba2 decode step: {eng.graphs.entries()} captures")
+    check(eng.graphs.entries() == 1, f"{label}: {eng.graphs.entries()} captures")
     return ttft, {"wall_ms": wall_ms, "busy_ms": prof["busy_ms"] if prof else None,
                   "profile": prof, "step_ms_events": event_ms}
 
@@ -3170,7 +3322,7 @@ def serve_mamba(results):
     with ops.use(softmax="pallas"), torch.no_grad():
         eng = ServeEngine(cfg, params, sc, device="cuda", seed=SEED)
         eng.generate(prompts[:, :256], 2)  # warm-up: the sampling kernel at this vocabulary
-        ttft, step = mamba_decode_step(eng, prompts)
+        ttft, step = lockstep_decode_step(eng, prompts)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -3613,6 +3765,277 @@ def serve_vlm(results):
 
 
 # ---------------------------------------------------------------------------
+# phases 11 and 12: the hybrid and enc-dec families on the lockstep engine
+
+
+def _never():
+    raise AssertionError("the step's graph was captured already: no capture expected here")
+
+
+def lockstep_run(label, eng, prompts, n, want, **frontend):
+    """One lockstep ``generate`` of ``n`` tokens, the launch counters zeroed
+    just before and read just after: each of ``want`` ({kernel: launches})
+    exactly, ``n - 1`` replays of one capture, tokens in the vocabulary.
+    Returns (summary, counts): tok/s with and without the graph's warm-up
+    and capture, peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got, info = eng.generate(prompts, n, **frontend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cap = eng.graphs.capture_seconds
+    b = got.shape[0]
+    check(tuple(got.shape) == (len(prompts), n)
+          and bool(((got >= 0) & (got < eng.cfg.vocab_size)).all()),
+          f"{label}: bad output {tuple(got.shape)}")
+    check((eng.graphs.entries(), eng.graphs.replays) == (1, n - 1),
+          f"{label}: {eng.graphs.entries()} captures, {eng.graphs.replays} replays for "
+          f"{n - 1} decode steps")
+    for name, k in want.items():
+        check(counts.get(name, 0) == k, f"{label}: {name} launched {counts.get(name, 0)} times, "
+                                        f"expected {k}")
+    log(f"{label}: {b} x {np.shape(prompts)[1]}-token prompts, {b * n} tokens in {wall:.3f}s = "
+        f"{b * n / wall:.2f} tok/s ({b * n / (wall - cap):.2f} without the warm-up and capture, "
+        f"{cap:.3f}s), cache_len {info['cache_len']}, max_memory_allocated={peak / 2**30:.2f} "
+        f"GiB; launches {counts} [{CARD}]")
+    return {"batch": b, "prompt_len": int(np.shape(prompts)[1]), "gen": n, "tokens": b * n,
+            "wall_s": wall, "tok_per_s": b * n / wall, "capture_s": cap,
+            "tok_per_s_without_capture": b * n / (wall - cap), "cache_len": info["cache_len"],
+            "max_memory_allocated": peak, "launches": counts}, counts
+
+
+def lockstep_replay_vs_eager(eng, state, label):
+    """One decode step by replay of the engine's captured graph against the
+    eager step from a copy of the same state (cache and token buffer): the
+    step's output (greedy tokens or the sampling distribution) and every
+    cache leaf after it bit-equal.  The replay advances ``state`` without
+    its token buffer, so it is the state's last use."""
+    import torch
+
+    from repro_torch.models.param import tree_map
+
+    def leaves(tree):
+        for k in sorted(tree):
+            yield from leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]]
+
+    cache, tokens = tree_map(torch.clone, state.cache), state.tokens.clone()
+    with torch.no_grad():
+        eager = eng._step(cache, tokens, state.temperature)
+        replays = eng.graphs.replays
+        replay = eng.graphs.run(state.route, _never, _never)
+    torch.cuda.synchronize()
+    check(eng.graphs.replays == replays + 1 and eng.graphs.entries() == 1,
+          f"{label}: the step did not replay its one graph")
+    same_out = bool(torch.equal(replay, eager))
+    same_cache = all(torch.equal(a, b) for a, b in zip(leaves(state.cache), leaves(cache)))
+    diff = float((replay.float() - eager.float()).abs().max())
+    log(f"{label}: replayed step vs eager step from a copy of its state: output bit-equal "
+        f"{same_out} (max_abs {diff:.3e}), every cache leaf bit-equal {same_cache}")
+    check(same_out and same_cache, f"{label}: the replayed step is not bit-equal to the eager "
+                                   f"step (output {same_out}, cache {same_cache})")
+    return same_out and same_cache
+
+
+def prefill_vs_reference(label, model, cparams, tokens, max_len, want_flash, **frontend):
+    """One prefill through the kernels (flash_star ``want_flash`` times)
+    against the same prefill under ``ops.use(attention="reference")``:
+    finite logits within rel_l2 < 3e-2 over the vocabulary's columns.
+    Beside it, the same distance between two plain routes (``xla``, the
+    online-blocked loop, against ``reference``): how far bf16 compute
+    carries a difference in the order of attention's float32 sums through
+    the model.  Returns both."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    with torch.no_grad():
+        reset_launch_counts()
+        kern, _ = model.prefill(cparams, tokens, max_len, **frontend)
+        pcounts = launch_counts()
+        with ops.use(attention="reference"):
+            ref, _ = model.prefill(cparams, tokens, max_len, **frontend)
+        with ops.use(attention="xla"):
+            plain, _ = model.prefill(cparams, tokens, max_len, **frontend)
+    v = model.cfg.vocab_size
+    kern, ref, plain = (x[..., :v].float() for x in (kern, ref, plain))
+    check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits")
+    check(pcounts.get("flash_star", 0) == want_flash, f"{label}: flash_star launched "
+          f"{pcounts.get('flash_star', 0)} times, expected {want_flash}")
+    rel = float((kern - ref).norm() / ref.norm())
+    floor = float((plain - ref).norm() / ref.norm())
+    log(f"{label}: logits, kernels vs reference attention: rel_l2={rel:.3e} "
+        f"max_abs={float((kern - ref).abs().max()):.3e}; two plain routes (xla vs reference): "
+        f"rel_l2={floor:.3e}")
+    check(rel < 3e-2, f"{label}: logits differ from the reference: rel_l2={rel:.3e}")
+    return rel, floor
+
+
+def _full_width(arch):
+    """The arch at its published widths on the kernels' route, its random
+    float32 weights drawn on the card from the seed and cast once
+    (``compute_params``; the float32 tree freed)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import compute_params, count_params, materialize
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = materialize(model.param_specs(), SEED, "cuda")
+    cparams = compute_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_params = count_params(model.param_specs())
+    log(f"{cfg.name}: d={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} heads D "
+        f"{cfg.resolved_head_dim} vocab {cfg.vocab_size} {n_params / 1e9:.3f}B params drawn and "
+        f"cast once in {time.perf_counter() - t0:.3f}s, memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, model, cparams, n_params
+
+
+def _note_paths(results, key, counts):
+    for entry in results:
+        entry.setdefault("launches_by_path", {})[key] = counts.get(entry["name"], 0)
+
+
+def serve_hybrid(results):
+    """Phase 11: recurrentgemma-2b at its published widths (26 layers: 8
+    periods of (RG-LRU, RG-LRU, local attention) and 2 RG-LRU; d_model
+    2560, 10 q heads over 1 KV head: D 256, G 10; window 2048; vocab
+    256000), random weights cast to bf16 once (the RG-LRU gates' ``wa`` /
+    ``wi`` / ``lam`` kept float32), after qwen2-vl's are freed, on the
+    lockstep engine with the kernels.  4 x 512-token prompts, 32 new
+    tokens, sampled at T 0.8 (the STAR softmax over 256000 columns once a
+    step), then greedy; then a 4 x 3072-token greedy generate of 32 tokens
+    (the window masks the prefill, the 2048-row rings wrap).  Counters
+    zeroed just before and read just after each: flash_star 8 times a
+    prefill and 8 a step (counted through the replays).  The sampled
+    engine's time to first token, its steady step (wall, device busy, CUDA
+    events), its replayed step bit-equal to the eager one; one 3072-token
+    prefill against ``ops.use(attention="reference")`` within rel_l2 <
+    3e-2."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg, model, cparams, n_params = _full_width(HYBRID_ARCH)
+    attn = model.num_periods * sum(k == "attention" for k in cfg.block_pattern) + sum(
+        model._kind(i) == "attention" for i in range(model.tail))
+    check(cfg.resolved_head_dim == 256 and attn == 8,
+          f"recurrentgemma: D {cfg.resolved_head_dim}, {attn} attention blocks")
+    rng = np.random.default_rng(SEED + 32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 512))
+    long_prompts = rng.integers(0, cfg.vocab_size, (4, HYBRID_PREFILL))
+    n = 32
+    summary = {"params_b": n_params / 1e9, "card": CARD}
+    with ops.use(softmax="pallas"), torch.no_grad():
+        sc = ServeConfig(max_len=512 + n + 8, temperature=0.8)
+        eng = ServeEngine(cfg, cparams, sc, device="cuda", seed=SEED)
+        check_cast_once(eng, "recurrentgemma lockstep")
+        eng.generate(prompts[:, :64], 2)  # warm-up: cuBLAS, the sampling kernel at this vocabulary
+        ttft, step = lockstep_decode_step(
+            eng, prompts, label="recurrentgemma decode step by replay, batch 4")
+        summary["sampled"], counts = lockstep_run(
+            "recurrentgemma lockstep 4 x 512 sampled T 0.8", eng, prompts, n,
+            {"flash_star": attn * n, "star_softmax": n})
+        summary["sampled"].update(ttft_s=ttft, decode_step=step)
+        _note_paths(results, "hybrid_lockstep_sampled", counts)
+        state = eng.begin(prompts)
+        eng.decode(state)  # the capture
+        summary["replay_bit_equal"] = lockstep_replay_vs_eager(
+            eng, state, "recurrentgemma sampled step")
+        greedy = ServeEngine(cfg, cparams, ServeConfig(max_len=512 + n + 8), device="cuda")
+        summary["greedy"], counts = lockstep_run(
+            "recurrentgemma lockstep 4 x 512 greedy", greedy, prompts, n,
+            {"flash_star": attn * n, "star_softmax": 0})
+        _note_paths(results, "hybrid_lockstep_greedy", counts)
+        max_len = HYBRID_PREFILL + n + 8
+        check(model.cache_len(max_len) == HYBRID_WINDOW, "recurrentgemma: the ring is not 2048 rows")
+        longe = ServeEngine(cfg, cparams, ServeConfig(max_len=max_len), device="cuda")
+        summary["long"], counts = lockstep_run(
+            f"recurrentgemma lockstep 4 x {HYBRID_PREFILL} greedy (window {HYBRID_WINDOW} masks, "
+            f"the ring wraps)", longe, long_prompts, n, {"flash_star": attn * n})
+        _note_paths(results, "hybrid_lockstep_3072", counts)
+    summary["prefill_rel_l2"], summary["prefill_rel_l2_plain_routes"] = prefill_vs_reference(
+        f"recurrentgemma prefill 1 x {HYBRID_PREFILL}", model, cparams,
+        torch.as_tensor(long_prompts[:1], device="cuda"), max_len, attn)
+    del cparams, eng, greedy, longe
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serve_encdec(results):
+    """Phase 12: seamless-m4t-large-v2 at its published widths (24 encoder
+    and 24 decoder layers, d_model 1024, 16 / 16 heads: D 64; GELU MLP of
+    8192; vocab 256206 padded to 256512), random weights cast to bf16 once,
+    on the lockstep engine with the kernels: 4 x 256-token prompts, each
+    row with [64, 1024] stub frames, 32 new tokens, sampled at T 0.8 (the
+    STAR softmax over 256512 columns, 306 of them masked, once a step), then
+    greedy.  Counters zeroed just before and read just after: flash_star 72
+    times a prefill (24 encoder, 24 self, 24 cross) and 48 a step (self and
+    cross).  The sampled engine's time to first token, its steady step, its
+    replayed step bit-equal to the eager one; one prefill against
+    ``ops.use(attention="reference")`` within rel_l2 < 3e-2."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg, model, cparams, n_params = _full_width(ENCDEC_ARCH)
+    ne, nd = cfg.num_layers, cfg.num_decoder_layers
+    rng = np.random.default_rng(SEED + 33)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 256))
+    src = rng.standard_normal((4, 64, cfg.frontend_dim)).astype(np.float32)
+    n = 32
+    per_prefill, per_step = ne + 2 * nd, 2 * nd
+    want = per_prefill + per_step * (n - 1)
+    summary = {"params_b": n_params / 1e9, "card": CARD}
+    max_len = 256 + n + 8
+    with ops.use(softmax="pallas"), torch.no_grad():
+        eng = ServeEngine(cfg, cparams, ServeConfig(max_len=max_len, temperature=0.8),
+                          device="cuda", seed=SEED)
+        check_cast_once(eng, "seamless lockstep")
+        eng.generate(prompts[:, :16], 2, src_embeds=src)  # warm-up
+        ttft, step = lockstep_decode_step(
+            eng, prompts, label="seamless decode step by replay, batch 4", src_embeds=src)
+        summary["sampled"], counts = lockstep_run(
+            "seamless lockstep 4 x 256 (+ 64 frames) sampled T 0.8", eng, prompts, n,
+            {"flash_star": want, "star_softmax": n}, src_embeds=src)
+        summary["sampled"].update(ttft_s=ttft, decode_step=step)
+        _note_paths(results, "encdec_lockstep_sampled", counts)
+        state = eng.begin(prompts, src_embeds=src)
+        eng.decode(state)  # the capture
+        summary["replay_bit_equal"] = lockstep_replay_vs_eager(eng, state, "seamless sampled step")
+        greedy = ServeEngine(cfg, cparams, ServeConfig(max_len=max_len), device="cuda")
+        summary["greedy"], counts = lockstep_run(
+            "seamless lockstep 4 x 256 (+ 64 frames) greedy", greedy, prompts, n,
+            {"flash_star": want, "star_softmax": 0}, src_embeds=src)
+        _note_paths(results, "encdec_lockstep_greedy", counts)
+    summary["prefill_rel_l2"], summary["prefill_rel_l2_plain_routes"] = prefill_vs_reference(
+        "seamless prefill 4 x 256 (+ 64 frames)", model, cparams,
+        torch.as_tensor(prompts, device="cuda"), max_len, per_prefill, src_embeds=src)
+    del cparams, eng, greedy
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3631,7 +4054,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = subprocess.run(
+    global CARD
+    card = CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
@@ -3670,6 +4094,7 @@ def main() -> int:
         parity_flash(results)
         parity_pv_int8(results)
         parity_flash_new(results)
+        parity_flash_d256(results)
         parity_paged(results)
         parity_paged_new(results)
         parity_softmax(results)
@@ -3685,7 +4110,8 @@ def main() -> int:
         flash["launches_float32_smoke_dense"] = small_reference_dense()
         small_reference_mamba()
         small_reference_moe()
-        smoke_paths = {**small_reference_vlm(), **small_reference_archs()}
+        smoke_paths = {**small_reference_vlm(), **small_reference_archs(),
+                       **small_reference_hybrid_encdec()}
     with phase("5 serve"):
         summary, params, cparams = serve(results)
     for entry in results:
@@ -3705,6 +4131,10 @@ def main() -> int:
         summary_moe = serve_moe(results)
     with phase("10 vlm serve"):
         summary_vlm = serve_vlm(results)
+    with phase("11 hybrid serve"):
+        summary_hybrid = serve_hybrid(results)
+    with phase("12 encdec serve"):
+        summary_encdec = serve_encdec(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
@@ -3712,6 +4142,7 @@ def main() -> int:
     log(json.dumps({"serve": summary, "serve_dense": summary_dense, "serve_int8": summary_quant,
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
+                    "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,
                     "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Model configuration (port of ``repro.configs.base``: the dense, moe, ssm
-and vlm fields).
+"""Model configuration (port of ``repro.configs.base``: the dense, moe, ssm,
+hybrid, encdec and vlm fields).
 
 A config carries its op contract as ``repro_torch.ops`` specs; the legacy
 loose fields (``softmax_kind``, ``attn_impl``, ...) stay as constructor
@@ -22,7 +22,7 @@ _ATTN_IMPLS = {"naive": "reference", "blocked": "xla", "flash": "pallas"}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | vlm (the families ported so far)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -46,8 +46,17 @@ class ModelConfig:
     moe_style: str = "tp"
     star_router: bool = True  # the router's softmax through the STAR engine too
 
+    # --- hybrid (recurrentgemma: RG-LRU blocks beside local attention) ---
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent", "recurrent", "attention")
+    lru_width: Optional[int] = None  # RG-LRU width (None: d_model)
+    local_window: int = 2048  # the attention blocks' sliding window
+    conv_width: int = 4  # the recurrent blocks' causal conv
+
+    # --- enc-dec (seamless: stub frame embeddings) ---
+    num_decoder_layers: int = 0  # num_layers counts the encoder's
+
     # --- vlm (qwen2-vl: stub patch embeddings, M-RoPE) ---
-    frontend_dim: Optional[int] = None  # stub patch embedding width
+    frontend_dim: Optional[int] = None  # stub patch (vlm) or frame (encdec) embedding width
     num_patches: int = 0  # stub patch positions prepended
     mrope_sections: Tuple[int, ...] = ()  # M-RoPE split of the rotary half-dim (t, h, w)
 
@@ -142,6 +151,11 @@ class ModelConfig:
                              f"{self.num_experts} and {self.top_k}")
         if self.family == "ssm" and self.ssm_state <= 0:
             raise ValueError(f"the ssm family needs ssm_state > 0, got {self.ssm_state}")
+        if self.family == "hybrid" and not self.block_pattern:
+            raise ValueError("the hybrid family needs a block_pattern")
+        if self.family == "encdec" and self.num_decoder_layers <= 0:
+            raise ValueError(f"the encdec family needs num_decoder_layers > 0, got "
+                             f"{self.num_decoder_layers}")
         half = self.resolved_head_dim // 2
         if self.mrope_sections and sum(self.mrope_sections) != half:
             # the reference asserts this inside apply_mrope; here at build time

@@ -35,7 +35,10 @@
 // sizes, shared memory and the P.V step all differ, while the score tiles'
 // layout and the softmax (block_softmax) are the same in all three.
 //
-// Head dims 8, 16, 32, 64 and 128.  At D 8 (the smoke configs of
+// Head dims 8, 16, 32, 64 and 128, and 256 on the bf16 kernel alone
+// (recurrentgemma-2b: see flash_star_mma_kernel; the float32 and int8 P.V
+// kernels' shared memory does not fit one CTA at 256, and no path runs
+// them there).  At D 8 (the smoke configs of
 // deepseek-coder-33b and llama3-405b) a bf16 QK^T still needs k in steps of
 // 16 (m16n8k16): the bf16 kernels keep Q and K rows of DK = 16 columns in
 // shared memory, the last 8 zero-filled by the same cp.async copies (a
@@ -366,24 +369,36 @@ __device__ __forceinline__ void store_rows(const Params& p, const Tile& tl, cons
 // below), so the card's rates allow a few microseconds and what is left is
 // latency: tile loads, the softmax's scalar work and a grid of 256 CTAs.
 //
-// Design (FlashAttention-2's shape): one CTA of 4 warps owns (batch, q
-// head, 64 q rows), 16 rows per warp.  The grid is one-dimensional and
-// hands out the longest causal rows first (tile_of_block).  Each warp keeps
-// its Q fragments in registers (ldmatrix once).  K and V tiles of 64 rows
-// pass through a two-stage ring in shared memory filled by 16-byte cp.async
-// copies (rows past Tk zero-filled): tile i + 1 loads while tile i computes,
-// and the first tile's V lands while its QK^T runs.  Rows are padded by 16
-// bytes, so the eight row addresses of each ldmatrix (K) and ldmatrix.trans
-// (V) fall on distinct banks.  Tiles outside the causal / window / ragged
-// range are skipped by the CTA, and by a warp whose 16 rows see none of the
-// tile; the mask is built only in tiles that are not wholly live for the
-// warp, and a row whose max held (r == 1 exactly) skips the rescale.
-// mma.sync.m16n8k16 (bf16 in, float32 accumulators) is far faster than this
-// shape needs; wgmma with TMA is the step after, once a profile shows the
-// tensor pipe as the limit.  On an H100 80GB HBM3 at 700 W it runs ~27 us
-// at the shape above, ~9x its bound: each warp streams the whole K and V
-// tile from shared memory for its 16 rows, and startup, softmax and P.V's
+// Design (FlashAttention-2's shape): one CTA of 4 warps owns (batch, q head,
+// 64 q rows), 16 rows per warp.  The grid is one-dimensional and hands out
+// the longest causal rows first (tile_of_block).  Each warp keeps its Q
+// fragments in registers (ldmatrix once; not at D 256, below).  K and V tiles
+// of 64 rows pass through a two-stage ring in shared memory filled by 16-byte
+// cp.async copies (rows past Tk zero-filled): tile i + 1 loads while tile i
+// computes, and the first tile's V lands while its QK^T runs. Rows are padded
+// by 16 bytes, so the eight row addresses of each ldmatrix (K) and
+// ldmatrix.trans (V) fall on distinct banks.  Tiles outside the causal /
+// window / ragged range are skipped by the CTA, and by a warp whose 16 rows
+// see none of the tile; the mask is built only in tiles that are not wholly
+// live for the warp, and a row whose max held (r == 1 exactly) skips the
+// rescale. mma.sync.m16n8k16 (bf16 in, float32 accumulators) is far faster
+// than this shape needs; wgmma with TMA is the step after, once a profile
+// shows the tensor pipe as the limit.  On an H100 80GB HBM3 at 700 W it runs
+// ~27 us at the shape above, ~9x its bound: each warp streams the whole K and
+// V tile from shared memory for its 16 rows, and startup, softmax and P.V's
 // three products each take a share (PERF.md).
+//
+// D 256 (recurrentgemma-2b's 10 q heads over one KV head): a warp's 16 rows
+// of O are NO = 32 n-tiles, 128 float32 registers a thread, and the scores
+// of a 64-row tile 32 more; Q's fragments held as at D <= 128 would add 64,
+// past what a thread may hold without spilling.  So at D > 128 the warp
+// reads Q's fragment of each 16-column step from shared memory with
+// ldmatrix as the QK^T reaches it (Q stays in shared memory for the CTA's
+// life), and the KV tile is halved to MK = mk_of(256) = 32 rows (16 score
+// registers): with 64-row tiles ptxas still spilled 20-40 bytes at 255
+// registers; at 32 it spills none (252-254 registers, PERF.md).  Shared
+// memory at D 256: (64 + 2 x 2 x 32) rows of 264 bf16, 101,376 bytes
+// (117,760 with a LUT of 4096 levels).
 //
 // Arithmetic, as the reference's: bf16 x bf16 products are exact in
 // float32, so QK^T differs from the float32 dot only in the order of its
@@ -396,12 +411,14 @@ __device__ __forceinline__ void store_rows(const Params& p, const Tile& tl, cons
 // float32 P.V up to the order of its sums.  The A operands come straight
 // from the score accumulators' registers.
 
-constexpr int MK = 64;              // KV rows per tile
 constexpr int MSTAGES = 2;          // K/V ring depth
+
+// KV rows per tile
+__host__ __device__ constexpr int mk_of(int d) { return d > 128 ? 32 : 64; }
 
 template <int D>
 constexpr size_t smem_bytes_mma() {
-  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * MK) * (kdim(D) + 8);
+  return sizeof(__nv_bfloat16) * (MQ + 2 * MSTAGES * mk_of(D)) * (kdim(D) + 8);
 }
 
 // minBlocks 1: without it ptxas caps small-D instantiations at 128
@@ -409,6 +426,8 @@ constexpr size_t smem_bytes_mma() {
 template <int D, bool STAR>
 __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int first_round) {
   constexpr int DK = kdim(D);     // columns of a shared row (D 8: 8 of them zero)
+  constexpr int MK = mk_of(D);    // KV rows per tile
+  constexpr bool Q_SMEM = D > 128;  // Q's fragments read from shared memory at each step
   constexpr int PITCH = DK + 8;   // bf16 per shared row: 16 bytes of padding
   constexpr int TILE = MK * PITCH;
   constexpr int CH = DK / 8;      // 16-byte chunks per row (past D: zero-filled)
@@ -474,7 +493,10 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
     cp_async_commit();
   }
 
-  uint32_t qa[DK / 16][4];
+  uint32_t qa[Q_SMEM ? 1 : DK / 16][4];
+  // this lane's ldmatrix row of the warp's Q fragments
+  const __nv_bfloat16* qfrag =
+      Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH + 8 * (lane >> 4);
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -506,11 +528,9 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
       load_k(next + TILE, vg, p.v_st, c0 + MK);
     }
     cp_async_commit();  // empty past the last tile: V0's wait below stays exact
-    if (it == 0) {
+    if (!Q_SMEM && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk)
-        ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * PITCH +
-                            16 * kk + 8 * (lane >> 4));
+      for (int kk = 0; kk < DK / 16; ++kk) ldsm_x4(qa[kk], qfrag + 16 * kk);
     }
     // the tile's live columns for some row of this warp, relative to c0
     const int t_lo = w_lo - c0, t_hi = w_hi - c0;
@@ -523,7 +543,8 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
     if (warp_live) {
       // S = Q K^T: n-tile j holds columns c0 + 8 j + 2 tg + {0, 1} of rows g
       // (elements 0, 1) and g + 8 (elements 2, 3).  K fragments one step
-      // ahead of their products.
+      // ahead of their products; at D > 128 Q's fragment of each 16-column
+      // step from shared memory as the step begins.
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       const __nv_bfloat16* kfrag =
@@ -537,8 +558,10 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
           const int kk1 = (step + 1) / (NS / 2), j1 = 2 * ((step + 1) % (NS / 2));
           ldsm_x4(kb[(step + 1) & 1], kfrag + 8 * j1 * PITCH + 16 * kk1);
         }
-        mma_bf16(s[j], qa[kk], kb[step & 1][0], kb[step & 1][1]);
-        mma_bf16(s[j + 1], qa[kk], kb[step & 1][2], kb[step & 1][3]);
+        if (Q_SMEM && step % (NS / 2) == 0) ldsm_x4(qa[0], qfrag + 16 * kk);
+        const uint32_t(&qf)[4] = qa[Q_SMEM ? 0 : kk];
+        mma_bf16(s[j], qf, kb[step & 1][0], kb[step & 1][1]);
+        mma_bf16(s[j + 1], qf, kb[step & 1][2], kb[step & 1][3]);
       }
     }
     if (it == 0) {
@@ -1189,6 +1212,11 @@ cudaError_t launch_d(const Params& p, int d, cudaStream_t s, const V8Args& w = V
     case 32: return star ? launch_kind<KIND, true, 32>(p, s, w) : launch_kind<KIND, false, 32>(p, s, w);
     case 64: return star ? launch_kind<KIND, true, 64>(p, s, w) : launch_kind<KIND, false, 64>(p, s, w);
     case 128: return star ? launch_kind<KIND, true, 128>(p, s, w) : launch_kind<KIND, false, 128>(p, s, w);
+    case 256:  // the bf16 kernel only: the others' shared memory does not fit one CTA
+      if constexpr (KIND == 0)
+        return star ? launch_kind<KIND, true, 256>(p, s, w) : launch_kind<KIND, false, 256>(p, s, w);
+      else
+        return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,10 @@ q/k/v must start on a 16-byte boundary with batch, head and T strides of
 16 bytes each; a view that does not is refused with a ValueError before
 any launch (the ops layer's transposed ``[B, T, H, D]`` views pass).
 
-Head dims ``HEAD_DIMS``: 8, 16, 32, 64 and 128.  At 8 the bf16 products
+Head dims ``HEAD_DIMS``: 8, 16, 32, 64, 128 and, on the bf16 kernel alone,
+256 (recurrentgemma-2b): the float32 and int8 P.V kernels take
+``NARROW_HEAD_DIMS`` and refuse 256 with a ValueError naming them, since
+their shared memory does not fit one CTA there.  At 8 the bf16 products
 still take k in steps of 16: the kernels zero-fill Q and K to 16 columns in
 shared memory, and ``sm_scale`` keeps the true D, so every score is the
 8-term dot (a bf16 row of 8 is one 16-byte piece).
@@ -47,7 +50,8 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_star.ref import V8_GROUP, flash_star_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_star.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the bf16 kernel's
+NARROW_HEAD_DIMS = (8, 16, 32, 64, 128)  # the float32 and int8 P.V kernels'
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PV_INT8_MAX_BLOCK = 128  # the kernel's BK8
 LAUNCHES = _cuda.launch_counter("flash_star")
@@ -148,6 +152,11 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
     if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"flash_star kernel takes float32/bfloat16 q/k/v of one type, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in NARROW_HEAD_DIMS and (bk or dtype == torch.float32):
+        kind = "int8 P.V" if bk else "float32"
+        raise ValueError(f"flash_star's {kind} kernel takes head_dim in {NARROW_HEAD_DIMS}, "
+                         f"got {d}: its shared memory does not fit one CTA there (only the "
+                         f"bfloat16 kernel, pv_int8 off, takes {d})")
     dev = q.device
     if not dev == k.device == v.device == info.device:
         for name, t in (("k", k), ("v", v), ("info", info)):

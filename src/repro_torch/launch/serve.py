@@ -1,7 +1,8 @@
 """Serving launcher of the port: the lockstep engine (the default, as the
-reference's: one batch prefilled and decoded together, attention models and
-the ssm family), or continuous batching (attention models) over the dense
-per-slot KV pool (the default layout) or the paged block pool.
+reference's: one batch prefilled and decoded together, every family), or
+continuous batching (attention models; the ssm, hybrid and encdec families
+are refused, as the reference refuses them) over the dense per-slot KV pool
+(the default layout) or the paged block pool.
 
   # granite-8b on the lockstep engine, on the card: flash_star prefill and
   # decode (Tq = 1 over the scalar-len cache), the STAR sampling softmax
@@ -35,6 +36,14 @@ per-slot KV pool (the default layout) or the paged block pool.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_7b \\
       --engine continuous --attn-impl pallas --softmax-impl pallas
 
+  # recurrentgemma-2b (RG-LRU + local attention at head_dim 256) and
+  # seamless-m4t-large-v2 (enc-dec: 64 stub frames of frontend_dim a row) on
+  # the lockstep engine
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \\
+      --attn-impl pallas --softmax-impl pallas --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless_m4t_large_v2 \\
+      --attn-impl pallas --softmax-impl pallas --prompt-len 256 --gen 32
+
 ``--attn-impl`` sets the config's attention impl, so prefill and decode
 follow it (``pallas`` -> ``flash_star`` for prefill and dense decode,
 ``pallas_paged`` for paged decode); ``--attn-impl paged`` is the reference's
@@ -45,8 +54,10 @@ plus scale pages; ``--kv-pool-blocks`` bounds the pool (exhaustion
 preempts).  Weights are random, drawn on the device from ``--seed``.  A
 VLM arch's requests carry stub patch embeddings drawn from the same seeded
 generator (the lockstep batch one ``[B, P, frontend_dim]`` tensor, each
-continuous request its own ``[1, P, frontend_dim]``), and ``--max-len``
-defaults to ``prompt_len + gen + num_patches + 8``.
+continuous request its own ``[1, P, frontend_dim]``), an enc-dec arch's
+batch ``[B, 64, frontend_dim]`` stub frames (as the reference's launcher
+draws them), and ``--max-len`` defaults to ``prompt_len + gen + num_patches
++ 8``.
 
 ``--trace-out PATH`` enables tracing before the engine is built and writes
 the run's Chrome trace-event JSON there (load it in https://ui.perfetto.dev);
@@ -68,13 +79,20 @@ import time
 import numpy as np
 
 
+SRC_FRAMES = 64  # an enc-dec request's stub frames, as the reference's launcher
+
+
 def _frontend_kwargs(cfg, rng, batch):
-    """A VLM's stub patch embeddings ``[batch, P, frontend_dim]`` (float32,
-    from ``rng``); no frontend for any other family."""
-    if cfg.family != "vlm":
-        return {}
-    return {"patch_embeds": rng.standard_normal(
-        (batch, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+    """A VLM's stub patch embeddings ``[batch, P, frontend_dim]`` or an
+    enc-dec model's stub frames ``[batch, 64, frontend_dim]`` (float32, from
+    ``rng``); no frontend for any other family."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": rng.standard_normal(
+            (batch, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+    if cfg.family == "encdec":
+        return {"src_embeds": rng.standard_normal(
+            (batch, SRC_FRAMES, cfg.frontend_dim or cfg.d_model)).astype(np.float32)}
+    return {}
 
 
 def main(argv=None) -> int:
@@ -83,8 +101,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
     ap.add_argument("--engine", choices=("lockstep", "continuous"), default="lockstep",
-                    help="lockstep: one batch prefilled and decoded together; continuous: "
-                    "slot-pool batching (attention models)")
+                    help="lockstep: one batch prefilled and decoded together (every family); "
+                    "continuous: slot-pool batching (attention models)")
     ap.add_argument("--batch", type=int, default=4, help="lockstep: batch size")
     ap.add_argument("--requests", type=int, default=8, help="continuous: request count")
     ap.add_argument("--slots", type=int, default=4, help="continuous: KV slot pool size")

@@ -1,6 +1,7 @@
-"""Model building blocks (port of ``repro.models.layers``: the dense subset
-with RoPE and M-RoPE, the MoE block with its STAR router and the causal
-depthwise conv of the ssm family).
+"""Model building blocks (port of ``repro.models.layers``: RMSNorm and
+LayerNorm, RoPE, M-RoPE and sinusoidal positions, self- and
+cross-attention, the MLP, the MoE block with its STAR router and the causal
+depthwise conv of the ssm and hybrid families).
 
 Functional style as in the reference: parameters are dicts of tensors,
 layers are functions.  Weights are read through ``.to(compute_dtype)``
@@ -15,6 +16,7 @@ import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import ops
@@ -45,6 +47,21 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def spec_layernorm(cfg: ModelConfig) -> Params:
+    return {"scale": ParamSpec((cfg.d_model,), pdtype(cfg), "ones"),
+            "bias": ParamSpec((cfg.d_model,), pdtype(cfg), "zeros")}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (biased variance, as
+    ``jnp.var``), back in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) * (xf - mu)).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def spec_embedding(cfg: ModelConfig) -> Params:
@@ -122,6 +139,21 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(t0, length: int, d_model: int, device=None) -> torch.Tensor:
+    """The classic sinusoidal table's rows ``[t0, t0 + length)``: ``[length,
+    d_model]`` float32, sines then cosines (the enc-dec family).  ``t0`` is
+    a Python int or a 0-dim device tensor (a decode step's ``len``: read
+    where it lives, so a captured step uploads nothing)."""
+    if torch.is_tensor(t0):
+        device = t0.device
+    pos = (torch.arange(length, device=device) + t0)[:, None].float()
+    half = d_model // 2
+    step = float(np.float32(np.log(np.float32(10000.0))) / np.float32(half))  # float32, as jnp
+    div = torch.exp(-torch.arange(half, dtype=torch.float32, device=device) * step)
+    ang = pos * div[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def rotate(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """q and k rotated by ``positions`` ``[B, T]`` or ``[B, T, 3]``, the
@@ -157,20 +189,36 @@ def spec_attention(cfg: ModelConfig) -> Params:
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(p: Params, x: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
     dt = cdtype(cfg)
     hd = cfg.resolved_head_dim
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = xkv @ p["wk"].to(dt)
+    v = xkv @ p["wv"].to(dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    b, t = x.shape[0], x.shape[1]
+    b, t, tk = x.shape[0], x.shape[1], xkv.shape[1]
     return (q.reshape(b, t, cfg.num_heads, hd),
-            k.reshape(b, t, cfg.num_kv_heads, hd),
-            v.reshape(b, t, cfg.num_kv_heads, hd))
+            k.reshape(b, tk, cfg.num_kv_heads, hd),
+            v.reshape(b, tk, cfg.num_kv_heads, hd))
+
+
+CONFIG_WINDOW = "config"  # attention_block's default window: cfg.sliding_window
+
+
+def _default_positions(cache: Optional[Params], b: int, tq: int, device) -> torch.Tensor:
+    """The reference's positions when none are given: ``len + arange(tq)``
+    from the cache's scalar ``len`` (a Python int or a 0-dim device tensor,
+    read where it lives), else from 0.  A per-slot pool's ``[S]`` counters
+    cannot give them (a VLM's rope position is not its row count)."""
+    base = 0 if cache is None else cache["len"]
+    if torch.is_tensor(base) and base.ndim == 1:
+        raise ValueError("per-slot caches require explicit positions "
+                         "(decode_step builds them from the pool's 'pos' counters)")
+    pos = base + torch.arange(tq, dtype=torch.int32, device=device)
+    return pos[None].expand(b, tq)
 
 
 def attention_block(
@@ -178,11 +226,22 @@ def attention_block(
     x: torch.Tensor,
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,  # [B, T], or [B, T, 3] (t, h, w) for M-RoPE
+    positions: Optional[torch.Tensor] = None,  # [B, T], or [B, T, 3] (t, h, w) for M-RoPE
     cache: Optional[Params] = None,
     paged_cache_t: Optional[int] = None,
+    causal: bool = True,
+    sliding_window: Any = CONFIG_WINDOW,
+    xkv: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Params], Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention in one of these forms:
+    """Self-attention (causal unless ``causal=False``, as an encoder's) or,
+    given ``xkv`` (``[B, Tk, d_model]`` memory), cross-attention: K/V from
+    the memory, never causal and without a cache, as in the reference.
+    ``sliding_window`` defaults to ``cfg.sliding_window`` (the hybrid passes
+    its ``local_window``); ``use_rope=False`` leaves q and k unrotated (the
+    enc-dec family adds sinusoidal positions to its inputs instead).
+    ``positions`` default to ``len + arange(T)`` of a scalar cache, else
+    ``arange(T)``.  The cache comes in these forms:
 
     * ``cache=None`` — dense prefill;
     * a *scalar-``len``* cache ``{"k", "v", "len"}`` (``[B, T, Hkv, D]``):
@@ -191,9 +250,9 @@ def attention_block(
       ``len`` is a Python int for chunked prefill's linear staging cache and
       a 0-dim device tensor for the lockstep decode cache (the write index
       stays on the device);
-    * a *scalar ring* (the lockstep cache of a sliding-window model, ``T <=
-      window``): one token at row ``len % T``, then attention over
-      ``min(len + 1, T)`` rows, unmasked by position;
+    * a *scalar ring* (the lockstep cache under a window, ``T <= window``):
+      one token at row ``len % T``, then attention over ``min(len + 1, T)``
+      rows, unmasked by position;
     * a *per-slot dense* pool (``len`` an ``[S]`` vector): one token per
       slot at its own row ``len`` (a ring: ``len % T``), then attention over
       each slot's ``len + 1`` rows (a ring: ``min(len + 1, T)``);
@@ -210,15 +269,24 @@ def attention_block(
 
     Returns ``(out [B, T, Hq*D], cache', (k, v))``."""
     b, tq, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    q, k = rotate(q, k, positions, cfg)
-    window = cfg.sliding_window
+    window = cfg.sliding_window if sliding_window == CONFIG_WINDOW else sliding_window
+    if xkv is not None:
+        if cache is not None:
+            raise ValueError("cross-attention (xkv) takes no cache")
+        q, k, v = _project_qkv(p, x, xkv, cfg)
+        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=False, sliding_window=window)
+        return ctx.reshape(b, tq, -1), None, (k, v)
+    q, k, v = _project_qkv(p, x, x, cfg)
+    if use_rope:
+        if positions is None:
+            positions = _default_positions(cache, b, tq, x.device)
+        q, k = rotate(q, k, positions, cfg)
 
     if cache is None:
-        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=True, sliding_window=window)
+        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=causal, sliding_window=window)
         return ctx.reshape(b, tq, -1), None, (k, v)
     if "tables" in cache:
-        return _paged_decode(q, k, v, cfg, cache, paged_cache_t)
+        return _paged_decode(q, k, v, cfg, cache, paged_cache_t, window)
 
     ck, cv, ln = cache["k"], cache["v"], cache["len"]
     cache_t = ck.shape[1]
@@ -254,7 +322,7 @@ def attention_block(
         ck.index_copy_(1, rows, k.to(ck.dtype))
         cv.index_copy_(1, rows, v.to(cv.dtype))
         valid = (ln + tq).expand(b)
-    ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=True, sliding_window=window,
+    ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=causal, sliding_window=window,
                         q_offset=ln, kv_valid_len=valid)
     return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": ln + tq}, (k, v)
 
@@ -274,12 +342,13 @@ def _write_rows(ck: torch.Tensor, cv: torch.Tensor, idx: torch.Tensor,
         pool[slots, safe] = torch.where(live, row.to(pool.dtype), pool[slots, safe])
 
 
-def _paged_decode(q, k, v, cfg: ModelConfig, cache: Params, paged_cache_t: Optional[int]):
+def _paged_decode(q, k, v, cfg: ModelConfig, cache: Params, paged_cache_t: Optional[int],
+                  window: Optional[int]):
     b, tq = q.shape[0], q.shape[1]
     if tq != 1 or paged_cache_t is None:
         raise ValueError("the paged cache takes one decode token per slot and paged_cache_t")
     cache_t = paged_cache_t
-    ring = cfg.sliding_window is not None and cache_t <= cfg.sliding_window
+    ring = window is not None and cache_t <= window
     ck, cv, tables = cache["k"], cache["v"], cache["tables"]
     bs = ck.shape[1]
     idx = cache["len"].long() % cache_t if ring else cache["len"].long()

@@ -98,30 +98,44 @@ def from_reference(np_params, cfg, device: Device = None) -> Params:
 
 # the leaves the layers read only through ``.to(compute_dtype)``: the
 # attention and MLP projections (and biases), the MoE router and experts, the
-# unembed kernel and a VLM's ``patch_proj`` kernel, the embed table
-# (gather-then-cast equals cast-then-gather, ``layers.embed``) and Mamba2's
-# in / out projections and conv kernel.  Norm
-# scales, ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` are read through
-# ``.float()`` and stay.
+# unembed kernel, a VLM's ``patch_proj`` and an enc-dec model's
+# ``frontend_proj`` kernels, the embed table (gather-then-cast equals
+# cast-then-gather, ``layers.embed``), Mamba2's in / out projections, the
+# conv kernels and an RG-LRU block's ``wx`` / ``wgate`` / ``wout``.  Norm
+# scales and biases, ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` are read
+# through ``.float()`` and stay.
 CAST_ONCE = frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg", "router", "kernel", "table",
-    "in_proj", "out_proj",
+    "in_proj", "out_proj", "wx", "wgate", "wout",
 })
+# An RG-LRU block (the dict holding ``lam``) reads its gate weights ``wa``
+# and ``wi`` and its ``lam`` in float32: its ``wi`` shares the MLP's name
+# but not its dtype, so the rule goes by the leaf's place, not its name.
+RGLRU_FLOAT32 = frozenset({"wa", "wi", "lam"})
+
+
+def casts_once(name: str, siblings) -> bool:
+    """Whether ``compute_params`` casts the leaf ``name`` of a dict holding
+    the keys ``siblings``: its place, not its name alone, decides."""
+    if "lam" in siblings and name in RGLRU_FLOAT32:
+        return False
+    return name in CAST_ONCE
 
 
 def compute_params(params: Params, cfg) -> Params:
-    """The tree the engines compute with: every leaf in ``CAST_ONCE`` cast
-    to ``cfg.compute_dtype`` once, every other leaf the same tensor.  A cast
-    depends only on the weight, so the layers' own ``.to(compute_dtype)``
-    then finds the type already right and copies nothing, and the results
-    are bit for bit those of casting at every use.  Idempotent and free on a
-    tree already cast (``.to`` returns the same tensor); where the compute
-    dtype is the parameter dtype no leaf is copied."""
+    """The tree the engines compute with: every leaf that
+    :func:`casts_once` cast to ``cfg.compute_dtype`` once, every other leaf
+    the same tensor.  A cast depends only on the weight, so the layers' own
+    ``.to(compute_dtype)`` then finds the type already right and copies
+    nothing, and the results are bit for bit those of casting at every use.
+    Idempotent and free on a tree already cast (``.to`` returns the same
+    tensor); where the compute dtype is the parameter dtype no leaf is
+    copied."""
     dtype = getattr(torch, cfg.compute_dtype)
 
     def cast(tree):
         return {k: (cast(v) if isinstance(v, dict)
-                    else v.to(dtype) if k in CAST_ONCE else v)
+                    else v.to(dtype) if casts_once(k, tree) else v)
                 for k, v in tree.items()}
 
     return cast(params)

@@ -1,9 +1,11 @@
-"""Model registry: family -> implementation class (dense, moe, vlm and ssm
-so far)."""
+"""Model registry: family -> implementation class (every family of the
+reference: dense, moe, vlm, ssm, hybrid and encdec)."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.rglru import RecurrentGemmaLM
 from repro_torch.models.ssm import MambaLM
 from repro_torch.models.transformer import DecoderLM
 
@@ -13,4 +15,8 @@ def build_model(cfg: ModelConfig):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)
-    raise ValueError(f"family {cfg.family!r} is not ported yet (dense, moe, vlm and ssm only)")
+    if cfg.family == "hybrid":
+        return RecurrentGemmaLM(cfg)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
+    raise ValueError(f"unknown family {cfg.family!r} (dense, moe, vlm, ssm, hybrid, encdec)")

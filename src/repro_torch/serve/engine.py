@@ -1,7 +1,8 @@
 """Serving engines (port of the reference's ``repro.serve.engine``):
 ``sample_token``; the lockstep ``ServeEngine`` (one prefill, then
-synchronized decode) for attention models and the ssm family; and
-``ContinuousBatchingEngine`` for the attention family, over the dense
+synchronized decode) for every family: attention models, the ssm, hybrid
+(recurrentgemma) and encdec (seamless, with its stub ``src_embeds`` frames)
+families; and ``ContinuousBatchingEngine`` for the attention family, over the dense
 per-slot KV pool (the default layout) or the paged block pool, with
 quantized page pools, the shared-prefix cache and preemption on the paged
 layout, chunked prefill and sliding-window ring caches on both.  Dense,
@@ -90,6 +91,7 @@ import torch
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvquant import validate_kv_dtype
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.param import compute_params, tree_map
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import DecoderLM
@@ -213,8 +215,10 @@ class ServeEngine:
     ``seed + i`` (not the reference's ``jax.random`` draws: greedy tokens
     are the parity oracle).  An attention model decodes over a scalar-
     ``len`` cache of ``cache_len(max_len)`` rows (a ring under a sliding
-    window); ``generate`` refuses a run that would write past it, where the
-    reference's ``dynamic_update_slice`` silently clamps the write.
+    window, and always for the hybrid's local attention); ``generate``
+    refuses a run that would write past a cache that is no ring (a decoder
+    LM's, an enc-dec model's self cache), where the reference's
+    ``dynamic_update_slice`` silently clamps the write.
 
     Each ``generate`` (``begin``, then ``decode`` per step) captures its
     decode step once (the counterpart of the reference's
@@ -251,8 +255,10 @@ class ServeEngine:
     @torch.no_grad()
     def begin(self, prompts, **frontend) -> LockstepState:
         """Prefill ``prompts`` ``[B, T]`` (a VLM: with ``patch_embeds`` ``[B,
-        P, frontend_dim]``, the stub patch prefix) and sample each row's
-        first token (left in ``state.tokens``); ``graphs`` starts anew."""
+        P, frontend_dim]``, the stub patch prefix; an enc-dec model: with
+        ``src_embeds`` ``[B, T_src, frontend_dim]``, the stub frames) and
+        sample each row's first token (left in ``state.tokens``); ``graphs``
+        starts anew."""
         prompts = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         sc = self.serve_cfg
         gens = [torch.Generator(device=self.device).manual_seed(self.seed + i)
@@ -285,10 +291,11 @@ class ServeEngine:
         """prompts ``[B, T]`` -> (generated ``[B, num_tokens]`` int32,
         ``{"cache_len": ...}``): ``begin``, then ``num_tokens - 1`` steps of
         ``decode``; the tokens are checked once, at the end.  ``frontend``:
-        a VLM's ``patch_embeds`` stubs.  An attention model without a ring
-        needs ``P + T + num_tokens - 1`` cache rows (``P`` the patch rows):
-        more raises a ValueError before the prefill."""
-        if isinstance(self.model, DecoderLM):
+        a VLM's ``patch_embeds`` or an enc-dec model's ``src_embeds`` stubs.
+        An attention model without a ring (an enc-dec model's self cache
+        among them) needs ``P + T + num_tokens - 1`` cache rows (``P`` the
+        patch rows): more raises a ValueError before the prefill."""
+        if isinstance(self.model, (DecoderLM, EncDecLM)):
             prefix = prefix_rows(self.cfg, frontend)
             rows = prefix + np.shape(prompts)[1] + num_tokens - 1
             cache_t = self.model.cache_len(self.serve_cfg.max_len)

@@ -142,11 +142,13 @@ def test_a_moe_config_needs_experts_and_top_k():
     for bad in (dict(num_experts=0), dict(top_k=0)):
         with pytest.raises(ValueError, match="num_experts > 0 and top_k > 0"):
             dataclasses.replace(cfg, **bad).validate()
-    hybrid = dataclasses.replace(cfg, family="hybrid")
-    with pytest.raises(ValueError, match="not ported yet"):
+    hybrid = dataclasses.replace(cfg, family="hybrid")  # no block_pattern
+    with pytest.raises(ValueError, match="needs a block_pattern"):
         build_model(hybrid)
     with pytest.raises(ValueError, match="dense and moe families"):
         DecoderLM(hybrid)
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="rnn"))
 
 
 # ---------------------------------------------------------------------------
