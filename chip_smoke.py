@@ -98,7 +98,10 @@ Phases (any failure exits non-zero before the result lines):
    2048, 256] ring), SDPA beside each exact variant; the float32 and int8
    P.V kernels refusing D 256 with their named errors; and the STAR softmax
    at the two new sampling shapes, [4, 256000] and [4, 256512] (306 padded
-   columns at -1e30), bit-equal;
+   columns at -1e30), bit-equal.  Then (``parity_flash_bert``) the float32
+   flash_star kernel at bert-base-star's shape, q [8, 12, 512, 64] causal,
+   one q head a KV head (phase 13's eval and prefill), STAR and exact, SDPA
+   float32 beside the exact variant;
 4. small-input reference: the granite-8b smoke config served greedy on the
    card (kernels) and on the CPU (plain versions) with the same weights
    must give the same tokens (the config computes in float32, so every
@@ -289,9 +292,39 @@ Phases (any failure exits non-zero before the result lines):
    cross) and 48 a step, the STAR softmax once a sampled step; the same
    measurements and checks as phase 11 (a 4 x 256 prefill against the
    reference attention);
-13. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
-   each path's own count under ``launches_by_path``: every serve phase and
-   the phase 4 smoke paths) and, last, the device line.  Each phase's wall
+13. train: bert-base-star at its published widths (12 layers, d_model 768,
+   12 heads: D 64, vocab 30522 padded to 30720, ~132 M float32 parameters,
+   the STAR softmax in histogram mode at ``"auto:cnews"``), from the port's
+   own seeded init.  13a: ``run_train`` on the card, 20 steps of 8 x 512
+   synthetic tokens with the ``TrainConfig`` the train launcher builds
+   (lr 3e-4, warmup 2, cosine), float32 with TF32 off, checkpoints every 10
+   steps in build/: every loss finite, the mean of the last 5 below the
+   mean of the first 5; the step time (median, host clock: the loop reads
+   each step's metrics back), peak memory, one more step traced (device busy
+   share, time by group).  13b: an injected failure at step 8 of a 12-step
+   run checkpointing every 5 steps, resumed from step 5, against an
+   uninterrupted run: the final loss within RESUME_LOSS_RTOL, every
+   parameter within RESUME_PARAM_FRAC x the peak lr (bit-equality printed).
+   13c: ``make_eval_step`` on an unseen batch of the trained state through
+   flash_star's float32 kernel (``ops.use(attention="pallas")``: 12
+   launches at q [8, 12, 512, 64], G 1) and through the plain ``xla``
+   route, the losses within EVAL_LOSS_RTOL, the logits' distance printed
+   (the kernel at that shape is held to its plain version in phase 3).
+   13d: the step-20 checkpoint restored and served on the
+   lockstep engine with the kernels: 4 x 256-token prompts, 32 new tokens,
+   sampled at T 0.8 and greedy, counters zeroed just before and read just
+   after (flash_star 12 a prefill and 12 a step, the STAR softmax in
+   histogram mode once a sampled step, through the replays); the greedy
+   tokens against ``ops.use(attention="reference")``, a parting row's step
+   and the reference's top-2 margin printed (a margin over
+   GREEDY_MARGIN_FACTOR x the routes' logit difference fails); the STAR
+   softmax at [4, 30720] (198 padded columns at -1e30, the engine's
+   sampling row) and [4, 30522], histogram mode, bit-equal to its plain
+   version;
+14. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+   each path's own count under ``launches_by_path``: every serve phase,
+   phase 13's eval and serves and the phase 4 smoke paths) and, last, the
+   device line.  Each phase's wall
    seconds are printed as it ends (``phase <name>: <s>``) and gathered
    under ``phase_seconds``.
 
@@ -1445,6 +1478,26 @@ def parity_flash_d256(results):
           "flash_star: a refused D-256 call launched")
     log("flash_star D 256: the float32 and int8 P.V kernels refuse it with their named "
         "ValueErrors, nothing launched")
+
+
+def parity_flash_bert(results):
+    """flash_star's float32 kernel at the shape phase 13 gives it, as
+    variants of the ``flash_star`` entry: bert-base-star's eval and its
+    lockstep prefill, q [8, 12, 512, 64] causal over as many KV heads (D 64,
+    G 1), STAR and exact, SDPA float32 beside the exact variant."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    b, h, t, d = TRAIN_BATCH, 12, TRAIN_SEQ, 64
+    base = [torch.randn((b, h, t, d), device=dev, generator=gen) for _ in range(3)]
+    info = torch.tensor([0] + [t] * b, dtype=torch.int32, device=dev)
+    rows = torch.arange(t, device=dev)
+    live = (rows[None, :] <= rows[:, None])[None, None].expand(b, h, t, t)
+    next(e for e in results if e["name"] == "flash_star")["variants"] += _flash_variants(
+        "flash_star bert-base-star D64 G1", base, info, live, sdpa=_causal_sdpa,
+        dtypes=(torch.float32,),
+        shape=f"bert-base-star q[{b},{h},{t},{d}] kv[{b},{h},{t},{d}] causal, float32")
 
 
 def parity_paged_new(results):
@@ -4038,6 +4091,333 @@ def serve_encdec(results):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 13: train bert-base-star at its published widths
+
+
+TRAIN_ARCH = "bert_base_star"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 512, 3e-4
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# 13b: a resumed run against an uninterrupted one.  Both runs do the same
+# operations on the same data; where a device reduction adds in another order
+# the results part by float32 rounding, so the final loss holds to
+# RESUME_LOSS_RTOL and each parameter to RESUME_PARAM_FRAC x the peak lr (the
+# CPU tests' bound for one Adam step; bit-equality is printed beside it)
+RESUME_LOSS_RTOL = 1e-5
+RESUME_PARAM_FRAC = 0.05
+# 13c: the eval loss through flash_star's float32 kernel (3xTF32 products,
+# another order of sums; a grid flip at a half-step moves one probability by
+# a LUT step) against the plain route, relative
+EVAL_LOSS_RTOL = 1e-4
+# 13d: a greedy row of the kernel route that parts from the reference
+# attention's must part at a near-tie: the reference's top-2 logit margin at
+# that step at most this many times the two routes' largest logit difference
+GREEDY_MARGIN_FACTOR = 10
+TRAIN_SERVE_PROMPT, TRAIN_SERVE_GEN = 256, 32
+
+
+def _train_config(steps):
+    """The ``TrainConfig`` the train launcher runs for ``--steps``."""
+    from repro_torch.launch.train import train_config
+
+    return train_config(steps, TRAIN_LR)
+
+
+def _device_batch(cfg, batch, seq, step):
+    import torch
+
+    from repro_torch.data.synthetic import make_batch
+
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            make_batch(cfg, batch=batch, seq_len=seq, step=step).items()}
+
+
+def train_full_width(cfg, model):
+    """13a: ``run_train`` on the card, TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens, checkpoints every 10 steps into build/.  Every loss
+    finite and the mean of the last 5 below the mean of the first 5 (the
+    reference's ``test_loss_decreases``).  The step time (median over the
+    steps after the first, host clock: the loop reads each step's metrics
+    back), the first step apart, peak memory, and one more step traced
+    (device busy share, time by kernel group).  Returns (summary, state)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.loop import LoopConfig, run_train
+    from repro_torch.train.step import make_train_step
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_train(cfg, _train_config(TRAIN_STEPS),
+                    LoopConfig(num_steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               ckpt_dir=str(TRAIN_CKPT / "a"), ckpt_every=10, log_every=5),
+                    device="cuda", log_fn=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"bert train: {len(hist)} steps, losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"bert train: the loss did not fall (first 5 {first:.4f}, last 5 "
+                        f"{last:.4f})")
+    step_s = statistics.median(h["seconds"] for h in hist[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"bert-base-star train {TRAIN_STEPS} x {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+        f"{[round(x, 4) for x in losses]}; mean of the first 5 {first:.4f}, of the last 5 "
+        f"{last:.4f}; step median {step_s * 1e3:.2f} ms (first step {hist[0]['seconds']:.3f} s) "
+        f"= {tokens / step_s:.0f} tokens/s; run wall {wall:.2f}s with 2 checkpoints; "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB; tf32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}; "
+        f"stragglers {len(res['stragglers'])} [{CARD}]")
+    state = res["state"]
+    step_fn = make_train_step(model, _train_config(TRAIN_STEPS))
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    prof = profile_window("bert train step (8 x 512, float32)", lambda: step_fn(state, batch))
+    return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+            "first5_mean": first, "last5_mean": last, "step_ms_median": step_s * 1e3,
+            "first_step_s": hist[0]["seconds"], "tokens_per_s": tokens / step_s,
+            "run_wall_s": wall, "max_memory_allocated": peak,
+            "tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+            "stragglers": res["stragglers"], "step_profile": prof}, state
+
+
+def train_resume(cfg):
+    """13b: a FailureInjector failure at step 8 of a 12-step run that
+    checkpoints every 5 steps, then a resume from step 5, against an
+    uninterrupted run: the final loss within RESUME_LOSS_RTOL and every
+    parameter within RESUME_PARAM_FRAC x the peak lr (bit-equality
+    printed)."""
+    import torch
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.models.param import named_leaves
+    from repro_torch.train.loop import LoopConfig, run_train
+
+    n = 12
+    tc = _train_config(n)
+    lc = LoopConfig(num_steps=n, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    ckpt_dir=str(TRAIN_CKPT / "b"), ckpt_every=5, log_every=100)
+    quiet = dict(device="cuda", log_fn=lambda *_: None)
+    ref = run_train(cfg, tc, dataclasses.replace(lc, ckpt_dir=None), **quiet)
+    try:
+        run_train(cfg, tc, lc, failure_injector=FailureInjector(fail_at_step=8), **quiet)
+        check(False, "bert resume: the injected failure did not fire")
+    except RuntimeError as exc:
+        check("injected failure at step 8" in str(exc), f"bert resume: {exc}")
+    check(checkpointer.latest_step(lc.ckpt_dir) == 5, "bert resume: no checkpoint at step 5")
+    logs = []
+    t0 = time.perf_counter()
+    res = run_train(cfg, tc, lc, device="cuda", log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check("[loop] resumed from step 5" in logs and res["final_step"] == n
+          and len(res["history"]) == n - 5, f"bert resume: {logs[:2]}, {res['final_step']}")
+    got, want = res["history"][-1]["loss"], ref["history"][-1]["loss"]
+    pairs = list(zip(named_leaves(res["state"]["params"]), named_leaves(ref["state"]["params"])))
+    worst = max(float((a - b).abs().max()) for (_, a), (_, b) in pairs)
+    bitwise = got == want and all(torch.equal(a, b) for (_, a), (_, b) in pairs)
+    log(f"bert resume: crash at step 8, resumed from step 5 (7 steps and 2 checkpoints in "
+        f"{wall:.2f}s): final loss {got:.6f} vs uninterrupted {want:.6f} (|diff| "
+        f"{abs(got - want):.3e}), parameters max |diff| {worst:.3e}; bit-equal {bitwise}")
+    check(abs(got - want) <= RESUME_LOSS_RTOL * abs(want),
+          f"bert resume: final loss {got} vs {want}")
+    check(worst <= RESUME_PARAM_FRAC * TRAIN_LR, f"bert resume: parameters differ by {worst}")
+    shutil.rmtree(TRAIN_CKPT / "b", ignore_errors=True)
+    return {"final_loss": got, "uninterrupted_loss": want, "param_max_abs_diff": worst,
+            "bit_equal": bitwise, "resume_wall_s": wall}
+
+
+def train_eval(results, cfg, model, state):
+    """13c: ``make_eval_step`` on one unseen batch of the trained state
+    through flash_star's float32 kernel (``ops.use(attention="pallas")``,
+    12 launches at q [8, 12, 512, 64]) and through the plain ``xla`` route:
+    the losses within EVAL_LOSS_RTOL, the logits' distance printed.  (The
+    kernel at that shape against its plain version, with its device time,
+    bound and SDPA's: ``parity_flash_bert`` in phase 3.)"""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.step import make_eval_step
+
+    eval_step = make_eval_step(model)
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS + 1)
+    reset_launch_counts()
+    with ops.use(attention="pallas"):
+        kern = float(eval_step(state, batch))
+    counts = launch_counts()
+    plain = float(eval_step(state, batch))
+    check(counts.get("flash_star", 0) == cfg.num_layers,
+          f"bert eval: flash_star launched {counts.get('flash_star', 0)} times, expected "
+          f"{cfg.num_layers}")
+    with torch.no_grad():  # the logits behind the two losses
+        with ops.use(attention="pallas"):
+            lk = model.forward(state["params"], batch["tokens"])[..., :cfg.vocab_size]
+        lp = model.forward(state["params"], batch["tokens"])[..., :cfg.vocab_size]
+        rel = float((lk - lp).norm() / lp.norm())
+        gap = float((lk - lp).abs().max())
+    del lk, lp
+    log(f"bert eval 8 x 512: loss through flash_star (float32 kernel) {kern:.6f}, plain xla "
+        f"route {plain:.6f}, |diff| {abs(kern - plain):.3e} (bound {EVAL_LOSS_RTOL:g} x loss); "
+        f"logits rel_l2 {rel:.3e} max_abs {gap:.3e}; launches {counts}")
+    check(abs(kern - plain) <= EVAL_LOSS_RTOL * abs(plain),
+          f"bert eval: kernel loss {kern} vs plain {plain}")
+    _note_paths(results, "train_eval", counts)
+    return {"loss_kernel": kern, "loss_plain": plain, "logits_rel_l2": rel,
+            "logits_max_abs": gap, "launches": counts}
+
+
+def train_serve(results, cfg):
+    """13d: the trained weights restored from 13a's last checkpoint, served
+    on the lockstep engine with the kernels (attention ``pallas``: the
+    float32 flash_star kernel at D 64; softmax ``pallas``: the STAR softmax
+    in histogram mode, the config's): 4 x TRAIN_SERVE_PROMPT-token prompts
+    of unseen synthetic data, TRAIN_SERVE_GEN new tokens, sampled at T 0.8,
+    then greedy.  Counters zeroed just before and read just after:
+    flash_star 12 a prefill and 12 a step, the STAR softmax once a sampled
+    step.  The greedy tokens against the same generate under
+    ``ops.use(attention="reference")``: where a row parts, the step and the
+    reference's top-2 logit margin there, which must stay within
+    GREEDY_MARGIN_FACTOR x the two routes' largest logit difference at that
+    position.  The STAR softmax at the sampling row, [4, 30720] with its 198
+    padded columns at -1e30, and at [4, 30522], histogram mode, bit-equal
+    to its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.star_softmax import kernel as sk
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train.state import state_specs
+
+    scfg = dataclasses.replace(cfg, attn_impl="pallas")
+    model = build_model(scfg)
+    t0 = time.perf_counter()
+    state, step = checkpointer.restore(str(TRAIN_CKPT / "a"), state_specs(model.param_specs()),
+                                       device="cuda")
+    torch.cuda.synchronize()
+    log(f"bert serve: restored the step-{step} checkpoint in {time.perf_counter() - t0:.2f}s")
+    check(step == TRAIN_STEPS, f"bert serve: restored step {step}")
+    params = state["params"]
+    del state
+    from repro_torch.data.synthetic import make_batch
+
+    prompts = make_batch(scfg, batch=4, seq_len=TRAIN_SERVE_PROMPT, step=10_000)["tokens"]
+    n, layers = TRAIN_SERVE_GEN, cfg.num_layers
+    max_len = TRAIN_SERVE_PROMPT + n + 8
+    summary = {"restored_step": step}
+    with ops.use(softmax="pallas"), torch.no_grad():
+        eng = ServeEngine(scfg, params, ServeConfig(max_len=max_len, temperature=0.8),
+                          device="cuda", seed=SEED)
+        eng.generate(prompts[:, :16], 2)  # warm-up
+        ttft, stepm = lockstep_decode_step(eng, prompts,
+                                           label="bert-base-star decode step by replay, batch 4")
+        summary["sampled"], counts = lockstep_run(
+            f"bert-base-star lockstep 4 x {TRAIN_SERVE_PROMPT} sampled T 0.8", eng, prompts, n,
+            {"flash_star": layers * n, "star_softmax_lut": n})
+        summary["sampled"].update(ttft_s=ttft, decode_step=stepm)
+        _note_paths(results, "train_serve_sampled", counts)
+        greedy = ServeEngine(scfg, params, ServeConfig(max_len=max_len), device="cuda")
+        summary["greedy"], counts = lockstep_run(
+            f"bert-base-star lockstep 4 x {TRAIN_SERVE_PROMPT} greedy", greedy, prompts, n,
+            {"flash_star": layers * n, "star_softmax_lut": 0})
+        _note_paths(results, "train_serve_greedy", counts)
+        got, _ = greedy.generate(prompts, n)
+        with ops.use(attention="reference"):
+            ref_eng = ServeEngine(scfg, params, ServeConfig(max_len=max_len), device="cuda")
+            want, _ = ref_eng.generate(prompts, n)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    parted = []
+    for row in range(got.shape[0]):
+        diff = np.nonzero(got[row] != want[row])[0]
+        if diff.size == 0:
+            continue
+        s = int(diff[0])
+        seq = torch.as_tensor(np.concatenate([prompts[row], want[row, :s]])[None], device="cuda")
+        with torch.no_grad():
+            with ops.use(attention="reference"):
+                lr_ = model.forward(params, seq)[0, -1, :cfg.vocab_size].float()
+            with ops.use(attention="pallas"):
+                lk = model.forward(params, seq)[0, -1, :cfg.vocab_size].float()
+        top2 = torch.topk(lr_, 2).values
+        margin, gap = float(top2[0] - top2[1]), float((lk - lr_).abs().max())
+        parted.append({"row": row, "step": s, "ref_top2_margin": margin,
+                       "logit_max_abs_diff": gap})
+        log(f"bert greedy row {row} parts from the reference attention at step {s}: the "
+            f"reference's top-2 margin {margin:.3e}, the routes' largest logit difference "
+            f"{gap:.3e}")
+        check(margin <= GREEDY_MARGIN_FACTOR * gap,
+              f"bert greedy row {row}: parts at step {s} with a top-2 margin {margin:.3e} over "
+              f"{GREEDY_MARGIN_FACTOR} x the logit difference {gap:.3e}")
+    log(f"bert greedy tokens, kernels vs reference attention: {got.shape[0] - len(parted)} of "
+        f"{got.shape[0]} rows equal over {n} tokens")
+    summary["greedy_vs_reference"] = {"rows_equal": got.shape[0] - len(parted),
+                                      "rows": got.shape[0], "parted": parted}
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    variants = []
+    for cols, pad in ((cfg.padded_vocab, cfg.padded_vocab - cfg.vocab_size), (cfg.vocab_size, 0)):
+        x = torch.randn(4, cols, device=dev, generator=gen) * 4
+        if pad:
+            x[:, cols - pad:] = -1e30
+        variants.append(_softmax_variant(
+            f"star_softmax_lut histogram clean float32 [4, {cols}]"
+            + (f" ({pad} columns at -1e30)" if pad else ""),
+            lambda: sk.star_softmax_kernel(x, FMT, mode="histogram"),
+            lambda: sk.star_softmax_ref(x, FMT, mode="histogram"), x,
+            dict(dtype="float32", mode="histogram", fault=None,
+                 bytes=x.numel() * (x.element_size() + 4) + 3 * FMT.num_levels * 4)))
+        same = torch.equal(sk.star_softmax_kernel(x, FMT, mode="histogram"),
+                           sk.star_softmax_ref(x, FMT, mode="histogram"))
+        check(same, f"star_softmax histogram [4, {cols}]: not bit-equal to the plain version")
+        variants[-1]["bit_equal"] = True
+        log(f"star_softmax histogram [4, {cols}] f32: bit-equal to the plain version")
+    next(e for e in results if e["name"] == "star_softmax_lut")["variants"] += variants
+    del params, eng, greedy, ref_eng
+    return summary
+
+
+def train_bert(results):
+    """Phase 13: bert-base-star trained at its published widths on the card
+    (13a), a crashed and resumed run (13b), its eval through flash_star's
+    float32 kernel (13c), and its restored weights served (13d)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import count_params
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = count_params(model.param_specs())
+    log(f"{cfg.name}: {cfg.num_layers} layers d={cfg.d_model} {cfg.num_heads} heads D "
+        f"{cfg.resolved_head_dim} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}) "
+        f"{n_params / 1e6:.1f}M float32 params, softmax {cfg.softmax_spec.kind} "
+        f"{cfg.softmax_spec.mode} {cfg.softmax_spec.precision} = "
+        f"{cfg.softmax_spec.fmt.short_name()}, attention {cfg.attention_spec.impl}, remat "
+        f"{cfg.remat}")
+    summary = {"params_m": n_params / 1e6, "card": CARD}
+    summary["train"], state = train_full_width(cfg, model)
+    summary["resume"] = train_resume(cfg)
+    summary["eval"] = train_eval(results, cfg, model, state)
+    del state
+    torch.cuda.empty_cache()
+    summary["serve"] = train_serve(results, cfg)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     src = ROOT / "src" / "repro_torch"
     if not src.is_dir():
@@ -4095,6 +4475,7 @@ def main() -> int:
         parity_pv_int8(results)
         parity_flash_new(results)
         parity_flash_d256(results)
+        parity_flash_bert(results)
         parity_paged(results)
         parity_paged_new(results)
         parity_softmax(results)
@@ -4135,6 +4516,8 @@ def main() -> int:
         summary_hybrid = serve_hybrid(results)
     with phase("12 encdec serve"):
         summary_encdec = serve_encdec(results)
+    with phase("13 train"):
+        summary_train = train_bert(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
@@ -4143,7 +4526,7 @@ def main() -> int:
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
                     "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,
-                    "phase_seconds": PHASE_SECONDS, "card": card}))
+                    "train": summary_train, "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

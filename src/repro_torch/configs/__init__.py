@@ -9,8 +9,9 @@ from typing import List
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 ARCH_IDS: List[str] = [
-    "deepseek_coder_33b", "granite_8b", "granite_moe_1b_a400m", "llama3_405b", "mamba2_130m",
-    "mixtral_8x22b", "qwen2_72b", "qwen2_vl_7b", "recurrentgemma_2b", "seamless_m4t_large_v2",
+    "bert_base_star", "deepseek_coder_33b", "granite_8b", "granite_moe_1b_a400m", "llama3_405b",
+    "mamba2_130m", "mixtral_8x22b", "qwen2_72b", "qwen2_vl_7b", "recurrentgemma_2b",
+    "seamless_m4t_large_v2",
 ]
 
 

@@ -1,5 +1,5 @@
 """Model configuration (port of ``repro.configs.base``: the dense, moe, ssm,
-hybrid, encdec and vlm fields).
+hybrid, encdec and vlm fields, and ``remat``).
 
 A config carries its op contract as ``repro_torch.ops`` specs; the legacy
 loose fields (``softmax_kind``, ``attn_impl``, ...) stay as constructor
@@ -81,6 +81,9 @@ class ModelConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # training: recompute each block's forward in the backward pass
+    # (``torch.utils.checkpoint``) instead of keeping its activations
+    remat: bool = True
 
     @property
     def resolved_head_dim(self) -> int:

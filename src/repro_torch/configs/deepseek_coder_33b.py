@@ -3,8 +3,8 @@
 About 33.3 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config, whose head_dim is 8 (d_model 56 over 7 heads,
 one KV head: a GQA group of 7).  (The reference's
-``seq_parallel_activations`` and ``remat`` are sharding / training fields
-the port does not carry.)"""
+``seq_parallel_activations`` is a sharding field the port does not
+carry.)"""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -38,4 +38,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

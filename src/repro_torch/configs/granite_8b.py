@@ -40,4 +40,5 @@ def smoke_config() -> ModelConfig:
         ),
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -1,8 +1,7 @@
 """granite-moe-1b-a400m [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
 24L d_model=1024 16H (GQA kv=8) d_ff=512/expert vocab=49155, MoE 32e top-8.
 ``moe_style="ep"`` names the reference's expert-parallel sharding; on one
-card it changes nothing.  (The reference's ``remat`` is a training field the
-port does not carry.)"""
+card it changes nothing."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -42,4 +41,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=64,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

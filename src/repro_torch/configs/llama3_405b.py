@@ -3,7 +3,7 @@
 About 406 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config, whose head_dim is 8 (d_model 64 over 8 heads,
 2 KV heads: a GQA group of 4).  (The reference's ``seq_parallel_activations``
-and ``remat`` are sharding / training fields the port does not carry.)"""
+is a sharding field the port does not carry.)"""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -37,4 +37,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -44,4 +44,5 @@ def smoke_config() -> ModelConfig:
         ssm_chunk=16,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

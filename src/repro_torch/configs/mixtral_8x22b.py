@@ -3,8 +3,8 @@
 About 141 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config (MoE, a window of 16, GQA).  ``moe_style="tp"``
 names the reference's column-parallel expert sharding; on one card it
-changes nothing.  (The reference's ``remat`` and ``seq_parallel_activations``
-are training / sharding fields the port does not carry.)"""
+changes nothing.  (The reference's ``seq_parallel_activations`` is a
+sharding field the port does not carry.)"""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -46,4 +46,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -2,7 +2,7 @@
 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064.
 About 72.7 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config.  (The reference's ``seq_parallel_activations``
-and ``remat`` are sharding / training fields the port does not carry.)"""
+is a sharding field the port does not carry.)"""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -38,4 +38,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -4,8 +4,8 @@ The vision frontend is a stub, as in the reference: a request brings
 precomputed patch embeddings (ViT output width 1280) that ``patch_proj``
 projects and prepends; M-RoPE sections (16, 24, 24) over the 64-dim rotary
 half.  About 7.62 B parameters: it fits one card at its published widths.
-(The reference's ``seq_parallel_activations`` and ``remat`` are sharding /
-training fields the port does not carry.)"""
+(The reference's ``seq_parallel_activations`` is a sharding field the port
+does not carry.)"""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -47,4 +47,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -2,8 +2,7 @@
 26L d_model=2560 10H (GQA kv=1 = MQA: head_dim 256) d_ff=7680 vocab=256000.
 Pattern (recurrent, recurrent, attention): 8 periods + a 2-layer recurrent
 tail, so 18 RG-LRU blocks and 8 local-attention blocks over a window of
-2048.  About 3.5 B parameters: it fits one card at its published widths.
-(The reference's ``remat`` is a training field the port does not carry.)"""
+2048.  About 3.5 B parameters: it fits one card at its published widths."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -45,4 +44,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -2,8 +2,7 @@
 24L(enc) + 24L(dec) d_model=1024 16H (GQA kv=16: head_dim 64) d_ff=8192
 (GELU) vocab=256206 (padded to 256512).  The audio frontend is a stub, as in
 the reference: a request brings precomputed frame embeddings of width
-``frontend_dim`` that ``frontend_proj`` projects into the encoder.  (The
-reference's ``remat`` is a training field the port does not carry.)"""
+``frontend_dim`` that ``frontend_proj`` projects into the encoder."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -42,4 +41,5 @@ def smoke_config() -> ModelConfig:
         attn_block_size=32,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )

@@ -26,7 +26,7 @@ from repro_torch.core.fixedpoint import (
     grid_index,
     quantize_logits,
 )
-from repro_torch.core.star_softmax import exact_softmax, star_softmax
+from repro_torch.core.star_softmax import exact_softmax, star_softmax, star_softmax_ste
 from repro_torch.hwmodel.faults import FaultModel, is_null
 
 NEG_INF = -1e30  # finite mask value: keeps the index math NaN-free
@@ -34,7 +34,11 @@ NEG_INF = -1e30  # finite mask value: keeps the index math NaN-free
 
 @dataclasses.dataclass(frozen=True)
 class SoftmaxConfig:
-    """Which softmax engine attention uses: ``exact`` or ``star``."""
+    """Which softmax engine attention uses: ``exact`` (the FP oracle),
+    ``star`` (the quantized LUT) or ``star_ste`` (the quantized forward with
+    a straight-through backward, in :func:`attention` only:
+    :func:`blocked_attention` runs the integer-grid form for both STAR
+    kinds, as the reference does, so Q and K get no gradient there)."""
 
     kind: str = "star"
     fmt: FixedPointFormat = DEFAULT_FORMAT
@@ -42,7 +46,7 @@ class SoftmaxConfig:
     fault: Optional[FaultModel] = None  # device non-idealities of the STAR arrays
 
     def __post_init__(self):
-        if self.kind not in ("exact", "star"):
+        if self.kind not in ("exact", "star", "star_ste"):
             raise ValueError(f"unknown softmax kind {self.kind!r}")
 
     @classmethod
@@ -56,6 +60,10 @@ class SoftmaxConfig:
             if where is not None:
                 scores = torch.where(where, scores, torch.full_like(scores, NEG_INF))
             return exact_softmax(scores, axis=-1)
+        if self.kind == "star_ste":
+            if where is not None:  # NEG_INF quantizes to the deepest LUT row
+                scores = torch.where(where, scores, torch.full_like(scores, NEG_INF))
+            return star_softmax_ste(scores, self.fmt, -1, self.mode, self.fault)
         return star_softmax(scores, self.fmt, axis=-1, mode=self.mode, where=where,
                             fault=self.fault)
 
@@ -161,7 +169,7 @@ def blocked_attention(
     g = hq // hkv
     dev = q.device
     scale = d ** -0.5 if scale is None else scale
-    star = softmax.kind == "star"
+    star = softmax.kind in ("star", "star_ste")
     fmt = softmax.fmt
     table = lut_lib.exp_lut(fmt, device=dev) if star else None
     qg = q.float().reshape(b, tq, hkv, g, d)
@@ -196,7 +204,8 @@ def blocked_attention(
         else:
             sc = torch.where(maskb, sc, torch.full_like(sc, NEG_INF))
             m_new = torch.maximum(m, sc.amax(dim=-1))
-            r = torch.exp(torch.clamp(m - m_new, max=0.0))
+            # minimum, not clamp: at m == m_new it splits the gradient as jnp.minimum
+            r = torch.exp(torch.minimum(m - m_new, torch.zeros_like(m)))
             p = torch.exp(sc - m_new[..., None])
         p = torch.where(maskb, p, torch.zeros_like(p))
         s = s * r + p.sum(dim=-1)

@@ -7,6 +7,10 @@ onto the signed integer grid ``round(x * scale)`` before the row max, so max
 search and subtraction are exact integer operations.
 
 Rounding is half to even (``torch.round``), as ``jnp.round`` is.
+
+``quantize_value_ste`` is the codebook round-trip for quantization-aware
+training: its backward passes the gradient inside the clip range and zeroes
+it outside, as the reference's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -91,3 +95,45 @@ def quantize_logits(x: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
 def grid_index(j: torch.Tensor, m: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
     """Codebook index ``k = clip(m - j, 0, num_levels - 1)`` (int32)."""
     return torch.clamp(m - j, 0, fmt.num_levels - 1)
+
+
+def quantize_index(z: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
+    """Nonpositive values ``z`` as codebook indices
+    ``clip(round(-z * scale), 0, num_levels - 1)``: a positive input clamps
+    to 0, one below ``min_value`` to the last level, NaN to the last level.
+    uint8 up to 256 levels, else int32 (the reference's uint16: the same
+    values, in a type every torch operator takes)."""
+    scaled = torch.round(-z.float() * fmt.scale)
+    scaled = torch.nan_to_num(scaled, nan=float(fmt.num_levels - 1))
+    scaled = torch.clamp(scaled, 0.0, float(fmt.num_levels - 1))
+    return scaled.to(torch.uint8 if fmt.num_levels <= 256 else torch.int32)
+
+
+def dequantize(k: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
+    """Codebook value of index ``k``: ``-k / scale`` (float32)."""
+    return -(k.float()) / fmt.scale
+
+
+def quantize_value(z: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
+    """Round-trip ``z`` through the codebook (quantize, then dequantize)."""
+    return dequantize(quantize_index(z, fmt), fmt)
+
+
+class _QuantizeValueSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, fmt):
+        ctx.save_for_backward(z)
+        ctx.fmt = fmt
+        return quantize_value(z, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        in_range = (z <= 0.0) & (z >= ctx.fmt.min_value)
+        return torch.where(in_range, g, torch.zeros_like(g)).to(g.dtype), None
+
+
+def quantize_value_ste(z: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
+    """Straight-through round-trip: forward :func:`quantize_value`, backward
+    the identity where ``min_value <= z <= 0`` and zero outside."""
+    return _QuantizeValueSTE.apply(z, fmt)

@@ -42,6 +42,23 @@ def exp_lut(fmt: FixedPointFormat, device=None, dtype=torch.float32) -> torch.Te
     return _exp_lut_on(fmt.int_bits, fmt.frac_bits, str(dev), dtype)
 
 
+def exp_lut_int(fmt: FixedPointFormat, out_bits: int = 8, device=None) -> torch.Tensor:
+    """Integer-mantissa LUT of the int8 P.V path:
+    ``round(exp(-k / scale) * (2**(out_bits - 1) - 1))`` as int8, rounded in
+    numpy from the float32 table as the reference does."""
+    if not 2 <= out_bits <= 8:
+        raise ValueError("out_bits must be in [2, 8]")
+    top = (1 << (out_bits - 1)) - 1
+    vals = _exp_lut_np(fmt.int_bits, fmt.frac_bits)
+    return torch.from_numpy(np.round(vals * top).astype(np.int8)).to(
+        device if device is not None else "cpu")
+
+
+def int_lut_scale(out_bits: int = 8) -> float:
+    """Dequantization scale of :func:`exp_lut_int`'s codes."""
+    return 1.0 / float((1 << (out_bits - 1)) - 1)
+
+
 def lookup_gather(k: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """Digital shortcut: direct LUT gather."""
     return lut[k.long()]

@@ -14,7 +14,10 @@ and the shared ADC (a gain on the denominator).  ``gather`` / ``onehot``
 sum the faulty numerators digitally, so under faults the modes deliberately
 differ, as the hardware paths they model do.
 
-``star_softmax_ste`` (the training VJP) belongs to a later slice.
+Training: ``star_softmax_ste`` keeps the quantized forward and routes the
+gradient through the exact softmax's VJP evaluated at the quantized
+probabilities (quantization-aware training), as the reference's
+``custom_vjp`` does; a fault perturbs the forward only.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ def star_softmax(
     dtype: Optional[torch.dtype] = None,
     fault: Optional[FaultModel] = None,
     row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    vmm_dot: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Quantized LUT softmax along ``axis``.
 
@@ -60,6 +64,8 @@ def star_softmax(
     the seeded device non-idealities (``None``: ideal device).  ``row_sum``
     (the numerators ``[..., d]`` -> their sums ``[..., 1]``) fixes the order
     of the ``gather`` / ``onehot`` denominator; default ``sum(-1)``.
+    ``vmm_dot`` (counts ``[..., L]``, table ``[L]`` -> ``[...]``) fixes the
+    order of the ``histogram`` denominator; default ``counts @ table``.
     """
     if mode not in Modes:
         raise ValueError(f"mode must be one of {Modes}, got {mode!r}")
@@ -99,7 +105,7 @@ def star_softmax(
         # the denominator VMM crossbar holds its own copy of the LUT contents
         vmm_table = (faults_lib.faulty_exp_lut(fmt, fault, tag="softmax/vmm", device=dev)
                      if faulty else table)
-        den = lut_lib.histogram_dot(counts, vmm_table)[..., None]
+        den = (vmm_dot or lut_lib.histogram_dot)(counts, vmm_table)[..., None]
         if faulty:
             gain = faults_lib.adc_gain(fault)
             if gain is not None:
@@ -113,3 +119,38 @@ def star_softmax(
 def _weighted_histogram(k: torch.Tensor, weight_mask: torch.Tensor, num_levels: int) -> torch.Tensor:
     """Counts of ``k`` over the last axis, masked entries not counted."""
     return lut_lib.histogram_counts(k, num_levels, weight=weight_mask)
+
+
+class _StarSoftmaxSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fmt, axis, mode, fault):
+        p = star_softmax(x, fmt, axis=axis, mode=mode, fault=fault)
+        ctx.save_for_backward(p)
+        ctx.axis = axis
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        inner = (g * p).sum(dim=ctx.axis, keepdim=True)
+        return (p * (g - inner)).to(g.dtype), None, None, None, None
+
+
+def star_softmax_ste(
+    x: torch.Tensor,
+    fmt: FixedPointFormat = DEFAULT_FORMAT,
+    axis: int = -1,
+    mode: str = "histogram",
+    fault: Optional[FaultModel] = None,
+) -> torch.Tensor:
+    """STAR softmax with a straight-through backward: the forward is
+    :func:`star_softmax` (with the fault, if any); the backward is
+    ``p * (g - sum(g * p))`` at the quantized ``p``, nothing to the fault."""
+    return _StarSoftmaxSTE.apply(x, fmt, axis, mode, fault)
+
+
+def quantization_error(x: torch.Tensor, fmt: FixedPointFormat, *, axis: int = -1,
+                       mode: str = "histogram") -> torch.Tensor:
+    """Max ``|star_softmax - exact_softmax|`` along ``axis`` (per row)."""
+    err = (star_softmax(x, fmt, axis=axis, mode=mode) - exact_softmax(x, axis=axis)).abs()
+    return err.amax(dim=axis)

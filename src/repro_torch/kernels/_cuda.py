@@ -95,6 +95,24 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
+class KernelGradError(RuntimeError):
+    """A kernel wrapper was called where autograd would differentiate it.
+    The kernels have no backward: on the card a launch returns an output
+    with no autograd history, so a wrapper refuses (on the CPU too, where
+    its plain version would have trained) rather than drop the gradient."""
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise :class:`KernelGradError` when grad mode is on and any tensor
+    among ``tensors`` requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise KernelGradError(
+            f"{kernel} has no backward: call it under torch.no_grad(), or train through "
+            f"a plain impl (attention 'xla' / 'reference', softmax 'reference', ssd_scan "
+            f"'reference', matmul 'xla')")
+
+
 def on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device is refused."""

@@ -56,7 +56,9 @@ def crossbar_matmul(
     spec: CrossbarSpec = DEFAULT_SPEC,
 ) -> torch.Tensor:
     """Per 128x128 tile ``clip(round(partial / step + off), ±adc_levels) *
-    step``, accumulated over the K tiles in order."""
+    step``, accumulated over the K tiles in order.  Raises ``KernelGradError``
+    where autograd would differentiate it."""
+    _cuda.refuse_grad("crossbar_matmul", xq, wq, step, offsets)
     m, k = xq.shape
     k2, n = wq.shape
     kt, nt = k // spec.tile_rows, n // spec.tile_cols

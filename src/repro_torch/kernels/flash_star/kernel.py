@@ -122,7 +122,9 @@ def flash_star_attention(
     block_k: int = 128,
     pv_int8: bool = False,
 ) -> torch.Tensor:
-    """Fused attention.  Returns ``[B, Hq, Tq, D]`` in q's dtype."""
+    """Fused attention.  Returns ``[B, Hq, Tq, D]`` in q's dtype.  Raises
+    ``KernelGradError`` where autograd would differentiate it."""
+    _cuda.refuse_grad("flash_star_attention", q, k, v)
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got {q.shape[1]} % {k.shape[1]}")
     if block_k <= 0:

@@ -76,7 +76,9 @@ def paged_flash_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gather-free paged decode attention.  Returns ``[S, Hq, D]``."""
+    """Gather-free paged decode attention.  Returns ``[S, Hq, D]``.  Raises
+    ``KernelGradError`` where autograd would differentiate it."""
+    _cuda.refuse_grad("paged_flash_attention", q, k_pages, v_pages, k_scale, v_scale)
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
     if q.shape[1] % k_pages.shape[2] != 0:

@@ -62,7 +62,9 @@ def ssd_scan(
     *,
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD over ``chunk``-step chunks: ``(y, final state)``."""
+    """Chunked SSD over ``chunk``-step chunks: ``(y, final state)``.  Raises
+    ``KernelGradError`` where autograd would differentiate it."""
+    _cuda.refuse_grad("ssd_scan", xdt, a, bmat, cmat)
     if xdt.dim() != 4 or a.shape != xdt.shape[:3]:
         raise ValueError(f"xdt must be [B, T, H, P] and a [B, T, H], got "
                          f"{tuple(xdt.shape)} / {tuple(a.shape)}")

@@ -95,7 +95,18 @@ def kernel_order_sum(p: torch.Tensor, x_dtype: torch.dtype) -> torch.Tensor:
     for g in range(groups):
         for e in range(v):
             part = part + t[:, :, g, :, e]
-    lanes = part.reshape(n, c, NT // WARP, WARP)
+    warps = _block_sum(part)
+    den = torch.zeros((n,), dtype=p.dtype, device=p.device)
+    for q in range(c):
+        den = den + warps[:, q]
+    return den.reshape(p.shape[:-1] + (1,))
+
+
+def _block_sum(part: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``block_sum`` of ``[..., NT]`` thread partials: a warp
+    adds its lanes by the butterfly (lane ``l`` + lane ``l + o``, ``o`` = 16
+    .. 1), then the warps' sums the same way.  ``[...]``."""
+    lanes = part.reshape(part.shape[:-1] + (NT // WARP, WARP))
     for o in (16, 8, 4, 2, 1):
         lanes = lanes[..., :o] + lanes[..., o:2 * o]
     warps = lanes[..., 0]
@@ -103,25 +114,45 @@ def kernel_order_sum(p: torch.Tensor, x_dtype: torch.dtype) -> torch.Tensor:
     while o:
         warps = warps[..., :o] + warps[..., o:2 * o]
         o //= 2
-    den = torch.zeros((n,), dtype=p.dtype, device=p.device)
-    for q in range(c):
-        den = den + warps[:, q, 0]
-    return den.reshape(p.shape[:-1] + (1,))
+    return warps[..., 0]
+
+
+def kernel_order_dot(counts: torch.Tensor, vmm: torch.Tensor) -> torch.Tensor:
+    """The histogram mode's denominator ``sum_l counts[..., l] * vmm[l]``
+    (float32 ``[...]``) in the kernel's order: thread ``t`` adds, from 0, the
+    rounded products of levels ``t, t + NT, ...`` ascending, then
+    ``block_sum``.  Every CTA of the cluster forms it alike from the
+    cluster's summed counts, so it is the kernel's on any device."""
+    levels = counts.shape[-1]
+    prod = counts.float() * vmm.float()
+    rounds = -(-levels // NT)
+    prod = torch.nn.functional.pad(prod, (0, rounds * NT - levels))
+    prod = prod.reshape(prod.shape[:-1] + (rounds, NT))
+    part = torch.zeros(prod.shape[:-2] + (NT,), dtype=torch.float32, device=prod.device)
+    for r in range(rounds):
+        part = part + prod[..., r, :]
+    return _block_sum(part)
 
 
 def star_softmax_ref(x: torch.Tensor, fmt: FixedPointFormat, *, mode: str = "gather",
                      fault: Optional[FaultModel] = None) -> torch.Tensor:
     """The plain version of the kernel: the reference engine, the row sum
-    of ``gather`` / ``onehot`` mode taken in the kernel's order."""
+    of ``gather`` / ``onehot`` mode and the ``histogram`` mode's VMM dot
+    taken in the kernel's order (so a clean call is bit for bit the
+    kernel's; a faulty histogram divides by the ADC gain before the row
+    where the kernel's wrapper divides after it: an ulp)."""
     return star_softmax(x, fmt, mode=mode, fault=fault, dtype=torch.float32,
-                        row_sum=lambda num: kernel_order_sum(num, x.dtype))
+                        row_sum=lambda num: kernel_order_sum(num, x.dtype),
+                        vmm_dot=kernel_order_dot)
 
 
 def star_softmax_kernel(
     x: torch.Tensor, fmt: FixedPointFormat, *, mode: str = "gather",
     fault: Optional[FaultModel] = None,
 ) -> torch.Tensor:
-    """STAR softmax over the last axis; float32 ``[..., d]``."""
+    """STAR softmax over the last axis; float32 ``[..., d]``.  Raises
+    ``KernelGradError`` where autograd would differentiate it."""
+    _cuda.refuse_grad("star_softmax_kernel", x)
     if mode not in Modes:
         raise ValueError(f"mode must be one of {Modes}, got {mode!r}")
     if not _cuda.on_card(x):

@@ -76,12 +76,15 @@ class EncDecLM:
         h = src.to(dt) @ params["frontend_proj"]["kernel"].to(dt)
         h = h + L.sinusoidal_positions(0, h.shape[1], cfg.d_model, dev).to(dt)[None]
         for i in range(cfg.num_layers):
-            bp = layer(params["enc_blocks"], i)
-            a, _, _ = L.attention_block(bp["attn"], L.layernorm(bp["ln1"], h, cfg.norm_eps), cfg,
-                                        causal=False, use_rope=False)
-            h = h + L.attention_out(bp["attn"], a, cfg)
-            h = h + L.mlp(bp["mlp"], L.layernorm(bp["ln2"], h, cfg.norm_eps), cfg)
+            h = L.remat(cfg, self._enc_block, layer(params["enc_blocks"], i), h)
         return L.layernorm(params["enc_norm"], h, cfg.norm_eps)
+
+    def _enc_block(self, bp: Params, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        a, _, _ = L.attention_block(bp["attn"], L.layernorm(bp["ln1"], h, cfg.norm_eps), cfg,
+                                    causal=False, use_rope=False)
+        h = h + L.attention_out(bp["attn"], a, cfg)
+        return h + L.mlp(bp["mlp"], L.layernorm(bp["ln2"], h, cfg.norm_eps), cfg)
 
     # -- decoder ----------------------------------------------------------------
 
@@ -112,7 +115,8 @@ class EncDecLM:
         cfg = self.cfg
         h = self._embed_tokens(params, tokens, pos0)
         for i in range(cfg.num_decoder_layers):
-            h = self._dec_block(layer(params["dec_blocks"], i), h, memory)[0]
+            h = L.remat(cfg, lambda bp, x, mem: self._dec_block(bp, x, mem)[0],
+                        layer(params["dec_blocks"], i), h, memory)
         return L.layernorm(params["dec_norm"], h, cfg.norm_eps)
 
     # -- public API -------------------------------------------------------------

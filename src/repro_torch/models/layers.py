@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import ops
 from repro_torch.core import kvquant
@@ -570,7 +571,20 @@ def causal_conv1d(
 
 
 # ---------------------------------------------------------------------------
-# loss
+# training
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` and grad mode on, its activations
+    are not kept but recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` of each block.  The same operations run again on the
+    same inputs, so the loss and every gradient are bit for bit those
+    without it."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

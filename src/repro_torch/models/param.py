@@ -53,6 +53,23 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
+def named_leaves(tree):
+    """``[(path, leaf)]`` of nested dicts in sorted key order (the order of
+    ``jax.tree.leaves`` on the same dicts), each path the tuple of keys."""
+    return [(tuple(path.split("/")[1:]), leaf) for path, leaf in _leaves(tree)]
+
+
+def unflatten(paths, leaves):
+    """Nested dicts from :func:`named_leaves`' paths and a leaf for each."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
 def _init_one(spec: ParamSpec, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     """The reference's init rules (``param._init_one``), drawn from ``gen``."""
     if spec.init == "zeros":

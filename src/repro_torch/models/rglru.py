@@ -83,12 +83,13 @@ def rglru_scan(
     another order of association (float32 rounding apart).  Returns
     ``(h_all [B, T, W], h_last [B, W])``."""
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * x
+    # new tensors each round, no write in place: autograd differentiates it
     if h0 is not None:
-        b[:, 0] = b[:, 0] + a[:, 0] * h0
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
     t = x.shape[1]
     d = 1
     while d < t:
-        b[:, d:] = b[:, :-d] * a[:, d:] + b[:, d:]  # the right side is read first
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
         if 2 * d < t:
             a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
         d *= 2
@@ -246,10 +247,9 @@ class RecurrentGemmaLM:
         """Full-sequence forward -> logits ``[B, T, V]``."""
         h = L.embed(params["embed"], tokens, self.cfg)
         for kind, bp, _ in self._blocks(params):
-            if kind == "recurrent":
-                h, _ = recurrent_block(bp, h, self.cfg)
-            else:
-                h, _ = local_attn_block(bp, h, self.cfg)
+            block = recurrent_block if kind == "recurrent" else local_attn_block
+            # the block bound now: the backward pass recomputes it after the loop
+            h = L.remat(self.cfg, lambda p, x, f=block: f(p, x, self.cfg)[0], bp, h)
         return self._logits(params, h)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

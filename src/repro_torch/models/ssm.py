@@ -12,7 +12,9 @@ ngroups G = 1 (B/C shared across heads).
 One difference of route from the reference: the reference mixer calls its
 plain ``_ssd_chunk_scan`` directly; here prefill goes through
 ``ops.ssd_scan``, whose ``reference`` impl is that same function and whose
-default ``pallas`` impl is the CUDA kernel the reference wrote for it.  The
+default ``pallas`` impl is the CUDA kernel the reference wrote for it; a
+training forward (inputs that need a gradient) takes ``reference``, as the
+reference's training does, since the kernel has no backward.  The
 reference's ``scan`` over stacked layers is a Python loop over the ``[L]``
 axis, and caches are updated in place.
 """
@@ -145,7 +147,11 @@ def mamba_mixer(
     cm = cmat[..., :cfg.ssm_state]
 
     if cache is None:
-        y, hfin = ops.ssd_scan(xdt, a_decay, bm, cm, ops.ScanSpec(chunk=cfg.ssm_chunk))
+        # a training forward (inputs that need a gradient) takes the plain
+        # scan, the reference's own route: the kernel has no backward
+        grad = torch.is_grad_enabled() and xdt.requires_grad
+        spec = ops.ScanSpec(impl="reference" if grad else "pallas", chunk=cfg.ssm_chunk)
+        y, hfin = ops.ssd_scan(xdt, a_decay, bm, cm, spec)
         new_cache = {"conv": new_conv.to(dt_), "ssm": hfin} if return_state else None
     else:
         h = cache["ssm"].float()
@@ -196,7 +202,7 @@ class MambaLM:
         cfg = self.cfg
         h = L.embed(params["embed"], tokens, cfg)
         for i in range(cfg.num_layers):
-            h, _ = self._block(layer(params["blocks"], i), h)
+            h = L.remat(cfg, lambda bp, x: self._block(bp, x)[0], layer(params["blocks"], i), h)
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         return L.unembed(params["unembed"], h, cfg, params["embed"])
 

@@ -136,9 +136,20 @@ class DecoderLM:
         cfg = self.cfg
         h, pos = self._embed_inputs(params, tokens, patch_embeds)
         for i in range(cfg.num_layers):
-            h = self._block(layer(params["blocks"], i), h, pos)[0]
+            h = L.remat(cfg, lambda bp, x: self._block(bp, x, pos)[0],
+                        layer(params["blocks"], i), h)
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         return L.unembed(params["unembed"], h, cfg, params["embed"])
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross entropy: ``batch`` holds ``tokens`` and
+        ``labels`` ``[B, T]`` (-1: no loss) and a VLM's ``patch_embeds``,
+        whose prefix rows take no loss."""
+        logits = self.forward(params, batch["tokens"], patch_embeds=batch.get("patch_embeds"))
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        return L.cross_entropy(logits, labels)
 
     def cache_len(self, max_len: int) -> int:
         if self.cfg.sliding_window is not None:

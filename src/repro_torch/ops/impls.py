@@ -18,7 +18,7 @@ from repro_torch.core.attention import (
     blocked_attention,
 )
 from repro_torch.core.kvquant import KV_DTYPES
-from repro_torch.core.star_softmax import exact_softmax, star_softmax
+from repro_torch.core.star_softmax import exact_softmax, star_softmax, star_softmax_ste
 from repro_torch.kernels.crossbar_matmul.kernel import crossbar_matmul
 from repro_torch.kernels.crossbar_matmul.ref import prepare_operands
 from repro_torch.kernels.flash_star import flash_star_attention
@@ -47,6 +47,8 @@ def _masked(x: torch.Tensor, where: Optional[torch.Tensor]) -> torch.Tensor:
 def _softmax_reference(spec: SoftmaxSpec, x, *, where=None, axis=-1):
     if spec.kind == "exact":
         return exact_softmax(_masked(x, where), axis=axis)
+    if spec.kind == "star_ste":  # NEG_INF quantizes to the deepest LUT row
+        return star_softmax_ste(_masked(x, where), spec.fmt, axis, spec.mode, spec.fault)
     return star_softmax(x, spec.fmt, axis=axis, mode=spec.mode, where=where,
                         fault=spec.fault)
 

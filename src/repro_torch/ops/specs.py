@@ -6,21 +6,50 @@ both packages; see ``repro_torch.ops`` for what each name runs here.
 Fields of the reference that nothing in the port reads yet are left out
 (``interpret``: there is no interpret mode; the Pallas tiles ``block_q`` /
 ``block_rows`` / ``block_m``).
+
+Precision is a :class:`~repro_torch.core.fixedpoint.FixedPointFormat` or a
+named policy ``"auto:<dataset>"`` resolved through
+``repro_torch.core.precision.policy_for`` (the paper's per-dataset
+calibration), as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FixedPointFormat
 from repro_torch.core.kvquant import KV_DTYPES
+from repro_torch.core.precision import policy_for
 from repro_torch.hwmodel.faults import FaultModel
 from repro_torch.kernels.crossbar_matmul.ref import DEFAULT_SPEC, CrossbarSpec
 
-SOFTMAX_KINDS = ("star", "exact")
+SOFTMAX_KINDS = ("star", "star_ste", "exact")
 SOFTMAX_MODES = ("gather", "onehot", "histogram")
+
+Precision = Union[FixedPointFormat, str]
+
+
+def resolve_precision(precision: Precision) -> FixedPointFormat:
+    """A precision field as a format: a :class:`FixedPointFormat` as it is,
+    ``"auto:<dataset>"`` (e.g. ``"auto:mrpc"``) through the paper's
+    per-dataset table."""
+    if isinstance(precision, FixedPointFormat):
+        return precision
+    if isinstance(precision, str):
+        if precision.startswith("auto:"):
+            return policy_for(precision.split(":", 1)[1])
+        raise ValueError(
+            f"unknown precision policy {precision!r}: expected a "
+            f"FixedPointFormat or an 'auto:<dataset>' policy name "
+            f"(datasets: cnews, mrpc, cola; anything else falls back to "
+            f"the default {DEFAULT_FORMAT.short_name()} format)"
+        )
+    raise TypeError(
+        f"precision must be a FixedPointFormat or 'auto:<dataset>' string, "
+        f"got {type(precision).__name__}"
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,9 +57,9 @@ class SoftmaxSpec:
     """One softmax invocation: engine kind, dataflow mode, precision, impl."""
 
     impl: str = "reference"
-    kind: str = "star"  # star | exact
+    kind: str = "star"  # star | star_ste | exact
     mode: str = "gather"  # gather | onehot | histogram
-    precision: FixedPointFormat = DEFAULT_FORMAT
+    precision: Precision = DEFAULT_FORMAT
     # seeded device non-idealities; a null model normalizes to None
     fault: Optional[FaultModel] = None
 
@@ -45,10 +74,6 @@ class SoftmaxSpec:
             raise ValueError(
                 f"softmax mode must be one of {SOFTMAX_MODES}, got {self.mode!r}"
             )
-        if not isinstance(self.precision, FixedPointFormat):
-            raise TypeError(
-                f"precision must be a FixedPointFormat, got {type(self.precision).__name__}"
-            )
         if self.fault is not None and self.fault.is_null:
             object.__setattr__(self, "fault", None)
         if self.fault is not None and self.kind == "exact":
@@ -56,11 +81,12 @@ class SoftmaxSpec:
                 "kind='exact' is the digital FP oracle: there is no RRAM array to "
                 "inject faults into; use kind='star' (or drop the fault field)"
             )
+        resolve_precision(self.precision)  # fail early on a bad policy
 
     @property
     def fmt(self) -> Optional[FixedPointFormat]:
-        """Fixed-point format; ``None`` for the exact oracle."""
-        return None if self.kind == "exact" else self.precision
+        """Resolved fixed-point format; ``None`` for the exact oracle."""
+        return None if self.kind == "exact" else resolve_precision(self.precision)
 
     def tolerance(self) -> float:
         """Max-abs-error bound vs the exact softmax: ``e^r - 1`` (an ideal
