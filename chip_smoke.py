@@ -321,10 +321,31 @@ Phases (any failure exits non-zero before the result lines):
    softmax at [4, 30720] (198 padded columns at -1e30, the engine's
    sampling row) and [4, 30522], histogram mode, bit-equal to its plain
    version;
-14. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+14. the mesh on one card: a one-rank NCCL process group on a ``HashStore``
+   and a ``(1, 1)`` ``("data", "model")`` mesh.  14a: bert-base-star at full
+   width trained MESH_STEPS steps of TRAIN_BATCH x TRAIN_SEQ under the mesh
+   (every state leaf a DTensor) against the same steps without it, each
+   step's loss within MESH_LOSS_RTOL (bit-equality printed), the step time
+   and peak memory of both; 14b: its eval under the mesh through
+   flash_star's float32 kernel on each rank's shard (12 launches), within
+   EVAL_LOSS_RTOL of the eval of the unsharded run's state; 14c: the
+   sharded state checkpointed and restored without the mesh, bit for bit;
+   14d: granite-moe-1b-a400m at full width with ``moe_style="ep"`` (experts
+   over "model"), a MESH_MOE_TOKENS forward under the mesh with the STAR
+   router on the kernel (24 launches) and flash_star (24), logits against
+   the same forward without the mesh (the bf16 tolerance below, bit-equality
+   printed); 14e: ``compressed_grad_allreduce`` on one rank, ``mean +
+   new_err == g`` within MESH_REC_ATOL; 14f: ``pipeline_apply`` with one
+   stage bit-equal to the sequential loop; 14g: every family's smoke config
+   (MESH_FAMILY_ARCHS) trained MESH_FAMILY_STEPS steps under the mesh, its
+   losses within MESH_LOSS_RTOL of those without it.  The group is torn
+   down at the end.  Sharded runs across cards wait for a four-card machine (a line
+   says so); the CPU tests hold 4 gloo ranks at ``(2, 2)`` against the
+   reference;
+15. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
    each path's own count under ``launches_by_path``: every serve phase,
-   phase 13's eval and serves and the phase 4 smoke paths) and, last, the
-   device line.  Each phase's wall
+   phase 13's eval and serves, phase 14's mesh paths and the phase 4 smoke
+   paths) and, last, the device line.  Each phase's wall
    seconds are printed as it ends (``phase <name>: <s>``) and gathered
    under ``phase_seconds``.
 
@@ -4418,6 +4439,233 @@ def train_bert(results):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh on one card
+
+
+MESH_STEPS = 5
+# 14a: on one rank every shard is the whole tensor and every op runs on the
+# same values, but DTensor may decompose an op otherwise (another order of
+# float32 sums), so each step's loss holds to MESH_LOSS_RTOL relative (the
+# resume bound; bit-equality printed)
+MESH_LOSS_RTOL = RESUME_LOSS_RTOL
+MESH_MOE_TOKENS = (4, 256)
+MESH_REC_ATOL = 1e-6  # 14e: mean + new_err against g (the reference test's bound)
+MESH_CKPT = ROOT / "build" / "mesh_ckpt"
+# 14g: one smoke config of each family
+MESH_FAMILY_ARCHS = ("granite_8b", "granite_moe_1b_a400m", "qwen2_vl_7b", "mamba2_130m",
+                     "recurrentgemma_2b", "seamless_m4t_large_v2")
+MESH_FAMILY_STEPS = 3
+
+
+def _mesh_train(results, mesh):
+    """14a-c: bert-base-star under the mesh against the same run without it,
+    its eval through flash_star on the shards, its checkpoint restored
+    without the mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (
+        DEFAULT_RULES, is_dtensor, sharding_of, use_mesh_rules)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import named_leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import LoopConfig, run_train
+    from repro_torch.train.state import state_specs
+    from repro_torch.train.step import make_eval_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    tc = _train_config(MESH_STEPS)
+    lc = LoopConfig(num_steps=MESH_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=100)
+    runs = {}
+    for name, kw in (("plain", {"device": "cuda"}), ("mesh", {"mesh": mesh})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_train(cfg, tc, lc, log_fn=lambda *_: None, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    (plain, wall_p, peak_p), (sharded, wall_m, peak_m) = runs["plain"], runs["mesh"]
+    lp = [h["loss"] for h in plain["history"]]
+    lm = [h["loss"] for h in sharded["history"]]
+    check(len(lm) == MESH_STEPS and all(np.isfinite(lm)), f"mesh train: losses {lm}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lm, lp))
+    step_p = statistics.median(h["seconds"] for h in plain["history"][1:])
+    step_m = statistics.median(h["seconds"] for h in sharded["history"][1:])
+    state = sharded["state"]
+    leaves = named_leaves(state)
+    check(all(is_dtensor(leaf) for _, leaf in leaves), "mesh train: a state leaf is no DTensor")
+    log(f"mesh train bert-base-star {MESH_STEPS} x {TRAIN_BATCH} x {TRAIN_SEQ} on a (1, 1) mesh "
+        f"({torch.distributed.get_backend()}, {len(leaves)} DTensor leaves): losses {lm}; without the mesh {lp}; max rel "
+        f"diff {worst:.3e} (bound {MESH_LOSS_RTOL:g}), bit-equal {lm == lp}; step median "
+        f"{step_m * 1e3:.2f} ms under the mesh vs {step_p * 1e3:.2f} ms without (first steps "
+        f"{sharded['history'][0]['seconds']:.3f} / {plain['history'][0]['seconds']:.3f} s); "
+        f"run wall {wall_m:.2f} / {wall_p:.2f} s; max_memory_allocated {peak_m / 2**30:.2f} / "
+        f"{peak_p / 2**30:.2f} GiB [{CARD}]")
+    check(worst <= MESH_LOSS_RTOL, f"mesh train: losses {lm} vs {lp}")
+    summary = {"losses": lm, "losses_no_mesh": lp, "max_rel_diff": worst,
+               "bit_equal": lm == lp, "step_ms_median": step_m * 1e3,
+               "step_ms_median_no_mesh": step_p * 1e3, "run_wall_s": wall_m,
+               "run_wall_s_no_mesh": wall_p, "max_memory_allocated": peak_m,
+               "max_memory_allocated_no_mesh": peak_p}
+
+    eval_step = make_eval_step(model)
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS + 1)
+    dbatch = {k: sharding_of(("batch",) + (None,) * (v.ndim - 1), v.shape, DEFAULT_RULES, mesh)
+              .place(v) for k, v in batch.items()}
+    with ops.use(attention="pallas"):
+        want = float(eval_step(plain["state"], batch))
+        with use_mesh_rules(mesh):
+            reset_launch_counts()
+            got = eval_step(state, dbatch)
+            counts = launch_counts()
+    got = float(got.full_tensor())
+    log(f"mesh eval {TRAIN_BATCH} x {TRAIN_SEQ} through flash_star (float32 kernel) on the shards: loss {got:.6f}, "
+        f"the unsharded run's {want:.6f}, |diff| {abs(got - want):.3e} (bound "
+        f"{EVAL_LOSS_RTOL:g} x loss); launches {counts}")
+    check(counts.get("flash_star", 0) == cfg.num_layers,
+          f"mesh eval: flash_star launched {counts.get('flash_star', 0)} times")
+    check(abs(got - want) <= EVAL_LOSS_RTOL * abs(want), f"mesh eval: loss {got} vs {want}")
+    _note_paths(results, "mesh_eval", counts)
+    summary["eval"] = {"loss": got, "loss_no_mesh": want, "launches": counts}
+
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    checkpointer.save(str(MESH_CKPT), MESH_STEPS, state)
+    restored, step = checkpointer.restore(str(MESH_CKPT), state_specs(model.param_specs()),
+                                          device="cuda")
+    same = step == MESH_STEPS and all(
+        not is_dtensor(b) and torch.equal(a.full_tensor(), b)
+        for (_, a), (_, b) in zip(leaves, named_leaves(restored)))
+    log(f"mesh checkpoint: saved under the mesh, restored without it: bit-equal {same}")
+    check(same, "mesh checkpoint: the restored state differs from the sharded one")
+    summary["checkpoint_bit_equal"] = same
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    return summary
+
+
+def _mesh_moe(results, mesh):
+    """14d: granite-moe-1b-a400m at full width, experts over "model", a
+    forward under the mesh with the router and attention on the kernels."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (
+        DEFAULT_RULES, distribute, param_shardings, sharding_of, use_mesh_rules)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import materialize
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attn_impl="pallas", moe_style="ep")
+    model = build_model(cfg)
+    nl = cfg.num_layers
+    specs = model.param_specs()
+    params = materialize(specs, SEED, "cuda")
+    dparams = distribute(params, param_shardings(specs, DEFAULT_RULES, mesh))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    toks = torch.randint(0, cfg.vocab_size, MESH_MOE_TOKENS, generator=gen, device="cuda")
+    dtoks = sharding_of(("batch", "seq"), toks.shape, DEFAULT_RULES, mesh).place(toks)
+    wi = dparams["blocks"]["moe"]["wi"]
+    with torch.no_grad(), ops.use(softmax="pallas", attention="pallas"):
+        want = model.forward(params, toks)
+        with use_mesh_rules(mesh):
+            reset_launch_counts()
+            got = model.forward(dparams, dtoks)
+            counts = launch_counts()
+    got = got.full_tensor()
+    atol, rtol = tolerance(want.dtype)
+    err = float((got.float() - want.float()).abs().max())
+    bad = int(((got.float() - want.float()).abs() > atol + rtol * want.float().abs()).sum())
+    log(f"mesh moe ep: {MOE_ARCH} {nl}L {cfg.num_experts} experts top-{cfg.top_k}, wi "
+        f"{tuple(wi.shape)} placed {[str(p) for p in wi.placements]}; forward "
+        f"{list(MESH_MOE_TOKENS)} under the mesh: launches {counts}; logits {want.dtype} vs the "
+        f"forward without the mesh max_abs {err:.3e}, {bad} outside |d| <= {atol:g} + {rtol:g} "
+        f"|ref|, bit-equal {torch.equal(got, want)}")
+    check(counts.get("star_softmax", 0) == nl,
+          f"mesh moe: the router kernel launched {counts.get('star_softmax', 0)} times, not {nl}")
+    check(counts.get("flash_star", 0) == nl,
+          f"mesh moe: flash_star launched {counts.get('flash_star', 0)} times, not {nl}")
+    check(bad == 0 and bool(got.isfinite().all()), f"mesh moe: {bad} logits outside tolerance")
+    _note_paths(results, "mesh_moe_ep", counts)
+    return {"launches": counts, "logits_max_abs": err, "bit_equal": bool(torch.equal(got, want))}
+
+
+def _mesh_families(mesh):
+    """14g: every family's smoke config trains MESH_FAMILY_STEPS steps under
+    the mesh, each loss within MESH_LOSS_RTOL of the same steps without it
+    (bit-equality printed): the ops that run on shards (the SSD and RG-LRU
+    scans, the causal conv, the MoE block, cross-attention) on the card's
+    torch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.loop import LoopConfig, run_train
+
+    tc = _train_config(MESH_FAMILY_STEPS)
+    lc = LoopConfig(num_steps=MESH_FAMILY_STEPS, batch=4, seq_len=32, log_every=100)
+    out = {}
+    for arch in MESH_FAMILY_ARCHS:
+        cfg = get_smoke_config(arch)
+        runs = [[h["loss"] for h in run_train(cfg, tc, lc, log_fn=lambda *_: None, **kw)
+                 ["history"]] for kw in ({"mesh": mesh}, {"device": "cuda"})]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+        out[arch] = {"losses": runs[0], "losses_no_mesh": runs[1], "max_rel_diff": worst}
+        check(worst <= MESH_LOSS_RTOL, f"mesh {arch}: losses {runs[0]} vs {runs[1]}")
+    log(f"mesh smoke training, {MESH_FAMILY_STEPS} steps of 4 x 32 a family under the mesh vs "
+        f"without: " + "; ".join(f"{a} max rel diff {v['max_rel_diff']:.3e} bit-equal "
+                                 f"{v['losses'] == v['losses_no_mesh']}" for a, v in out.items()))
+    return out
+
+
+def mesh_one_card(results):
+    """Phase 14: the mesh on one card (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import compressed_grad_allreduce, init_error_state
+    from repro_torch.distributed.pipeline_parallel import pipeline_apply
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    log("mesh: one card, one rank; a mesh across cards waits for a four-card machine (not run "
+        "here: the CPU tests run 4 gloo ranks at (2, 2) against the reference)")
+    init_process_group("cuda", store=dist.HashStore())
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        check(dist.get_backend() == "nccl", f"mesh: backend {dist.get_backend()}")
+        summary = {"card": CARD, "backend": dist.get_backend()}
+        summary["train"] = _mesh_train(results, mesh)
+        torch.cuda.empty_cache()
+        summary["moe_ep"] = _mesh_moe(results, mesh)
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        g = {"wq": torch.randn(12, 768, 768, device="cuda", generator=gen) * 1e-2,
+             "table": torch.randn(30720, 768, device="cuda", generator=gen) * 1e-3}
+        mean, err = compressed_grad_allreduce(g, init_error_state(g), mesh, axis="data")
+        rec = max(float((mean[k] + err[k] - g[k]).abs().max()) for k in g)
+        log(f"mesh compressed all-reduce, one rank: max |mean + new_err - g| {rec:.3e} (bound "
+            f"{MESH_REC_ATOL:g})")
+        check(rec <= MESH_REC_ATOL, f"mesh all-reduce: reconstruction {rec}")
+        summary["allreduce_reconstruction"] = rec
+
+        smesh = make_mesh((1,), ("stage",), "cuda")
+        w = torch.randn(1, 1024, 1024, device="cuda", generator=gen) * 0.03
+        x = torch.randn(4, 8, 1024, device="cuda", generator=gen)
+        out = pipeline_apply(lambda h, wt: torch.tanh(h @ wt), w, x, smesh, axis="stage")
+        seq = torch.stack([torch.tanh(x[t] @ w[0]) for t in range(x.shape[0])])
+        same = bool(torch.equal(out, seq))
+        log(f"mesh pipeline, one stage, 4 microbatches [8, 1024]: bit-equal to the sequential "
+            f"loop {same}")
+        check(same, "mesh pipeline: one stage differs from the sequential loop")
+        summary["pipeline_bit_equal"] = same
+        summary["families"] = _mesh_families(mesh)
+    finally:
+        dist.destroy_process_group()
+    return summary
+
+
 def main() -> int:
     src = ROOT / "src" / "repro_torch"
     if not src.is_dir():
@@ -4518,6 +4766,8 @@ def main() -> int:
         summary_encdec = serve_encdec(results)
     with phase("13 train"):
         summary_train = train_bert(results)
+    with phase("14 mesh"):
+        summary_mesh = mesh_one_card(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
@@ -4526,7 +4776,8 @@ def main() -> int:
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
                     "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,
-                    "train": summary_train, "phase_seconds": PHASE_SECONDS, "card": card}))
+                    "train": summary_train, "mesh": summary_mesh,
+                    "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

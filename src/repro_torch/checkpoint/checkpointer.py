@@ -15,6 +15,13 @@ through ``ml_dtypes``, which numpy saves as 2-byte void items (descr
 (byte for byte the reference's file), and reads a leaf whose index dtype is
 ``"bfloat16"`` by viewing the loaded bytes as int16 and then as
 ``torch.bfloat16``.
+
+Sharded states: a DTensor leaf is gathered whole (``full_tensor()``, which
+every rank calls, in the same leaf order) and rank 0 writes the same files
+as for an unsharded state; every rank then waits at a barrier.  Where a
+process group is up, only rank 0 writes or rotates.  ``restore(...,
+shardings=...)`` places each leaf on any mesh, so a checkpoint saved on one
+mesh restores on another (``distributed.elastic``) or on one device.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.param import named_leaves, unflatten
 from repro_torch.ops.platform import Device, resolve_device
@@ -54,23 +62,47 @@ def _load_leaf(path: str, dtype: str, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not _distributed() or dist.get_rank() == 0
+
+
+def _whole(leaf: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def save(ckpt_dir: str, step: int, state: Params) -> str:
-    """Atomic save of a tree of tensors; returns the final directory."""
+    """Atomic save of a tree of tensors (or DTensors: every rank calls it);
+    returns the final directory."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    writer = _writer()
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
     index = {"step": step, "leaves": []}
     for path, leaf in named_leaves(state):
+        leaf = _whole(leaf)
+        if not writer:
+            continue
         name = _SEP.join(path)
         shape, dtype = _save_leaf(os.path.join(tmp, name + ".npy"), leaf)
         index["leaves"].append({"name": name, "shape": list(shape), "dtype": dtype})
-    with open(os.path.join(tmp, "index.json"), "w") as f:
-        json.dump(index, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    if writer:
+        with open(os.path.join(tmp, "index.json"), "w") as f:
+            json.dump(index, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if _distributed():
+        dist.barrier()
     return final
 
 
@@ -88,11 +120,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template: Params, step: Optional[int] = None,
-            device: Device = None) -> Tuple[Params, int]:
+            device: Device = None, shardings: Optional[Params] = None) -> Tuple[Params, int]:
     """``(tree, step)``: the checkpoint at ``step`` (default the newest)
     with ``template``'s structure (its leaves are read for their paths
-    only), each leaf in its saved dtype on ``device`` (default the card)."""
-    dev = resolve_device(device)
+    only), each leaf in its saved dtype on ``device`` (default the card).
+    Given ``shardings`` (``distributed.sharding.param_shardings`` of the
+    same tree), each leaf is placed by its sharding instead, on the mesh's
+    device: every rank calls it."""
+    dev = torch.device("cpu") if shardings is not None else resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -101,16 +136,19 @@ def restore(ckpt_dir: str, template: Params, step: Optional[int] = None,
     with open(os.path.join(final, "index.json")) as f:
         dtypes = {leaf["name"]: leaf["dtype"] for leaf in json.load(f)["leaves"]}
     paths = [path for path, _ in named_leaves(template)]
+    places = None if shardings is None else [sh for _, sh in named_leaves(shardings)]
     leaves = []
-    for path in paths:
+    for i, path in enumerate(paths):
         name = _SEP.join(path)
-        leaves.append(_load_leaf(os.path.join(final, name + ".npy"), dtypes[name], dev))
+        leaf = _load_leaf(os.path.join(final, name + ".npy"), dtypes[name], dev)
+        leaves.append(leaf if places is None else places[i].place(leaf))
     return unflatten(paths, leaves), step
 
 
 def rotate(ckpt_dir: str, keep: int = 3) -> None:
-    """Delete all but the ``keep`` newest checkpoints."""
-    if not os.path.isdir(ckpt_dir):
+    """Delete all but the ``keep`` newest checkpoints (rank 0 alone where a
+    process group is up)."""
+    if not _writer() or not os.path.isdir(ckpt_dir):
         return
     steps = sorted(
         int(d.split("_")[1])

@@ -81,6 +81,9 @@ class ModelConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # under a mesh, shard the q rows and the carry between blocks over the
+    # model dim ("act_seq") instead of leaving them replicated
+    seq_parallel_activations: bool = False
     # training: recompute each block's forward in the backward pass
     # (``torch.utils.checkpoint``) instead of keeping its activations
     remat: bool = True

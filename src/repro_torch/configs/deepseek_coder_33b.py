@@ -2,9 +2,7 @@
 62L d_model=7168 56H (GQA kv=8) d_ff=19200 vocab=32256.
 About 33.3 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config, whose head_dim is 8 (d_model 56 over 7 heads,
-one KV head: a GQA group of 7).  (The reference's
-``seq_parallel_activations`` is a sharding field the port does not
-carry.)"""
+one KV head: a GQA group of 7)."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -20,6 +18,7 @@ def config() -> ModelConfig:
         d_ff=19200,
         vocab_size=32256,
         rope_theta=100000.0,
+        seq_parallel_activations=True,
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
     )

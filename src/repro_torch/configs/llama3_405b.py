@@ -2,8 +2,7 @@
 126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256.
 About 406 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config, whose head_dim is 8 (d_model 64 over 8 heads,
-2 KV heads: a GQA group of 4).  (The reference's ``seq_parallel_activations``
-is a sharding field the port does not carry.)"""
+2 KV heads: a GQA group of 4)."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -19,6 +18,7 @@ def config() -> ModelConfig:
         d_ff=53248,
         vocab_size=128256,
         rope_theta=500000.0,
+        seq_parallel_activations=True,
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
     )

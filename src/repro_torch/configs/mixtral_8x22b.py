@@ -3,8 +3,7 @@
 About 141 B parameters: the full config does not fit one card, so the port
 runs it at its smoke config (MoE, a window of 16, GQA).  ``moe_style="tp"``
 names the reference's column-parallel expert sharding; on one card it
-changes nothing.  (The reference's ``seq_parallel_activations`` is a
-sharding field the port does not carry.)"""
+changes nothing."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -24,6 +23,7 @@ def config() -> ModelConfig:
         moe_style="tp",
         sliding_window=4096,
         rope_theta=1000000.0,
+        seq_parallel_activations=True,
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
     )

@@ -1,8 +1,7 @@
 """qwen2-72b [arXiv:2407.10671; hf] — GQA with QKV bias.
 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064.
 About 72.7 B parameters: the full config does not fit one card, so the port
-runs it at its smoke config.  (The reference's ``seq_parallel_activations``
-is a sharding field the port does not carry.)"""
+runs it at its smoke config."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -19,6 +18,7 @@ def config() -> ModelConfig:
         vocab_size=152064,
         qkv_bias=True,
         rope_theta=1000000.0,
+        seq_parallel_activations=True,
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
     )

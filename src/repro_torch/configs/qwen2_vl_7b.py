@@ -3,9 +3,7 @@
 The vision frontend is a stub, as in the reference: a request brings
 precomputed patch embeddings (ViT output width 1280) that ``patch_proj``
 projects and prepends; M-RoPE sections (16, 24, 24) over the 64-dim rotary
-half.  About 7.62 B parameters: it fits one card at its published widths.
-(The reference's ``seq_parallel_activations`` is a sharding field the port
-does not carry.)"""
+half.  About 7.62 B parameters: it fits one card at its published widths."""
 
 from repro_torch.configs.base import ModelConfig
 
@@ -25,6 +23,7 @@ def config() -> ModelConfig:
         mrope_sections=(16, 24, 24),
         num_patches=256,
         frontend_dim=1280,
+        seq_parallel_activations=True,
         param_dtype="float32",
         compute_dtype="bfloat16",
     )

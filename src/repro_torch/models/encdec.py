@@ -55,7 +55,8 @@ class EncDecLM:
         cfg = self.cfg
         fd = cfg.frontend_dim or cfg.d_model
         return {
-            "frontend_proj": {"kernel": ParamSpec((fd, cfg.d_model), L.pdtype(cfg), "fan_in")},
+            "frontend_proj": {"kernel": ParamSpec((fd, cfg.d_model), (None, "embed"),
+                                                        L.pdtype(cfg), "fan_in")},
             "embed": L.spec_embedding(cfg),
             "enc_blocks": stack_specs(self.enc_block_spec(), cfg.num_layers),
             "enc_norm": L.spec_layernorm(cfg),

@@ -23,6 +23,18 @@ import torch.utils.checkpoint
 from repro_torch import ops
 from repro_torch.core import kvquant
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    conv_on_shards,
+    current_mesh_rules,
+    embed_on_shards,
+    from_local,
+    global_offset,
+    is_dtensor,
+    local_shard,
+    logical_to_pspec,
+    placements,
+)
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models.param import ParamSpec
 
 Params = Dict[str, Any]
@@ -41,7 +53,7 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def spec_rmsnorm(cfg: ModelConfig) -> Params:
-    return {"scale": ParamSpec((cfg.d_model,), pdtype(cfg), "ones")}
+    return {"scale": ParamSpec((cfg.d_model,), ("embed",), pdtype(cfg), "ones")}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -51,8 +63,8 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def spec_layernorm(cfg: ModelConfig) -> Params:
-    return {"scale": ParamSpec((cfg.d_model,), pdtype(cfg), "ones"),
-            "bias": ParamSpec((cfg.d_model,), pdtype(cfg), "zeros")}
+    return {"scale": ParamSpec((cfg.d_model,), ("embed",), pdtype(cfg), "ones"),
+            "bias": ParamSpec((cfg.d_model,), ("embed",), pdtype(cfg), "zeros")}
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -66,18 +78,24 @@ def layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def spec_embedding(cfg: ModelConfig) -> Params:
-    return {"table": ParamSpec((cfg.padded_vocab, cfg.d_model), pdtype(cfg), "embed")}
+    return {"table": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), pdtype(cfg),
+                               "embed")}
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # gather then cast: the same values as casting the whole table first
-    return p["table"][tokens.long()].to(cdtype(cfg))
+    if is_dtensor(tokens):  # under a mesh: on each rank's shard
+        rows = embed_on_shards(p["table"], tokens)
+    else:
+        rows = p["table"][tokens.long()]
+    return wlc(rows.to(cdtype(cfg)), ("batch", "seq", "embed"))
 
 
 def spec_unembed(cfg: ModelConfig) -> Params:
     if cfg.tie_embeddings:
         return {}
-    return {"kernel": ParamSpec((cfg.d_model, cfg.padded_vocab), pdtype(cfg), "fan_in")}
+    return {"kernel": ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), pdtype(cfg),
+                                "fan_in")}
 
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig, embed_params: Params) -> torch.Tensor:
@@ -87,8 +105,9 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig, embed_params: Params) 
         kernel = p["kernel"].to(cdtype(cfg))
     logits = x @ kernel
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding columns
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, -1e30)
+    return wlc(logits, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -178,15 +197,15 @@ def spec_attention(cfg: ModelConfig) -> Params:
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     pd = pdtype(cfg)
     p: Params = {
-        "wq": ParamSpec((d, hq * hd), pd),
-        "wk": ParamSpec((d, hkv * hd), pd),
-        "wv": ParamSpec((d, hkv * hd), pd),
-        "wo": ParamSpec((hq * hd, d), pd),
+        "wq": ParamSpec((d, hq * hd), ("embed", "heads"), pd),
+        "wk": ParamSpec((d, hkv * hd), ("embed", "kv_heads"), pd),
+        "wv": ParamSpec((d, hkv * hd), ("embed", "kv_heads"), pd),
+        "wo": ParamSpec((hq * hd, d), ("heads", "embed"), pd),
     }
     if cfg.qkv_bias:
-        p["bq"] = ParamSpec((hq * hd,), pd, "zeros")
-        p["bk"] = ParamSpec((hkv * hd,), pd, "zeros")
-        p["bv"] = ParamSpec((hkv * hd,), pd, "zeros")
+        p["bq"] = ParamSpec((hq * hd,), ("heads",), pd, "zeros")
+        p["bk"] = ParamSpec((hkv * hd,), ("kv_heads",), pd, "zeros")
+        p["bv"] = ParamSpec((hkv * hd,), ("kv_heads",), pd, "zeros")
     return p
 
 
@@ -282,6 +301,12 @@ def attention_block(
         if positions is None:
             positions = _default_positions(cache, b, tq, x.device)
         q, k = rotate(q, k, positions, cfg)
+    if cfg.seq_parallel_activations and tq > 1:
+        # heads that do not divide the model dim leave the scores replicated;
+        # sharding the q rows over it instead keeps the softmax row-local
+        q = wlc(q, ("batch", "act_seq", "heads", None))
+    else:
+        q = wlc(q, ("batch", "seq", "heads", None))
 
     if cache is None:
         ctx = ops.attention(q, k, v, cfg.attention_spec, causal=causal, sliding_window=window)
@@ -323,6 +348,8 @@ def attention_block(
         ck.index_copy_(1, rows, k.to(ck.dtype))
         cv.index_copy_(1, rows, v.to(cv.dtype))
         valid = (ln + tq).expand(b)
+    ck = wlc(ck, ("batch", "kv_seq", "kv_heads", None))
+    cv = wlc(cv, ("batch", "kv_seq", "kv_heads", None))
     ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=causal, sliding_window=window,
                         q_offset=ln, kv_valid_len=valid)
     return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": ln + tq}, (k, v)
@@ -405,7 +432,7 @@ def fit_window_cache(k: torch.Tensor, v: torch.Tensor, seq_axis: int, wlen: int,
 
 
 def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return ctx @ p["wo"].to(cdtype(cfg))
+    return wlc(ctx @ p["wo"].to(cdtype(cfg)), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -416,9 +443,11 @@ def spec_mlp(cfg: ModelConfig) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     pd = pdtype(cfg)
     if cfg.mlp_type == "swiglu":
-        return {"wi": ParamSpec((d, f), pd), "wg": ParamSpec((d, f), pd),
-                "wo": ParamSpec((f, d), pd)}
-    return {"wi": ParamSpec((d, f), pd), "wo": ParamSpec((f, d), pd)}
+        return {"wi": ParamSpec((d, f), ("embed", "mlp"), pd),
+                "wg": ParamSpec((d, f), ("embed", "mlp"), pd),
+                "wo": ParamSpec((f, d), ("mlp", "embed"), pd)}
+    return {"wi": ParamSpec((d, f), ("embed", "mlp"), pd),
+            "wo": ParamSpec((f, d), ("mlp", "embed"), pd)}
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -428,7 +457,8 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = torch.nn.functional.silu(x @ p["wg"].to(dt)) * h
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu default
-    return h @ p["wo"].to(dt)
+    h = wlc(h, ("batch", "seq", "mlp"))
+    return wlc(h @ p["wo"].to(dt), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -438,8 +468,10 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def spec_moe(cfg: ModelConfig) -> Params:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     pd = pdtype(cfg)
-    return {"router": ParamSpec((d, e), pd), "wi": ParamSpec((e, d, f), pd),
-            "wg": ParamSpec((e, d, f), pd), "wo": ParamSpec((e, f, d), pd)}
+    return {"router": ParamSpec((d, e), ("embed", None), pd),
+            "wi": ParamSpec((e, d, f), ("expert", "embed", "mlp"), pd),
+            "wg": ParamSpec((e, d, f), ("expert", "embed", "mlp"), pd),
+            "wo": ParamSpec((e, f, d), ("expert", "mlp", "embed"), pd)}
 
 
 def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -498,7 +530,23 @@ def moe(
 
     The dense products (dispatch, the experts, combine) are the reference's
     einsums.  Every step stays on the device: the one-hots compare against
-    an ``arange`` and nothing is read back, so a CUDA graph captures it."""
+    an ``arange`` and nothing is read back, so a CUDA graph captures it.
+
+    Under a mesh (``x`` a DTensor) the block runs expert-parallel on each
+    rank's shard (:func:`_moe_on_shards`), the bare form only."""
+    if is_dtensor(x):
+        if state is not None or capacity is not None:
+            raise ValueError("under a mesh the MoE block runs bare (no state or capacity): "
+                             "chunked serving is not sharded")
+        return _moe_on_shards(p, x, cfg)
+    return _moe(p, x, cfg, state=state, capacity=capacity)
+
+
+def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, state=None, capacity=None,
+         span: Optional[Tuple[int, int]] = None):
+    """:func:`moe` on plain tensors.  ``span`` ``(e0, n)``: ``p``'s experts
+    are experts ``[e0, e0 + n)`` of the router's, and the result is their
+    part of the output (a partial sum over the experts' shards)."""
     dt = cdtype(cfg)
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -528,17 +576,58 @@ def moe(
     pos_oh = _one_hot(pos.long(), cap)  # [g, t, k, cap]: a dropped choice is a zero row
     dispatch = torch.einsum("gtke,gtkc->gtec", onehot * keep[..., None], pos_oh)
     combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gate_vals)
+    if span is not None:  # this rank's experts
+        dispatch = dispatch[:, :, span[0]:span[0] + span[1]]
+        combine = combine[:, :, span[0]:span[0] + span[1]]
 
     xin = torch.einsum("gtec,gtd->egcd", dispatch, xg.float()).to(dt)
+    xin = wlc(xin, ("expert", "batch", None, "embed"))
     h = torch.einsum("egcd,edf->egcf", xin, p["wi"].to(dt))
     g_ = torch.einsum("egcd,edf->egcf", xin, p["wg"].to(dt))
     h = torch.nn.functional.silu(g_) * h
+    h = wlc(h, ("expert", "batch", None, "mlp"))
     out = torch.einsum("egcf,efd->egcd", h, p["wo"].to(dt))
-    y = torch.einsum("gtec,egcd->gtd", combine.to(dt), out).reshape(b, t, d)
+    out = wlc(out, ("expert", "batch", None, "embed"))
+    y = torch.einsum("gtec,egcd->gtd", combine.to(dt), out)
+    y = wlc(y.reshape(b, t, d), ("batch", "seq", "embed"))
     if not stateful:
         return y
     counts = onehot.sum(dim=(1, 2)).to(torch.int32)  # [g, e], dropped choices included
     return y, counts if state is None else state + counts
+
+
+def _moe_on_shards(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE block expert-parallel on every rank's shard.  The rules place
+    the batch (groups) and the experts on mesh dims; each rank takes its
+    groups' tokens whole, the router whole and its experts' weights whole
+    along ``embed`` / ``mlp``, routes its tokens over all experts, runs only
+    its own, and returns its part of ``y``: a partial sum over the experts'
+    mesh dims, which the ``("batch", "seq", "embed")`` constraint reduces.
+    The gradients' placements say the same: a rank's routing and token
+    gradients are partial over the experts' dims (and the router's and the
+    experts' over the batch's)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, rules = current_mesh_rules()
+    # which mesh dims the rules give the groups (Shard(0)) and the experts (Shard(1))
+    where = placements(logical_to_pspec(("batch", "expert"), (x.shape[0], cfg.num_experts),
+                                        rules, mesh), mesh)
+    rep, part = Replicate(), Partial()
+
+    def pl(on_batch, on_expert, other):
+        return tuple(on_batch if w == Shard(0) else on_expert if w == Shard(1) else other
+                     for w in where)
+
+    x_want = pl(Shard(0), rep, rep)
+    w_want = pl(rep, Shard(0), rep)
+    xl = local_shard(x, x_want, grad=pl(Shard(0), part, rep))
+    router = local_shard(p["router"], pl(rep, rep, rep), grad=pl(part, part, rep))
+    experts = {k: local_shard(p[k], w_want, grad=pl(part, Shard(0), rep))
+               for k in ("wi", "wg", "wo")}
+    e0 = global_offset(p["wi"], w_want)[0]
+    y = _moe({"router": router, **experts}, xl, cfg, span=(e0, experts["wi"].shape[0]))
+    y = from_local(y, mesh, pl(Shard(0), part, rep), x.shape)
+    return wlc(y, ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +635,7 @@ def moe(
 
 
 def spec_conv1d(cfg: ModelConfig, channels: int, width: int) -> Params:
-    return {"kernel": ParamSpec((width, channels), pdtype(cfg), "fan_in")}
+    return {"kernel": ParamSpec((width, channels), ("conv", "mlp"), pdtype(cfg), "fan_in")}
 
 
 def causal_conv1d(
@@ -555,6 +644,9 @@ def causal_conv1d(
     """Depthwise causal conv.  x ``[B, T, C]``; ``state`` ``[B, W-1, C]``
     carries the context for decode.  Returns ``(y, new_state)``: without a
     state, ``new_state`` is None; with one, the last ``W-1`` input rows."""
+    if is_dtensor(x) and state is None:  # under a mesh: on each rank's shard
+        return conv_on_shards(lambda w, xl: causal_conv1d({"kernel": w}, xl)[0],
+                              p["kernel"], x), None
     w = p["kernel"].to(x.dtype)  # [W, C]
     width = w.shape[0]
     if state is None:
@@ -589,8 +681,9 @@ def remat(cfg: ModelConfig, fn, *args):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy over positions with ``label >= 0`` (float32
-    reductions)."""
-    lg = logits.float()
+    reductions).  Under a mesh the vocab dim is made whole first: the
+    labels' gather reads any column."""
+    lg = wlc(logits.float(), ("batch", "seq", None))
     m = lg.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
     picked = lg.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,12 +20,19 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """A parameter declaration: shape, dtype and initializer."""
+    """A parameter declaration: shape, logical axes, dtype and initializer.
+    The axes name each dim for the sharding rules
+    (``distributed.sharding``); ``None`` is a dim never sharded."""
 
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     dtype: torch.dtype = torch.float32
     init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | small
     scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -41,8 +48,14 @@ def layer(tree, i: int):
 
 
 def stack_specs(block_spec, n: int):
-    """Prepend a layers axis ``[n]`` to every leaf of a block spec tree."""
-    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init, s.scale), block_spec)
+    """Prepend a ``"layers"`` axis ``[n]`` to every leaf of a block spec tree."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype,
+                                        s.init, s.scale), block_spec)
+
+
+def axes_tree(specs):
+    """The logical-axes tree (same structure), for the sharding rules."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 def _leaves(tree, prefix=""):

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor, scan_on_shards
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
@@ -50,13 +52,13 @@ def spec_rglru_block(cfg: ModelConfig) -> Params:
     pd = L.pdtype(cfg)
     return {
         "ln": L.spec_rmsnorm(cfg),
-        "wx": ParamSpec((d, w), pd, "fan_in"),
-        "wgate": ParamSpec((d, w), pd, "fan_in"),
+        "wx": ParamSpec((d, w), ("embed", "mlp"), pd, "fan_in"),
+        "wgate": ParamSpec((d, w), ("embed", "mlp"), pd, "fan_in"),
         "conv": L.spec_conv1d(cfg, w, cfg.conv_width),
-        "wa": ParamSpec((w, w), pd, "fan_in"),
-        "wi": ParamSpec((w, w), pd, "fan_in"),
-        "lam": ParamSpec((w,), pd, "ones"),
-        "wout": ParamSpec((w, d), pd, "fan_in"),
+        "wa": ParamSpec((w, w), ("embed", "mlp"), pd, "fan_in"),
+        "wi": ParamSpec((w, w), ("embed", "mlp"), pd, "fan_in"),
+        "lam": ParamSpec((w,), ("mlp",), pd, "ones"),
+        "wout": ParamSpec((w, d), ("mlp", "embed"), pd, "fan_in"),
         "ln_mlp": L.spec_rmsnorm(cfg),
         "mlp": L.spec_mlp(cfg),
     }
@@ -81,7 +83,10 @@ def rglru_scan(
     does.  Hillis–Steele doubling: ``ceil(log2 T)`` rounds of ``(a, b)[t] <-
     (a[t - d] a[t], b[t - d] a[t] + b[t])``, the reference's combine, in
     another order of association (float32 rounding apart).  Returns
-    ``(h_all [B, T, W], h_last [B, W])``."""
+    ``(h_all [B, T, W], h_last [B, W])``.  Under a mesh it runs on each
+    rank's shard (``distributed.sharding.scan_on_shards``)."""
+    if is_dtensor(x):
+        return scan_on_shards(rglru_scan, x, a, h0)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * x
     # new tensors each round, no write in place: autograd differentiates it
     if h0 is not None:
@@ -126,8 +131,8 @@ def recurrent_block(
 
     h0 = None if cache is None else cache["h"].float()
     hs, h_last = rglru_scan(gated, a, h0)
-    y = hs.to(dt) * gate
-    out = y @ p["wout"].to(dt)
+    y = wlc(hs.to(dt) * gate, ("batch", "seq", "mlp"))
+    out = wlc(y @ p["wout"].to(dt), ("batch", "seq", "embed"))
     new_cache = None
     if cache is not None or return_state:
         new_cache = {"conv": new_conv, "h": h_last.float()}

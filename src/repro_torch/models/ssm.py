@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
@@ -49,13 +50,14 @@ def spec_mamba_block(cfg: ModelConfig) -> Params:
     pd = L.pdtype(cfg)
     return {
         "ln": L.spec_rmsnorm(cfg),
-        "in_proj": ParamSpec((d, 2 * d_inner + 2 * gn + heads), pd, "fan_in"),
+        "in_proj": ParamSpec((d, 2 * d_inner + 2 * gn + heads), ("embed", "mlp"), pd,
+                             "fan_in"),
         "conv": L.spec_conv1d(cfg, conv_dim, cfg.ssm_conv),
-        "A_log": ParamSpec((heads,), pd, "zeros"),
-        "D": ParamSpec((heads,), pd, "ones"),
-        "dt_bias": ParamSpec((heads,), pd, "zeros"),
-        "out_norm": ParamSpec((d_inner,), pd, "ones"),
-        "out_proj": ParamSpec((d_inner, d), pd, "fan_in"),
+        "A_log": ParamSpec((heads,), (None,), pd, "zeros"),
+        "D": ParamSpec((heads,), (None,), pd, "ones"),
+        "dt_bias": ParamSpec((heads,), (None,), pd, "zeros"),
+        "out_norm": ParamSpec((d_inner,), ("mlp",), pd, "ones"),
+        "out_proj": ParamSpec((d_inner, d), ("mlp", "embed"), pd, "fan_in"),
     }
 
 
@@ -171,7 +173,7 @@ def mamba_mixer(
     yf = y.float()
     var = (yf * yf).mean(dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + cfg.norm_eps) * p["out_norm"].float()).to(dt_)
-    return y @ p["out_proj"].to(dt_), new_cache
+    return wlc(y @ p["out_proj"].to(dt_), ("batch", "seq", "embed")), new_cache
 
 
 class MambaLM:

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvquant
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
@@ -65,7 +66,8 @@ class DecoderLM:
         }
         if cfg.family == "vlm":  # its leaf is a "kernel": cast once with the others
             specs["patch_proj"] = {"kernel": ParamSpec(
-                (cfg.frontend_dim or cfg.d_model, cfg.d_model), L.pdtype(cfg), "fan_in")}
+                (cfg.frontend_dim or cfg.d_model, cfg.d_model), ("embed", None), L.pdtype(cfg),
+                "fan_in")}
         return specs
 
     # -- blocks ---------------------------------------------------------------
@@ -138,6 +140,10 @@ class DecoderLM:
         for i in range(cfg.num_layers):
             h = L.remat(cfg, lambda bp, x: self._block(bp, x, pos)[0],
                         layer(params["blocks"], i), h)
+            if cfg.seq_parallel_activations:
+                # the carry between blocks sharded along its rows over the model
+                # dim: the residual each block keeps shrinks by the TP degree
+                h = wlc(h, ("batch", "act_seq", "embed"))
         h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
         return L.unembed(params["unembed"], h, cfg, params["embed"])
 

@@ -65,6 +65,8 @@ from repro_torch.ops.registry import (  # noqa: F401
     backends,
     get,
     register,
+    registered_ops,
+    unregister,
     use,
 )
 from repro_torch.ops.specs import (  # noqa: F401
@@ -73,6 +75,9 @@ from repro_torch.ops.specs import (  # noqa: F401
     PagedAttentionSpec,
     ScanSpec,
     SoftmaxSpec,
+    Spec,
+    resolve_precision,
+    spec_json,
 )
 
 # Importing the built-in backends populates the registry.

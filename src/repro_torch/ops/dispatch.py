@@ -51,6 +51,12 @@ def resolve(spec, **overrides: Any) -> Tuple[Backend, Any]:
     return backend, spec
 
 
+def _is_dtensor(x) -> bool:
+    from repro_torch.distributed.sharding import is_dtensor
+
+    return is_dtensor(x)
+
+
 def validate(spec, **overrides: Any):
     """Resolve and capability-check a spec without running anything."""
     return resolve(spec, **overrides)[1]
@@ -74,6 +80,11 @@ def softmax(
     g = as_guard(guard)
     if g is not None:
         return g.softmax(backend, spec, x, where=where, axis=axis)
+    if _is_dtensor(x):  # under a mesh: the backend runs on each rank's shard
+        from repro_torch.distributed.sharding import softmax_on_shards
+
+        return softmax_on_shards(lambda xl, **kw: backend.fn(spec, xl, **kw), x,
+                                 where=where, axis=axis)
     return backend.fn(spec, x, where=where, axis=axis)
 
 
@@ -90,6 +101,12 @@ def attention(
 ) -> torch.Tensor:
     """Attention: q ``[B,Tq,Hq,D]``, k/v ``[B,Tk,Hkv,D]`` -> ``[B,Tq,Hq,D]``."""
     backend, spec = resolve(spec if spec is not None else DEFAULT_ATTENTION, **overrides)
+    if _is_dtensor(q):  # under a mesh: the backend runs on each rank's shard
+        from repro_torch.distributed.sharding import attention_on_shards
+
+        return attention_on_shards(
+            lambda ql, kl, vl, **kw: backend.fn(spec, ql, kl, vl, scale=scale, **kw),
+            q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len)
     return backend.fn(
         spec, q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale
     )
@@ -158,4 +175,8 @@ def ssd_scan(
 ):
     """Fused SSD chunk scan: ``(y [B,T,H,P], final state [B,H,N,P])``."""
     backend, spec = resolve(spec if spec is not None else DEFAULT_SSD_SCAN, **overrides)
+    if _is_dtensor(xdt):  # under a mesh: the backend runs on each rank's shard
+        from repro_torch.distributed.sharding import ssd_scan_on_shards
+
+        return ssd_scan_on_shards(lambda *args: backend.fn(spec, *args), xdt, a, bmat, cmat)
     return backend.fn(spec, xdt, a, bmat, cmat)

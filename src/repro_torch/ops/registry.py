@@ -59,15 +59,28 @@ def register(
     return backend
 
 
+def unregister(op: str, impl: str) -> None:
+    _REGISTRY.pop((op, impl), None)
+
+
 def backends(op: str) -> Tuple[Backend, ...]:
+    """All registered backends for an op, sorted by impl name."""
     found = [b for (o, _), b in _REGISTRY.items() if o == op]
     return tuple(sorted(found, key=lambda b: b.impl))
+
+
+def registered_ops() -> Tuple[str, ...]:
+    """All op names with at least one registered backend."""
+    return tuple(sorted({o for (o, _) in _REGISTRY}))
 
 
 def get(op: str, impl: str) -> Backend:
     backend = _REGISTRY.get((op, impl))
     if backend is None:
         known = sorted(b.impl for b in backends(op))
+        if not known:
+            raise UnknownBackendError(
+                f"no backends registered for op {op!r} (is repro_torch.ops.impls imported?)")
         raise UnknownBackendError(
             f"no {op!r} backend named {impl!r}; registered impls: {known}"
         )
@@ -121,12 +134,20 @@ def use(**overrides: str) -> Iterator[None]:
         _OVERRIDE_FRAMES.reset(token)
 
 
+def active_overrides(op: str) -> Dict[str, Any]:
+    """The override stack collapsed for one op: ``{"impl": ...}`` when a
+    ``use()`` frame forces it, else ``{}`` (the reference's dict may also
+    hold ``"interpret"``, an override the port does not have)."""
+    out: Dict[str, Any] = {}
+    for frame in _OVERRIDE_FRAMES.get():
+        if op in frame:
+            out["impl"] = frame[op]
+    return out
+
+
 def active_impl(op: str) -> Optional[str]:
     """The impl the innermost ``use()`` frame forces for ``op``, if any."""
-    impl = None
-    for frame in _OVERRIDE_FRAMES.get():
-        impl = frame.get(op, impl)
-    return impl
+    return active_overrides(op).get("impl")
 
 
 def active_impls() -> Tuple[Tuple[str, str], ...]:

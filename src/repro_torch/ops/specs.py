@@ -3,9 +3,11 @@
 A spec says *what* to compute and *which* backend family computes it
 (``impl``).  Impl names are the reference's, so a config means the same in
 both packages; see ``repro_torch.ops`` for what each name runs here.
-Fields of the reference that nothing in the port reads yet are left out
-(``interpret``: there is no interpret mode; the Pallas tiles ``block_q`` /
-``block_rows`` / ``block_m``).
+Every field of the reference is here but ``interpret`` (the port has no
+interpret mode), so a spec records the same configuration and
+:func:`spec_json` gives the reference's dict.  Some fields are recorded and
+validated as the reference does, but no backend of the port reads them: the
+Pallas tiles ``block_q`` / ``block_rows`` / ``block_m`` and ``ragged``.
 
 Precision is a :class:`~repro_torch.core.fixedpoint.FixedPointFormat` or a
 named policy ``"auto:<dataset>"`` resolved through
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Union
 
 from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FixedPointFormat
 from repro_torch.core.kvquant import KV_DTYPES
@@ -60,6 +62,7 @@ class SoftmaxSpec:
     kind: str = "star"  # star | star_ste | exact
     mode: str = "gather"  # gather | onehot | histogram
     precision: Precision = DEFAULT_FORMAT
+    block_rows: int = 8  # the Pallas row tile: recorded, not read
     # seeded device non-idealities; a null model normalizes to None
     fault: Optional[FaultModel] = None
 
@@ -107,6 +110,8 @@ class AttentionSpec:
     softmax: SoftmaxSpec = SoftmaxSpec()
     causal: bool = False
     sliding_window: Optional[int] = None
+    ragged: bool = False  # calls pass per-row kv_valid_len: recorded, not read
+    block_q: int = 128  # the Pallas query tile: recorded, not read
     block_k: int = 128  # KV block of the pallas plain version's loop
     block_kv: int = 512  # KV block of the xla loop
     pv_int8: bool = False
@@ -117,7 +122,7 @@ class AttentionSpec:
     def __post_init__(self) -> None:
         if self.sliding_window is not None and self.sliding_window <= 0:
             raise ValueError(f"sliding_window must be > 0, got {self.sliding_window}")
-        for field in ("block_k", "block_kv"):
+        for field in ("block_q", "block_k", "block_kv"):
             if getattr(self, field) <= 0:
                 raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")
         if self.fault is not None and self.fault.is_null:
@@ -138,13 +143,14 @@ class PagedAttentionSpec:
     impl: str = "xla"
     softmax: SoftmaxSpec = SoftmaxSpec()
     block_size: int = 16
+    block_q: int = 128  # the Pallas query tile: recorded, not read
     block_k: int = 128
     kv_dtype: str = "fp32"  # fp32 | int8 | fp8_e4m3 (core.kvquant)
 
     op = "paged_attention"
 
     def __post_init__(self) -> None:
-        for field in ("block_size", "block_k"):
+        for field in ("block_size", "block_q", "block_k"):
             if getattr(self, field) <= 0:
                 raise ValueError(f"{field} must be > 0, got {getattr(self, field)}")
         if self.kv_dtype not in KV_DTYPES:
@@ -162,6 +168,7 @@ class MatmulSpec:
     impl: str = "xla"
     crossbar: CrossbarSpec = DEFAULT_SPEC
     ranging: str = "calibrated"  # hwmodel ADC ranging: calibrated | fullscale
+    block_m: int = 128  # the Pallas row tile: recorded, not read
     fault: Optional[FaultModel] = None  # crossbar cell / ADC faults
 
     op = "matmul"
@@ -186,3 +193,25 @@ class ScanSpec:
     def __post_init__(self) -> None:
         if self.chunk <= 0:
             raise ValueError(f"chunk must be > 0, got {self.chunk}")
+
+
+Spec = Union[SoftmaxSpec, AttentionSpec, PagedAttentionSpec, MatmulSpec, ScanSpec]
+
+
+def spec_json(spec: Spec) -> Dict[str, Any]:
+    """JSON-serializable dict of a spec (benchmark emission, logging): the
+    reference's dict key for key.  Its ``interpret`` (and a nested softmax
+    spec's) is ``None``, "the platform decides", the only value a spec of
+    the port can mean."""
+    out: Dict[str, Any] = {"op": spec.op}
+    for f in dataclasses.fields(spec):
+        v = getattr(spec, f.name)
+        if isinstance(v, SoftmaxSpec):
+            v = {**dataclasses.asdict(v), "interpret": None}
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            v = dataclasses.asdict(v)
+        elif isinstance(v, tuple):
+            v = list(v)
+        out[f.name] = v
+    out["interpret"] = None
+    return out

@@ -35,7 +35,7 @@ def opt_state_specs(param_specs: Params, cfg: AdamWConfig = AdamWConfig()) -> Pa
     mdt = getattr(torch, cfg.moments_dtype)
 
     def moments():
-        return tree_map(lambda s: ParamSpec(s.shape, mdt, "zeros"), param_specs)
+        return tree_map(lambda s: ParamSpec(s.shape, s.axes, mdt, "zeros"), param_specs)
 
     return {"mu": moments(), "nu": moments()}
 

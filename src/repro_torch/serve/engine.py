@@ -91,8 +91,9 @@ import torch
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvquant import validate_kv_dtype
+from repro_torch.distributed.sharding import current_mesh_rules, is_dtensor
 from repro_torch.models.encdec import EncDecLM
-from repro_torch.models.param import compute_params, tree_map
+from repro_torch.models.param import compute_params, named_leaves, tree_map
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.obs.metrics import MetricsRegistry
@@ -190,6 +191,23 @@ def prefix_rows(cfg: ModelConfig, frontend: Dict[str, Any]) -> int:
     return 0
 
 
+class MeshNotServedError(NotImplementedError):
+    """Serving over a device mesh is not ported: decode over a cache sharded
+    along its rows needs the partial softmax with one all-reduce, which the
+    reference reaches only in its dry-run lowering (ROADMAP.md, the dry-run
+    tools).  The engines serve on one device."""
+
+
+def refuse_mesh_serving(params: Dict[str, Any], engine: str) -> None:
+    """Raise :class:`MeshNotServedError` under ``use_mesh_rules`` or for
+    parameters that are DTensors on a mesh."""
+    if current_mesh_rules() is not None or any(
+            is_dtensor(leaf) for _, leaf in named_leaves(params)):
+        raise MeshNotServedError(
+            f"{engine} serves on one device: serving over a mesh (a row-sharded KV "
+            "cache) is not ported; pass whole tensors, outside use_mesh_rules")
+
+
 @dataclasses.dataclass
 class LockstepState:
     """A lockstep ``generate``'s decode state.  The cache and the token
@@ -231,6 +249,7 @@ class ServeEngine:
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, Any],
                  serve_cfg: ServeConfig = ServeConfig(), *, device: Device = None,
                  seed: int = 0):
+        refuse_mesh_serving(params, "ServeEngine")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -362,6 +381,7 @@ class ContinuousBatchingEngine:
         seed: int = 0,
         tracer: Optional[Tracer | NullTracer] = None,
     ):
+        refuse_mesh_serving(params, "ContinuousBatchingEngine")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -413,7 +433,8 @@ class ContinuousBatchingEngine:
         # the layout: the config picks it; the "paged" marker impl of
         # attention (an ops.use frame or the config's spec) flips it
         layout = cb_cfg.kv_layout
-        if "paged" in (registry.active_impl("attention"), model_cfg.attention_spec.impl):
+        forced = registry.active_overrides("attention").get("impl")
+        if "paged" in (forced, model_cfg.attention_spec.impl):
             layout = "paged"
         if layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {layout!r}")
@@ -958,7 +979,8 @@ class ContinuousBatchingEngine:
     def _count_gather(self) -> None:
         layers = self.pool["layers"]
         pk = layers["k"]
-        impl = registry.active_impl("paged_attention") or self.cfg.paged_attention_spec.impl
+        impl = (registry.active_overrides("paged_attention").get("impl")
+                or self.cfg.paged_attention_spec.impl)
         self._m_gather.inc(pk.shape[0] * ops.paged_gather_bytes(
             impl, table_width=self._slot_blocks, block_size=self.block_pool.block_size,
             live_lens=np.minimum(self._rows, self._cache_t), num_kv_heads=pk.shape[3],

@@ -21,7 +21,7 @@ def state_specs(param_specs: Params, adamw: AdamWConfig = AdamWConfig()) -> Para
     return {
         "params": param_specs,
         "opt": opt_state_specs(param_specs, adamw),
-        "step": ParamSpec((), torch.int32, "zeros"),
+        "step": ParamSpec((), (), torch.int32, "zeros"),
     }
 
 

@@ -44,7 +44,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim import schedule as tsched
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.serve.engine import ServeConfig, ServeEngine
-from repro_torch.train.loop import LoopConfig, MeshNotPortedError, run_train
+from repro_torch.launch.mesh import MeshShapeError, make_mesh
+from repro_torch.train.loop import LoopConfig, run_train
 from repro_torch.train.state import init_state, state_specs
 from repro_torch.train.step import TrainConfig, make_eval_step, make_train_step, value_and_grad
 
@@ -494,13 +495,24 @@ def test_straggler_watchdog_matches_reference(jax_ref):
 
 
 def test_mesh_raises_the_named_error():
-    """``mesh=`` / ``rules=`` raise the named error, never a one-device
-    run."""
-    cfg = get_smoke_config("granite_8b")
-    for kw in ({"mesh": object()}, {"rules": object()}):
-        with pytest.raises(MeshNotPortedError, match="A.9"):
-            run_train(cfg, device="cpu", **kw, **QUIET)
-    assert issubclass(MeshNotPortedError, NotImplementedError)
+    """A mesh whose device count is not the process group's world size
+    raises ``MeshShapeError``, never a run on fewer devices; no mesh is
+    built without a process group; a device other than the mesh's is
+    refused."""
+    from repro_torch.launch import train as launch
+
+    with pytest.raises(MeshShapeError, match="needs 2 ranks, the process group has 1"):
+        launch.main(["--arch", "granite_8b", "--smoke", "--mesh", "2,1", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()  # the launcher tore its group down
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        make_mesh((1, 1), ("data", "model"), "cpu")
+
+    class CpuMesh:
+        device_type = "cpu"
+
+    with pytest.raises(ValueError, match="not the mesh's"):
+        run_train(get_smoke_config("granite_8b"), mesh=CpuMesh(), device="meta", **QUIET)
+    assert issubclass(MeshShapeError, ValueError)
 
 
 def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
@@ -517,17 +529,29 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
         tckpt.restore(str(tmp_path), {"w": None})
 
 
-def test_launcher_trains_and_refuses_a_mesh(capsys):
+def test_launcher_trains_and_refuses_a_mesh(capsys, monkeypatch):
+    """The launcher trains on one device and on a one-rank ``--mesh 1,1``
+    (the same loss: every leaf of the state is a DTensor on the mesh, but
+    one rank holds all of it), and refuses a mesh the world cannot hold and
+    a ``--multihost`` without torchrun's environment."""
     from repro_torch.launch import train as launch
 
-    assert launch.main(["--arch", "bert_base_star", "--smoke", "--steps", "3", "--seq", "32",
-                        "--device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert out.strip().splitlines()[-1].startswith("final loss: ")
-    assert out.strip().endswith("after 3 steps")
-    with pytest.raises(MeshNotPortedError, match="--mesh"):
+    base = ["--arch", "bert_base_star", "--smoke", "--steps", "3", "--seq", "32",
+            "--device", "cpu"]
+    finals = []
+    for extra in ([], ["--mesh", "1,1"]):
+        assert launch.main(base + extra) == 0
+        out = capsys.readouterr().out
+        assert out.strip().splitlines()[-1].startswith("final loss: ")
+        assert out.strip().endswith("after 3 steps")
+        finals.append(out.strip().splitlines()[-1])
+    assert finals[0] == finals[1]
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(MeshShapeError, match="needs 2 ranks"):
         launch.main(["--arch", "granite_8b", "--smoke", "--mesh", "2,1", "--device", "cpu"])
-    with pytest.raises(MeshNotPortedError):
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="RANK"):
         launch.main(["--arch", "granite_8b", "--smoke", "--multihost", "--device", "cpu"])
 
 
