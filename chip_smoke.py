@@ -342,10 +342,33 @@ Phases (any failure exits non-zero before the result lines):
    down at the end.  Sharded runs across cards wait for a four-card machine (a line
    says so); the CPU tests hold 4 gloo ranks at ``(2, 2)`` against the
    reference;
-15. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+15. the dry-run tools and the mesh paths they reach.  The three dry-run
+   cells of 15c start first, as subprocesses, and run beside 15a, 15b and
+   15d.  15a: ``python3 tools/mesh_seq_parallel.py`` (a forward with
+   ``seq_parallel_activations`` under a one-rank mesh, every attention
+   route) exits 0: the projections of a tensor with two sharded leading
+   dims run on the shards on the card's torch; 15b: granite-8b's smoke
+   config with ``impl="pallas"`` decodes KVSEQ_STEPS tokens on a one-rank
+   NCCL ``(1, 1)`` mesh, its cache a DTensor placed by "kv_seq" (rows over
+   a size-1 dim: whole, so the kernel route serves it), counters zeroed just
+   before and read just after: flash_star once per layer of every step; the
+   logits against the same decode without the mesh (the float32 tolerance
+   below, bit-equality printed); 15c: ``python -m repro_torch.launch.dryrun``
+   on three cells on the card's torch, each with a DRYRUN_CELL_TIMEOUT time
+   limit, each record's summary line printed: ``mamba2_130m decode_32k``
+   (the reference's own regression cell), ``granite_8b decode_32k`` (the
+   row-sharded cache: its record counts no all-gather of a cache leaf) and
+   ``qwen2_vl_7b train_4k`` (sequence parallelism on the fake 256-rank
+   mesh); 15d: the accounting held to the card: bert-base-star's
+   TRAIN_BATCH x TRAIN_SEQ train step traced on fake tensors on a one-rank
+   fake mesh against the real step on the card, its FLOPs equal to
+   ``FlopCounterMode``'s on the real step and its peak live bytes beside
+   ``torch.cuda.max_memory_allocated`` of that step (a gap over
+   ACCOUNT_PEAK_GAP is printed as a finding, not a failure);
+16. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
    each path's own count under ``launches_by_path``: every serve phase,
-   phase 13's eval and serves, phase 14's mesh paths and the phase 4 smoke
-   paths) and, last, the device line.  Each phase's wall
+   phase 13's eval and serves, phase 14's and 15b's mesh paths and the
+   phase 4 smoke paths) and, last, the device line.  Each phase's wall
    seconds are printed as it ends (``phase <name>: <s>``) and gathered
    under ``phase_seconds``.
 
@@ -4666,6 +4689,213 @@ def mesh_one_card(results):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run tools, decode over a row-sharded cache, the
+# sequence-parallel projection
+
+
+DRYRUN_CELLS = (("mamba2_130m", "decode_32k"), ("granite_8b", "decode_32k"),
+                ("qwen2_vl_7b", "train_4k"))
+DRYRUN_CELL_TIMEOUT = 420  # seconds a dry-run cell may take
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
+KVSEQ_ARCH = "granite_8b"
+KVSEQ_PROMPT, KVSEQ_MAX_LEN, KVSEQ_STEPS = (4, 96), 128, 4
+ACCOUNT_PEAK_GAP = 0.25  # 15d: a larger gap is a finding, printed
+
+
+def dryrun_cells_start():
+    """15c: every dry-run cell started as its own subprocess, its output
+    written to files (a pipe nobody reads until later could fill and stall
+    the cell)."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", str(DRYRUN_OUT)]
+        with open(DRYRUN_OUT / f"{arch}_{shape}.out", "w") as so, \
+                open(DRYRUN_OUT / f"{arch}_{shape}.err", "w") as se:
+            procs[(arch, shape)] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=so,
+                                                     stderr=se), time.perf_counter())
+    return procs
+
+
+def dryrun_cells_finish(procs):
+    """15c: each cell's record, its summary line printed; a cell that fails
+    or passes its time limit fails the phase (every process is ended)."""
+    out, failed = {}, []
+    for (arch, shape), (proc, t0) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failed.append(f"{arch} {shape}: over {DRYRUN_CELL_TIMEOUT}s")
+            continue
+        lines = (DRYRUN_OUT / f"{arch}_{shape}.out").read_text().strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            err = (DRYRUN_OUT / f"{arch}_{shape}.err").read_text().strip().splitlines()
+            failed.append(f"{arch} {shape}: rc {proc.returncode}: {(err or ['?'])[-1][:300]}")
+            continue
+        with open(DRYRUN_OUT / f"{arch}_{shape}_single.json") as f:
+            rec = json.load(f)
+        log(f"dryrun {arch} {shape} ({rec['wall_s']:.1f}s): {lines[-1]}")
+        out[f"{arch}/{shape}"] = {k: rec.get(k) for k in (
+            "chips", "step", "flops_per_dev", "bytes_per_dev", "coll_bytes_per_dev",
+            "peak_bytes_per_dev", "dominant", "cache_all_gathers", "compile_s", "torch")}
+    for p, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+    check(not failed, f"dryrun: {failed}")
+    gathers = out["granite_8b/decode_32k"]["cache_all_gathers"]
+    log(f"dryrun granite_8b decode_32k over the kv_seq-sharded cache: {gathers} all-gathers "
+        f"of a cache leaf")
+    check(gathers == 0, f"dryrun granite decode gathered its cache {gathers} times")
+    for key, rec in out.items():
+        check(rec["chips"] == 256 and rec["flops_per_dev"] > 0 and rec["bytes_per_dev"] > 0,
+              f"dryrun {key}: {rec}")
+    return out
+
+
+def kv_seq_decode_one_card(results):
+    """15b: the decode over a "kv_seq"-placed cache on a one-rank mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import (
+        DEFAULT_RULES, distribute, param_shardings, sharding_of, use_mesh_rules)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.models.param import materialize, tree_map
+    from repro_torch.models.registry import build_model
+
+    init_process_group("cuda", store=dist.HashStore())
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        cfg = get_smoke_config(KVSEQ_ARCH)
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention,
+                                                                     impl="pallas"))
+        model = build_model(cfg)
+        specs = model.param_specs()
+        params = materialize(specs, SEED, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        b, t = KVSEQ_PROMPT
+        toks = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device="cuda")
+        steps = torch.randint(0, cfg.vocab_size, (KVSEQ_STEPS, b, 1), generator=gen,
+                              device="cuda")
+        with torch.no_grad():
+            _, cache = model.prefill(params, toks, KVSEQ_MAX_LEN)
+            dcache = distribute(tree_map(torch.clone, cache),
+                                param_shardings(model.cache_spec(b, KVSEQ_MAX_LEN),
+                                                DEFAULT_RULES, mesh))
+            want = torch.stack([model.decode_step(params, cache, s)[0] for s in steps])
+            dparams = distribute(params, param_shardings(specs, DEFAULT_RULES, mesh))
+            with use_mesh_rules(mesh, DEFAULT_RULES):
+                dsteps = [sharding_of(("batch", None), s.shape, DEFAULT_RULES, mesh).place(s)
+                          for s in steps]
+                reset_launch_counts()
+                got = [model.decode_step(dparams, dcache, s)[0] for s in dsteps]
+                counts = launch_counts()
+            got = torch.stack([g.full_tensor() for g in got])
+        placed = [str(p) for p in dcache["layers"]["k"].placements]
+        atol, rtol = tolerance(want.dtype)
+        err = float((got - want).abs().max())
+        bad = int(((got - want).abs() > atol + rtol * want.abs()).sum())
+        kv_err = float((dcache["layers"]["k"].full_tensor() - cache["layers"]["k"]).abs().max())
+        n = KVSEQ_STEPS * cfg.num_layers
+        log(f"kv_seq decode: {cfg.name} impl pallas, cache {list(cache['layers']['k'].shape)} "
+            f"placed {placed} on a (1, 1) mesh, {KVSEQ_STEPS} steps: launches {counts} "
+            f"(flash_star {n} wanted); logits vs the decode without the mesh max_abs {err:.3e}, "
+            f"{bad} outside |d| <= {atol:g} + {rtol:g} |ref|, bit-equal "
+            f"{torch.equal(got, want)}; cache k max_abs {kv_err:.3e} [{CARD}]")
+        check(placed == ["S(1)", "S(2)"], f"kv_seq decode: cache placed {placed}")
+        check(counts.get("flash_star", 0) == n,
+              f"kv_seq decode: flash_star launched {counts.get('flash_star', 0)}, not {n}")
+        check(bad == 0 and kv_err <= atol, f"kv_seq decode: {bad} logits outside tolerance")
+        _note_paths(results, "kv_seq_decode_mesh", counts)
+        return {"launches": counts, "logits_max_abs": err, "cache_k_max_abs": kv_err,
+                "bit_equal": bool(torch.equal(got, want))}
+    finally:
+        dist.destroy_process_group()
+
+
+def accounting_on_card():
+    """15d: the fake trace's FLOPs and peak against the real step's."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch.dryrun import fake_mesh, trace_cell
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    state = init_state(model.param_specs(), SEED, device="cuda")
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    step = make_train_step(model, TrainConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    real_flops = fc.get_total_flops()
+    del out, state, batch
+    torch.cuda.empty_cache()
+    try:
+        mesh = fake_mesh((1, 1), ("data", "model"), "cuda")
+        t = trace_cell(cfg, ShapeConfig("bert_train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+                       DEFAULT_RULES, "cuda")
+    finally:
+        dist.destroy_process_group()
+    fake_peak = t["argument_size_in_bytes"] + t["counter"].peak
+    gap = fake_peak / peak - 1.0
+    log(f"accounting: {cfg.name} train step {TRAIN_BATCH} x {TRAIN_SEQ}: FLOPs fake "
+        f"{t['counter'].flops} vs FlopCounterMode on the card {real_flops} (equal "
+        f"{t['counter'].flops == real_flops}); peak live bytes fake {fake_peak} "
+        f"({t['argument_size_in_bytes']} arguments + {t['counter'].peak} temporaries) vs "
+        f"max_memory_allocated {peak}: gap {gap * 100:+.1f}% [{CARD}]")
+    if abs(gap) > ACCOUNT_PEAK_GAP:
+        log(f"accounting: finding: the fake peak is {gap * 100:+.1f}% off the card's, over the "
+            f"{ACCOUNT_PEAK_GAP:.0%} the dry-run's memory column is read with")
+    check(t["counter"].flops == real_flops,
+          f"accounting: fake FLOPs {t['counter'].flops} != card {real_flops}")
+    return {"flops_fake": t["counter"].flops, "flops_card": real_flops,
+            "peak_fake": fake_peak, "peak_card": peak, "peak_gap": gap,
+            "bytes_fake": t["counter"].bytes, "trace_s": t["trace_s"]}
+
+
+def dryrun_phase(results):
+    """Phase 15 (see the module docstring)."""
+    procs = dryrun_cells_start()
+    summary = {"card": CARD}
+    try:
+        r = subprocess.run([sys.executable, str(ROOT / "tools" / "mesh_seq_parallel.py")],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        for line in r.stdout.strip().splitlines():
+            log(f"seq-parallel tool: {line}")
+        check(r.returncode == 0, f"tools/mesh_seq_parallel.py rc {r.returncode}: "
+                                 f"{r.stderr.strip()[-600:]}")
+        summary["seq_parallel_tool"] = r.stdout.strip().splitlines()
+        summary["kv_seq_decode"] = kv_seq_decode_one_card(results)
+        import torch
+
+        torch.cuda.empty_cache()
+        summary["accounting"] = accounting_on_card()
+        summary["dryrun"] = dryrun_cells_finish(procs)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return summary
+
+
 def main() -> int:
     src = ROOT / "src" / "repro_torch"
     if not src.is_dir():
@@ -4768,6 +4998,8 @@ def main() -> int:
         summary_train = train_bert(results)
     with phase("14 mesh"):
         summary_mesh = mesh_one_card(results)
+    with phase("15 dryrun"):
+        summary_dryrun = dryrun_phase(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
@@ -4776,7 +5008,7 @@ def main() -> int:
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
                     "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,
-                    "train": summary_train, "mesh": summary_mesh,
+                    "train": summary_train, "mesh": summary_mesh, "dryrun": summary_dryrun,
                     "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -55,17 +55,19 @@ class SoftmaxConfig:
             return cls(kind="exact")
         return cls(kind=spec.kind, fmt=spec.fmt, mode=spec.mode, fault=spec.fault)
 
-    def apply(self, scores: torch.Tensor, where: Optional[torch.Tensor] = None):
+    def apply(self, scores: torch.Tensor, where: Optional[torch.Tensor] = None, across=None):
+        """``across`` (``.max`` / ``.sum`` over ranks) splits each row over
+        ranks that hold a slice of it; see :func:`star_softmax`."""
         if self.kind == "exact":
             if where is not None:
                 scores = torch.where(where, scores, torch.full_like(scores, NEG_INF))
-            return exact_softmax(scores, axis=-1)
+            return exact_softmax(scores, axis=-1, across=across)
         if self.kind == "star_ste":
             if where is not None:  # NEG_INF quantizes to the deepest LUT row
                 scores = torch.where(where, scores, torch.full_like(scores, NEG_INF))
-            return star_softmax_ste(scores, self.fmt, -1, self.mode, self.fault)
+            return star_softmax_ste(scores, self.fmt, -1, self.mode, self.fault, across)
         return star_softmax(scores, self.fmt, axis=-1, mode=self.mode, where=where,
-                            fault=self.fault)
+                            fault=self.fault, across=across)
 
 
 STAR_SOFTMAX = SoftmaxConfig(kind="star")
@@ -86,10 +88,12 @@ def _build_mask(
     q_offset=0,
     kv_valid_len: Optional[torch.Tensor] = None,
     device=None,
+    kv_offset: int = 0,
 ) -> Optional[torch.Tensor]:
-    """Boolean ``[Tq, Tk]`` or ``[B, Tq, Tk]`` mask; True = attend."""
+    """Boolean ``[Tq, Tk]`` or ``[B, Tq, Tk]`` mask; True = attend.  The
+    keys are columns ``kv_offset ..`` of the whole row."""
     rows = torch.arange(q_len, device=device)[:, None] + _as_long(q_offset, device)
-    cols = torch.arange(kv_len, device=device)[None, :]
+    cols = kv_offset + torch.arange(kv_len, device=device)[None, :]
     mask = None
     if causal:
         mask = cols <= rows
@@ -113,8 +117,16 @@ def attention(
     q_offset=0,
     kv_valid_len: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    kv_offset: int = 0,
+    across=None,
 ) -> torch.Tensor:
-    """Whole-operand attention (scores materialized)."""
+    """Whole-operand attention (scores materialized).
+
+    Under a mesh, k / v may be one rank's slice of the keys, starting at
+    column ``kv_offset`` of the whole row; ``across`` (``.max`` / ``.sum``
+    over the ranks that hold the other slices) then combines the softmax's
+    row max and denominator and the P.V sum, so every rank gets the whole
+    row's output."""
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
@@ -122,13 +134,15 @@ def attention(
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     mask = _build_mask(
         tq, tk, causal=causal, sliding_window=sliding_window,
-        q_offset=q_offset, kv_valid_len=kv_valid_len, device=q.device,
+        q_offset=q_offset, kv_valid_len=kv_valid_len, device=q.device, kv_offset=kv_offset,
     )
     where = None
     if mask is not None:
         where = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
-    probs = softmax.apply(scores, where=where)
+    probs = softmax.apply(scores, where=where, across=across)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    if across is not None:
+        out = across.sum(out)
     return out.reshape(b, tq, hq, d).to(q.dtype)
 
 

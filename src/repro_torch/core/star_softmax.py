@@ -40,9 +40,14 @@ from repro_torch.hwmodel.faults import FaultModel
 Modes = ("gather", "onehot", "histogram")
 
 
-def exact_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """The FP oracle (numerically stable softmax)."""
-    return torch.softmax(x, dim=axis)
+def exact_softmax(x: torch.Tensor, axis: int = -1, across=None) -> torch.Tensor:
+    """The FP oracle (numerically stable softmax).  ``across`` splits the
+    row over ranks as in :func:`star_softmax`: the row max is combined with
+    ``.max`` and the exponentials' sum with ``.sum``."""
+    if across is None:
+        return torch.softmax(x, dim=axis)
+    e = torch.exp(x - across.max(x.amax(dim=axis, keepdim=True)))
+    return e / across.sum(e.sum(dim=axis, keepdim=True))
 
 
 def star_softmax(
@@ -56,6 +61,7 @@ def star_softmax(
     fault: Optional[FaultModel] = None,
     row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     vmm_dot: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    across=None,
 ) -> torch.Tensor:
     """Quantized LUT softmax along ``axis``.
 
@@ -66,6 +72,13 @@ def star_softmax(
     of the ``gather`` / ``onehot`` denominator; default ``sum(-1)``.
     ``vmm_dot`` (counts ``[..., L]``, table ``[L]`` -> ``[...]``) fixes the
     order of the ``histogram`` denominator; default ``counts @ table``.
+
+    ``across`` (with ``.max(t)`` and ``.sum(t)``) splits the row over ranks
+    that each hold a slice of the axis: the int32 grid max is combined with
+    ``.max`` (exact), and the denominator (``gather`` / ``onehot``) or the
+    histogram's integer counts (``histogram``) with ``.sum``, so every rank
+    divides its numerators by the whole row's denominator.  Ideal devices
+    only: a fault's realization is drawn for the whole row.
     """
     if mode not in Modes:
         raise ValueError(f"mode must be one of {Modes}, got {mode!r}")
@@ -81,6 +94,10 @@ def star_softmax(
     if wmask is not None:
         j = torch.where(wmask, j, torch.full_like(j, GRID_SENTINEL))
     m = j.amax(dim=-1, keepdim=True)
+    if across is not None:
+        if faulty:
+            raise ValueError("star_softmax cannot split a faulty row across ranks")
+        m = across.max(m)
     k = grid_index(j, m, fmt)
 
     if faulty:
@@ -102,6 +119,8 @@ def star_softmax(
             counts = lut_lib.histogram_counts(k, fmt.num_levels)
         else:
             counts = _weighted_histogram(k, wmask, fmt.num_levels)
+        if across is not None:
+            counts = across.sum(counts)
         # the denominator VMM crossbar holds its own copy of the LUT contents
         vmm_table = (faults_lib.faulty_exp_lut(fmt, fault, tag="softmax/vmm", device=dev)
                      if faulty else table)
@@ -112,6 +131,8 @@ def star_softmax(
                 den = den * gain
     else:
         den = row_sum(num) if row_sum is not None else num.sum(dim=-1, keepdim=True)
+        if across is not None:
+            den = across.sum(den)
     den = torch.where(den <= 0.0, torch.ones_like(den), den)
     return torch.movedim(num / den, -1, axis).to(out_dtype)
 
@@ -123,17 +144,19 @@ def _weighted_histogram(k: torch.Tensor, weight_mask: torch.Tensor, num_levels: 
 
 class _StarSoftmaxSTE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, fmt, axis, mode, fault):
-        p = star_softmax(x, fmt, axis=axis, mode=mode, fault=fault)
+    def forward(ctx, x, fmt, axis, mode, fault, across):
+        p = star_softmax(x, fmt, axis=axis, mode=mode, fault=fault, across=across)
         ctx.save_for_backward(p)
-        ctx.axis = axis
+        ctx.axis, ctx.across = axis, across
         return p
 
     @staticmethod
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
         inner = (g * p).sum(dim=ctx.axis, keepdim=True)
-        return (p * (g - inner)).to(g.dtype), None, None, None, None
+        if ctx.across is not None:
+            inner = ctx.across.sum(inner)
+        return (p * (g - inner)).to(g.dtype), None, None, None, None, None
 
 
 def star_softmax_ste(
@@ -142,11 +165,13 @@ def star_softmax_ste(
     axis: int = -1,
     mode: str = "histogram",
     fault: Optional[FaultModel] = None,
+    across=None,
 ) -> torch.Tensor:
     """STAR softmax with a straight-through backward: the forward is
     :func:`star_softmax` (with the fault, if any); the backward is
-    ``p * (g - sum(g * p))`` at the quantized ``p``, nothing to the fault."""
-    return _StarSoftmaxSTE.apply(x, fmt, axis, mode, fault)
+    ``p * (g - sum(g * p))`` at the quantized ``p``, nothing to the fault.
+    ``across`` splits the row over ranks, forward and backward."""
+    return _StarSoftmaxSTE.apply(x, fmt, axis, mode, fault, across)
 
 
 def quantization_error(x: torch.Tensor, fmt: FixedPointFormat, *, axis: int = -1,

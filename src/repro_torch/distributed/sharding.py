@@ -187,12 +187,33 @@ def use_mesh_rules(mesh, rules: Optional[Rules] = None):
         if mesh is None:
             yield
         else:
-            from torch.distributed.tensor.experimental import implicit_replication
-
-            with implicit_replication():
+            with _implicit_replication():
                 yield
     finally:
         _ctx.state = prev
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """DTensor's ``implicit_replication``, reentrant: the public context
+    manager clears its process-wide flag on exit even inside an outer one
+    (a block's recomputation re-enters the rules: ``layers.remat``), so the
+    flag is restored to what it was."""
+    from torch.distributed.tensor import DTensor
+
+    disp = DTensor._op_dispatcher
+    if not hasattr(disp, "_allow_implicit_replication"):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            yield
+        return
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
 
 
 def current_mesh_rules():
@@ -233,11 +254,29 @@ def local_shard(x, want: tuple, grad: Optional[tuple] = None):
     return x.to_local(grad_placements=grad)
 
 
+def local_shape_and_offset(shape, mesh, want: tuple) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """This rank's shard of a tensor of ``shape`` placed ``want`` on
+    ``mesh``: its shape and where it starts, per dim.  DTensor's split,
+    computed on the host (no tensor op, so it runs under fake tensors too):
+    each ``Shard(d)`` in mesh-dim order cuts dim ``d`` into chunks of
+    ``ceil(n / size)`` rows, the last ones shorter or empty."""
+    from torch.distributed.tensor import Shard
+
+    shape, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(want):
+        if isinstance(p, Shard):
+            n, k = shape[p.dim], mesh.size(m)
+            chunk = -(-n // k)
+            start = min(coord[m] * chunk, n)
+            shape[p.dim] = min(start + chunk, n) - start
+            offset[p.dim] += start
+    return tuple(shape), tuple(offset)
+
+
 def global_offset(x, want: tuple) -> Tuple[int, ...]:
     """Where this rank's shard of ``x`` under ``want`` starts, per dim."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
-    return tuple(compute_local_shape_and_global_offset(x.shape, x.device_mesh, want)[1])
+    return local_shape_and_offset(x.shape, x.device_mesh, want)[1]
 
 
 def from_local(out: torch.Tensor, mesh, want: tuple, shape) -> torch.Tensor:
@@ -332,6 +371,7 @@ def attention_on_shards(fn, q, k, v, *, q_offset=0, kv_valid_len=None):
     off = global_offset(q, q_want)
     ql = local_shard(q, q_want)
     kl, vl = local_shard(k, kv_want, kv_grad), local_shard(v, kv_want, kv_grad)
+    q_offset = replicated_value(q_offset)  # a decode cache's device len, replicated
     if off[1]:
         q_offset = q_offset + off[1]
     if kv_valid_len is not None:
@@ -341,6 +381,288 @@ def attention_on_shards(fn, q, k, v, *, q_offset=0, kv_valid_len=None):
     out = fn(ql, kl, vl, q_offset=q_offset, kv_valid_len=kv_valid_len)
     shape = tuple(q.shape[:3]) + (v.shape[3],)
     return from_local(out, mesh, q_want, shape)
+
+
+def whole_unless_divides(x, dim: int, parts: int):
+    """``x`` with ``dim`` made whole on the mesh dims whose sharding would
+    cut one of its ``parts`` equal pieces (the heads of a fused ``[..., H *
+    D]`` projection: 8 KV heads' 1024 columns over a 16-way dim), so that
+    splitting ``dim`` into ``(parts, -1)`` keeps every piece on one rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want, prod = [], 1
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            if parts % (prod * x.device_mesh.size(m)) == 0:
+                prod *= x.device_mesh.size(m)
+            else:
+                p = Replicate()
+        want.append(p)
+    want = tuple(want)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+class KVRowsShardedError(NotImplementedError):
+    """Attention over K / V split along their rows (a cache sharded by
+    "kv_seq") on a route the split softmax does not serve: a kernel, whose
+    one launch needs a whole row, or a faulty softmax, whose realization is
+    drawn for a whole row."""
+
+
+def kv_rows_split(k, q=None) -> Tuple[int, ...]:
+    """The mesh dims of size > 1 that split the DTensor ``k`` ``[B, Tk,
+    Hkv, D]`` along its rows (none for a plain tensor) and do not split
+    ``q``'s rows: a cache sharded by "kv_seq" under a decode token.  Where
+    the q rows are split too (sequence parallelism), each rank's rows need
+    every K row, and :func:`attention_on_shards` makes K whole."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(k):
+        return ()
+    q_rows = set() if q is None or not is_dtensor(q) else {
+        m for m, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 1}
+    return tuple(m for m, p in enumerate(k.placements)
+                 if isinstance(p, Shard) and p.dim == 1 and k.device_mesh.size(m) > 1
+                 and m not in q_rows)
+
+
+class _AcrossRanks:
+    """All-reduces over the mesh dims ``dims`` of ``mesh``: ``max`` and
+    ``sum`` of a local partial, the same result on every rank of a group."""
+
+    def __init__(self, mesh, dims):
+        self.mesh, self.dims = mesh, tuple(dims)
+
+    def _reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+
+        for m in self.dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t.contiguous(), op, (self.mesh, m)))
+        return t
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return self._reduce(t, "max")
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self._reduce(t, "sum")
+
+
+def replicated_value(x):
+    """A replicated DTensor's value (a cache's device ``len`` / ``pos``) as
+    a plain tensor; anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def attention_rows_sharded(fn, q, k, v, *, q_offset=0, kv_valid_len=None):
+    """``fn(q, k, v, q_offset=, kv_valid_len=, kv_offset=, across=)`` (the
+    materialized :func:`~repro_torch.core.attention.attention`) on every
+    rank's shard, with K / V split along their rows (Tk) over the mesh dims
+    :func:`kv_rows_split` names, as the reference's XLA partitioner computes
+    decode over a "kv_seq"-sharded cache: no rank gathers K or V.
+
+    Each rank scores its own Tk slice (columns from ``kv_offset``, its
+    slice's row offset) for every head of its batch rows (q is made whole
+    along its heads and rows, a ``[B, Tq, Hq, D]`` gather of one token a row
+    at decode), and ``across`` all-reduces over the split dims: the row max
+    (MAX: STAR's int32 grid max, exact), the denominator (SUM: STAR's
+    numerator sums or its histogram's integer counts, or the exact
+    softmax's exponentials) and P.V (SUM).  Only the summation order
+    differs from the unsharded route, so the results agree to float32
+    rounding.  Returns ``[B, Tq, Hq, D]`` placed as q's batch, whole
+    elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = k.device_mesh
+    rep = Replicate()
+    q_want, kv_want = [], []
+    for p in k.placements:
+        if isinstance(p, Shard) and p.dim == 1:
+            q_want.append(rep)
+            kv_want.append(p)
+        elif isinstance(p, Shard) and p.dim == 0:
+            q_want.append(p)
+            kv_want.append(p)
+        else:
+            q_want.append(rep)
+            kv_want.append(rep)
+    q_want, kv_want = tuple(q_want), tuple(kv_want)
+    ql, kl, vl = local_shard(q, q_want), local_shard(k, kv_want), local_shard(v, kv_want)
+    off = global_offset(k, kv_want)
+    if kv_valid_len is not None:
+        if is_dtensor(kv_valid_len):
+            kv_valid_len = kv_valid_len.full_tensor()
+        kv_valid_len = kv_valid_len[off[0]:off[0] + ql.shape[0]]
+    out = fn(ql, kl, vl, q_offset=replicated_value(q_offset), kv_valid_len=kv_valid_len,
+             kv_offset=off[1], across=_AcrossRanks(mesh, kv_rows_split(k, q)))
+    return from_local(out, mesh, q_want, tuple(q.shape[:3]) + (v.shape[3],))
+
+
+def write_row_on_shards(cache, row, idx) -> None:
+    """``cache[:, idx] = row`` in place, on the shards: ``cache`` ``[B, T,
+    H, D]`` is a DTensor (its rows may be split over "kv_seq"), ``row``
+    ``[B, 1, H, D]`` the step's fresh K or V row and ``idx`` a 0-dim index
+    tensor (the cache's device ``len``).  The rank whose slice holds row
+    ``idx`` writes it into its local shard; every other rank writes its old
+    row back.  Nothing of the cache is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.core.attention import _as_long
+
+    want = tuple(cache.placements)
+    (lb, lt, lh, _), off = local_shape_and_offset(cache.shape, cache.device_mesh, want)
+    if lt == 0:
+        return
+    local = cache.to_local()
+    if is_dtensor(row):
+        row_want = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in want)
+        rl = local_shard(row, row_want)
+    else:
+        rl = row[off[0]:off[0] + lb, :, off[2]:off[2] + lh]
+    li = _as_long(replicated_value(idx), local.device).reshape(1) - off[1]
+    hit = (li >= 0) & (li < lt)
+    safe = torch.clamp(li, 0, lt - 1)
+    old = local.index_select(1, safe)
+    local.index_copy_(1, safe, torch.where(hit, rl.to(local.dtype), old))
+
+
+def zeros_placed(shape, axes, dtype, device):
+    """Zeros of ``shape``: under a mesh, a DTensor placed by the rules'
+    reading of ``axes`` (each rank allocates its shard only), else a plain
+    tensor."""
+    state = current_mesh_rules()
+    if state is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    mesh, rules = state
+    want = sharding_of(axes, shape, rules, mesh).placements
+    local = torch.zeros(local_shape_and_offset(shape, mesh, want)[0], dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, want, run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def copy_rows_on_shards(dst, src, dim: Optional[int] = None) -> None:
+    """``dst.narrow(dim, 0, n).copy_(src)`` (``n`` = ``src``'s rows along
+    ``dim``; ``dim=None``: ``dst.copy_(src)``, the same shape) in place, on
+    the shards of the DTensor ``dst``: ``src`` is placed as ``dst`` but
+    whole along ``dim``, and each rank copies the rows its slice of ``dst``
+    holds."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(dst.placements)
+    lshape, off = local_shape_and_offset(dst.shape, dst.device_mesh, want)
+    if is_dtensor(src):
+        sl = local_shard(src, tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                                    for p in want))
+    else:
+        sl = src
+        for d in range(src.ndim):
+            if d != dim:
+                sl = sl.narrow(d, off[d], lshape[d])
+    if dim is None:
+        dst.to_local().copy_(sl)
+        return
+    lo = off[dim]
+    n = min(lo + lshape[dim], src.shape[dim]) - lo
+    if n > 0:
+        dst.to_local().narrow(dim, 0, n).copy_(sl.narrow(dim, lo, n))
+
+
+def rows_on_shards(fn, x, dim: int, rows: int):
+    """``fn(x_local)`` with ``x``'s ``dim`` made whole and every other
+    sharding kept: an op along the rows (a pad, a roll) that some torch
+    versions' DTensor rules refuse.  ``rows`` is the output's size along
+    ``dim``."""
+    want = _keeping(x, set(range(x.ndim)) - {dim})
+    out = fn(local_shard(x, want))
+    shape = list(x.shape)
+    shape[dim] = rows
+    return from_local(out, x.device_mesh, want, shape)
+
+
+def take_last_on_shards(x, idx):
+    """``x.gather(-1, idx[..., None])[..., 0]`` on every rank's shard: ``x``
+    ``[..., V]`` keeps its leading dims' sharding and is made whole along
+    V, ``idx`` (a DTensor or a plain tensor of ``x``'s leading shape) is
+    placed as those dims.  The gradient scatters into each rank's own shard
+    only."""
+    want = _keeping(x, set(range(x.ndim - 1)))
+    xl = local_shard(x, want)
+    if is_dtensor(idx):
+        il = local_shard(idx, want)
+    else:
+        shape, off = local_shape_and_offset(idx.shape, x.device_mesh, want)
+        il = idx
+        for d in range(idx.ndim):
+            il = il.narrow(d, off[d], shape[d])
+    out = xl.gather(-1, il.long()[..., None])[..., 0]
+    return from_local(out, x.device_mesh, want, tuple(x.shape[:-1]))
+
+
+def merge_heads_on_shards(x):
+    """``x [B, T, H, D] -> [B, T, H * D]`` on every rank's shard: the batch,
+    row and head shardings are kept (a head shard is a column shard of the
+    merged dim), D is made whole."""
+    want = _keeping(x, (0, 1, 2))
+    xl = local_shard(x, want)
+    out = xl.reshape(xl.shape[0], xl.shape[1], -1)
+    return from_local(out, x.device_mesh, want, tuple(x.shape[:2]) + (x.shape[2] * x.shape[3],))
+
+
+def matmul_plan(x_placements, w_placements, ndim: int):
+    """How :func:`matmul_on_shards` places ``x [..., K]`` (``ndim`` dims)
+    and ``w [K, N]`` on each mesh dim: ``(x_want, w_want, x_grad, w_grad,
+    out)`` placements.  Per mesh dim, in this order:
+
+    * ``x`` sharded along a leading dim (the batch; the rows under sequence
+      parallelism): kept, ``w`` made whole; each rank's ``w`` gradient
+      covers its own rows of ``x`` only, a partial sum (``Partial``);
+    * ``w`` sharded along N (column parallel): kept, ``x`` made whole; the
+      output is sharded along N, and ``x``'s gradient is a partial sum;
+    * ``w`` sharded along K and ``x`` whole or sharded along K (row
+      parallel): ``x`` cut as ``w``; each rank's output is a partial sum
+      (``Partial``, all-reduced at once);
+    * otherwise both whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rep = Replicate()
+    plan = ([], [], [], [], [])
+    for xp, wp in zip(x_placements, w_placements):
+        if isinstance(xp, Shard) and xp.dim < ndim - 1:
+            row = (xp, rep, xp, Partial(), xp)
+        elif isinstance(wp, Shard) and wp.dim == 1:
+            row = (rep, wp, Partial(), wp, Shard(ndim - 1))
+        elif isinstance(wp, Shard) and wp.dim == 0 and (
+                isinstance(xp, Replicate) or (isinstance(xp, Shard) and xp.dim == ndim - 1)):
+            k = Shard(ndim - 1)  # a whole x is cut locally
+            row = (k, wp, k, wp, Partial())
+        else:
+            row = (rep, rep, rep, rep, rep)
+        for acc, p in zip(plan, row):
+            acc.append(p)
+    return tuple(tuple(p) for p in plan)
+
+
+def matmul_on_shards(x, w):
+    """``x [..., K] @ w [K, N]`` on every rank's shard, placed by
+    :func:`matmul_plan`.  DTensor's own rule flattens the leading dims into
+    one, which a sharded second dim (sequence parallelism) refuses, and may
+    leave an activation a partial sum whose gradient some torch versions
+    cannot place back; here a partial output is all-reduced at once, so
+    every output is sharded or whole.  The weight's gradient is reduced into
+    the weight's own placement."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = x.device_mesh
+    rep = Replicate()
+    w_pl = tuple(w.placements) if is_dtensor(w) else (rep,) * mesh.ndim
+    x_want, w_want, x_grad, w_grad, out = matmul_plan(x.placements, w_pl, x.ndim)
+    xl = local_shard(x, x_want, x_grad)
+    wl = local_shard(w, w_want, w_grad) if is_dtensor(w) else w
+    y = from_local(xl @ wl, mesh, out, tuple(x.shape[:-1]) + (w.shape[1],))
+    if any(isinstance(p, Partial) for p in out):
+        y = y.redistribute(mesh, tuple(rep if isinstance(p, Partial) else p for p in out))
+    return y
 
 
 def ssd_scan_on_shards(fn, xdt, a, bmat, cmat):

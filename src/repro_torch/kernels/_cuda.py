@@ -115,8 +115,14 @@ def refuse_grad(kernel: str, *tensors) -> None:
 
 def on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device is refused."""
+    (run the plain version); any other device is refused, and so is a fake
+    tensor (``FakeTensorMode``: a shape with no data to launch on)."""
     if t.device.type == "cuda":
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        if isinstance(t, FakeTensor):
+            raise ValueError("kernels take real tensors: a fake tensor holds no data to "
+                             "launch on (trace a plain impl)")
         return True
     if t.device.type == "cpu":
         return False

@@ -74,7 +74,7 @@ class EncDecLM:
         dt = L.cdtype(cfg)
         dev = params["frontend_proj"]["kernel"].device
         src = torch.as_tensor(src_embeds, device=dev)
-        h = src.to(dt) @ params["frontend_proj"]["kernel"].to(dt)
+        h = L.linear(src.to(dt), params["frontend_proj"]["kernel"].to(dt))
         h = h + L.sinusoidal_positions(0, h.shape[1], cfg.d_model, dev).to(dt)[None]
         for i in range(cfg.num_layers):
             h = L.remat(cfg, self._enc_block, layer(params["enc_blocks"], i), h)
@@ -142,6 +142,22 @@ class EncDecLM:
         """The self cache's rows: ``max_len`` (no window)."""
         return max_len
 
+    def cache_spec(self, batch: int, max_len: int, src_len: int = 4096) -> Params:
+        """Spec tree of the decode cache (the reference's ``cache_spec``):
+        self K/V ``[L, B, max_len, Hkv, D]`` and cross K/V ``[L, B, src_len,
+        Hkv, D]`` in the compute dtype, rows along "kv_seq"; scalar
+        ``len``."""
+        cfg = self.cfg
+        dt = L.cdtype(cfg)
+        hd = cfg.resolved_head_dim
+        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        out: Params = {}
+        for part, rows in (("self", max_len), ("cross", src_len)):
+            kv = (cfg.num_decoder_layers, batch, rows, cfg.num_kv_heads, hd)
+            out[part] = {"k": ParamSpec(kv, axes, dt, "zeros"), "v": ParamSpec(kv, axes, dt, "zeros")}
+        out["len"] = ParamSpec((), (), torch.int32, "zeros")
+        return out
+
     def prefill(self, params: Params, tokens: torch.Tensor, max_len: int, *,
                 src_embeds, **_) -> Tuple[torch.Tensor, Params]:
         """Encode the source, run the decoder over the prompt and prime the
@@ -189,11 +205,11 @@ class EncDecLM:
                                         cfg, causal=True, cache=sc, use_rope=False)
             h = h + L.attention_out(bp["self_attn"], a, cfg)
             hn = L.layernorm(bp["ln2"], h, cfg.norm_eps)
-            q = (hn @ bp["cross_attn"]["wq"].to(dt)).reshape(b, 1, cfg.num_heads,
-                                                           cfg.resolved_head_dim)
+            q = L.split_heads(L.linear(hn, bp["cross_attn"]["wq"].to(dt)), b, 1,
+                              cfg.num_heads, cfg.resolved_head_dim)
             ctx = ops.attention(q, cross["k"][i], cross["v"][i], cfg.attention_spec,
                                 causal=False, sliding_window=None)
-            h = h + L.attention_out(bp["cross_attn"], ctx.reshape(b, 1, -1), cfg)
+            h = h + L.attention_out(bp["cross_attn"], L.merge_heads(ctx), cfg)
             h = h + L.mlp(bp["mlp"], L.layernorm(bp["ln3"], h, cfg.norm_eps), cfg)
         h = L.layernorm(params["dec_norm"], h, cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])

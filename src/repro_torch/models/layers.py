@@ -25,6 +25,7 @@ from repro_torch.core import kvquant
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (
     conv_on_shards,
+    copy_rows_on_shards,
     current_mesh_rules,
     embed_on_shards,
     from_local,
@@ -32,7 +33,14 @@ from repro_torch.distributed.sharding import (
     is_dtensor,
     local_shard,
     logical_to_pspec,
+    matmul_on_shards,
+    merge_heads_on_shards,
     placements,
+    rows_on_shards,
+    take_last_on_shards,
+    use_mesh_rules,
+    whole_unless_divides,
+    write_row_on_shards,
 )
 from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models.param import ParamSpec
@@ -77,6 +85,30 @@ def layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``.  Under a mesh it runs on each rank's shard
+    (``distributed.sharding.matmul_on_shards``): ``x`` keeps its leading
+    dims' sharding (the batch, and the rows under sequence parallelism,
+    which DTensor's own rule cannot flatten), ``w`` runs column- or
+    row-parallel where its sharding allows, and no activation is left a
+    partial sum."""
+    if is_dtensor(x):
+        return matmul_on_shards(x, w)
+    return x @ w
+
+
+def write_rows(dst: torch.Tensor, src: torch.Tensor, dim: Optional[int] = None) -> None:
+    """``dst``'s first rows along ``dim`` take ``src``, in place (``dim=None``:
+    all of ``dst``, ``src`` of its shape).  A cache placed on a mesh is
+    written on its shards (``distributed.sharding.copy_rows_on_shards``)."""
+    if is_dtensor(dst):
+        copy_rows_on_shards(dst, src, dim)
+    elif dim is None:
+        dst.copy_(src)
+    else:
+        dst.narrow(dim, 0, src.shape[dim]).copy_(src)
+
+
 def spec_embedding(cfg: ModelConfig) -> Params:
     return {"table": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), pdtype(cfg),
                                "embed")}
@@ -103,7 +135,7 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig, embed_params: Params) 
         kernel = embed_params["table"].to(cdtype(cfg)).T
     else:
         kernel = p["kernel"].to(cdtype(cfg))
-    logits = x @ kernel
+    logits = linear(x, kernel)
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding columns
         valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
         logits = torch.where(valid, logits, -1e30)
@@ -136,8 +168,8 @@ def mrope_streams(sections: Tuple[int, ...], device: torch.device) -> torch.Tens
     rotary half: stream ``i`` repeated ``sections[i]`` times.  Static, so it
     is made once per device (by the first eager call, before any capture of
     a decode step reads it) and never uploaded again."""
-    streams = torch.repeat_interleave(torch.arange(len(sections)), torch.tensor(sections))
-    return streams.to(device)
+    streams = [i for i, n in enumerate(sections) for _ in range(n)]
+    return torch.tensor(streams, dtype=torch.int64, device=device)
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -212,17 +244,34 @@ def spec_attention(cfg: ModelConfig) -> Params:
 def _project_qkv(p: Params, x: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
     dt = cdtype(cfg)
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"].to(dt)
-    k = xkv @ p["wk"].to(dt)
-    v = xkv @ p["wv"].to(dt)
+    q = linear(x, p["wq"].to(dt))
+    k = linear(xkv, p["wk"].to(dt))
+    v = linear(xkv, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     b, t, tk = x.shape[0], x.shape[1], xkv.shape[1]
-    return (q.reshape(b, t, cfg.num_heads, hd),
-            k.reshape(b, tk, cfg.num_kv_heads, hd),
-            v.reshape(b, tk, cfg.num_kv_heads, hd))
+    return (split_heads(q, b, t, cfg.num_heads, hd),
+            split_heads(k, b, tk, cfg.num_kv_heads, hd),
+            split_heads(v, b, tk, cfg.num_kv_heads, hd))
+
+
+def merge_heads(ctx: torch.Tensor) -> torch.Tensor:
+    """``[B, T, H, D]`` -> ``[B, T, H * D]``; under a mesh on each rank's
+    shard (``distributed.sharding.merge_heads_on_shards``), so neither the
+    merge nor its gradient goes through DTensor's view rule."""
+    if is_dtensor(ctx):
+        return merge_heads_on_shards(ctx)
+    return ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
+
+
+def split_heads(x: torch.Tensor, b: int, t: int, heads: int, hd: int) -> torch.Tensor:
+    """``[B, T, H * D]`` -> ``[B, T, H, D]``; under a mesh the columns are
+    first made whole where their sharding would cut a head."""
+    if is_dtensor(x):
+        x = whole_unless_divides(x, 2, heads)
+    return x.reshape(b, t, heads, hd)
 
 
 CONFIG_WINDOW = "config"  # attention_block's default window: cfg.sliding_window
@@ -295,7 +344,7 @@ def attention_block(
             raise ValueError("cross-attention (xkv) takes no cache")
         q, k, v = _project_qkv(p, x, xkv, cfg)
         ctx = ops.attention(q, k, v, cfg.attention_spec, causal=False, sliding_window=window)
-        return ctx.reshape(b, tq, -1), None, (k, v)
+        return merge_heads(ctx), None, (k, v)
     q, k, v = _project_qkv(p, x, x, cfg)
     if use_rope:
         if positions is None:
@@ -310,9 +359,11 @@ def attention_block(
 
     if cache is None:
         ctx = ops.attention(q, k, v, cfg.attention_spec, causal=causal, sliding_window=window)
-        return ctx.reshape(b, tq, -1), None, (k, v)
+        return merge_heads(ctx), None, (k, v)
     if "tables" in cache:
         return _paged_decode(q, k, v, cfg, cache, paged_cache_t, window)
+    if is_dtensor(cache["k"]):  # a cache placed on a mesh
+        return _decode_on_shards(q, k, v, cfg, cache, causal, window)
 
     ck, cv, ln = cache["k"], cache["v"], cache["len"]
     cache_t = ck.shape[1]
@@ -335,7 +386,7 @@ def attention_block(
         valid = torch.clamp(new_len, max=cache_t) if ring else new_len
         ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=False, sliding_window=None,
                             q_offset=0, kv_valid_len=valid.expand(b))
-        return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": new_len}, (k, v)
+        return merge_heads(ctx), {"k": ck, "v": cv, "len": new_len}, (k, v)
 
     if isinstance(ln, int):  # linear staging cache (chunked prefill)
         if ln + tq > cache_t:
@@ -352,7 +403,43 @@ def attention_block(
     cv = wlc(cv, ("batch", "kv_seq", "kv_heads", None))
     ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=causal, sliding_window=window,
                         q_offset=ln, kv_valid_len=valid)
-    return ctx.reshape(b, tq, -1), {"k": ck, "v": cv, "len": ln + tq}, (k, v)
+    return merge_heads(ctx), {"k": ck, "v": cv, "len": ln + tq}, (k, v)
+
+
+class MeshCacheError(ValueError):
+    """A cache form that the mesh path does not take."""
+
+
+def _decode_on_shards(q, k, v, cfg: ModelConfig, cache: Params, causal: bool,
+                      window: Optional[int]):
+    """One decode token over a lockstep cache (or a scalar ring) whose K / V
+    are DTensors, their rows split over "kv_seq": the step's K / V row is
+    written on the rank whose slice holds row ``len`` (``% T`` on a ring),
+    and attention runs on the shards (``ops.attention``: the split softmax
+    where the rows are split over more than one rank, else each rank's whole
+    rows).  The same masks as the unsharded paths: causal at ``q_offset =
+    len`` over ``len + 1`` rows, or a ring's ``min(len + 1, T)`` rows."""
+    b, tq = q.shape[0], q.shape[1]
+    ck, cv, ln = cache["k"], cache["v"], cache["len"]
+    if tq != 1 or isinstance(ln, int) or ln.ndim != 0:
+        raise MeshCacheError("a cache placed on a mesh takes one decode token a step over "
+                             "a scalar device len (no chunk, no per-slot pool)")
+    cache_t = ck.shape[1]
+    ring = window is not None and cache_t <= window
+    idx = ln.long() % cache_t if ring else ln
+    write_row_on_shards(ck, k, idx)
+    write_row_on_shards(cv, v, idx)
+    new_len = ln + 1
+    ck = wlc(ck, ("batch", "kv_seq", "kv_heads", None))
+    cv = wlc(cv, ("batch", "kv_seq", "kv_heads", None))
+    if ring:
+        valid = torch.clamp(new_len, max=cache_t)
+        ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=False, sliding_window=None,
+                            q_offset=0, kv_valid_len=valid.expand(b))
+    else:
+        ctx = ops.attention(q, ck, cv, cfg.attention_spec, causal=causal,
+                            sliding_window=window, q_offset=ln, kv_valid_len=new_len.expand(b))
+    return merge_heads(ctx), {"k": ck, "v": cv, "len": new_len}, (k, v)
 
 
 def _write_rows(ck: torch.Tensor, cv: torch.Tensor, idx: torch.Tensor,
@@ -411,7 +498,7 @@ def _paged_decode(q, k, v, cfg: ModelConfig, cache: Params, paged_cache_t: Optio
     new_cache = {"k": ck, "v": cv, "len": new_len}
     if kv_scales is not None:
         new_cache["k_scale"], new_cache["v_scale"] = kv_scales
-    return ctx.reshape(b, tq, -1), new_cache, (k, v)
+    return merge_heads(ctx), new_cache, (k, v)
 
 
 def fit_window_cache(k: torch.Tensor, v: torch.Tensor, seq_axis: int, wlen: int,
@@ -426,13 +513,29 @@ def fit_window_cache(k: torch.Tensor, v: torch.Tensor, seq_axis: int, wlen: int,
     if seq >= wlen:
         kk, vv = k.narrow(seq_axis, seq - wlen, wlen), v.narrow(seq_axis, seq - wlen, wlen)
         shift = (seq_len - wlen) % wlen
-        return torch.roll(kk, shift, dims=seq_axis), torch.roll(vv, shift, dims=seq_axis)
-    pad = [0, 0] * (k.ndim - 1 - seq_axis) + [0, wlen - seq]
-    return torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        return roll_rows(kk, shift, seq_axis), roll_rows(vv, shift, seq_axis)
+    return pad_rows(k, 0, wlen - seq, seq_axis), pad_rows(v, 0, wlen - seq, seq_axis)
+
+
+def pad_rows(x: torch.Tensor, before: int, after: int, dim: int = 1) -> torch.Tensor:
+    """``x`` zero-padded along ``dim``; under a mesh on each rank's shard
+    (``distributed.sharding.rows_on_shards``)."""
+    pad = [0, 0] * (x.ndim - 1 - dim) + [before, after]
+    if is_dtensor(x):
+        return rows_on_shards(lambda t: torch.nn.functional.pad(t, pad), x, dim,
+                              x.shape[dim] + before + after)
+    return torch.nn.functional.pad(x, pad)
+
+
+def roll_rows(x: torch.Tensor, shift: int, dim: int = 1) -> torch.Tensor:
+    """``torch.roll`` along ``dim``; under a mesh on each rank's shard."""
+    if is_dtensor(x):
+        return rows_on_shards(lambda t: torch.roll(t, shift, dims=dim), x, dim, x.shape[dim])
+    return torch.roll(x, shift, dims=dim)
 
 
 def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return wlc(ctx @ p["wo"].to(cdtype(cfg)), ("batch", "seq", "embed"))
+    return wlc(linear(ctx, p["wo"].to(cdtype(cfg))), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -452,13 +555,13 @@ def spec_mlp(cfg: ModelConfig) -> Params:
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cdtype(cfg)
-    h = x @ p["wi"].to(dt)
+    h = linear(x, p["wi"].to(dt))
     if cfg.mlp_type == "swiglu":
-        h = torch.nn.functional.silu(x @ p["wg"].to(dt)) * h
+        h = torch.nn.functional.silu(linear(x, p["wg"].to(dt))) * h
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu default
     h = wlc(h, ("batch", "seq", "mlp"))
-    return wlc(h @ p["wo"].to(dt), ("batch", "seq", "embed"))
+    return wlc(linear(h, p["wo"].to(dt)), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -672,8 +775,17 @@ def remat(cfg: ModelConfig, fn, *args):
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint`` of each block.  The same operations run again on the
     same inputs, so the loss and every gradient are bit for bit those
-    without it."""
+    without it.  The recomputation runs under the mesh and rules of the
+    forward: the backward of a card's tensors runs on autograd's own
+    thread, which does not see the forward thread's ``use_mesh_rules``."""
     if cfg.remat and torch.is_grad_enabled():
+        state = current_mesh_rules()
+        if state is not None:
+            inner = fn
+
+            def fn(*a):
+                with use_mesh_rules(*state):
+                    return inner(*a)
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 
@@ -682,10 +794,17 @@ def remat(cfg: ModelConfig, fn, *args):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy over positions with ``label >= 0`` (float32
     reductions).  Under a mesh the vocab dim is made whole first: the
-    labels' gather reads any column."""
+    labels' gather reads any column, on each rank's shard
+    (``distributed.sharding.take_last_on_shards``: DTensor's own gather
+    backward fills a zero gradient of the *global* logits' size on every
+    rank)."""
     lg = wlc(logits.float(), ("batch", "seq", None))
     m = lg.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
-    picked = lg.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    idx = labels.clamp(min=0).long()
+    if is_dtensor(lg):
+        picked = take_last_on_shards(lg, idx)
+    else:
+        picked = lg.gather(-1, idx[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((lse - picked) * mask).sum() / mask.sum().clamp(min=1.0)

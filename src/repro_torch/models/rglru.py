@@ -36,10 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import is_dtensor, scan_on_shards
+from repro_torch.distributed.sharding import is_dtensor, scan_on_shards, zeros_placed
 from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, layer, stack_specs
+from repro_torch.models.param import ParamSpec, layer, stack_specs, tree_map
 from repro_torch.ops.platform import Device, resolve_device
 
 Params = Dict[str, Any]
@@ -112,18 +112,18 @@ def recurrent_block(
     ``return_state`` (prefill) it also returns the new ``{"conv", "h"}``."""
     dt = L.cdtype(cfg)
     x_in = L.rmsnorm(p["ln"], h, cfg.norm_eps)
-    xb = x_in @ p["wx"].to(dt)
-    gate = F.gelu(x_in @ p["wgate"].to(dt), approximate="tanh")  # jax.nn.gelu default
+    xb = L.linear(x_in, p["wx"].to(dt))
+    gate = F.gelu(L.linear(x_in, p["wgate"].to(dt)), approximate="tanh")  # jax.nn.gelu default
 
     conv_out, new_conv = L.causal_conv1d(p["conv"], xb, None if cache is None else cache["conv"])
     if cache is None and return_state:
         w1 = cfg.conv_width - 1
         # the last W-1 input rows, zero-filled ahead of a prompt shorter than that
-        new_conv = F.pad(xb, (0, 0, w1, 0))[:, -w1:, :]
+        new_conv = L.pad_rows(xb, w1, 0)[:, -w1:, :]
 
     xf = conv_out.float()
-    r = torch.sigmoid(xf @ p["wa"].float())
-    i = torch.sigmoid(xf @ p["wi"].float())
+    r = torch.sigmoid(L.linear(xf, p["wa"].float()))
+    i = torch.sigmoid(L.linear(xf, p["wi"].float()))
     lam = p["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     a = torch.exp(-_LRU_C * r * softplus)
@@ -132,7 +132,7 @@ def recurrent_block(
     h0 = None if cache is None else cache["h"].float()
     hs, h_last = rglru_scan(gated, a, h0)
     y = wlc(hs.to(dt) * gate, ("batch", "seq", "mlp"))
-    out = wlc(y @ p["wout"].to(dt), ("batch", "seq", "embed"))
+    out = wlc(L.linear(y, p["wout"].to(dt)), ("batch", "seq", "embed"))
     new_cache = None
     if cache is not None or return_state:
         new_cache = {"conv": new_conv, "h": h_last.float()}
@@ -215,34 +215,42 @@ class RecurrentGemmaLM:
         """The attention blocks' ring rows: ``min(max_len, local_window)``."""
         return min(max_len, self.cfg.local_window)
 
-    def init_cache(self, batch: int, max_len: int, device: Device = None) -> Params:
-        """Zeroed cache of the reference's ``cache_spec``: conv ``[P, B, W-1,
-        w]`` / ``[B, W-1, w]`` in the compute dtype, ``h`` ``[P, B, w]`` /
-        ``[B, w]`` in float32, rings ``[P, B, t, Hkv, D]`` / ``[B, t, Hkv, D]``
-        with ``t = cache_len(max_len)``; ``len`` 0."""
+    def cache_spec(self, batch: int, max_len: int) -> Params:
+        """Spec tree of :meth:`init_cache` (the reference's ``cache_spec``):
+        the rings' rows along "kv_seq"."""
         cfg = self.cfg
-        dev = resolve_device(device)
         w = cfg.lru_width or cfg.d_model
         dt = L.cdtype(cfg)
 
-        def block(kind, lead):
+        def block(kind, lead, lead_axes):
             if kind == "recurrent":
-                return {"conv": torch.zeros(lead + (batch, cfg.conv_width - 1, w), dtype=dt,
-                                            device=dev),
-                        "h": torch.zeros(lead + (batch, w), dtype=torch.float32, device=dev)}
+                return {"conv": ParamSpec(lead + (batch, cfg.conv_width - 1, w),
+                                          lead_axes + ("batch", None, "mlp"), dt, "zeros"),
+                        "h": ParamSpec(lead + (batch, w), lead_axes + ("batch", "mlp"),
+                                       torch.float32, "zeros")}
             kv = lead + (batch, self.cache_len(max_len), cfg.num_kv_heads,
                          cfg.resolved_head_dim)
-            return {"k": torch.zeros(kv, dtype=dt, device=dev),
-                    "v": torch.zeros(kv, dtype=dt, device=dev)}
+            axes = lead_axes + ("batch", "kv_seq", "kv_heads", None)
+            return {"k": ParamSpec(kv, axes, dt, "zeros"), "v": ParamSpec(kv, axes, dt, "zeros")}
 
-        cache: Params = {
-            "periods": {f"b{idx}": block(kind, (self.num_periods,))
+        spec: Params = {
+            "periods": {f"b{idx}": block(kind, (self.num_periods,), ("layers",))
                         for idx, kind in enumerate(cfg.block_pattern)},
-            "len": torch.zeros((), dtype=torch.int32, device=dev),
+            "len": ParamSpec((), (), torch.int32, "zeros"),
         }
         for i in range(self.tail):
-            cache[f"tail{i}"] = block(self._kind(i), ())
-        return cache
+            spec[f"tail{i}"] = block(self._kind(i), (), ())
+        return spec
+
+    def init_cache(self, batch: int, max_len: int, device: Device = None) -> Params:
+        """Zeroed cache of :meth:`cache_spec`: conv ``[P, B, W-1, w]`` / ``[B,
+        W-1, w]`` in the compute dtype, ``h`` ``[P, B, w]`` / ``[B, w]`` in
+        float32, rings ``[P, B, t, Hkv, D]`` / ``[B, t, Hkv, D]`` with ``t =
+        cache_len(max_len)``; ``len`` 0.  Under a mesh each leaf is placed
+        by its axes."""
+        dev = resolve_device(device)
+        return tree_map(lambda s: zeros_placed(s.shape, s.axes, s.dtype, dev),
+                        self.cache_spec(batch, max_len))
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         h = L.rmsnorm(params["final_norm"], h, self.cfg.norm_eps)
@@ -279,7 +287,7 @@ class RecurrentGemmaLM:
                 h, (k, v) = local_attn_block(bp, h, cfg)
                 state = dict(zip(("k", "v"), L.fit_window_cache(k, v, 1, wlen, t)))
             for name, leaf in slot.items():
-                leaf.copy_(state[name])
+                L.write_rows(leaf, state[name])
         cache["len"].fill_(t)
         # rmsnorm is positionwise: norming the last row alone matches the
         # reference's norm-then-slice

@@ -29,8 +29,9 @@ import torch.nn.functional as F
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import with_logical_constraint as wlc
+from repro_torch.distributed.sharding import zeros_placed
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, layer, stack_specs
+from repro_torch.models.param import ParamSpec, layer, stack_specs, tree_map
 from repro_torch.ops.platform import Device, resolve_device
 
 Params = Dict[str, Any]
@@ -124,7 +125,7 @@ def mamba_mixer(
     dt_ = L.cdtype(cfg)
     d_inner, heads, _ = _dims(cfg)
     pdim = cfg.ssm_headdim
-    zxbcdt = x_in @ p["in_proj"].to(dt_)
+    zxbcdt = L.linear(x_in, p["in_proj"].to(dt_))
     z, x, bmat, cmat, dtproj = _split_proj(cfg, zxbcdt)
 
     conv_in = torch.cat([x, bmat, cmat], dim=-1)
@@ -133,12 +134,12 @@ def mamba_mixer(
     if cache is None and return_state:
         w1 = cfg.ssm_conv - 1
         # the last W-1 input rows, zero-filled ahead of a prompt shorter than that
-        new_conv = F.pad(conv_in, (0, 0, w1, 0))[:, -w1:, :]
+        new_conv = L.pad_rows(conv_in, w1, 0)[:, -w1:, :]
     conv_out = F.silu(conv_out)
     x, bmat, cmat = torch.split(conv_out, [d_inner, bmat.shape[-1], cmat.shape[-1]], dim=-1)
 
     b, t = x.shape[0], x.shape[1]
-    xh = x.reshape(b, t, heads, pdim)
+    xh = L.split_heads(x, b, t, heads, pdim)
     dtf = dtproj.float() + p["dt_bias"].float()
     dt = torch.logaddexp(dtf, torch.zeros_like(dtf))  # softplus, as jax.nn.softplus
     a_decay = -torch.exp(p["A_log"].float()) * dt  # negative log-decay [B, T, H]
@@ -167,13 +168,13 @@ def mamba_mixer(
         new_cache = {"conv": new_conv, "ssm": h}
 
     y = y + xh.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(b, t, d_inner).to(dt_)
+    y = L.merge_heads(y).to(dt_)
     y = y * F.silu(z)
     # gated RMSNorm
     yf = y.float()
     var = (yf * yf).mean(dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + cfg.norm_eps) * p["out_norm"].float()).to(dt_)
-    return wlc(y @ p["out_proj"].to(dt_), ("batch", "seq", "embed")), new_cache
+    return wlc(L.linear(y, p["out_proj"].to(dt_)), ("batch", "seq", "embed")), new_cache
 
 
 class MambaLM:
@@ -213,22 +214,30 @@ class MambaLM:
 
     # -- serving: a constant-size state cache --------------------------------
 
-    def init_cache(self, batch: int, device: Device = None) -> Params:
-        """Zero cache of the reference's ``cache_spec``: per layer the conv
-        context ``[L, B, W-1, conv_dim]`` in the compute dtype and the SSM
-        state ``[L, B, H, N, P]`` in float32; ``len`` 0."""
+    def cache_spec(self, batch: int, max_len: int) -> Params:
+        """Spec tree of :meth:`init_cache` (the reference's ``cache_spec``);
+        ``max_len`` bounds nothing."""
         cfg = self.cfg
-        dev = resolve_device(device)
         _, heads, conv_dim = _dims(cfg)
         return {
             "layers": {
-                "conv": torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1, conv_dim),
-                                    dtype=L.cdtype(cfg), device=dev),
-                "ssm": torch.zeros((cfg.num_layers, batch, heads, cfg.ssm_state,
-                                    cfg.ssm_headdim), dtype=torch.float32, device=dev),
+                "conv": ParamSpec((cfg.num_layers, batch, cfg.ssm_conv - 1, conv_dim),
+                                  ("layers", "batch", None, "mlp"), L.cdtype(cfg), "zeros"),
+                "ssm": ParamSpec((cfg.num_layers, batch, heads, cfg.ssm_state, cfg.ssm_headdim),
+                                 ("layers", "batch", "heads", None, None), torch.float32,
+                                 "zeros"),
             },
-            "len": torch.zeros((), dtype=torch.int32, device=dev),
+            "len": ParamSpec((), (), torch.int32, "zeros"),
         }
+
+    def init_cache(self, batch: int, device: Device = None) -> Params:
+        """Zero cache of the reference's ``cache_spec``: per layer the conv
+        context ``[L, B, W-1, conv_dim]`` in the compute dtype and the SSM
+        state ``[L, B, H, N, P]`` in float32; ``len`` 0.  Under a mesh each
+        leaf is placed by its axes."""
+        dev = resolve_device(device)
+        return tree_map(lambda s: zeros_placed(s.shape, s.axes, s.dtype, dev),
+                        self.cache_spec(batch, 0))
 
     def prefill(self, params: Params, tokens: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Params]:
@@ -240,8 +249,8 @@ class MambaLM:
         h = L.embed(params["embed"], tokens, cfg)
         for i in range(cfg.num_layers):
             h, state = self._block(layer(params["blocks"], i), h, return_state=True)
-            layers["conv"][i] = state["conv"]
-            layers["ssm"][i] = state["ssm"]
+            L.write_rows(layers["conv"][i], state["conv"])
+            L.write_rows(layers["ssm"][i], state["ssm"])
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
         cache["len"].fill_(tokens.shape[1])

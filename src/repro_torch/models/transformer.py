@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvquant
 from repro_torch.distributed.sharding import with_logical_constraint as wlc
+from repro_torch.distributed.sharding import replicated_value, zeros_placed
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
@@ -120,7 +121,7 @@ class DecoderLM:
             return x, self._positions(b, t, dev)
         dt = L.cdtype(cfg)
         pe = torch.as_tensor(patch_embeds, device=dev)
-        patches = pe.to(dt) @ params["patch_proj"]["kernel"].to(dt)
+        patches = L.linear(pe.to(dt), params["patch_proj"]["kernel"].to(dt))
         n_patch = patches.shape[1]
         x = torch.cat([patches, x], dim=1)
         side = max(1, int(n_patch ** 0.5))
@@ -185,16 +186,17 @@ class DecoderLM:
             raise ValueError(f"prefill length {t} (with any patch prefix) exceeds cache "
                              f"capacity {ct}; pass a larger max_len")
         shape = (cfg.num_layers, b, ct, cfg.num_kv_heads, cfg.resolved_head_dim)
-        ks = torch.zeros(shape, dtype=L.cdtype(cfg), device=tokens.device)
-        vs = torch.zeros_like(ks)
+        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        ks = zeros_placed(shape, axes, L.cdtype(cfg), tokens.device)
+        vs = zeros_placed(shape, axes, L.cdtype(cfg), tokens.device)
         counts = []
         for i in range(cfg.num_layers):
             h, _, (k, v), c = self._block(layer(params["blocks"], i), h, pos,
                                           moe_capacity=moe_capacity)
             if t > ct:  # a window shorter than the prompt: the rolled last ct rows
                 k, v = L.fit_window_cache(k, v, 1, ct, t)
-            ks[i, :, :k.shape[1]] = k
-            vs[i, :, :v.shape[1]] = v
+            L.write_rows(ks[i], k, 1)
+            L.write_rows(vs[i], v, 1)
             counts.append(c)
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["unembed"], h, cfg, params["embed"])
@@ -240,6 +242,19 @@ class DecoderLM:
         if counts[0] is not None:
             out["moe"] = torch.stack(counts)
         return logits, {"layers": out, "len": cache["len"] + c, "pos": cache["pos"] + c}
+
+    def cache_spec(self, batch: int, max_len: int) -> Params:
+        """Spec tree of the lockstep decode cache (the reference's
+        ``cache_spec``): K/V ``[L, B, cache_len(max_len), Hkv, D]`` in the
+        compute dtype, rows along "kv_seq"; scalar ``len`` / ``pos``."""
+        cfg = self.cfg
+        kv = (cfg.num_layers, batch, self.cache_len(max_len), cfg.num_kv_heads,
+              cfg.resolved_head_dim)
+        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        return {"layers": {"k": ParamSpec(kv, axes, L.cdtype(cfg), "zeros"),
+                           "v": ParamSpec(kv, axes, L.cdtype(cfg), "zeros")},
+                "len": ParamSpec((), (), torch.int32, "zeros"),
+                "pos": ParamSpec((), (), torch.int32, "zeros")}
 
     # -- dense slot pool (continuous batching) and the lockstep decode ---------
 
@@ -305,7 +320,7 @@ class DecoderLM:
         cfg = self.cfg
         b = tokens.shape[0]
         h = L.embed(params["embed"], tokens, cfg)
-        pos = cache["pos"]
+        pos = replicated_value(cache["pos"])  # under a mesh: the same value on every rank
         pos = self._streams(pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(b, 1))
         layers = cache["layers"]
         for i in range(cfg.num_layers):

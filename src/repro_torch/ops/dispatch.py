@@ -102,8 +102,27 @@ def attention(
     """Attention: q ``[B,Tq,Hq,D]``, k/v ``[B,Tk,Hkv,D]`` -> ``[B,Tq,Hq,D]``."""
     backend, spec = resolve(spec if spec is not None else DEFAULT_ATTENTION, **overrides)
     if _is_dtensor(q):  # under a mesh: the backend runs on each rank's shard
-        from repro_torch.distributed.sharding import attention_on_shards
+        from repro_torch.distributed.sharding import (
+            KVRowsShardedError, attention_on_shards, attention_rows_sharded, kv_rows_split)
 
+        if kv_rows_split(k, q):  # a cache split along its rows: the split softmax
+            if backend.impl not in ("reference", "xla"):
+                raise KVRowsShardedError(
+                    f"attention over K / V split along their rows runs the split softmax "
+                    f"of the reference and xla routes; impl {backend.impl!r} needs whole "
+                    f"rows (make the cache's rows whole, or use impl='xla')")
+            if spec.softmax.fault is not None:
+                raise KVRowsShardedError(
+                    "attention over K / V split along their rows takes an ideal softmax: a "
+                    "fault's realization is drawn for a whole row")
+            from repro_torch.core.attention import SoftmaxConfig
+            from repro_torch.core.attention import attention as materialized
+
+            return attention_rows_sharded(
+                lambda ql, kl, vl, **kw: materialized(
+                    ql, kl, vl, softmax=SoftmaxConfig.from_spec(spec.softmax),
+                    causal=spec.causal, sliding_window=spec.sliding_window, scale=scale, **kw),
+                q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len)
         return attention_on_shards(
             lambda ql, kl, vl, **kw: backend.fn(spec, ql, kl, vl, scale=scale, **kw),
             q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len)
