@@ -16,11 +16,12 @@ Phases (any failure exits non-zero before the result lines):
    (``flash_star_mma_kernel``, 12 instantiations: head dims 8-256, D 256
    with Q's fragments from shared memory and 32-row KV tiles) 0 spill
    bytes and bf16 HMMA instructions in its SASS (``cuobjdump -sass``); for
-   its float32 kernel (``flash_star_tf32_kernel``, 10) 0 spill bytes and
-   tf32 HMMA, for the int8 P.V kernel (``flash_star_pv_int8_kernel``, 20:
-   float32 and bf16 q/k) 0 spill bytes, s8 IMMA and tf32 / bf16 HMMA, for
-   its V pre-pass (``flash_star_quantize_v_kernel``, 2) 0 spill bytes; for
-   the split-KV paged kernels (60 ``paged_split_kernel`` and 4
+   its float32 kernel (``flash_star_tf32_kernel``, 12: head dims 8-256, D
+   256 at 32 q rows a CTA) 0 spill bytes and tf32 HMMA, for the int8 P.V
+   kernel (``flash_star_pv_int8_kernel``, 24: float32 and bf16 q/k) 0 spill
+   bytes, s8 IMMA and tf32 / bf16 HMMA, for its V pre-pass
+   (``flash_star_quantize_v_kernel``, 2) 0 spill bytes; for the split-KV
+   paged kernels (72 ``paged_split_kernel``: head dims 8-256, and 4
    ``paged_combine_kernel`` instantiations) 0 spill bytes; for the SSD scan's three kernels (5
    instantiations) 0 spill bytes, and tf32 HMMA in the SASS of the chunk
    state and chunk scan kernels; for the crossbar (8 tensor-core and 2
@@ -91,12 +92,17 @@ Phases (any failure exits non-zero before the result lines):
    128, W 50, bf16 pages) and at D 8 (G 7 and G 4, the smoke shape's lens)
    over float32, bf16, int8 and fp8_e4m3 pages; the STAR softmax in gather
    mode at the sampling shapes, qwen2-vl's [4, 152064] among them, each
-   bit-equal to its plain version.  Then (``parity_flash_d256``) the bf16
-   flash_star kernel at head_dim 256, STAR and exact, at recurrentgemma-2b's
-   prefill (q [1, 10, 3072, 256] causal over one KV head, window 2048: the
-   window masks) and its ring decode (q [4, 10, 1, 256] over a full [4, 1,
-   2048, 256] ring), SDPA beside each exact variant; the float32 and int8
-   P.V kernels refusing D 256 with their named errors; and the STAR softmax
+   bit-equal to its plain version; and the paged kernel at D 256 (S 4, Hq
+   10, Hkv 1: recurrentgemma's G 10, bs 16, lens HYBRID_PAGED_LENS past 2048,
+   through ``ops.paged_attention``) over the same four page types.  Then
+   (``parity_flash_d256``) flash_star at head_dim 256, STAR and exact, at
+   recurrentgemma-2b's prefill (q [1, 10, 3072, 256] causal over one KV
+   head, window 2048: the window masks) and its ring decode (q [4, 10, 1,
+   256] over a full [4, 1, 2048, 256] ring): the bf16 and float32 kernels,
+   SDPA in the same type and with the same boolean mask beside each exact
+   variant, and the int8 P.V variant (block_k 128, bf16 and float32 q/k);
+   the int8 P.V variant over blocks of 256 rows at granite's q [1, 32, 512,
+   128]; and the STAR softmax
    at the two new sampling shapes, [4, 256000] and [4, 256512] (306 padded
    columns at -1e30), bit-equal.  Then (``parity_flash_bert``) the float32
    flash_star kernel at bert-base-star's shape, q [8, 12, 512, 64] causal,
@@ -283,7 +289,18 @@ Phases (any failure exits non-zero before the result lines):
    first token, a steady step's wall, device busy and CUDA-event time; the
    replayed step against the eager step from a copy of its state (output
    and every cache leaf bit-equal); one 3072-token prefill against
-   ``ops.use(attention="reference")`` within rel_l2 < 3e-2;
+   ``ops.use(attention="reference")`` within rel_l2 < 3e-2.  11b: the same
+   model computing in float32 (the weights as drawn), attention through
+   flash_star's float32 kernel at D 256: the 4 x 512 and 4 x 3072 greedy
+   generates (flash_star 8 a prefill and 8 a step), the 4 x 512 greedy
+   tokens against the float32 reference attention's (a row that parts must
+   part at a near-tie, as 13d), one 3072-token prefill against
+   ``ops.use(attention="reference")`` within rel_l2 < 3e-2 beside the two
+   plain routes' distance; then the weights cast to bf16 once and a
+   3072-token prefill through the int8 P.V variant (8
+   ``flash_star_pv_int8`` launches) within rel_l2 < 3e-2 of its plain
+   version's and as far from the float P.V kernel's as the plain version
+   (the variant's own distance, in float32 compute, within 3e-2);
 12. enc-dec serve: seamless-m4t-large-v2 at its published widths (24 + 24
    layers, d_model 1024, 16 heads: D 64, vocab 256206 padded to 256512),
    random weights cast to bf16 once, on the lockstep engine: 4 x 256-token
@@ -365,9 +382,11 @@ Phases (any failure exits non-zero before the result lines):
    ``FlopCounterMode``'s on the real step and its peak live bytes beside
    ``torch.cuda.max_memory_allocated`` of that step (a gap over
    ACCOUNT_PEAK_GAP is printed as a finding, not a failure);
-16. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
-   each path's own count under ``launches_by_path``: every serve phase,
-   phase 13's eval and serves, phase 14's and 15b's mesh paths and the
+16. examples: ``examples/torch_quickstart.py`` on the card in its own
+   process, its last line "OK";
+17. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+   each path's own count under ``launches_by_path``: every serve phase
+   (11b's float32 and pv_int8 paths among them), phase 13's eval and serves, phase 14's and 15b's mesh paths and the
    phase 4 smoke paths) and, last, the device line.  Each phase's wall
    seconds are printed as it ends (``phase <name>: <s>``) and gathered
    under ``phase_seconds``.
@@ -423,6 +442,9 @@ FLASH_DESIGNS = {"bfloat16": "mma.sync bf16, P in three bf16 pieces",
 PV_INT8_DESIGN = "V codes once per block (pre-pass), QK^T bf16 / 3xTF32 mma.sync, P.V s8 mma.sync"
 PV_INT8_KERNELS = ("flash_star_quantize_v_kernel", "flash_star_pv_int8_kernel")
 PV_INT8_BF16_BAR = 2.0  # pv_int8 bf16 device time per the bf16 flash_star kernel's, same shape
+# 11b: the pv_int8 kernel's and its plain version's distances from the float
+# P.V agree within this fraction of the plain version's
+PV_INT8_SAME_DISTANCE = 0.1
 SSD_RTOL = 1e-5  # ssd_scan: max |kernel - plain| per max |plain| (float32 sums reordered)
 SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 SSD_DESIGN = ("chunk state + state pass + chunk scan; mma.sync tf32, float32 operands as 3xTF32, "
@@ -696,17 +718,18 @@ def check_mma_build(ptxas_log, library):
 
 def check_tc_build(ptxas_log, library):
     """flash_star's float32 and int8 P.V kernels run on the tensor cores and
-    spill nothing: ``flash_star_tf32_kernel`` (5 head dims x STAR / exact)
-    with tf32 HMMA in its SASS, ``flash_star_pv_int8_kernel`` (float32 and
-    bf16 q/k: 20) with s8 IMMA (its P.V) and tf32 / bf16 HMMA (its QK^T),
-    and the two ``flash_star_quantize_v_kernel`` instantiations (its V
-    pre-pass, float32 and bf16 V); each one's ptxas line is printed."""
+    spill nothing: ``flash_star_tf32_kernel`` (6 head dims, 8 to 256, x
+    STAR / exact) with tf32 HMMA in its SASS, ``flash_star_pv_int8_kernel``
+    (float32 and bf16 q/k: 24) with s8 IMMA (its P.V) and tf32 / bf16 HMMA
+    (its QK^T), and the two ``flash_star_quantize_v_kernel``
+    instantiations (its V pre-pass, float32 and bf16 V); each one's ptxas
+    line is printed."""
     funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
              if "flash_star_tf32_kernel" in f or any(k in f for k in PV_INT8_KERNELS)}
     n = {k: sum(k in f for f in funcs) for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS)}
-    check(n == {"flash_star_tf32_kernel": 10, "flash_star_quantize_v_kernel": 2,
-                "flash_star_pv_int8_kernel": 20},
-          f"expected 10 tf32, 2 quantize_v and 20 pv_int8 instantiations, ptxas shows {n}")
+    check(n == {"flash_star_tf32_kernel": 12, "flash_star_quantize_v_kernel": 2,
+                "flash_star_pv_int8_kernel": 24},
+          f"expected 12 tf32, 2 quantize_v and 24 pv_int8 instantiations, ptxas shows {n}")
     mma = sass_hmma(library)
     for func, lines in sorted(funcs.items()):
         name = next(k for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS) if k in func)
@@ -749,13 +772,13 @@ def check_ssd_build(ptxas_log, library):
 
 def check_paged_build(ptxas_log):
     """Every instantiation of the paged split kernel (2 q types x 3 pool
-    types for the fp entry and the two code types, 5 head dims, STAR and
-    exact: 60) and of its combine (4) spills nothing."""
+    types for the fp entry and the two code types, 6 head dims, 8 to 256,
+    STAR and exact: 72) and of its combine (4) spills nothing."""
     funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
              if "paged_split_kernel" in f or "paged_combine_kernel" in f}
     n_split = sum("paged_split_kernel" in f for f in funcs)
-    check(n_split == 60 and len(funcs) == 64,
-          f"expected 60 paged_split_kernel and 4 paged_combine_kernel instantiations, "
+    check(n_split == 72 and len(funcs) == 76,
+          f"expected 72 paged_split_kernel and 4 paged_combine_kernel instantiations, "
           f"ptxas shows {n_split} and {len(funcs) - n_split}")
     for func, lines in sorted(funcs.items()):
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
@@ -1461,21 +1484,22 @@ HYBRID_ARCH = "recurrentgemma_2b"
 ENCDEC_ARCH = "seamless_m4t_large_v2"
 HYBRID_PREFILL = 3072  # phase 11's long prompts: past the window, so it masks and the ring wraps
 HYBRID_WINDOW = 2048
+HYBRID_PAGED_LENS = (2048, 2080, 2100, 2300)  # paged decode at D 256: slots past the window
 
 
 def parity_flash_d256(results):
-    """flash_star's bf16 kernel at head_dim 256, as variants of the
-    ``flash_star`` entry: recurrentgemma-2b's prefill, q [1, 10, 3072, 256]
-    causal over one KV head with its window of 2048 (rows past 2048 see a
-    window, not the whole prefix), SDPA beside the exact variant with the
-    same boolean mask; and its ring decode, q [4, 10, 1, 256] over [4, 1,
-    2048, 256] (a full ring, not causal), SDPA beside it.  Then the
-    float32 and int8 P.V kernels, which refuse D 256, must raise their named
-    ValueErrors on the card before any launch."""
+    """flash_star at head_dim 256, as variants of the ``flash_star`` and
+    ``flash_star_pv_int8`` entries: recurrentgemma-2b's prefill, q [1, 10,
+    3072, 256] causal over one KV head with its window of 2048 (rows past
+    2048 see a window, not the whole prefix), and its ring decode, q [4, 10,
+    1, 256] over [4, 1, 2048, 256] (a full ring, not causal); the bf16 and
+    the float32 kernel at both, SDPA beside each exact variant in the same
+    type with the same boolean mask; the int8 P.V variant at both (bf16 and
+    float32 q/k, block_k 128); and the int8 P.V variant over blocks of 256
+    rows at granite's prefill shape, q [1, 32, 512, 128] causal over Hkv 8
+    (two blocks: each block's P against the running max after all 256 of
+    its rows)."""
     import torch
-
-    from repro_torch.core.fixedpoint import DEFAULT_FORMAT as FMT
-    from repro_torch.kernels.flash_star import kernel as fk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
@@ -1490,11 +1514,14 @@ def parity_flash_d256(results):
         return torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)
 
-    variants = _flash_variants(
-        "flash_star recurrentgemma prefill D256", base, info, mask[None, None].expand(b, hq, t, t),
-        sdpa=sdpa_window, window=w, dtypes=(torch.bfloat16,),
-        shape=f"recurrentgemma prefill q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal, "
-              f"window {w}")
+    live = mask[None, None].expand(b, hq, t, t)
+    shape = (f"recurrentgemma prefill q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal, "
+             f"window {w}")
+    variants = _flash_variants("flash_star recurrentgemma prefill D256", base, info, live,
+                               sdpa=sdpa_window, window=w, shape=shape)
+    pv_variants = _flash_variants("flash_star_pv_int8 recurrentgemma prefill D256", base, info,
+                                  live, window=w, pv_int8_block=128,
+                                  shape=shape + " block_k 128")
     s = 4
     base = (torch.randn((s, hq, 1, d), device=dev, generator=gen),
             *(torch.randn((s, hkv, w, d), device=dev, generator=gen) for _ in range(2)))
@@ -1504,24 +1531,24 @@ def parity_flash_d256(results):
     def sdpa_ring(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, enable_gqa=True)
 
-    variants += _flash_variants(
-        "flash_star recurrentgemma ring decode D256", base, info, live, sdpa=sdpa_ring,
-        causal=False, dtypes=(torch.bfloat16,),
-        shape=f"recurrentgemma ring decode q[{s},{hq},1,{d}] over kv[{s},{hkv},{w},{d}], "
-              f"a full ring, causal=False")
-    next(e for e in results if e["name"] == "flash_star")["variants"] += variants
-    q, k, v = (x.float() for x in base)
-    before = fk.LAUNCHES.count + fk.PV_INT8_LAUNCHES.count
-    for kw, named in ((dict(), "float32 kernel"), (dict(pv_int8=True), "int8 P.V kernel")):
-        try:
-            fk.flash_star_attention(q, k, v, info, fmt=FMT, causal=False, **kw)
-            check(False, f"flash_star's {named} took head_dim 256")
-        except ValueError as exc:
-            check(named in str(exc), f"flash_star D 256 refusal names no {named}: {exc}")
-    check(fk.LAUNCHES.count + fk.PV_INT8_LAUNCHES.count == before,
-          "flash_star: a refused D-256 call launched")
-    log("flash_star D 256: the float32 and int8 P.V kernels refuse it with their named "
-        "ValueErrors, nothing launched")
+    shape = (f"recurrentgemma ring decode q[{s},{hq},1,{d}] over kv[{s},{hkv},{w},{d}], "
+             f"a full ring, causal=False")
+    variants += _flash_variants("flash_star recurrentgemma ring decode D256", base, info, live,
+                                sdpa=sdpa_ring, causal=False, shape=shape)
+    pv_variants += _flash_variants("flash_star_pv_int8 recurrentgemma ring decode D256", base,
+                                   info, live, causal=False, pv_int8_block=128,
+                                   shape=shape + " block_k 128")
+    b, hq, hkv, t, d, bk = 1, 32, 8, 512, 128, 256
+    base = [torch.randn(sh, device=dev, generator=gen) for sh in
+            ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
+    info = torch.tensor([0, t], dtype=torch.int32, device=dev)
+    rows = torch.arange(t, device=dev)
+    live = (rows[None, :] <= rows[:, None])[None, None].expand(b, hq, t, t)
+    pv_variants += _flash_variants(
+        f"flash_star_pv_int8 block_k {bk}", base, info, live, pv_int8_block=bk,
+        shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal block_k {bk}")
+    for name, new in (("flash_star", variants), ("flash_star_pv_int8", pv_variants)):
+        next(e for e in results if e["name"] == name)["variants"] += new
 
 
 def parity_flash_bert(results):
@@ -1551,7 +1578,12 @@ def parity_paged_new(results):
     50) over bf16 pages, bf16 q; and D 8 at G 7 and G 4 (S 4, bs 16, lens
     0/1/17/600, W 38) over float32 and bf16 pages (q of the pool's type)
     and over int8 and fp8_e4m3 pages (float32 q, as the smoke configs
-    compute: rows of 8 one-byte codes), STAR and exact."""
+    compute: rows of 8 one-byte codes), STAR and exact; and D 256 at
+    recurrentgemma-2b's heads (S 4, Hq 10, Hkv 1: G 10, bs 16, lens
+    HYBRID_PAGED_LENS past a 2048-row window, W 144) over the same four page
+    types, held through ``ops`` dispatch (``ops.paged_attention`` with
+    ``impl="pallas_paged"``: no engine reaches it, since the continuous
+    engine refuses the hybrid family, as the reference's does)."""
     import torch
 
     from repro_torch.core import kvquant
@@ -1563,10 +1595,12 @@ def parity_paged_new(results):
     bs = 16
     cases = [("qwen2-vl tick", 28, 4, 128, list(VLM_DECODE_VALID), VLM_MAX_LEN // bs,
               (("bf16", torch.bfloat16),))]
+    all_pools = (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                 ("int8", torch.float32), ("fp8_e4m3", torch.float32))
     for hq, hkv in D8_GROUPS:
-        cases.append((f"D8 G{hq // hkv}", hq, hkv, 8, *D8_PAGED_LENS,
-                      (("fp32", torch.float32), ("bf16", torch.bfloat16),
-                       ("int8", torch.float32), ("fp8_e4m3", torch.float32))))
+        cases.append((f"D8 G{hq // hkv}", hq, hkv, 8, *D8_PAGED_LENS, all_pools))
+    cases.append(("recurrentgemma D256 G10", 10, 1, 256, list(HYBRID_PAGED_LENS),
+                  -(-max(HYBRID_PAGED_LENS) // bs), all_pools))
     fp, quant = [], []
     for label, hq, hkv, d, lens, w, pools in cases:
         s, n = len(lens), len(lens) * w + 1
@@ -1599,14 +1633,34 @@ def parity_paged_new(results):
                 extra = dict(shape=f"{label}: S={s} Hq={hq} Hkv={hkv} D={d} bs={bs} lens {lens} "
                                    f"W {w}", dtype=str(qdtype).split(".")[-1], mode=mode,
                              pool=pool, splits=pk.num_splits(w, bs), split_rows=pk.SPLIT_ROWS)
+                call = lambda: pk.paged_flash_attention(q, kp, vp, tables, valid, **kw)  # noqa: E731
+                if d == 256:  # through the ops layer, as a model's decode would reach it
+                    call = _paged_via_ops(q, kp, vp, tables, valid, fmt, pool, kw_pages)
+                    extra["via"] = "ops.paged_attention(impl='pallas_paged')"
+                before = (pk.LAUNCHES_QUANT if kw_pages else pk.LAUNCHES).count
                 got, variant = _paged_variant(
-                    name, lambda: pk.paged_flash_attention(q, kp, vp, tables, valid, **kw),
-                    lambda: pk.paged_attention_ref(q, kp, vp, tables, valid, **kw),
+                    name, call, lambda: pk.paged_attention_ref(q, kp, vp, tables, valid, **kw),
                     qdtype, scores64, live, fmt, nbytes, flops, extra)
+                check((pk.LAUNCHES_QUANT if kw_pages else pk.LAUNCHES).count > before,
+                      f"{name}: the paged kernel did not launch")
                 check(not bool(got[valid == 0].any()), f"{name}: free slot not zero")
                 (quant if kw_pages else fp).append(variant)
     for name, new in (("paged_attention", fp), ("paged_attention_quant", quant)):
         next(e for e in results if e["name"] == name)["variants"] += new
+
+
+def _paged_via_ops(q, kp, vp, tables, valid, fmt, pool, kw_pages):
+    """A paged decode call through ``ops.paged_attention`` with the
+    gather-free kernel (``impl="pallas_paged"``): q ``[S, Hq, D]`` as one
+    decode row a slot, the pool's scale pages as ``kv_scales``."""
+    from repro_torch import ops
+
+    spec = ops.PagedAttentionSpec(
+        impl="pallas_paged", kv_dtype=pool if kw_pages else "fp32",
+        softmax=ops.SoftmaxSpec() if fmt is not None else ops.SoftmaxSpec(kind="exact"))
+    scales = (kw_pages["k_scale"], kw_pages["v_scale"]) if kw_pages else None
+    return lambda: ops.paged_attention(q[:, None], kp, vp, tables, spec, kv_valid_len=valid,
+                                       kv_scales=scales)[:, 0]
 
 
 def _softmax_variant(name, fn, ref_fn, x, extra):
@@ -4076,6 +4130,173 @@ def serve_hybrid(results):
     return summary
 
 
+def serve_hybrid_f32(results):
+    """Phase 11b: recurrentgemma-2b at its published widths computing in
+    float32 (``compute_dtype="float32"``: the weights as drawn, no cast),
+    attention ``pallas``: flash_star's float32 kernel at D 256 on the
+    lockstep engine, after phase 11's bf16 weights are freed.  A 4 x 512
+    greedy generate of 32 tokens and a 4 x 3072 one (the window of 2048
+    masks the prefill, the 2048-row rings wrap), the counters zeroed just
+    before and read just after each: flash_star 8 times a prefill and 8 a
+    step, counted through the replays.  The 4 x 512 greedy tokens against
+    the same generate under the float32 reference attention
+    (``greedy_vs_reference``: a row that parts is recorded with its logit
+    margin and fails unless at a near-tie).  One 1 x 3072 prefill against
+    ``ops.use(attention="reference")`` within rel_l2 < 3e-2, the two plain
+    routes' distance beside it: what phase 11's bf16 prefill (2.9e-2 from
+    the reference, plain routes 2.8e-2 apart) becomes in float32.  Then the
+    int8 P.V variant (``pv_int8=True`` in every attention layer): the 1 x
+    3072 prefill in float32 within rel_l2 < 3e-2 of the float P.V kernel's
+    (the variant's own error); then the weights cast to bf16 once and the
+    bf16 prefill through it (8 ``flash_star_pv_int8`` launches, no
+    ``flash_star``) against the float P.V kernel and against the int8 P.V's
+    plain version (``plain_kernels``): within rel_l2 < 3e-2 of the plain
+    version, and as far from the float P.V as the plain version is (within
+    PV_INT8_SAME_DISTANCE of it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param import compute_params, materialize
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), attn_impl="pallas",
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = materialize(model.param_specs(), SEED, "cuda")
+    cparams = compute_params(params, cfg)
+    torch.cuda.synchronize()
+    attn = model.num_periods * sum(k == "attention" for k in cfg.block_pattern) + sum(
+        model._kind(i) == "attention" for i in range(model.tail))
+    check(cfg.resolved_head_dim == 256 and attn == 8 and
+          all(t.dtype == torch.float32 for t in _leaves(cparams)),
+          f"recurrentgemma float32: D {cfg.resolved_head_dim}, {attn} attention blocks")
+    log(f"recurrentgemma float32: weights drawn in {time.perf_counter() - t0:.3f}s, memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(SEED + 32)  # phase 11's prompts
+    prompts = rng.integers(0, cfg.vocab_size, (4, 512))
+    long_prompts = rng.integers(0, cfg.vocab_size, (4, HYBRID_PREFILL))
+    n = 32
+    summary = {"card": CARD, "compute_dtype": "float32"}
+    with torch.no_grad():
+        greedy = ServeEngine(cfg, cparams, ServeConfig(max_len=512 + n + 8), device="cuda")
+        summary["greedy"], counts = lockstep_run(
+            "recurrentgemma float32 lockstep 4 x 512 greedy", greedy, prompts, n,
+            {"flash_star": attn * n, "flash_star_pv_int8": 0})
+        _note_paths(results, "hybrid_f32_lockstep_greedy", counts)
+        got, _ = greedy.generate(prompts, n)
+        with ops.use(attention="reference"):
+            ref_eng = ServeEngine(cfg, cparams, ServeConfig(max_len=512 + n + 8), device="cuda")
+            want, _ = ref_eng.generate(prompts, n)
+        max_len = HYBRID_PREFILL + n + 8
+        longe = ServeEngine(cfg, cparams, ServeConfig(max_len=max_len), device="cuda")
+        summary["long"], counts = lockstep_run(
+            f"recurrentgemma float32 lockstep 4 x {HYBRID_PREFILL} greedy (window "
+            f"{HYBRID_WINDOW} masks, the ring wraps)", longe, long_prompts, n,
+            {"flash_star": attn * n})
+        _note_paths(results, "hybrid_f32_lockstep_3072", counts)
+    del greedy, ref_eng, longe
+    summary["greedy_vs_reference"] = greedy_vs_reference(
+        "recurrentgemma float32", model, cparams, prompts, got, want, cfg.vocab_size)
+    tokens = torch.as_tensor(long_prompts[:1], device="cuda")
+    summary["prefill_rel_l2"], summary["prefill_rel_l2_plain_routes"] = prefill_vs_reference(
+        f"recurrentgemma float32 prefill 1 x {HYBRID_PREFILL}", model, cparams, tokens,
+        max_len, attn)
+
+    # the int8 P.V variant in float32 compute: its own distance from the float
+    # P.V, with no bf16 drift on top
+    icfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention_spec,
+                                                                  pv_int8=True))
+    check(icfg.attention_spec.pv_int8 and icfg.attention_spec.impl == "pallas",
+          f"pv_int8 config resolves to {icfg.attention_spec}")
+    with torch.no_grad():
+        ref, _ = model.prefill(cparams, tokens, max_len)
+        got, _ = build_model(icfg).prefill(cparams, tokens, max_len)
+    v = cfg.vocab_size
+    rel32 = _rel_l2(got[..., :v], ref[..., :v])
+    log(f"recurrentgemma pv_int8 prefill, float32 compute: logits vs the float P.V kernel "
+        f"rel_l2={rel32:.3e}")
+    summary["prefill_pv_int8_float32_rel_l2"] = rel32
+    del cparams, ref, got
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bicfg = dataclasses.replace(icfg, compute_dtype="bfloat16")
+    bparams = compute_params(params, bcfg)
+    del params
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        ref, _ = build_model(bcfg).prefill(bparams, tokens, max_len)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got, _ = build_model(bicfg).prefill(bparams, tokens, max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with plain_kernels():  # the same prefill through the int8 P.V's plain version
+            plain, _ = build_model(bicfg).prefill(bparams, tokens, max_len)
+    got, ref, plain = (x[..., :v].float() for x in (got, ref, plain))
+    check(bool(torch.isfinite(got).all()), "recurrentgemma pv_int8 prefill: non-finite logits")
+    rel, rel_plain, rel_kp = _rel_l2(got, ref), _rel_l2(plain, ref), _rel_l2(got, plain)
+    log(f"recurrentgemma pv_int8 prefill: bf16, {HYBRID_PREFILL} tokens, {wall:.3f}s, launches "
+        f"{counts}; logits vs the float P.V kernel rel_l2={rel:.3e} (the int8 P.V's plain "
+        f"version: {rel_plain:.3e}; the kernel vs its plain version: {rel_kp:.3e})")
+    check(counts.get("flash_star_pv_int8", 0) == attn and counts.get("flash_star", 0) == 0,
+          f"recurrentgemma pv_int8 prefill: launches {counts}, expected flash_star_pv_int8 x "
+          f"{attn}")
+    # The int8 P.V's own distance from the float P.V is taken in float32
+    # compute (rel32); in bf16 it adds to bf16's drift, which alone moves two
+    # plain float routes ~2.8e-2 apart (phase 11), and the int8 P.V's plain
+    # version lands as far as the kernel does.  So the kernel is held to its
+    # plain version within the bound of every full-width kernel route here,
+    # and to the same distance from the float P.V as its plain version.
+    check(rel32 < 3e-2, f"recurrentgemma pv_int8 prefill (float32) differs from the float "
+                        f"P.V: rel_l2={rel32:.3e}")
+    check(rel_kp < 3e-2, f"recurrentgemma pv_int8 prefill: the kernel differs from its plain "
+                         f"version: rel_l2={rel_kp:.3e}")
+    check(abs(rel - rel_plain) <= PV_INT8_SAME_DISTANCE * rel_plain,
+          f"recurrentgemma pv_int8 prefill: the kernel sits {rel:.3e} from the float P.V, its "
+          f"plain version {rel_plain:.3e}")
+    if rel >= 3e-2:
+        log(f"recurrentgemma pv_int8 prefill, bf16: {rel:.3e} from the float P.V kernel, over "
+            f"3e-2 (the int8 P.V's plain version: {rel_plain:.3e}; float32 compute: "
+            f"{rel32:.3e}): a property of the int8 P.V in bf16 compute, not of the kernel")
+    _note_paths(results, "hybrid_prefill_pv_int8", counts)
+    summary["prefill_pv_int8"] = {"tokens": HYBRID_PREFILL, "wall_s": wall,
+                                  "logits_rel_l2": rel, "plain_logits_rel_l2": rel_plain,
+                                  "kernel_vs_plain_rel_l2": rel_kp}
+    del bparams
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _rel_l2(got, ref):
+    got, ref = got.float(), ref.float()
+    return float((got - ref).norm() / ref.norm())
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper runs its plain version on the card's tensors (as
+    it does on CPU tensors) inside the block: the same path with no kernel."""
+    from repro_torch.kernels import _cuda
+
+    on_card = _cuda.on_card
+    _cuda.on_card = lambda t: False
+    try:
+        yield
+    finally:
+        _cuda.on_card = on_card
+
+
+def _leaves(tree):
+    for k in sorted(tree):
+        yield from _leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]]
+
+
 def serve_encdec(results):
     """Phase 12: seamless-m4t-large-v2 at its published widths (24 encoder
     and 24 decoder layers, d_model 1024, 16 / 16 heads: D 64; GELU MLP of
@@ -4316,6 +4537,46 @@ def train_eval(results, cfg, model, state):
             "logits_max_abs": gap, "launches": counts}
 
 
+def greedy_vs_reference(label, model, params, prompts, got, want, vocab):
+    """Greedy tokens of the kernel route (``got``) against the same generate
+    under ``ops.use(attention="reference")`` (``want``): where a row parts,
+    the step and the reference's top-2 logit margin there, which must stay
+    within GREEDY_MARGIN_FACTOR x the two routes' largest logit difference
+    at that position (a near-tie; anything else is a fault).  Returns the
+    rows equal and the partings."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ops
+
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    parted = []
+    for row in range(got.shape[0]):
+        diff = np.nonzero(got[row] != want[row])[0]
+        if diff.size == 0:
+            continue
+        s = int(diff[0])
+        seq = torch.as_tensor(np.concatenate([prompts[row], want[row, :s]])[None], device="cuda")
+        with torch.no_grad():
+            with ops.use(attention="reference"):
+                lr_ = model.forward(params, seq)[0, -1, :vocab].float()
+            with ops.use(attention="pallas"):
+                lk = model.forward(params, seq)[0, -1, :vocab].float()
+        top2 = torch.topk(lr_, 2).values
+        margin, gap = float(top2[0] - top2[1]), float((lk - lr_).abs().max())
+        parted.append({"row": row, "step": s, "ref_top2_margin": margin,
+                       "logit_max_abs_diff": gap})
+        log(f"{label} greedy row {row} parts from the reference attention at step {s}: the "
+            f"reference's top-2 margin {margin:.3e}, the routes' largest logit difference "
+            f"{gap:.3e}")
+        check(margin <= GREEDY_MARGIN_FACTOR * gap,
+              f"{label} greedy row {row}: parts at step {s} with a top-2 margin {margin:.3e} "
+              f"over {GREEDY_MARGIN_FACTOR} x the logit difference {gap:.3e}")
+    log(f"{label} greedy tokens, kernels vs reference attention: {got.shape[0] - len(parted)} "
+        f"of {got.shape[0]} rows equal over {got.shape[1]} tokens")
+    return {"rows_equal": got.shape[0] - len(parted), "rows": got.shape[0], "parted": parted}
+
+
 def train_serve(results, cfg):
     """13d: the trained weights restored from 13a's last checkpoint, served
     on the lockstep engine with the kernels (attention ``pallas``: the
@@ -4379,33 +4640,8 @@ def train_serve(results, cfg):
         with ops.use(attention="reference"):
             ref_eng = ServeEngine(scfg, params, ServeConfig(max_len=max_len), device="cuda")
             want, _ = ref_eng.generate(prompts, n)
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    parted = []
-    for row in range(got.shape[0]):
-        diff = np.nonzero(got[row] != want[row])[0]
-        if diff.size == 0:
-            continue
-        s = int(diff[0])
-        seq = torch.as_tensor(np.concatenate([prompts[row], want[row, :s]])[None], device="cuda")
-        with torch.no_grad():
-            with ops.use(attention="reference"):
-                lr_ = model.forward(params, seq)[0, -1, :cfg.vocab_size].float()
-            with ops.use(attention="pallas"):
-                lk = model.forward(params, seq)[0, -1, :cfg.vocab_size].float()
-        top2 = torch.topk(lr_, 2).values
-        margin, gap = float(top2[0] - top2[1]), float((lk - lr_).abs().max())
-        parted.append({"row": row, "step": s, "ref_top2_margin": margin,
-                       "logit_max_abs_diff": gap})
-        log(f"bert greedy row {row} parts from the reference attention at step {s}: the "
-            f"reference's top-2 margin {margin:.3e}, the routes' largest logit difference "
-            f"{gap:.3e}")
-        check(margin <= GREEDY_MARGIN_FACTOR * gap,
-              f"bert greedy row {row}: parts at step {s} with a top-2 margin {margin:.3e} over "
-              f"{GREEDY_MARGIN_FACTOR} x the logit difference {gap:.3e}")
-    log(f"bert greedy tokens, kernels vs reference attention: {got.shape[0] - len(parted)} of "
-        f"{got.shape[0]} rows equal over {n} tokens")
-    summary["greedy_vs_reference"] = {"rows_equal": got.shape[0] - len(parted),
-                                      "rows": got.shape[0], "parted": parted}
+    summary["greedy_vs_reference"] = greedy_vs_reference(
+        "bert", model, params, prompts, got, want, cfg.vocab_size)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 42)
@@ -4896,6 +5132,29 @@ def dryrun_phase(results):
     return summary
 
 
+EXAMPLE_TIMEOUT = 300  # seconds the quickstart may take
+
+
+def examples_on_card():
+    """Phase 16: ``examples/torch_quickstart.py`` run on the card as a user
+    runs it (its own process, the kernels' libraries already built); it
+    must exit 0 with "OK" as its last line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py")],
+                          capture_output=True, text=True, env=env, cwd=str(ROOT),
+                          timeout=EXAMPLE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        log(f"  torch_quickstart: {line}")
+    check(proc.returncode == 0 and lines and lines[-1] == "OK",
+          f"torch_quickstart.py on the card: exit {proc.returncode}, last line "
+          f"{lines[-1] if lines else None!r}; stderr {proc.stderr[-2000:]}")
+    log(f"examples/torch_quickstart.py on the card: OK in {wall:.1f}s")
+    return {"torch_quickstart": {"ok": True, "wall_s": wall}}
+
+
 def main() -> int:
     src = ROOT / "src" / "repro_torch"
     if not src.is_dir():
@@ -4992,6 +5251,8 @@ def main() -> int:
         summary_vlm = serve_vlm(results)
     with phase("11 hybrid serve"):
         summary_hybrid = serve_hybrid(results)
+    with phase("11b hybrid float32 serve"):
+        summary_hybrid["float32"] = serve_hybrid_f32(results)
     with phase("12 encdec serve"):
         summary_encdec = serve_encdec(results)
     with phase("13 train"):
@@ -5000,6 +5261,8 @@ def main() -> int:
         summary_mesh = mesh_one_card(results)
     with phase("15 dryrun"):
         summary_dryrun = dryrun_phase(results)
+    with phase("16 examples"):
+        summary_examples = examples_on_card()
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
@@ -5009,6 +5272,7 @@ def main() -> int:
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
                     "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,
                     "train": summary_train, "mesh": summary_mesh, "dryrun": summary_dryrun,
+                    "examples": summary_examples,
                     "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

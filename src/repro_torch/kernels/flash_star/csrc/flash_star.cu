@@ -35,10 +35,11 @@
 // sizes, shared memory and the P.V step all differ, while the score tiles'
 // layout and the softmax (block_softmax) are the same in all three.
 //
-// Head dims 8, 16, 32, 64 and 128, and 256 on the bf16 kernel alone
-// (recurrentgemma-2b: see flash_star_mma_kernel; the float32 and int8 P.V
-// kernels' shared memory does not fit one CTA at 256, and no path runs
-// them there).  At D 8 (the smoke configs of
+// Head dims 8, 16, 32, 64, 128 and 256 (recurrentgemma-2b) on every kernel:
+// at 256 the bf16 kernel reads Q's fragments from shared memory (see
+// flash_star_mma_kernel) and the float32 and int8 P.V kernels take 32 q rows
+// a CTA, each row's output columns split between two warps (see
+// tc_attention).  At D 8 (the smoke configs of
 // deepseek-coder-33b and llama3-405b) a bf16 QK^T still needs k in steps of
 // 16 (m16n8k16): the bf16 kernels keep Q and K rows of DK = 16 columns in
 // shared memory, the last 8 zero-filled by the same cp.async copies (a
@@ -205,89 +206,122 @@ __device__ __forceinline__ int snap_rn(float s, float scale) {
 }
 
 // The online softmax of one block of scores for this thread's rows g and g
-// + 8 of its warp, as every kernel here forms it.  Element e of n-tile j of
-// s is column cb + 8 j + (e & 1) (cb = c0 + 2 tg) of row g (e < 2) or g + 8;
-// it is live when lo[e / 2] <= column <= hi[e / 2] (FULL: all are).  Then s
-// = fl(acc * sm_scale), a separate multiply (sm_scale and log2(e) are not
-// folded into q or an exp2: the grid index is rint(fl(s * grid_scale)) as in
-// the plain version); masked entries never enter the max and give p = 0.
-// STAR: the int32 row max is reduced across the four threads that share a
-// row of the fragment, r and p are LUT entries (a live j is at most the row
-// max).  Exact: expf, no fast math.  s becomes p, r the rescale of the
-// running state, and l = fl(fl(l r) + the row sum of the unsplit p).
+// + 8 of its warp, as every kernel here forms it, in three steps that the
+// int8 P.V variant also takes apart (tile_scores over all of a block's
+// tiles, running_max once, tile_probs over the tiles again).  Element e of
+// n-tile j of s is column cb + 8 j + (e & 1) (cb = c0 + 2 tg) of row g (e <
+// 2) or g + 8; it is live when lo[e / 2] <= column <= hi[e / 2] (FULL: all
+// are).  s = fl(acc * sm_scale), a separate multiply (sm_scale and log2(e)
+// are not folded into q or an exp2: the grid index is rint(fl(s *
+// grid_scale)) as in the plain version); masked entries never enter the max
+// and give p = 0.  STAR: the int32 row max is reduced across the four
+// threads that share a row of the fragment, r and p are LUT entries (a live
+// j is at most the row max).  Exact: expf, no fast math.  s becomes p, r
+// the rescale of the running state, and l = fl(fl(l r) + the row sum of the
+// unsplit p).
+template <bool FULL>
+struct Live {
+  int dlo[2] = {0, 0}, dhi[2] = {0, 0};
+  __device__ __forceinline__ Live(const int (&lo)[2], const int (&hi)[2], int cb) {
+    if constexpr (!FULL) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        dlo[hr] = lo[hr] - cb;
+        dhi[hr] = hi[hr] - cb;
+      }
+    }
+  }
+  __device__ __forceinline__ bool operator()(int j, int e) const {
+    const int c = 8 * j + (e & 1);
+    return FULL || (c >= dlo[e >> 1] && c <= dhi[e >> 1]);
+  }
+};
+
+// s = fl(s * sm_scale); STAR: each s becomes its grid index (as float bits),
+// a masked one the sentinel; exact: a masked s becomes NEG_BIG.  mi / mf
+// take this thread's max of the tile's rows.
+template <int NS, bool STAR, bool FULL>
+__device__ __forceinline__ void tile_scores(float (&s)[NS][4], const Live<FULL>& is_live,
+                                            const Params& p, int (&mi)[2], float (&mf)[2]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.sm_scale);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (STAR) {  // the grid index takes the score's register
+        const int jg = is_live(j, e) ? snap_rn(s[j][e], p.grid_scale) : GRID_SENTINEL;
+        s[j][e] = __int_as_float(jg);
+        mi[e >> 1] = max(mi[e >> 1], jg);
+      } else {
+        if (!is_live(j, e)) s[j][e] = NEG_BIG;
+        mf[e >> 1] = fmaxf(mf[e >> 1], s[j][e]);
+      }
+    }
+}
+
+// The rows' running max after a tile's (or a whole block's) max mi / mf,
+// reduced across the four threads of a row; r the rescale of the running
+// state (STAR: a LUT entry, m_new >= m_i).
+template <bool STAR>
+__device__ __forceinline__ void running_max(int (&mi)[2], float (&mf)[2], const Params& p,
+                                            const float* lut, int (&m_i)[2], float (&m_f)[2],
+                                            float (&r)[2]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if constexpr (STAR) {
+      mi[hr] = max(mi[hr], __shfl_xor_sync(0xffffffffu, mi[hr], 1));
+      mi[hr] = max(mi[hr], __shfl_xor_sync(0xffffffffu, mi[hr], 2));
+      const int m_new = max(m_i[hr], mi[hr]);
+      r[hr] = lut[min(m_new - m_i[hr], p.num_levels - 1)];
+      m_i[hr] = m_new;
+    } else {
+      mf[hr] = fmaxf(mf[hr], __shfl_xor_sync(0xffffffffu, mf[hr], 1));
+      mf[hr] = fmaxf(mf[hr], __shfl_xor_sync(0xffffffffu, mf[hr], 2));
+      const float m_new = fmaxf(m_f[hr], mf[hr]);
+      r[hr] = expf(__fsub_rn(m_f[hr], m_new));
+      m_f[hr] = m_new;
+    }
+  }
+}
+
+// tile_scores' s -> p against the running max (0 where masked); then ps +=
+// this thread's row sums of the tile, in n-tile order
+template <int NS, bool STAR, bool FULL>
+__device__ __forceinline__ void tile_probs(float (&s)[NS][4], const Live<FULL>& is_live,
+                                           const Params& p, const float* lut,
+                                           const int (&m_i)[2], const float (&m_f)[2],
+                                           float (&ps)[2]) {
+  const int top = p.num_levels - 1;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (STAR)
+        s[j][e] = is_live(j, e) ? lut[min(m_i[e >> 1] - __float_as_int(s[j][e]), top)] : 0.f;
+      else
+        s[j][e] = is_live(j, e) ? expf(__fsub_rn(s[j][e], m_f[e >> 1])) : 0.f;
+    }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ps[e >> 1] = __fadd_rn(ps[e >> 1], s[j][e]);
+}
+
 template <int NS, bool STAR, bool FULL>
 __device__ __forceinline__ void block_softmax(float (&s)[NS][4], const int (&lo)[2],
                                               const int (&hi)[2], int cb, const Params& p,
                                               const float* lut, int (&m_i)[2], float (&m_f)[2],
                                               float (&l)[2], float (&r)[2]) {
-  int dlo[2] = {0, 0}, dhi[2] = {0, 0};
-  if constexpr (!FULL) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      dlo[hr] = lo[hr] - cb;
-      dhi[hr] = hi[hr] - cb;
-    }
-  }
-  auto is_live = [&](int j, int e) {
-    const int c = 8 * j + (e & 1);
-    return FULL || (c >= dlo[e >> 1] && c <= dhi[e >> 1]);
-  };
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.sm_scale);
-  if constexpr (STAR) {
-    const int top = p.num_levels - 1;
-    int mb[2] = {GRID_SENTINEL, GRID_SENTINEL};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // the grid index takes the score's register
-        const int jg = is_live(j, e) ? snap_rn(s[j][e], p.grid_scale) : GRID_SENTINEL;
-        s[j][e] = __int_as_float(jg);
-        mb[e >> 1] = max(mb[e >> 1], jg);
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
-      mb[hr] = max(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
-      const int m_new = max(m_i[hr], mb[hr]);
-      r[hr] = lut[min(m_new - m_i[hr], top)];  // m_new >= m_i
-      m_i[hr] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = is_live(j, e) ? lut[min(m_i[e >> 1] - __float_as_int(s[j][e]), top)] : 0.f;
-  } else {
-    float mb[2] = {NEG_BIG, NEG_BIG};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (!is_live(j, e)) s[j][e] = NEG_BIG;
-        mb[e >> 1] = fmaxf(mb[e >> 1], s[j][e]);
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 1));
-      mb[hr] = fmaxf(mb[hr], __shfl_xor_sync(0xffffffffu, mb[hr], 2));
-      const float m_new = fmaxf(m_f[hr], mb[hr]);
-      r[hr] = expf(__fsub_rn(m_f[hr], m_new));
-      m_f[hr] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = is_live(j, e) ? expf(__fsub_rn(s[j][e], m_f[e >> 1])) : 0.f;
-  }
+  const Live<FULL> is_live(lo, hi, cb);
+  int mi[2] = {GRID_SENTINEL, GRID_SENTINEL};
+  float mf[2] = {NEG_BIG, NEG_BIG};
+  tile_scores<NS, STAR, FULL>(s, is_live, p, mi, mf);
+  running_max<STAR>(mi, mf, p, lut, m_i, m_f, r);
   float ps[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ps[e >> 1] = __fadd_rn(ps[e >> 1], s[j][e]);
+  tile_probs<NS, STAR, FULL>(s, is_live, p, lut, m_i, m_f, ps);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) l[hr] = __fadd_rn(__fmul_rn(l[hr], r[hr]), ps[hr]);
 }
@@ -307,15 +341,16 @@ __device__ __forceinline__ void rescale(float (&o)[NO][4], const float (&r)[2]) 
   }
 }
 
-// Block -> (q block, head, batch), the longest causal rows first.  When
-// the grid is one wave of two CTAs per SM, the second CTA of each SM
-// (blocks from first_round on, dispatched in the first round's SM order)
-// takes the lightest remaining work, so heavy and light q blocks pair up.
+// Block -> (q block of mq rows, head, batch), the longest causal rows
+// first.  When the grid is one wave of two CTAs per SM, the second CTA of
+// each SM (blocks from first_round on, dispatched in the first round's SM
+// order) takes the lightest remaining work, so heavy and light q blocks
+// pair up.
 struct Tile {
   int iq, h, b, hk;
 };
-__device__ __forceinline__ Tile tile_of_block(const Params& p, int first_round) {
-  const int nq = (p.Tq + MQ - 1) / MQ, hb = p.Hq * p.B;
+__device__ __forceinline__ Tile tile_of_block(const Params& p, int first_round, int mq) {
+  const int nq = (p.Tq + mq - 1) / mq, hb = p.Hq * p.B;
   const int blk = blockIdx.x;
   const int rank = first_round > 0 && blk >= first_round
       ? static_cast<int>(gridDim.x) - 1 - (blk - first_round) : blk;
@@ -328,13 +363,18 @@ __device__ __forceinline__ Tile tile_of_block(const Params& p, int first_round) 
 }
 
 // The epilogue of every kernel here: o / den (a true division, den = the
-// row sum, or 1 where it is <= 0) in the output's type, columns 8 n + 2 tg,
-// + 1 of rows g and g + 8 of the warp
-template <typename T, int NO>
-__device__ __forceinline__ void store_rows(const Params& p, const Tile& tl, const float (&o)[NO][4],
-                                           const float (&l)[2]) {
+// row sum, or 1 where it is <= 0) in the output's type, columns c0 + 8 n +
+// 2 tg, + 1 of rows r0 + g and r0 + g + 8 of the CTA's MQ_ rows, where warp
+// w owns rows r0 = 16 (w % RG) and columns c0 = DW (w / RG) (the warp index
+// taken here from threadIdx: a kernel at its register limit keeps nothing
+// live for the epilogue)
+template <typename T, int MQ_, int RG, int DW, int NO>
+__device__ __forceinline__ void store_rows(const Params& p, const Tile& tl,
+                                           const float (&o)[NO][4], const float (&l)[2]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tg = lane & 3;
+  const int r0 = RG == MT / 32 ? 16 * warp : 16 * (warp % RG);
+  const int c0 = RG == MT / 32 ? 0 : DW * (warp / RG);
   T* og = static_cast<T*>(p.o) + tl.b * p.o_sb + tl.h * p.o_sh;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -342,9 +382,9 @@ __device__ __forceinline__ void store_rows(const Params& p, const Tile& tl, cons
     den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 1));
     den = __fadd_rn(den, __shfl_xor_sync(0xffffffffu, den, 2));
     if (den <= 0.f) den = 1.f;
-    const int t = tl.iq * MQ + warp * 16 + g + 8 * hr;
+    const int t = tl.iq * MQ_ + r0 + g + 8 * hr;
     if (t < p.Tq) {
-      T* orow = og + t * p.o_st + 2 * tg;
+      T* orow = og + t * p.o_st + c0 + 2 * tg;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         const float x = __fdiv_rn(o[n][2 * hr], den), y = __fdiv_rn(o[n][2 * hr + 1], den);
@@ -441,7 +481,7 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
   __nv_bfloat16* ring = Qs + MQ * PITCH;  // stage s: K at ring + 2 s TILE, V after it
   float* lut_s = reinterpret_cast<float*>(ring + 2 * MSTAGES * TILE);
 
-  const Tile tl = tile_of_block(p, first_round);
+  const Tile tl = tile_of_block(p, first_round, MQ);
   const int iq = tl.iq, b = tl.b;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;  // fragment row group, thread in group
@@ -616,7 +656,7 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
       }
     }
   }
-  store_rows<__nv_bfloat16>(p, tl, o, l);
+  store_rows<__nv_bfloat16, MQ, MQ / 16, D>(p, tl, o, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -632,57 +672,67 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
 // TOP/s: a few microseconds; the bytes bound it.  Latency is what is left,
 // as in the bf16 kernel.
 //
-// Shape, as the bf16 kernel's: one CTA of 4 warps owns (batch, q head, 64 q
-// rows), the longest causal rows first; the softmax and its arithmetic are
-// block_softmax's; whole tiles outside the causal / window / ragged range
-// are skipped by the CTA and by a warp whose rows see none of them.  K (and,
-// in the float32 kernel, V) come in sub-tiles of SUB = 32 rows through a
-// two-stage cp.async ring, sub-tile i + 1 loading while sub-tile i computes.
+// Shape (TcSmem): one CTA of 4 warps owns (batch, q head, MQ q rows), the
+// longest causal rows first; the softmax and its arithmetic are
+// block_softmax's (the int8 variant takes its three steps apart, below);
+// whole tiles outside the causal / window / ragged range are skipped by the
+// CTA and by a warp whose rows see none of them.  At D <= 128, MQ = 64: a
+// warp owns 16 rows and all D output columns.  At D 256 a warp's 16 rows of
+// O would be 32 n-tiles, 128 float32 registers a thread (and the int8
+// variant's int32 sums as many again), and 64 rows' Q planes do not fit
+// beside the ring: so MQ = 32, two row groups of 16, and each row group's D
+// output columns split between two warps, which both form the group's
+// scores (the QK^T done twice; the softmax state is the same bits in both).
+// K (and, in the float32 kernel, V) come in sub-tiles of SUB rows through a
+// two-stage cp.async ring, sub-tile i + 1 loading while sub-tile i computes:
+// SUB = 32, and 16 for the float32 kernel at D 256 (its shared memory).
 //
-// Float32 (tf32 kernel).  A block is one sub-tile of 32 KV rows.  Q is split
-// once into tf32 hi and lo planes in shared memory, each K / V sub-tile once
-// per CTA (not per warp) into hi and lo planes (split_rows / split_vt), so
+// Float32 (tf32 kernel).  A block is one sub-tile.  Q is split once into
+// tf32 hi and lo planes in shared memory, each K sub-tile once per CTA (not
+// per warp) into hi (in place, over the ring stage) and lo planes
+// (split_rows), each V sub-tile into hi and lo planes of V^T (split_vt), so
 // every warp reads ready operands with ldmatrix (32-bit elements: a row of 4
-// floats is a row of 8 bf16).  V is stored transposed (split_vt), features
-// as rows, and within each 8 keys in the order 0 2 4 6 1 3 5 7: the A
-// fragment of P.V is then the score tile's accumulator registers as they
-// are (columns 2 tg and 2 tg + 1 of a lane are slots tg and tg + 4), and
-// the B fragments come from ldmatrix too.  P is split in registers.  Each
-// product is three mma's into one float32 accumulator, issued for four (P.V:
-// four to eight) accumulators in turn.  Rows are padded by 16 bytes (Q, K:
-// D + 4 floats; V^T: 36), so each ldmatrix falls on distinct banks.  Shared
-// memory at D = 128: Q planes 66 KB, the ring 66 KB, the split K and V 69
-// KB: one CTA an SM.
+// floats is a row of 8 bf16).  V^T holds features as rows, and within each
+// 8 keys the order 0 2 4 6 1 3 5 7: the A fragment of P.V is then the score
+// tile's accumulator registers as they are (columns 2 tg and 2 tg + 1 of a
+// lane are slots tg and tg + 4), and the B fragments come from ldmatrix too.
+// P is split in registers.  Each product is three mma's into one float32
+// accumulator, issued for four (P.V: four to eight) accumulators in turn.
+// Rows are padded by 16 bytes (Q, K: D + 4 floats; V^T: SUB + 4), so each
+// ldmatrix falls on distinct banks.  Shared memory: 188,928 bytes at D 128,
+// 190,720 at D 256 (and the LUT): one CTA an SM.
 //
 // int8 P.V (pv_int8 kernel).  As the TPU kernel, per KV block of bk =
-// min(block_k, Tk) <= BK8 rows from row 0: P as p8 = rint(fl(p * 127))
-// against the running max after the block, V as rint(fl(v * fl(127 /
+// min(block_k, Tk) rows from row 0, any bk: P as p8 = rint(fl(p * 127))
+// against the running max after the whole block, V as rint(fl(v * fl(127 /
 // vamax))) with vamax the block's absmax over every row inside Tk, and acc
 // = fl(fl(acc * r) + fl(float(int32 P8.V8) * fl(vamax / 16129))), the
 // denominator over the unquantized p.  V's codes depend only on the block,
 // so flash_star_quantize_v_kernel writes them once per (batch, KV head,
-// block) to a workspace (the old kernel redid them in every CTA, 32 times
-// over for one KV head at the smoke shape), each feature's codes
-// k-contiguous in 32-key groups, in the order that lets the attention
-// kernel pack its own p8 into the s8 A fragment with no shuffle: logical
-// k = 16 h + 4 t + i of a group is key 16 h + 8 (i / 2) + 2 t + i % 2, the
-// keys that lane t's score fragments hold (ref.v8_perm).  The block's scores
-// (up to 16 n-tiles, in registers) are formed sub-tile by sub-tile, a sub-tile
-// past the block's end skipped, then the softmax runs over the whole block
-// (its max must be the block's: p8 depends on it), the packed p8 meet the
-// codes (ldmatrix from a double-buffered copy of the block, loaded with the
-// block's first sub-tile) and the int32 sums fold into the accumulator one
-// 16-feature group at a time.  int32 sums are exact in any order, so the
-// codes' products are the plain version's bit for bit.
+// block) to a workspace, each feature's codes k-contiguous in 32-key
+// groups, in the order that lets the attention kernel pack its own p8 into
+// the s8 A fragment with no shuffle: logical k = 16 h + 4 t + i of a group is
+// key 16 h + 8 (i / 2) + 2 t + i % 2, the keys that lane t's score fragments
+// hold (ref.v8_perm).  Since p8 needs the block's max and a block may be
+// longer than registers can hold scores for, the kernel walks each block's K
+// twice, in sub-tiles of one 32-key group: pass 0 forms the scores and
+// keeps only their row max (the int32 grid max, or the float max; the same
+// bits that one pass over the whole block gives, since a max is exact in any
+// order), then the running max moves once; pass 1 forms the scores again
+// (the same products in the same order: the same bits), takes p against the
+// new max, packs p8, and meets the sub-tile's codes (ldmatrix from a
+// double-buffered copy, loaded with the sub-tile's K) in s8 mma's into int32
+// sums that run over the whole block.  int32 sums are exact in any order, so
+// the codes' products are the plain version's bit for bit; they fold into
+// the float accumulator once a block.
 //
 // On an H100 80GB HBM3 at 700 W, at the shape above: float32 ~0.108 ms, 12 %
 // of its tf32 bound (one CTA of 4 warps an SM, a split pass and two barriers
-// per 32-row tile); pv_int8 with bf16 q/k ~0.038 ms, 0.006 of it the
-// pre-pass (PERF.md).
+// per 32-row tile); pv_int8 with bf16 q/k ~0.038 ms before its QK^T was
+// done twice (PERF.md).
 
-constexpr int SUB = 32;              // KV rows per ring stage
-constexpr int BK8 = 128;             // largest KV block of the int8 P.V variant
-constexpr int V8_PITCH = BK8 + 16;   // bytes per feature row of a block's codes
+constexpr int V8_GROUP = 32;               // keys of one s8 k-step
+constexpr int V8_PITCH = V8_GROUP + 16;    // bytes per feature row of a sub-tile's codes
 
 // the codes' workspace: per (batch, KV head, block) D rows of kpad bytes
 struct V8Args {
@@ -696,15 +746,23 @@ __host__ __device__ constexpr int pad32(int bk) { return (bk + 31) / 32 * 32; }
 template <typename T, int D, bool PV8>
 struct TcSmem {
   static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr bool WIDE = D > 128;
+  static constexpr int MQ = WIDE ? 32 : 64;      // q rows a CTA
+  static constexpr int RG = MQ / 16;             // row groups of 16, one warp each ...
+  static constexpr int CG = (MT / 32) / RG;      // ... times CG warps along the columns
+  static constexpr int DW = D / CG;              // output columns a warp
+  static constexpr int SUB = PV8 ? V8_GROUP : WIDE ? 16 : 32;  // KV rows a ring stage
   static constexpr int DK = F32 ? D : kdim(D);  // row width in shared memory (bf16 D 8: 16)
   static constexpr int QP = F32 ? D + 4 : DK + 8;  // elements per row of Q and the ring
   static constexpr int VTP = SUB + 4;             // floats per row of the split V^T
   static constexpr size_t q = sizeof(T) * (F32 ? 2 : 1) * MQ * QP;        // Q (hi, lo)
   static constexpr size_t stage = sizeof(T) * (PV8 ? 1 : 2) * SUB * QP;   // K (and V)
-  static constexpr size_t ksplit = F32 ? sizeof(float) * 2 * SUB * QP : 0;
+  static constexpr size_t klo = F32 ? sizeof(float) * SUB * QP : 0;       // K's lo plane
   static constexpr size_t vsplit = F32 && !PV8 ? sizeof(float) * 2 * D * VTP : 0;
   static constexpr size_t v8 = PV8 ? 2 * D * V8_PITCH : 0;
-  static constexpr size_t bytes = q + 2 * stage + ksplit + vsplit + v8;
+  static constexpr size_t bytes = q + 2 * stage + klo + vsplit + v8;
+  static_assert(bytes + sizeof(float) * LUT_SMEM_MAX <= 232448,
+                "a CTA's shared memory (with the largest LUT held there) exceeds 227 KB");
 };
 
 // ROWS x D floats at src (row pitch QP) as tf32 hi and lo planes of the same
@@ -727,8 +785,8 @@ __device__ __forceinline__ void split_rows(const float* src, float* hi, float* l
 
 // SUB x D floats of V at src (row pitch QP) as tf32 hi and lo planes of V^T
 // (D rows of VTP), key 8 a + k at slot 8 a + 4 (k % 2) + k / 2.  A warp reads
-// 8 keys x 4 features at a time, on 32 distinct banks.
-template <int D, int QP, int VTP>
+// 8 keys x 4 features at a time.
+template <int SUB, int D, int QP, int VTP>
 __device__ __forceinline__ void split_vt(const float* src, float* hi, float* lo) {
   for (int idx = threadIdx.x; idx < SUB * D; idx += MT) {
     const int w = idx >> 5, ln = idx & 31;
@@ -752,41 +810,46 @@ template <typename T, int D, bool STAR, bool PV8>
 __device__ __forceinline__ void tc_attention(const Params& p, int first_round, const V8Args& w) {
   using S = TcSmem<T, D, PV8>;
   constexpr bool F32 = S::F32;
-  constexpr int QP = S::QP, VTP = S::VTP, DK = S::DK;
-  constexpr int NS = PV8 ? BK8 / 8 : SUB / 8;  // score n-tiles of a block
-  constexpr int NO = D / 8;                    // output n-tiles per warp
+  constexpr int MQ_ = S::MQ, QP = S::QP, VTP = S::VTP, DK = S::DK, SUB = S::SUB, DW = S::DW;
+  constexpr int NS = SUB / 8;                   // score n-tiles of a sub-tile
+  constexpr int NO = DW / 8;                    // output n-tiles per warp
   constexpr int CH = DK * (int)sizeof(T) / 16;  // 16-byte chunks per row (past D: zero)
+  constexpr int PASSES = PV8 ? 2 : 1;           // int8 P.V: the block's max, then P
   static_assert(D % 8 == 0 && (F32 || DK % 16 == 0), "head_dim 8 or a multiple of 16");
+  static_assert(DW % 16 == 0 || D < 16, "a warp's columns are whole 16-column groups");
   constexpr int STAGE = (int)(S::stage / sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);                 // [MQ][QP] (F32: then lo)
   T* ring = reinterpret_cast<T*>(smem_raw + S::q);        // stage s: K, then V (!PV8)
-  float* Ksp = reinterpret_cast<float*>(smem_raw + S::q + 2 * S::stage);  // K hi, lo
-  float* Vtp = Ksp + (S::ksplit / sizeof(float));         // V^T hi, lo
-  int8_t* V8s = reinterpret_cast<int8_t*>(Vtp + S::vsplit / sizeof(float));  // 2 blocks
+  float* Klo = reinterpret_cast<float*>(smem_raw + S::q + 2 * S::stage);  // K's lo plane
+  float* Vtp = Klo + (S::klo / sizeof(float));            // V^T hi, lo
+  int8_t* V8s = reinterpret_cast<int8_t*>(Vtp + S::vsplit / sizeof(float));  // 2 sub-tiles
   float* lut_s = reinterpret_cast<float*>(smem_raw + S::bytes);
 
-  const Tile tl = tile_of_block(p, first_round);
+  const Tile tl = tile_of_block(p, first_round, MQ_);
   const int iq = tl.iq, b = tl.b;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
+  const int rg = warp % S::RG, cg = warp / S::RG;  // the warp's rows 16 rg .. and columns cg DW ..
   const int q_offset = p.info[0];
   const int kv_lim = min(p.info[1 + b], p.Tk);
-  const int row0 = iq * MQ + q_offset;
-  const int wr0 = row0 + warp * 16;
+  const int row0 = iq * MQ_ + q_offset;
+  const int wr0 = row0 + 16 * rg;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + tl.h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + tl.hk * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + tl.hk * p.v_sh;
 
-  // blocks of blk_rows KV rows from `start`, nsub ring sub-tiles each
+  // blocks of blk_rows KV rows from `start`, each walked PASSES times in
+  // nsub ring sub-tiles
   const int blk_rows = PV8 ? w.bk : SUB;
   int kv_end = kv_lim;
-  if (p.causal) kv_end = min(kv_end, row0 + MQ);
+  if (p.causal) kv_end = min(kv_end, row0 + MQ_);
   const int start = p.window > 0 ? max(0, row0 - p.window + 1) / blk_rows * blk_rows : 0;
   const int n_blocks = kv_end > start ? (kv_end - start + blk_rows - 1) / blk_rows : 0;
   const int nsub = PV8 ? (w.bk + SUB - 1) / SUB : 1;
-  const int n_it = n_blocks * nsub;
+  const int per_blk = PASSES * nsub;
+  const int n_it = n_blocks * per_blk;
 
   // ROWS rows of src (row stride st) from row r0 into dst (pitch QP), 16
   // bytes a copy; rows at or past lim, and columns past D, zero-filled
@@ -802,24 +865,24 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
       }
     }
   };
-  // one copy group per sub-tile: its K (and V), and with a block's first
-  // sub-tile the block's codes
+  // one copy group per sub-tile: its K (and V), and in pass 1 of the int8
+  // variant its codes (D rows of 32 bytes)
   auto issue = [&](int it) {
     if (it < n_it) {
-      const int blk = it / nsub, u = it - blk * nsub;
+      const int blk = it / per_blk, rem = it - blk * per_blk;
+      const int u = rem % nsub;
       const int r0 = start + blk * blk_rows + SUB * u;
       T* st = ring + (it & 1) * STAGE;
       load_rows(st, kg, p.k_st, r0, p.Tk, Int<SUB>{});
       if constexpr (!PV8) load_rows(st + SUB * QP, vg, p.v_st, r0, p.Tk, Int<SUB>{});
       if constexpr (PV8) {
-        if (u == 0) {
-          const int cpr = w.kpad / 16;
-          const int8_t* src = w.codes +
-              (((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk) * D * w.kpad;
-          int8_t* dst = V8s + (blk & 1) * D * V8_PITCH;
-          for (int idx = tid; idx < D * cpr; idx += MT) {
-            const int f = idx / cpr, c = 16 * (idx - f * cpr);
-            cp_async16(dst + f * V8_PITCH + c, src + f * w.kpad + c, 16);
+        if (rem >= nsub) {
+          const int8_t* src = w.codes + (((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk +
+                                         blk) * D * w.kpad + SUB * u;
+          int8_t* dst = V8s + (it & 1) * D * V8_PITCH;
+          for (int idx = tid; idx < 2 * D; idx += MT) {
+            const int f = idx >> 1, c = 16 * (idx & 1);
+            cp_async16(dst + f * V8_PITCH + c, src + (long long)f * w.kpad + c, 16);
           }
         }
       }
@@ -829,7 +892,7 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
 
   const float* lut = p.lut;
   if (n_it > 0) {  // the first group: Q, the LUT and sub-tile 0
-    load_rows(Qs, qg, p.q_st, iq * MQ, p.Tq, Int<MQ>{});
+    load_rows(Qs, qg, p.q_st, iq * MQ_, p.Tq, Int<MQ_>{});
     if constexpr (STAR) {
       if (p.num_levels <= LUT_SMEM_MAX) {
         for (int i = tid; i < p.num_levels; i += MT) cp_async4(lut_s + i, p.lut + i);
@@ -856,182 +919,198 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
   const int w_lo = p.window > 0 ? wr0 - p.window + 1 : 0;
 
   // fragment addresses: A rows of Q; B rows of K (n-tiles j, j + 1), of V^T
-  // (n-tiles of features), of the codes
-  const int a_row = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  // (n-tiles of this warp's features), of the codes
+  const int a_row = 16 * rg + (lane & 7) + 8 * ((lane >> 3) & 1);
   const int b_row = (lane & 7) + 8 * (lane >> 4), b_half = (lane >> 3) & 1;
 
+  int it = 0;
   for (int blk = 0; blk < n_blocks; ++blk) {
     const int c0 = start + blk * blk_rows, c_last = c0 + blk_rows - 1;
     const bool warp_live = w_hi >= c0 && w_lo <= c_last;
-    float s[NS][4];
+    const int hb[2] = {min(hi[0], c_last), min(hi[1], c_last)};  // columns past the block's end
+    // the int8 variant: the block's row max (pass 0), the rescale, the row
+    // sums of p and the int32 sums of P8.V8 (pass 1)
+    int mbi[2] = {GRID_SENTINEL, GRID_SENTINEL};
+    float mbf[2] = {NEG_BIG, NEG_BIG};
+    float r[2] = {1.f, 1.f}, ps[2] = {0.f, 0.f};
+    int acc8[PV8 ? NO : 1][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int n = 0; n < (PV8 ? NO : 1); ++n) acc8[n][0] = acc8[n][1] = acc8[n][2] = acc8[n][3] = 0;
 
-#pragma unroll
-    for (int u = 0; u < NS / 4; ++u) {
-      if (u >= nsub) break;
-      const int it = blk * nsub + u;
-      cp_async_wait<0>();
-      __syncthreads();  // sub-tile it landed for every thread; it - 1 consumed
-      issue(it + 1);
-      const T* ks = ring + (it & 1) * STAGE;
-      if constexpr (F32) {
-        if (it == 0) split_rows<MQ, D, QP>(Qs, Qs, Qs + MQ * QP);
-        split_rows<SUB, D, QP>(ks, Ksp, Ksp + SUB * QP);
-        if constexpr (!PV8) split_vt<D, QP, VTP>(ks + SUB * QP, Vtp, Vtp + D * VTP);
-        __syncthreads();  // the tf32 planes are complete
-      }
-      if (!warp_live) continue;
-      // S[:, 32 u + ...] = Q K^T of the sub-tile: n-tile 4 u + j holds
-      // columns c0 + 32 u + 8 j + 2 tg + {0, 1}
-      if constexpr (F32) {
-        const float* qh = Qs + a_row * QP + 4 * (lane >> 4);
-        const float* kh = Ksp + b_row * QP + 4 * b_half;
-#pragma unroll
-        for (int kk = 0; kk < D / 8; ++kk) {
-          uint32_t ah[4], al[4], bh[2][4], bl[2][4];
-          ldsm_x4(ah, qh + 8 * kk);
-          ldsm_x4(al, qh + MQ * QP + 8 * kk);
-#pragma unroll
-          for (int jp = 0; jp < 2; ++jp) {
-            ldsm_x4(bh[jp], kh + 16 * jp * QP + 8 * kk);
-            ldsm_x4(bl[jp], kh + SUB * QP + 16 * jp * QP + 8 * kk);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_tf32(s[4 * u + j], al, bh[j >> 1][2 * (j & 1)], bh[j >> 1][2 * (j & 1) + 1]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_tf32(s[4 * u + j], ah, bl[j >> 1][2 * (j & 1)], bl[j >> 1][2 * (j & 1) + 1]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_tf32(s[4 * u + j], ah, bh[j >> 1][2 * (j & 1)], bh[j >> 1][2 * (j & 1) + 1]);
+    for (int pass = 0; pass < PASSES; ++pass) {
+      if (PV8 && pass == 1 && warp_live) running_max<STAR>(mbi, mbf, p, lut, m_i, m_f, r);
+      for (int u = 0; u < nsub; ++u, ++it) {
+        cp_async_wait<0>();
+        __syncthreads();  // sub-tile it landed for every thread; it - 1 consumed
+        issue(it + 1);
+        T* ks = ring + (it & 1) * STAGE;
+        if constexpr (F32) {
+          if (it == 0) split_rows<MQ_, D, QP>(Qs, Qs, Qs + MQ_ * QP);
+          split_rows<SUB, D, QP>(ks, ks, Klo);
+          if constexpr (!PV8) split_vt<SUB, D, QP, VTP>(ks + SUB * QP, Vtp, Vtp + D * VTP);
+          __syncthreads();  // the tf32 planes are complete
         }
-      } else {
-        const T* qf = Qs + a_row * QP + 8 * (lane >> 4);
-        const T* kf = ks + b_row * QP + 8 * b_half;
+        // the sub-tile's columns cu .. cu_last; none live for this warp: p = 0
+        const int cu = c0 + SUB * u, cu_last = min(cu + SUB - 1, c_last);
+        if (!warp_live || w_hi < cu || w_lo > cu_last) continue;
+        // S = Q K^T of the sub-tile: n-tile j holds columns cu + 8 j + 2 tg + {0, 1}
+        float s[NS][4];
 #pragma unroll
-        for (int kk = 0; kk < DK / 16; ++kk) {
-          uint32_t qa[4];
-          ldsm_x4(qa, qf + 16 * kk);
+        for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        if constexpr (F32) {
+          const float* qh = Qs + a_row * QP + 4 * (lane >> 4);
+          const float* kh = ks + b_row * QP + 4 * b_half;
+          const float* kl = Klo + b_row * QP + 4 * b_half;
 #pragma unroll
-          for (int jp = 0; jp < 2; ++jp) {
-            uint32_t kb[4];
-            ldsm_x4(kb, kf + 16 * jp * QP + 16 * kk);
-            mma_bf16(s[4 * u + 2 * jp], qa, kb[0], kb[1]);
-            mma_bf16(s[4 * u + 2 * jp + 1], qa, kb[2], kb[3]);
+          for (int kk = 0; kk < D / 8; ++kk) {
+            uint32_t ah[4], al[4], bh[NS / 2][4], bl[NS / 2][4];
+            ldsm_x4(ah, qh + 8 * kk);
+            ldsm_x4(al, qh + MQ_ * QP + 8 * kk);
+#pragma unroll
+            for (int jp = 0; jp < NS / 2; ++jp) {
+              ldsm_x4(bh[jp], kh + 16 * jp * QP + 8 * kk);
+              ldsm_x4(bl[jp], kl + 16 * jp * QP + 8 * kk);
+            }
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+              mma_tf32(s[j], al, bh[j >> 1][2 * (j & 1)], bh[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+              mma_tf32(s[j], ah, bl[j >> 1][2 * (j & 1)], bl[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+              mma_tf32(s[j], ah, bh[j >> 1][2 * (j & 1)], bh[j >> 1][2 * (j & 1) + 1]);
+          }
+        } else {
+          const T* qf = Qs + a_row * QP + 8 * (lane >> 4);
+          const T* kf = ks + b_row * QP + 8 * b_half;
+#pragma unroll
+          for (int kk = 0; kk < DK / 16; ++kk) {
+            uint32_t qa[4];
+            ldsm_x4(qa, qf + 16 * kk);
+#pragma unroll
+            for (int jp = 0; jp < NS / 2; ++jp) {
+              uint32_t kb[4];
+              ldsm_x4(kb, kf + 16 * jp * QP + 16 * kk);
+              mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
+              mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
+            }
+          }
+        }
+        // the mask only where the sub-tile is not wholly live for this warp's rows
+        const bool full = cu + SUB - 1 <= c_last && cu + SUB <= kv_lim &&
+                          (!p.causal || cu + SUB - 1 <= wr0) &&
+                          (p.window <= 0 || cu > wr0 + 15 - p.window);
+        const int cb = cu + 2 * tg;
+
+        if constexpr (!PV8) {
+          if (full)
+            block_softmax<NS, STAR, true>(s, lo, hb, cb, p, lut, m_i, m_f, l, r);
+          else
+            block_softmax<NS, STAR, false>(s, lo, hb, cb, p, lut, m_i, m_f, l, r);
+          rescale(o, r);
+          // O += P V: k-step j is score n-tile j, its registers the A fragment
+          // as they are (V^T's key order), split into tf32 hi and lo
+          constexpr int VG = DW >= 32 ? 2 : 1;
+          const float* vt = Vtp + (cg * DW + b_row) * VTP + 4 * b_half;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            uint32_t ph[4], pl[4];
+            split_tf32(s[j][0], ph[0], pl[0]);
+            split_tf32(s[j][2], ph[1], pl[1]);
+            split_tf32(s[j][1], ph[2], pl[2]);
+            split_tf32(s[j][3], ph[3], pl[3]);
+            if constexpr (D < 16) {  // one n8 tile: V^T's 8 feature rows
+              uint32_t vh[2], vl[2];
+              ldsm_x2(vh, vt + 8 * j);
+              ldsm_x2(vl, vt + D * VTP + 8 * j);
+              mma_tf32(o[0], pl, vh[0], vh[1]);
+              mma_tf32(o[0], ph, vl[0], vl[1]);
+              mma_tf32(o[0], ph, vh[0], vh[1]);
+            }
+#pragma unroll
+            for (int dp = 0; dp < DW / 16; dp += VG) {
+              uint32_t vh[VG][4], vl[VG][4];
+#pragma unroll
+              for (int uu = 0; uu < VG; ++uu) {
+                ldsm_x4(vh[uu], vt + 16 * (dp + uu) * VTP + 8 * j);
+                ldsm_x4(vl[uu], vt + D * VTP + 16 * (dp + uu) * VTP + 8 * j);
+              }
+#pragma unroll
+              for (int uu = 0; uu < VG; ++uu) {
+                mma_tf32(o[2 * (dp + uu)], pl, vh[uu][0], vh[uu][1]);
+                mma_tf32(o[2 * (dp + uu) + 1], pl, vh[uu][2], vh[uu][3]);
+              }
+#pragma unroll
+              for (int uu = 0; uu < VG; ++uu) {
+                mma_tf32(o[2 * (dp + uu)], ph, vl[uu][0], vl[uu][1]);
+                mma_tf32(o[2 * (dp + uu) + 1], ph, vl[uu][2], vl[uu][3]);
+              }
+#pragma unroll
+              for (int uu = 0; uu < VG; ++uu) {
+                mma_tf32(o[2 * (dp + uu)], ph, vh[uu][0], vh[uu][1]);
+                mma_tf32(o[2 * (dp + uu) + 1], ph, vh[uu][2], vh[uu][3]);
+              }
+            }
+          }
+        } else if (pass == 0) {  // the block's max only
+          if (full)
+            tile_scores<NS, STAR, true>(s, Live<true>(lo, hb, cb), p, mbi, mbf);
+          else
+            tile_scores<NS, STAR, false>(s, Live<false>(lo, hb, cb), p, mbi, mbf);
+        } else {  // p against the block's max, p8, and P8.V8 of the sub-tile
+          int xi[2] = {GRID_SENTINEL, GRID_SENTINEL};
+          float xf[2] = {NEG_BIG, NEG_BIG};
+          if (full) {
+            const Live<true> is_live(lo, hb, cb);
+            tile_scores<NS, STAR, true>(s, is_live, p, xi, xf);
+            tile_probs<NS, STAR, true>(s, is_live, p, lut, m_i, m_f, ps);
+          } else {
+            const Live<false> is_live(lo, hb, cb);
+            tile_scores<NS, STAR, false>(s, is_live, p, xi, xf);
+            tile_probs<NS, STAR, false>(s, is_live, p, lut, m_i, m_f, ps);
+          }
+          // lane t's p8 of the 4 n-tiles, packed as logical k = 16 h + 4 t +
+          // i <- key 16 h + 8 (i / 2) + 2 t + i % 2
+          uint32_t pa[4];
+          pa[0] = pack_p8(s[0][0], s[0][1], s[1][0], s[1][1]);
+          pa[1] = pack_p8(s[0][2], s[0][3], s[1][2], s[1][3]);
+          pa[2] = pack_p8(s[2][0], s[2][1], s[3][0], s[3][1]);
+          pa[3] = pack_p8(s[2][2], s[2][3], s[3][2], s[3][3]);
+          const int8_t* vf =
+              V8s + (it & 1) * D * V8_PITCH + (cg * DW + b_row) * V8_PITCH + 16 * b_half;
+          if constexpr (D < 16) {  // the fold cut to 8 features: one n8 tile of codes
+            uint32_t vb[2];
+            ldsm_x2(vb, vf);
+            mma_s8(acc8[0], pa, vb[0], vb[1]);
+          } else {
+#pragma unroll
+            for (int np = 0; np < DW / 16; ++np) {
+              uint32_t vb[4];
+              ldsm_x4(vb, vf + 16 * np * V8_PITCH);
+              mma_s8(acc8[2 * np], pa, vb[0], vb[1]);
+              mma_s8(acc8[2 * np + 1], pa, vb[2], vb[3]);
+            }
           }
         }
       }
     }
-    if (!warp_live) continue;  // p = 0 and r = 1 for all of this warp's rows
-
-    // the block's softmax; columns past the block's end (PV8: bk < 128) are
-    // not live
-    float r[2];
-    const int hb[2] = {min(hi[0], c_last), min(hi[1], c_last)};
-    const bool full = blk_rows == 8 * NS && c0 + blk_rows <= kv_lim &&
-                      (!p.causal || c_last <= wr0) &&
-                      (p.window <= 0 || c0 > wr0 + 15 - p.window);
-    if (full)
-      block_softmax<NS, STAR, true>(s, lo, hb, c0 + 2 * tg, p, lut, m_i, m_f, l, r);
-    else
-      block_softmax<NS, STAR, false>(s, lo, hb, c0 + 2 * tg, p, lut, m_i, m_f, l, r);
-
     if constexpr (PV8) {
-      // k-step kk (keys 32 kk ..): lane t's p8 of n-tiles 4 kk .. 4 kk + 3,
-      // packed as logical k = 16 h + 4 t + i <- key 16 h + 8 (i / 2) + 2 t + i % 2
-      uint32_t pa[NS / 4][4];
+      if (warp_live) {  // the block into the running state, as the TPU kernel folds it
+        const float vs =
+            __ldg(w.scales + ((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk);
 #pragma unroll
-      for (int kk = 0; kk < NS / 4; ++kk) {
-        const int j = 4 * kk;
-        pa[kk][0] = pack_p8(s[j][0], s[j][1], s[j + 1][0], s[j + 1][1]);
-        pa[kk][1] = pack_p8(s[j][2], s[j][3], s[j + 1][2], s[j + 1][3]);
-        pa[kk][2] = pack_p8(s[j + 2][0], s[j + 2][1], s[j + 3][0], s[j + 3][1]);
-        pa[kk][3] = pack_p8(s[j + 2][2], s[j + 2][3], s[j + 3][2], s[j + 3][3]);
-      }
-      const float vs = __ldg(w.scales + ((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk);
-      const int8_t* vf = V8s + (blk & 1) * D * V8_PITCH + b_row * V8_PITCH + 16 * b_half;
-      if constexpr (D < 16) {  // the fold cut to 8 features: one n8 tile of codes
-        int c[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int kk = 0; kk < NS / 4; ++kk) {
-          if (32 * kk >= w.kpad) break;
-          uint32_t vb[2];
-          ldsm_x2(vb, vf + 32 * kk);
-          mma_s8(c, pa[kk], vb[0], vb[1]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[0][e] = __fadd_rn(__fmul_rn(o[0][e], r[e >> 1]), __fmul_rn(static_cast<float>(c[e]), vs));
-      }
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        int c[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-        for (int kk = 0; kk < NS / 4; ++kk) {
-          if (32 * kk >= w.kpad) break;
-          uint32_t vb[4];
-          ldsm_x4(vb, vf + 16 * np * V8_PITCH + 32 * kk);
-          mma_s8(c[0], pa[kk], vb[0], vb[1]);
-          mma_s8(c[1], pa[kk], vb[2], vb[3]);
-        }
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2)
+        for (int n = 0; n < NO; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            o[2 * np + h2][e] = __fadd_rn(__fmul_rn(o[2 * np + h2][e], r[e >> 1]),
-                                          __fmul_rn(static_cast<float>(c[h2][e]), vs));
-      }
-    } else {
-      rescale(o, r);
-      // O += P V: k-step j is score n-tile j, its registers the A fragment
-      // as they are (V^T's key order), split into tf32 hi and lo
-      constexpr int VG = D >= 32 ? 2 : 1;
-      const float* vt = Vtp + b_row * VTP + 4 * b_half;
+            o[n][e] = __fadd_rn(__fmul_rn(o[n][e], r[e >> 1]),
+                                __fmul_rn(static_cast<float>(acc8[n][e]), vs));
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t ph[4], pl[4];
-        split_tf32(s[j][0], ph[0], pl[0]);
-        split_tf32(s[j][2], ph[1], pl[1]);
-        split_tf32(s[j][1], ph[2], pl[2]);
-        split_tf32(s[j][3], ph[3], pl[3]);
-        if constexpr (D < 16) {  // one n8 tile: V^T's 8 feature rows
-          uint32_t vh[2], vl[2];
-          ldsm_x2(vh, vt + 8 * j);
-          ldsm_x2(vl, vt + D * VTP + 8 * j);
-          mma_tf32(o[0], pl, vh[0], vh[1]);
-          mma_tf32(o[0], ph, vl[0], vl[1]);
-          mma_tf32(o[0], ph, vh[0], vh[1]);
-        }
-#pragma unroll
-        for (int dp = 0; dp < D / 16; dp += VG) {
-          uint32_t vh[VG][4], vl[VG][4];
-#pragma unroll
-          for (int u = 0; u < VG; ++u) {
-            ldsm_x4(vh[u], vt + 16 * (dp + u) * VTP + 8 * j);
-            ldsm_x4(vl[u], vt + D * VTP + 16 * (dp + u) * VTP + 8 * j);
-          }
-#pragma unroll
-          for (int u = 0; u < VG; ++u) {
-            mma_tf32(o[2 * (dp + u)], pl, vh[u][0], vh[u][1]);
-            mma_tf32(o[2 * (dp + u) + 1], pl, vh[u][2], vh[u][3]);
-          }
-#pragma unroll
-          for (int u = 0; u < VG; ++u) {
-            mma_tf32(o[2 * (dp + u)], ph, vl[u][0], vl[u][1]);
-            mma_tf32(o[2 * (dp + u) + 1], ph, vl[u][2], vl[u][3]);
-          }
-#pragma unroll
-          for (int u = 0; u < VG; ++u) {
-            mma_tf32(o[2 * (dp + u)], ph, vh[u][0], vh[u][1]);
-            mma_tf32(o[2 * (dp + u) + 1], ph, vh[u][2], vh[u][3]);
-          }
-        }
+        for (int hr = 0; hr < 2; ++hr) l[hr] = __fadd_rn(__fmul_rn(l[hr], r[hr]), ps[hr]);
       }
     }
   }
-  store_rows<T>(p, tl, o, l);
+  store_rows<T, MQ_, S::RG, DW>(p, tl, o, l);
 }
 
 template <int D, bool STAR>
@@ -1046,57 +1125,50 @@ __global__ void __launch_bounds__(MT, 1) flash_star_pv_int8_kernel(Params p, int
 }
 
 // V's codes and scales for the int8 P.V variant, once per (block, KV head,
-// batch): vamax = max(absmax of the block's rows inside Tk, 1e-6), codes
-// rint(fl(v * fl(127 / vamax))) (true divisions, as the TPU kernel's
-// jnp.round(vf * (127.0 / vamax))), in the attention kernel's k order,
-// zero past the block's rows; scale fl(vamax / 16129).  The block is read
-// once, in 16-byte pieces, QV_BATCH of them in flight per thread, into
-// shared memory as float32 (pitch D + 1), and the codes are gathered from
-// there: a grid of a few dozen CTAs waits on memory latency, not bytes.
+// batch), for any block size bk: vamax = max(absmax of the block's rows
+// inside Tk, 1e-6), codes rint(fl(v * fl(127 / vamax))) (true divisions, as
+// the TPU kernel's jnp.round(vf * (127.0 / vamax))), in the attention
+// kernel's k order, zero past the block's rows; scale fl(vamax / 16129).
+// The block is read twice, in 16-byte pieces: once for its absmax (QV_BATCH
+// pieces in flight per thread), then one 32-key group at a time into shared
+// memory as float32 (pitch D + 1), from where each feature's codes are
+// gathered: a grid of a few dozen CTAs waits on memory latency, not bytes.
 constexpr int QV_THREADS = 1024;
 constexpr int QV_BATCH = 4;
-
-__host__ __device__ constexpr size_t quantize_v_smem(int bk, int d) {
-  return sizeof(float) * bk * (d + 1);
-}
+constexpr int QV_MAX_D = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(QV_THREADS) flash_star_quantize_v_kernel(
     const T* v, long long v_sb, long long v_sh, long long v_st, int Hkv, int Tk, int D,
     int bk, int kpad, int nblk, int8_t* codes, float* scales) {
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte piece
-  extern __shared__ float vsm[];            // [bk][D + 1]
+  __shared__ float vsm[V8_GROUP * (QV_MAX_D + 1)];  // one 32-key group, [32][D + 1]
   __shared__ float red[QV_THREADS / 32];
   const int blk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rows = min(bk, Tk - blk * bk);
   const T* vb = v + b * v_sb + h * v_sh + static_cast<long long>(blk) * bk * v_st;
-  const int cpr = D / EPC, n = rows * cpr;
+  const int cpr = D / EPC;
   float amax = 0.f;
-  for (int base = tid; base < n; base += QV_BATCH * QV_THREADS) {
+  for (int base = tid; base < rows * cpr; base += QV_BATCH * QV_THREADS) {
     uint4 piece[QV_BATCH];
 #pragma unroll
     for (int u = 0; u < QV_BATCH; ++u) {
       const int idx = base + u * QV_THREADS, r = idx / cpr, c = EPC * (idx - r * cpr);
-      if (idx < n) piece[u] = *reinterpret_cast<const uint4*>(vb + r * v_st + c);
+      if (idx < rows * cpr) piece[u] = *reinterpret_cast<const uint4*>(vb + r * v_st + c);
     }
 #pragma unroll
     for (int u = 0; u < QV_BATCH; ++u) {
-      const int idx = base + u * QV_THREADS, r = idx / cpr, c = EPC * (idx - r * cpr);
-      if (idx >= n) break;
+      if (base + u * QV_THREADS >= rows * cpr) break;
       const T* e = reinterpret_cast<const T*>(&piece[u]);
 #pragma unroll
-      for (int i = 0; i < EPC; ++i) {
-        const float x = to_f32(e[i]);
-        vsm[r * (D + 1) + c + i] = x;
-        amax = fmaxf(amax, fabsf(x));
-      }
+      for (int i = 0; i < EPC; ++i) amax = fmaxf(amax, fabsf(to_f32(e[i])));
     }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   if (lane == 0) red[warp] = amax;
-  __syncthreads();  // red, and the block in vsm
+  __syncthreads();  // red
   float vamax = red[0];
 #pragma unroll
   for (int i = 1; i < QV_THREADS / 32; ++i) vamax = fmaxf(vamax, red[i]);
@@ -1105,19 +1177,31 @@ __global__ void __launch_bounds__(QV_THREADS) flash_star_quantize_v_kernel(
   const long long slot = (static_cast<long long>(b) * Hkv + h) * nblk + blk;
   if (tid == 0) scales[slot] = __fdiv_rn(vamax, 16129.f);
   uint32_t* out = reinterpret_cast<uint32_t*>(codes + slot * D * kpad);
-  const int wpr = kpad / 4;  // 32-bit words per feature
-  for (int idx = tid; idx < D * wpr; idx += QV_THREADS) {
-    const int f = idx / wpr, k0 = 4 * (idx - f * wpr);
-    uint32_t word = 0;
+  constexpr int WPG = V8_GROUP / 4;  // 32-bit words of a feature's group
+  for (int k0 = 0; k0 < kpad; k0 += V8_GROUP) {
+    const int grows = min(V8_GROUP, rows - k0);  // the group's rows inside the block
+    __syncthreads();  // the previous group's codes are out of vsm
+    for (int idx = tid; idx < grows * cpr; idx += QV_THREADS) {
+      const int r = idx / cpr, c = EPC * (idx - r * cpr);
+      const uint4 piece = *reinterpret_cast<const uint4*>(vb + (k0 + r) * v_st + c);
+      const T* e = reinterpret_cast<const T*>(&piece);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = (k0 & 31) + i;  // logical k in the 32-key group
-      const int key = (k0 & ~31) + 16 * (k >> 4) + 8 * (i >> 1) + 2 * ((k >> 2) & 3) + (i & 1);
-      const int code = key < rows
-          ? static_cast<int>(rintf(__fmul_rn(vsm[key * (D + 1) + f], vq))) : 0;
-      word |= (static_cast<uint32_t>(code) & 0xffu) << (8 * i);
+      for (int i = 0; i < EPC; ++i) vsm[r * (D + 1) + c + i] = to_f32(e[i]);
     }
-    out[idx] = word;
+    __syncthreads();  // the group in vsm
+    for (int idx = tid; idx < D * WPG; idx += QV_THREADS) {
+      const int f = idx / WPG, wd = idx - f * WPG;
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 4 * wd + i;  // logical k in the 32-key group
+        const int key = 16 * (k >> 4) + 8 * (i >> 1) + 2 * ((k >> 2) & 3) + (i & 1);
+        const int code = key < grows
+            ? static_cast<int>(rintf(__fmul_rn(vsm[key * (D + 1) + f], vq))) : 0;
+        word |= (static_cast<uint32_t>(code) & 0xffu) << (8 * i);
+      }
+      out[(f * kpad + k0) / 4 + wd] = word;
+    }
   }
 }
 
@@ -1125,30 +1209,23 @@ template <typename T>
 cudaError_t launch_quantize_v(const T* v, long long v_sb, long long v_sh, long long v_st,
                               int B, int Hkv, int Tk, int D, int bk, int8_t* codes,
                               float* scales, cudaStream_t s) {
-  static bool sized = false;  // the largest request: bk = BK8 rows at D = 128
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_star_quantize_v_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)quantize_v_smem(BK8, 128));
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
   const int nblk = (Tk + bk - 1) / bk;
-  flash_star_quantize_v_kernel<T><<<dim3(nblk, Hkv, B), QV_THREADS, quantize_v_smem(bk, D), s>>>(
+  flash_star_quantize_v_kernel<T><<<dim3(nblk, Hkv, B), QV_THREADS, 0, s>>>(
       v, v_sb, v_sh, v_st, Hkv, Tk, D, bk, pad32(bk), nblk, codes, scales);
   return cudaSuccess;
 }
 
 // Launch kernel (MT threads a CTA, smem bytes of shared memory, a STAR LUT
-// of up to LUT_SMEM_MAX levels on top) over (q blocks x heads x batch),
-// with first_round as tile_of_block reads it.  cache: the kernel's own.
+// of up to LUT_SMEM_MAX levels on top) over (q blocks of mq rows x heads x
+// batch), with first_round as tile_of_block reads it.  cache: the kernel's
+// own.
 struct LaunchCache {
   static constexpr int MAX_DEVICES = 64;
   int sms[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {};
 };
 
 template <class Kernel, class... Extra>
-cudaError_t launch_rows_first(Kernel kernel, size_t smem, bool star, LaunchCache& cache,
+cudaError_t launch_rows_first(Kernel kernel, int mq, size_t smem, bool star, LaunchCache& cache,
                               const Params& p, cudaStream_t stream, Extra... extra) {
   size_t bytes = smem;
   if (star && p.num_levels <= LUT_SMEM_MAX) bytes += sizeof(float) * p.num_levels;
@@ -1175,7 +1252,7 @@ cudaError_t launch_rows_first(Kernel kernel, size_t smem, bool star, LaunchCache
     cache.sms[dev] = n_sm;
   }
   const int sms = cache.sms[dev];
-  const long long blocks = (long long)((p.Tq + MQ - 1) / MQ) * p.Hq * p.B;
+  const long long blocks = (long long)((p.Tq + mq - 1) / mq) * p.Hq * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   // pair heavy and light CTAs only in a causal grid of one wave of two per SM
   const int first_round =
@@ -1189,18 +1266,20 @@ cudaError_t launch_rows_first(Kernel kernel, size_t smem, bool star, LaunchCache
 template <int KIND, bool STAR, int D>
 cudaError_t launch_kind(const Params& p, cudaStream_t s, const V8Args& w) {
   static LaunchCache cache;
+  using F = TcSmem<float, D, false>;
+  using F8 = TcSmem<float, D, true>;
+  using B8 = TcSmem<__nv_bfloat16, D, true>;
   if constexpr (KIND == 0)
-    return launch_rows_first(flash_star_mma_kernel<D, STAR>, smem_bytes_mma<D>(), STAR, cache,
-                             p, s);
+    return launch_rows_first(flash_star_mma_kernel<D, STAR>, MQ, smem_bytes_mma<D>(), STAR,
+                             cache, p, s);
   else if constexpr (KIND == 1)
-    return launch_rows_first(flash_star_tf32_kernel<D, STAR>, TcSmem<float, D, false>::bytes,
-                             STAR, cache, p, s);
+    return launch_rows_first(flash_star_tf32_kernel<D, STAR>, F::MQ, F::bytes, STAR, cache, p, s);
   else if constexpr (KIND == 2)
-    return launch_rows_first(flash_star_pv_int8_kernel<float, D, STAR>,
-                             TcSmem<float, D, true>::bytes, STAR, cache, p, s, w);
+    return launch_rows_first(flash_star_pv_int8_kernel<float, D, STAR>, F8::MQ, F8::bytes, STAR,
+                             cache, p, s, w);
   else
-    return launch_rows_first(flash_star_pv_int8_kernel<__nv_bfloat16, D, STAR>,
-                             TcSmem<__nv_bfloat16, D, true>::bytes, STAR, cache, p, s, w);
+    return launch_rows_first(flash_star_pv_int8_kernel<__nv_bfloat16, D, STAR>, B8::MQ,
+                             B8::bytes, STAR, cache, p, s, w);
 }
 
 template <int KIND>
@@ -1212,11 +1291,7 @@ cudaError_t launch_d(const Params& p, int d, cudaStream_t s, const V8Args& w = V
     case 32: return star ? launch_kind<KIND, true, 32>(p, s, w) : launch_kind<KIND, false, 32>(p, s, w);
     case 64: return star ? launch_kind<KIND, true, 64>(p, s, w) : launch_kind<KIND, false, 64>(p, s, w);
     case 128: return star ? launch_kind<KIND, true, 128>(p, s, w) : launch_kind<KIND, false, 128>(p, s, w);
-    case 256:  // the bf16 kernel only: the others' shared memory does not fit one CTA
-      if constexpr (KIND == 0)
-        return star ? launch_kind<KIND, true, 256>(p, s, w) : launch_kind<KIND, false, 256>(p, s, w);
-      else
-        return cudaErrorInvalidValue;
+    case 256: return star ? launch_kind<KIND, true, 256>(p, s, w) : launch_kind<KIND, false, 256>(p, s, w);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1293,12 +1368,12 @@ extern "C" int flash_star_tf32_launch(
 
 // The int8 P.V variant, step 1: V [B, Hkv, Tk, D] (dtype 0 = float32, 1 =
 // bfloat16) to codes [B, Hkv, nblk, D, kpad] and scales [B, Hkv, nblk],
-// nblk = ceil(Tk / bk), kpad = bk rounded up to 32 (1 <= bk <= 128).
+// nblk = ceil(Tk / bk), kpad = bk rounded up to 32 (any bk >= 1).
 extern "C" int flash_star_quantize_v_launch(
     const void* v, long long v_sb, long long v_sh, long long v_st,
     int B, int Hkv, int Tk, int D, int dtype, int bk, void* codes, void* scales,
     void* stream) {
-  if (bk < 1 || bk > BK8 || (dtype != 0 && dtype != 1) || D < 8 || D > 128 || D % 8)
+  if (bk < 1 || (dtype != 0 && dtype != 1) || D < 8 || D > QV_MAX_D || D % 8)
     return (int)cudaErrorInvalidValue;
   if (Tk <= 0 || B <= 0 || Hkv <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1319,7 +1394,7 @@ extern "C" int flash_star_pv_int8_launch(
     int causal, int window, float sm_scale, float grid_scale, int num_levels,
     int bk, const void* codes, const void* scales, void* stream) {
   const Params p = FLASH_STAR_PARAMS;
-  if (bk < 1 || bk > BK8 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (bk < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
   V8Args w;
   w.codes = static_cast<const int8_t*>(codes);

@@ -21,19 +21,19 @@ q/k/v must start on a 16-byte boundary with batch, head and T strides of
 16 bytes each; a view that does not is refused with a ValueError before
 any launch (the ops layer's transposed ``[B, T, H, D]`` views pass).
 
-Head dims ``HEAD_DIMS``: 8, 16, 32, 64, 128 and, on the bf16 kernel alone,
-256 (recurrentgemma-2b): the float32 and int8 P.V kernels take
-``NARROW_HEAD_DIMS`` and refuse 256 with a ValueError naming them, since
-their shared memory does not fit one CTA there.  At 8 the bf16 products
-still take k in steps of 16: the kernels zero-fill Q and K to 16 columns in
-shared memory, and ``sm_scale`` keeps the true D, so every score is the
-8-term dot (a bf16 row of 8 is one 16-byte piece).
+Head dims ``HEAD_DIMS``: 8, 16, 32, 64, 128 and 256 (recurrentgemma-2b), on
+every kernel.  At 8 the bf16 products still take k in steps of 16: the
+kernels zero-fill Q and K to 16 columns in shared memory, and ``sm_scale``
+keeps the true D, so every score is the 8-term dot (a bf16 row of 8 is one
+16-byte piece).
 
 ``block_k`` is the KV block of the plain version's loop; the CUDA kernels
-use their own fixed tiles (64 q rows; 64 KV rows in bf16, 32 in float32),
+use their own fixed tiles (64 q rows, 32 at D 256 in the float32 and int8
+P.V kernels; 64 KV rows in bf16, 32 at D 256; 32 in float32, 16 at D 256),
 which changes only the float summation order.  ``pv_int8=True`` runs the
 int8 P.V variant, whose codes depend on the block: there the KV block is
-``min(block_k, Tk)`` rows in the kernel too (at most ``PV_INT8_MAX_BLOCK``).
+``min(block_k, Tk)`` rows in the kernel too, of any size (the kernel walks a
+block's K twice: its max, then P).
 """
 
 from __future__ import annotations
@@ -50,10 +50,8 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_star.ref import V8_GROUP, flash_star_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_star.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the bf16 kernel's
-NARROW_HEAD_DIMS = (8, 16, 32, 64, 128)  # the float32 and int8 P.V kernels'
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PV_INT8_MAX_BLOCK = 128  # the kernel's BK8
 LAUNCHES = _cuda.launch_counter("flash_star")
 PV_INT8_LAUNCHES = _cuda.launch_counter("flash_star_pv_int8")
 
@@ -134,12 +132,7 @@ def flash_star_attention(
             q, k, v, info, fmt=fmt, causal=causal, sliding_window=sliding_window,
             sm_scale=sm_scale, block_k=block_k, pv_int8=pv_int8,
         )
-    bk = 0
-    if pv_int8:
-        bk = max(1, min(block_k, k.shape[2]))
-        if bk > PV_INT8_MAX_BLOCK:
-            raise ValueError(f"flash_star pv_int8 kernel takes KV blocks of at most "
-                             f"{PV_INT8_MAX_BLOCK} rows, got block_k={block_k}")
+    bk = max(1, min(block_k, k.shape[2])) if pv_int8 else 0
     return _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk)
 
 
@@ -154,11 +147,6 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
     if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"flash_star kernel takes float32/bfloat16 q/k/v of one type, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in NARROW_HEAD_DIMS and (bk or dtype == torch.float32):
-        kind = "int8 P.V" if bk else "float32"
-        raise ValueError(f"flash_star's {kind} kernel takes head_dim in {NARROW_HEAD_DIMS}, "
-                         f"got {d}: its shared memory does not fit one CTA there (only the "
-                         f"bfloat16 kernel, pv_int8 off, takes {d})")
     dev = q.device
     if not dev == k.device == v.device == info.device:
         for name, t in (("k", k), ("v", v), ("info", info)):

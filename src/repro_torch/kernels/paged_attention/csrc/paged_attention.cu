@@ -30,10 +30,12 @@
 // hold, so a bf16 mma would round an operand the reference keeps exact.
 // K and V stay in their storage type in shared memory and are widened (and
 // dequantized) as they are read.  QK^T: each thread holds one row's half of
-// K in registers and dots it with the G q rows (broadcast reads of q in
-// shared memory).  P.V: each thread owns 4 output columns of 4 q heads over
-// a residue class of the split's rows; the classes are summed in a fixed
-// order at the end.
+// K in registers, 64 columns at a time (at D 256 the half-row's 128 would
+// crowd out the rest), and dots it with the G q rows (broadcast reads of q
+// in shared memory).  P.V: each thread owns CPT output columns (4; 8 at D
+// 256, so that D / CPT x 4-head groups fit the CTA's 128 threads at every
+// group up to MAXG) of 4 q heads over a residue class of the split's rows;
+// the classes are summed in a fixed order at the end.
 //
 // L and batch invariance.  L = SPLIT_ROWS = 64 rows for every block size:
 // one shared-memory tile, so a CTA loads K and V once and computes once.
@@ -77,7 +79,9 @@
 // expression, so the operands equal the reference's dequantized K/V bit for
 // bit (every int8 and e4m3 value converts to float exactly).
 //
-// Head dims 8, 16, 32, 64 and 128.  A head row is copied in pieces of 16
+// Head dims 8, 16, 32, 64, 128 and 256 (recurrentgemma-2b: G 10 over one KV
+// head; its float32 tile, 2 x 64 x 1040 bytes, is dynamic shared memory the
+// launch opts into).  A head row is copied in pieces of 16
 // bytes, or of its whole size where it is shorter: 8 bytes for the 1-byte
 // codes of a D 8 row (cp.async.ca takes 4, 8 or 16 bytes); every
 // instantiation's row splits into whole pieces (a static_assert), so no
@@ -203,6 +207,9 @@ struct Params {
   int num_levels;
 };
 
+// P.V: output columns a thread
+__host__ __device__ constexpr int cols_per_thread(int d) { return d > 128 ? 8 : 4; }
+
 // Shared-memory layout of the split kernel, in bytes from the dynamic base
 // (q rows, float [G][D], at 0).
 struct Layout {
@@ -211,7 +218,7 @@ struct Layout {
 
 __host__ __device__ inline Layout layout(int G, int D, int elem) {
   const int gp = 4 * ((G + 3) / 4);
-  const int rg = NTHREADS / ((D / 4) * (gp / 4));
+  const int rg = NTHREADS / ((D / cols_per_thread(D)) * (gp / 4));
   const int tile = 2 * SPLIT_ROWS * (D * elem + 16);
   const int red = rg * gp * D * 4;
   Layout l;
@@ -248,9 +255,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   constexpr bool QUANT = is_code<C>::value;
   constexpr int ES = (int)sizeof(C);
   constexpr int RS = D * ES + 16;   // padded tile row stride, bytes
-  constexpr int HALF = D / 2;       // QK^T: a thread's half of a K row
+  constexpr int HALF = D / 2;       // QK^T: a thread's half of a K row ...
+  constexpr int KCH = HALF < 64 ? HALF : 64;  // ... KCH columns of it in registers at a time
   constexpr int KV_VEC = (16 / ES < HALF) ? 16 / ES : HALF;
-  constexpr int NC = D / 4;         // P.V: 4 output columns per thread
+  constexpr int CPT = cols_per_thread(D);  // P.V: CPT output columns per thread
+  constexpr int NC = D / CPT;
+  static_assert(NTHREADS / (NC * (MAXG / 4)) >= 1,
+                "P.V: every (column, 4-head) group needs a thread: rg would be 0");
+  static_assert(HALF % KCH == 0 && KCH % KV_VEC == 0 && KCH % 4 == 0, "whole K chunks");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int page_sh[SPLIT_ROWS];  // the split's page ids (L of them at bs 1)
   __shared__ int row_sh[SPLIT_ROWS];   // pool row of each local row
@@ -338,27 +350,32 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   {
     const int r = tid & (SPLIT_ROWS - 1), h = tid / SPLIT_ROWS;
     if (r < rows) {
-      float kf[HALF];
       const C* krow = reinterpret_cast<const C*>(Kst + r * RS) + h * HALF;
 #pragma unroll
-      for (int i = 0; i < HALF; i += KV_VEC) widen<C, KV_VEC>(krow + i, kf + i);
-      if constexpr (QUANT) {
-        const float sc = ks_sh[pidx_sh[r]];
+      for (int c0 = 0; c0 < HALF; c0 += KCH) {
+        float kf[KCH];
 #pragma unroll
-        for (int i = 0; i < HALF; ++i) kf[i] = __fmul_rn(kf[i], sc);
-      }
-      for (int g = 0; g < G; ++g) {
-        const float* qh = Qs + g * D + h * HALF;
-        float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+        for (int i = 0; i < KCH; i += KV_VEC) widen<C, KV_VEC>(krow + c0 + i, kf + i);
+        if constexpr (QUANT) {
+          const float sc = ks_sh[pidx_sh[r]];
 #pragma unroll
-        for (int i = 0; i < HALF; i += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qh + i);
-          d0 = fmaf(qv.x, kf[i], d0);
-          d1 = fmaf(qv.y, kf[i + 1], d1);
-          d2 = fmaf(qv.z, kf[i + 2], d2);
-          d3 = fmaf(qv.w, kf[i + 3], d3);
+          for (int i = 0; i < KCH; ++i) kf[i] = __fmul_rn(kf[i], sc);
         }
-        Sp[(h * G + g) * SPLIT_ROWS + r] = (d0 + d1) + (d2 + d3);
+        for (int g = 0; g < G; ++g) {
+          const float* qh = Qs + g * D + h * HALF + c0;
+          float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+#pragma unroll
+          for (int i = 0; i < KCH; i += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qh + i);
+            d0 = fmaf(qv.x, kf[i], d0);
+            d1 = fmaf(qv.y, kf[i + 1], d1);
+            d2 = fmaf(qv.z, kf[i + 2], d2);
+            d3 = fmaf(qv.w, kf[i + 3], d3);
+          }
+          const float part = (d0 + d1) + (d2 + d3);
+          float* at = Sp + (h * G + g) * SPLIT_ROWS + r;
+          *at = c0 == 0 ? part : *at + part;  // the chunks in order (one chunk below D 256)
+        }
       }
     }
   }
@@ -415,29 +432,31 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   cp_async_wait<0>();  // V
   __syncthreads();
 
-  // P.V: thread (columns 4c.., heads 4gq..) over the rows j (mod RG)
+  // P.V: thread (columns CPT c.., heads 4gq..) over the rows j (mod RG)
   const int pc = tid % NC, pgq = (tid / NC) % GQ, pj = tid / (NC * GQ);
   const int RG = NTHREADS / (NC * GQ);
-  float acc[4][4];
+  float acc[4][CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
+    for (int k = 0; k < CPT; ++k) acc[i][k] = 0.f;
   if (pj < RG) {
     for (int row = pj; row < rows; row += RG) {
-      float vf[4];
-      widen<C, 4>(reinterpret_cast<const C*>(Vst + row * RS) + 4 * pc, vf);
+      float vf[CPT];
+#pragma unroll
+      for (int k = 0; k < CPT; k += 4)
+        widen<C, 4>(reinterpret_cast<const C*>(Vst + row * RS) + CPT * pc + k, vf + k);
       if constexpr (QUANT) {
         const float sc = vs_sh[pidx_sh[row]];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) vf[k] = __fmul_rn(vf[k], sc);
+        for (int k = 0; k < CPT; ++k) vf[k] = __fmul_rn(vf[k], sc);
       }
       const float4 pp = *reinterpret_cast<const float4*>(Ps + row * GP + 4 * pgq);
       const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(pv[i], vf[k], acc[i][k]);
+        for (int k = 0; k < CPT; ++k) acc[i][k] = fmaf(pv[i], vf[k], acc[i][k]);
     }
   }
 
@@ -448,7 +467,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) Red[(pj * GP + 4 * pgq + i) * D + 4 * pc + k] = acc[i][k];
+      for (int k = 0; k < CPT; ++k) Red[(pj * GP + 4 * pgq + i) * D + CPT * pc + k] = acc[i][k];
   }
   __syncthreads();
   for (int idx = tid; idx < G * D; idx += NTHREADS) {
@@ -470,9 +489,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   }
 }
 
-// Grid (Hq, S), D threads: merge (slot, q head)'s live splits in order.
+// Grid (Hq, S), D threads (up to 256): merge (slot, q head)'s live splits
+// in order.
 template <typename T, bool STAR>
-__global__ void __launch_bounds__(128) paged_combine_kernel(Params p, int D) {
+__global__ void __launch_bounds__(256) paged_combine_kernel(Params p, int D) {
   const int h = blockIdx.x, s = blockIdx.y, d = threadIdx.x;
   const int G = p.Hq / p.Hkv, hk = h / G, g = h - hk * G;
   const int kv = min(max(p.valid[s], 0), p.W * p.bs);
@@ -529,6 +549,7 @@ cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
     case 32: return launch<T, C, 32, STAR>(p, stream);
     case 64: return launch<T, C, 64, STAR>(p, stream);
     case 128: return launch<T, C, 128, STAR>(p, stream);
+    case 256: return launch<T, C, 256, STAR>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

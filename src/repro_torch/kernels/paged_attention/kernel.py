@@ -22,8 +22,9 @@ splits, ``ceil(W * bs / L)``, and the float32 workspace of the partials
 l) come from shapes alone: the wrapper never reads ``kv_valid`` back from
 the card.  One library call per
 wrapper call launches both kernels (the combine only when there is more
-than one split).  Head dims ``HEAD_DIMS``: 8 to 128 (a D-8 row of 1-byte
-codes is copied as one 8-byte piece), GQA groups up to ``MAX_GROUP``.
+than one split).  Head dims ``HEAD_DIMS``: 8 to 256 (a D-8 row of 1-byte
+codes is copied as one 8-byte piece; D 256 is recurrentgemma-2b's, G 10
+over one KV head), GQA groups up to ``MAX_GROUP``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "paged_attention.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 MAX_GROUP = 16

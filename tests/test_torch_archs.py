@@ -428,7 +428,7 @@ def test_sources_take_head_dim_8():
     assert "case 8: return star ? launch_kind<KIND, true, 8>" in fsrc
     assert "case 8: return launch<T, C, 8, STAR>(p, stream);" in psrc
     assert "static_assert(CPR >= 1 && CPR * PIECE == RB" in psrc
-    assert "D < 8 || D > 128 || D % 8" in fsrc
+    assert "D < 8 || D > QV_MAX_D || D % 8" in fsrc
     assert "cp.async.ca.shared.global [%0], [%1], %2;" in psrc
 
 

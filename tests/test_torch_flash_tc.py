@@ -330,11 +330,15 @@ def test_workspace_is_sized_from_the_shapes(tk, bk):
 
 
 def test_source_constants_match_the_wrapper():
-    """The kernel's largest int8 block and its k-group (the workspace's
-    padding) are the wrapper's and the plain layout's."""
+    """The kernel's k-group (its int8 sub-tile and the workspace's padding)
+    is the plain layout's; no block size is capped, in the source or the
+    wrapper (the attention kernel walks a block in 32-key sub-tiles, twice)."""
     src = flash_mod.SOURCE.read_text()
-    assert f"constexpr int BK8 = {flash_mod.PV_INT8_MAX_BLOCK};" in src
-    assert "return (bk + 31) / 32 * 32;" in src and ref_mod.V8_GROUP == 32
+    assert f"constexpr int V8_GROUP = {ref_mod.V8_GROUP};" in src and ref_mod.V8_GROUP == 32
+    assert "return (bk + 31) / 32 * 32;" in src
+    assert "BK8" not in src and not hasattr(flash_mod, "PV_INT8_MAX_BLOCK")
+    assert "static constexpr int SUB = PV8 ? V8_GROUP" in src
+    assert "if (bk < 1 || (dtype != 0 && dtype != 1))" in src
 
 
 # ---------------------------------------------------------------------------

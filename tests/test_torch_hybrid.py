@@ -506,52 +506,81 @@ def _fake(monkeypatch, mod, entries):
 
 
 def test_flash_star_wrapper_routes_d256_to_the_bf16_kernel_only(monkeypatch):
-    """bf16 q/k/v at D 256 reach ``flash_star_mma_launch`` with D 256 (the
-    ops layer's transposed views); the float32 and the int8 P.V kernels
-    refuse D 256 with a ValueError naming them, before any launch; so does
-    the paged kernel (its ``HEAD_DIMS`` stop at 128)."""
+    """D 256 on every kernel (the name predates the float32 and int8 P.V
+    kernels at D 256): bf16 q/k/v reach ``flash_star_mma_launch`` and
+    float32 ``flash_star_tf32_launch``, with D 256 (the ops layer's
+    transposed views); ``pv_int8`` at D 256 with ``block_k`` 256 reaches
+    the V pre-pass and the int8 P.V launch with bk 256, either type; the
+    paged wrapper hands D 256 over fp pages to ``paged_attention_launch``
+    and over int8 / fp8 codes to ``paged_attention_quant_launch``."""
     lib = _fake(monkeypatch, flash_mod, (
         "flash_star_mma_launch", "flash_star_tf32_launch", "flash_star_quantize_v_launch",
         "flash_star_pv_int8_launch"))
     g = torch.Generator().manual_seed(44)
-    info = torch.tensor([0, 33], dtype=torch.int32)
+    info = torch.tensor([0, 300], dtype=torch.int32)
 
     def views(dtype):
         return [torch.randn(sh, generator=g).to(dtype).transpose(1, 2)
-                for sh in ((1, 33, 10, D256), (1, 33, 1, D256), (1, 33, 1, D256))]
+                for sh in ((1, 300, 10, D256), (1, 300, 1, D256), (1, 300, 1, D256))]
 
-    before = flash_mod.LAUNCHES.count
-    out = flash_mod.flash_star_attention(*views(torch.bfloat16), info, fmt=FMT,
-                                         sliding_window=2048)
-    assert out.shape == (1, 10, 33, D256) and out.dtype == torch.bfloat16
-    assert [name for name, _ in lib.calls] == ["flash_star_mma_launch"]
-    assert lib.calls[0][1][18:24] == (1, 10, 1, 33, 33, D256)  # B Hq Hkv Tq Tk D
-    assert lib.calls[0][1][24:26] == (1, 2048)  # causal, window
-    assert flash_mod.LAUNCHES.count == before + 1
-    lib.calls.clear()
-    with pytest.raises(ValueError, match="float32 kernel takes head_dim in"):
-        flash_mod.flash_star_attention(*views(torch.float32), info, fmt=FMT)
-    for dtype in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="int8 P.V kernel takes head_dim in"):
-            flash_mod.flash_star_attention(*views(dtype), info, fmt=FMT, pv_int8=True)
-    assert lib.calls == []
-    plib = _fake(monkeypatch, paged_mod, ("paged_attention_launch",))
+    for dtype, entry in ((torch.bfloat16, "flash_star_mma_launch"),
+                         (torch.float32, "flash_star_tf32_launch")):
+        before = flash_mod.LAUNCHES.count
+        out = flash_mod.flash_star_attention(*views(dtype), info, fmt=FMT, sliding_window=2048)
+        assert out.shape == (1, 10, 300, D256) and out.dtype == dtype
+        assert [name for name, _ in lib.calls] == [entry]
+        assert lib.calls[0][1][18:24] == (1, 10, 1, 300, 300, D256)  # B Hq Hkv Tq Tk D
+        assert lib.calls[0][1][24:26] == (1, 2048)  # causal, window
+        assert flash_mod.LAUNCHES.count == before + 1
+        lib.calls.clear()
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        before = flash_mod.PV_INT8_LAUNCHES.count
+        out = flash_mod.flash_star_attention(*views(dtype), info, fmt=FMT, block_k=256,
+                                             pv_int8=True)
+        assert out.shape == (1, 10, 300, D256) and out.dtype == dtype
+        assert [name for name, _ in lib.calls] == ["flash_star_quantize_v_launch",
+                                                   "flash_star_pv_int8_launch"]
+        assert lib.calls[0][1][4:10] == (1, 1, 300, D256, code, 256)  # B Hkv Tk D dtype bk
+        pv = lib.calls[1][1]
+        assert pv[18:24] == (1, 10, 1, 300, 300, D256) and pv[24] == code and pv[30] == 256
+        assert flash_mod.PV_INT8_LAUNCHES.count == before + 1
+        lib.calls.clear()
+    plib = _fake(monkeypatch, paged_mod, ("paged_attention_launch",
+                                          "paged_attention_quant_launch"))
     q = torch.zeros(2, 10, D256, dtype=torch.bfloat16)
+    tables, kvl = torch.ones(2, 2, dtype=torch.int32), torch.tensor([3, 4], dtype=torch.int32)
     pages = torch.zeros(5, 16, 1, D256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim in"):
-        paged_mod.paged_flash_attention(q, pages, pages, torch.ones(2, 2, dtype=torch.int32),
-                                        torch.tensor([3, 4], dtype=torch.int32), fmt=FMT)
-    assert plib.calls == []
+    out = paged_mod.paged_flash_attention(q, pages, pages, tables, kvl, fmt=FMT)
+    assert out.shape == (2, 10, D256)
+    codes = torch.zeros(5, 16, 1, D256, dtype=torch.int8)
+    scale = torch.ones(5, 1)
+    paged_mod.paged_flash_attention(q, codes, codes, tables, kvl, fmt=FMT, k_scale=scale,
+                                    v_scale=scale)
+    assert [name for name, _ in plib.calls] == ["paged_attention_launch",
+                                                "paged_attention_quant_launch"]
+    assert plib.calls[0][1][7:14] == (2, 10, 1, 2, 16, D256, 1)  # S Hq Hkv W bs D dtype
+    assert plib.calls[1][1][9:17] == (2, 10, 1, 2, 16, D256, 1, 0)  # ... code
 
 
 def test_source_dispatches_d256_to_the_bf16_kernel_only():
+    """Every kernel's dispatch takes D 256 (the name predates the float32 and
+    int8 P.V kernels at D 256): flash_star's ``case 256`` for every kind
+    (the bf16 kernel with Q's fragments from shared memory and 32-row KV
+    tiles; the float32 and int8 P.V kernels at 32 q rows a CTA, two warps a
+    row group), the V pre-pass up to D 256, the paged kernel's ``case
+    256`` with 8 P.V columns a thread."""
     src = flash_mod.SOURCE.read_text()
-    assert D256 in flash_mod.HEAD_DIMS and D256 not in flash_mod.NARROW_HEAD_DIMS
+    assert D256 in flash_mod.HEAD_DIMS and D256 in paged_mod.HEAD_DIMS
     case = src[src.index("case 256:"):src.index("default: return cudaErrorInvalidValue;")]
-    assert "if constexpr (KIND == 0)" in case and "launch_kind<KIND, true, 256>" in case
+    assert "launch_kind<KIND, true, 256>" in case and "if constexpr" not in case
     assert "constexpr bool Q_SMEM = D > 128;" in src
     assert "constexpr int mk_of(int d) { return d > 128 ? 32 : 64; }" in src  # 0 spills
     assert "if (Q_SMEM && step % (NS / 2) == 0) ldsm_x4(qa[0], qfrag + 16 * kk);" in src
+    assert "static constexpr int MQ = WIDE ? 32 : 64;" in src
+    assert "D > QV_MAX_D" in src and "constexpr int QV_MAX_D = 256;" in src
+    psrc = paged_mod.SOURCE.read_text()
+    assert "case 256: return launch<T, C, 256, STAR>(p, stream);" in psrc
+    assert "return d > 128 ? 8 : 4;" in psrc
 
 
 # ---------------------------------------------------------------------------

@@ -131,19 +131,33 @@ def test_pv_int8_refused_outside_pallas(impl):
 
 
 def test_pv_int8_kernel_refuses_blocks_above_its_tile(monkeypatch):
-    """On the card the variant takes KV blocks of at most 128 rows (the
-    library call is stubbed here, where there is no card)."""
+    """On the card the variant takes KV blocks of any size (the name
+    predates it: it refused blocks above 128 rows): block_k 256 over Tk 300
+    reaches the pre-pass and the attention launch with bk 256, and block_k
+    1000 with bk = Tk; a block_k of 0 is refused before any launch (the
+    library calls are a fake here, where there is no card)."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
     monkeypatch.setattr(flash_mod._cuda, "on_card", lambda t: True)
-
-    def fail(source, bind):
-        raise AssertionError("the refusal must come before the launch")
-
-    monkeypatch.setattr(flash_mod._cuda, "load", fail)
+    monkeypatch.setattr(flash_mod._cuda, "load", lambda source, bind: Lib())
+    monkeypatch.setattr(flash_mod._cuda, "stream_handle", lambda device: 0)
     q = torch.zeros(1, 2, 4, 16)
     k = torch.zeros(1, 2, 300, 16)
     info = torch.tensor([0, 300], dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most 128 rows"):
-        flash_mod.flash_star_attention(q, k, k, info, fmt=FMT, block_k=256, pv_int8=True)
+    for block_k, bk in ((256, 256), (1000, 300)):
+        calls.clear()
+        flash_mod.flash_star_attention(q, k, k, info, fmt=FMT, block_k=block_k, pv_int8=True)
+        assert [name for name, _ in calls] == ["flash_star_quantize_v_launch",
+                                               "flash_star_pv_int8_launch"]
+        assert calls[0][1][9] == bk and calls[1][1][30] == bk
+    calls.clear()
+    with pytest.raises(ValueError, match="block_k must be > 0"):
+        flash_mod.flash_star_attention(q, k, k, info, fmt=FMT, block_k=0, pv_int8=True)
+    assert calls == []
 
 
 @pytest.mark.cuda
