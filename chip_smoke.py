@@ -20,9 +20,12 @@ Phases (any failure exits non-zero before the result lines):
    256 at 32 q rows a CTA) 0 spill bytes and tf32 HMMA, for the int8 P.V
    kernel (``flash_star_pv_int8_kernel``, 24: float32 and bf16 q/k) 0 spill
    bytes, s8 IMMA and tf32 / bf16 HMMA, for its V pre-pass
-   (``flash_star_quantize_v_kernel``, 2) 0 spill bytes; for the split-KV
-   paged kernels (72 ``paged_split_kernel``: head dims 8-256, and 4
-   ``paged_combine_kernel`` instantiations) 0 spill bytes; for the SSD scan's three kernels (5
+   (``flash_star_quantize_v_kernel``, 2) 0 spill bytes, for the block route
+   (``flash_star_blocked_kernel``, 12: float32 and bf16) 0 spill bytes and
+   tf32 / bf16 HMMA; for the split-KV paged kernels (144
+   ``paged_split_kernel``: head dims 8-256, the one-pass kernel and the
+   block route's two modes, 4 ``paged_combine_kernel`` and 1
+   ``paged_scan_kernel`` instantiations) 0 spill bytes; for the SSD scan's three kernels (5
    instantiations) 0 spill bytes, and tf32 HMMA in the SASS of the chunk
    state and chunk scan kernels; for the crossbar (8 tensor-core and 2
    scalar instantiations) 0 spill bytes, s8 IMMA in the clean and bf16 HMMA
@@ -384,10 +387,31 @@ Phases (any failure exits non-zero before the result lines):
    ACCOUNT_PEAK_GAP is printed as a finding, not a failure);
 16. examples: ``examples/torch_quickstart.py`` on the card in its own
    process, its last line "OK";
-17. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+17. formats: the paper's swept softmax formats, 9 bits down to 2
+   (SWEPT_FORMATS).  At 2 to 5 bits the STAR online softmax depends on its
+   block schedule (the LUT clamps at its last level), so there flash_star
+   and the paged kernel run their block routes (``flash_star_blocked``,
+   ``paged_attention_blocked``), which follow the TPU kernels' schedule.
+   Each against its plain version at the 8 formats, with the tolerances
+   and ambiguous-row rule below: flash_star bf16 and float32 at granite's
+   prefill (q [1, 32, 512, 128] causal, block_k 128) and the dense ``Tq =
+   1`` decode, the int8 P.V variant (bf16) at both; the paged kernel
+   at the full-width tick over float32 and bf16 pages and int8 / fp8_e4m3
+   codes; the STAR softmax at [4, 49152] in every mode.  Device times of
+   the block routes at u2 and u3 beside the one-pass kernels' at u8 (the
+   same shapes).  Then the granite-8b smoke config at 3 bits (2i.1f) on
+   the paged continuous engine, card == CPU greedy tokens, counters zeroed
+   just before and read just after: the block routes once per layer of
+   every prefill and tick, the one-pass kernels never (these counts are
+   the two new entries' ``launches``).  Then
+   ``examples/torch_precision_sweep.py`` on the card in its own process:
+   the reference's table, exact >= 90 %, 7 to 9 bits within 2 points of
+   exact, 2 bits more than 2 points under, and its printed launches;
+18. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
    each path's own count under ``launches_by_path``: every serve phase
    (11b's float32 and pv_int8 paths among them), phase 13's eval and serves, phase 14's and 15b's mesh paths and the
-   phase 4 smoke paths) and, last, the device line.  Each phase's wall
+   phase 4 smoke paths; the block routes' from phase 17) and, last, the
+   device line.  Each phase's wall
    seconds are printed as it ends (``phase <name>: <s>``) and gathered
    under ``phase_seconds``.
 
@@ -534,7 +558,10 @@ def device_ms_by_kernel(fn, reps: int = 20, per_call=None):
     show a record count that is a multiple of ``reps``, and where
     ``per_call`` ({name part: launches per call}) is given, exactly
     ``reps`` x that; a window that records nothing or falls short is
-    profiled again, and still short after PROFILE_TRIES windows, fails."""
+    profiled again.  Records are lost, never added: a part with more
+    records than ``reps`` x its launches per call fails at once; still
+    short after PROFILE_TRIES windows, the device time is not measured
+    ({}, logged; callers then report None and use the CUDA-event time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -554,6 +581,8 @@ def device_ms_by_kernel(fn, reps: int = 20, per_call=None):
         short = {k: c for k, c in counts.items() if c % reps}
         for part, n in (per_call or {}).items():
             got = sum(c for k, c in counts.items() if part in k)
+            check(got <= n * reps, f"profiler: {got} {part} records of {reps} calls, over "
+                                   f"the {n} launches a call makes")
             if got != n * reps:
                 short[part] = got
         if out and not short:
@@ -561,9 +590,9 @@ def device_ms_by_kernel(fn, reps: int = 20, per_call=None):
         PROFILES_RETAKEN.append(short or "no records")
         log(f"profiler: records short of {reps} calls ({short or 'none at all'}); "
             f"profiling again")
-    check(not short, f"profiler: kernel records still short of {reps} calls after "
-                     f"{PROFILE_TRIES} windows: {short}")
-    return out
+    log(f"profiler: kernel records still short of {reps} calls after {PROFILE_TRIES} "
+        f"windows ({short or 'none at all'}); device time not measured")
+    return {}
 
 
 def device_ms_per_launch(fn, part: str, reps: int = 20) -> float:
@@ -599,7 +628,42 @@ def device_ms_per_launch(fn, part: str, reps: int = 20) -> float:
                  f"{PROFILE_TRIES} windows")
 
 
-PROFILE_TRIES = 4  # profiler windows taken before a short count fails
+def device_ms_each_once(fn, reps: int = 20):
+    """Device time of one call of ``fn`` whose kernels each launch once a
+    call: the sum over its kernels of their self time from
+    ``torch.profiler``, from a window that kept every record.  Late in a
+    long run the profiler loses records, and in a window that lost some the
+    durations it kept can be short too (half of their neighbours' here), so
+    a short window is profiled again; after 2 x PROFILE_TRIES short windows
+    (each is 20 short calls) the time is None (not measured), logged with
+    what each window kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    kept = []
+    for _ in range(2 * PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for ev in prof.key_averages():
+            us = _self_device_us(ev) if ev.device_type == torch.autograd.DeviceType.CUDA else 0
+            if us > 0:
+                total[ev.key] = total.get(ev.key, 0.0) + us
+                count[ev.key] = count.get(ev.key, 0) + ev.count
+        if count and all(c == reps for c in count.values()):
+            return sum(total.values()) / reps / 1e3
+        kept.append(min(count.values()) if count else 0)
+    PROFILES_RETAKEN.append({"device_ms_each_once": kept})
+    log(f"profiler: no window of {reps} calls kept every record (fewest kept per window: "
+        f"{kept}); device time not measured")
+    return None
+
+
+PROFILE_TRIES = 4  # profiler windows taken before a short count is not measured
 PROFILES_RETAKEN = []  # the profiler windows taken again, with what fell short
 
 
@@ -721,21 +785,25 @@ def check_tc_build(ptxas_log, library):
     spill nothing: ``flash_star_tf32_kernel`` (6 head dims, 8 to 256, x
     STAR / exact) with tf32 HMMA in its SASS, ``flash_star_pv_int8_kernel``
     (float32 and bf16 q/k: 24) with s8 IMMA (its P.V) and tf32 / bf16 HMMA
-    (its QK^T), and the two ``flash_star_quantize_v_kernel``
-    instantiations (its V pre-pass, float32 and bf16 V); each one's ptxas
-    line is printed."""
+    (its QK^T), the two ``flash_star_quantize_v_kernel`` instantiations
+    (its V pre-pass, float32 and bf16 V), and ``flash_star_blocked_kernel``
+    (the block route at 2 to 5 bits, float32 and bf16 q/k/v: 12) with tf32
+    / bf16 HMMA; each one's ptxas line is printed."""
+    names = ("flash_star_tf32_kernel", "flash_star_blocked_kernel", *PV_INT8_KERNELS)
     funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
-             if "flash_star_tf32_kernel" in f or any(k in f for k in PV_INT8_KERNELS)}
-    n = {k: sum(k in f for f in funcs) for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS)}
-    check(n == {"flash_star_tf32_kernel": 12, "flash_star_quantize_v_kernel": 2,
-                "flash_star_pv_int8_kernel": 24},
-          f"expected 12 tf32, 2 quantize_v and 24 pv_int8 instantiations, ptxas shows {n}")
+             if any(k in f for k in names)}
+    n = {k: sum(k in f for f in funcs) for k in names}
+    check(n == {"flash_star_tf32_kernel": 12, "flash_star_blocked_kernel": 12,
+                "flash_star_quantize_v_kernel": 2, "flash_star_pv_int8_kernel": 24},
+          f"expected 12 tf32, 12 blocked, 2 quantize_v and 24 pv_int8 instantiations, "
+          f"ptxas shows {n}")
     mma = sass_hmma(library)
     for func, lines in sorted(funcs.items()):
-        name = next(k for k in ("flash_star_tf32_kernel", *PV_INT8_KERNELS) if k in func)
-        m = re.search(r"Li(\d+)ELb([01])E", func)
+        name = next(k for k in names if k in func)
+        m = re.search(r"Li(\d+)ELb([01])E", func) or re.search(r"Li(\d+)E+v", func)
         tag = name + (" bf16" if "nv_bfloat16" in func else " f32") + (
-            f" D={m.group(1)} {'star' if m.group(2) == '1' else 'exact'}" if m else "")
+            "" if not m else f" D={m.group(1)}" if m.lastindex == 1 else
+            f" D={m.group(1)} {'star' if m.group(2) == '1' else 'exact'}")
         ops = mma.get(func, [])
         kinds = sorted(set(ops))
         log(f"{tag}: ptxas {'; '.join(lines)}; SASS HMMA/IMMA x {len(ops)} {kinds}")
@@ -773,13 +841,16 @@ def check_ssd_build(ptxas_log, library):
 def check_paged_build(ptxas_log):
     """Every instantiation of the paged split kernel (2 q types x 3 pool
     types for the fp entry and the two code types, 6 head dims, 8 to 256,
-    STAR and exact: 72) and of its combine (4) spills nothing."""
+    STAR and exact: 72; and the block route's scores and weights modes, STAR
+    only: 72 more), of its combine (4) and of the block route's page scan
+    (1) spills nothing."""
     funcs = {f: lines for f, lines in ptxas_by_function(ptxas_log).items()
-             if "paged_split_kernel" in f or "paged_combine_kernel" in f}
+             if any(k in f for k in ("paged_split_kernel", "paged_combine_kernel",
+                                     "paged_scan_kernel"))}
     n_split = sum("paged_split_kernel" in f for f in funcs)
-    check(n_split == 72 and len(funcs) == 76,
-          f"expected 72 paged_split_kernel and 4 paged_combine_kernel instantiations, "
-          f"ptxas shows {n_split} and {len(funcs) - n_split}")
+    check(n_split == 144 and len(funcs) == 149,
+          f"expected 144 paged_split_kernel, 4 paged_combine_kernel and 1 paged_scan_kernel "
+          f"instantiations, ptxas shows {n_split} and {len(funcs) - n_split}")
     for func, lines in sorted(funcs.items()):
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines),
               f"paged kernel {func} spills: {lines}")
@@ -5155,6 +5226,316 @@ def examples_on_card():
     return {"torch_quickstart": {"ok": True, "wall_s": wall}}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the paper's swept formats (9 bits down to 2)
+
+SWEPT_FORMATS = ((6, 3), (6, 2), (5, 2), (5, 1), (4, 1), (3, 1), (2, 1), (1, 1))
+# the block route (2 to 5 bits) timed at these beside the one-pass route at 8 bits
+ROUTE_TIMED = ((1, 1), (2, 1), (6, 2))
+BLOCKED_DESIGN = {
+    "flash_star_blocked": "KV blocks of block_k rows from row 0, each walked twice (its max, "
+                          "then P and P.V); QK^T and P.V as the one-pass kernel of the type",
+    "paged_attention_blocked": "grid indices (K only), a scan over the pages (M_p, R_p), the "
+                               "weighted split P.V (V only), the combine at r = 1"}
+SWEEP_CLAIMS = dict(exact_min=90.0, near_points=2.0)  # accuracy_bitwidth.main's assertions
+
+
+def _route_device_ms(call, fmt, times):
+    """Device ms of ``call`` where ``fmt`` is one of ROUTE_TIMED (None otherwise)."""
+    if fmt is None or (fmt.int_bits, fmt.frac_bits) not in ROUTE_TIMED:
+        return None
+    dev = device_ms_each_once(call)
+    times[fmt.short_name()] = dev
+    return dev
+
+
+def formats_flash(results):
+    """flash_star bf16 and float32 at granite's prefill (q [1, 32, 512, 128]
+    causal) and the dense `Tq = 1` decode, and the int8 P.V variant (bf16,
+    block_k 128) at both, each at the 8 swept formats against its
+    plain version (chip_smoke's tolerances and ambiguous-row rule).  At 2 to
+    5 bits the wrapper runs the block route, counted as
+    ``flash_star_blocked``; its device times at u2 and u3 beside the
+    one-pass kernel's at u8."""
+    import torch
+
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.lut import clamp_is_negligible
+    from repro_torch.kernels.flash_star import kernel as fk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    shapes = {}
+    b, hq, hkv, t, d = 1, 32, 8, 512, 128
+    base = [torch.randn(sh, device=dev, generator=gen) for sh in
+            ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
+    rows = torch.arange(t, device=dev)
+    live = (rows[None, :] <= rows[:, None])[None, None].expand(b, hq, t, t)
+    shapes["prefill"] = (base, torch.tensor([0, t], dtype=torch.int32, device=dev), live, True)
+    tk = DECODE_ROWS
+    dbase = [torch.randn(sh, device=dev, generator=gen) for sh in
+             ((4, hq, 1, d), (4, hkv, tk, d), (4, hkv, tk, d))]
+    dinfo = torch.tensor([0, *DECODE_VALID], dtype=torch.int32, device=dev)
+    cols = torch.arange(tk, device=dev)
+    dlive = (cols[None, :] < dinfo[1:, None])[:, None, None, :].expand(4, hq, 1, tk)
+    shapes["decode"] = (dbase, dinfo, dlive, False)
+    variants, times = [], {}
+    for label, (sbase, info, slive, causal) in shapes.items():
+        n_live = int(slive.sum())
+        kv_rows = int(slive.any(dim=2).any(dim=1).sum())
+        for dtype, pv8 in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True)):
+            q, k, v = (x.to(dtype) for x in sbase)
+            kr = k.double().repeat_interleave(hq // hkv, dim=1)
+            scores64 = (q.double() @ kr.transpose(-1, -2)) * d ** -0.5
+            for bits in SWEPT_FORMATS:
+                fmt = FixedPointFormat(*bits)
+                kw = dict(fmt=fmt, causal=causal, block_k=128, pv_int8=pv8)
+                blocked = not pv8 and not clamp_is_negligible(fmt, k.shape[2])
+                name = (f"formats flash_star{' pv_int8' if pv8 else ''} {label} "
+                        f"{str(dtype).split('.')[-1]} {fmt.short_name()}")
+                counter = (fk.PV_INT8_LAUNCHES if pv8 else
+                           fk.BLOCKED_LAUNCHES if blocked else fk.LAUNCHES)
+                before = counter.count
+                got = fk.flash_star_attention(q, k, v, info, **kw)
+                check(counter.count == before + 1,
+                      f"{name}: expected one {counter.name} launch")
+                ref = fk.flash_star_ref(q, k, v, info, **kw)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+                amb = _pv_int8_ambiguous(scores64, slive, 128, fmt) if pv8 else None
+                err, flips = compare_rows(name, got, ref, dtype, scores64, slive, fmt.scale,
+                                          amb=amb)
+                call = lambda: fk.flash_star_attention(q, k, v, info, **kw)  # noqa: E731
+                variant = dict(shape=label, dtype=str(dtype).split(".")[-1], pv_int8=pv8,
+                               format=fmt.short_name(), route="block" if blocked else "one-pass",
+                               max_abs_err=err, flip_rows=flips)
+                if not pv8:
+                    variant["device_ms"] = _route_device_ms(call, fmt, times.setdefault(
+                        f"{label} {variant['dtype']}", {}))
+                if blocked and label == "prefill" and dtype == torch.bfloat16 and bits == (2, 1):
+                    variant.update(ms=time_ms(call),
+                                   plain_ms=time_ms(lambda: fk.flash_star_ref(q, k, v, info, **kw)),
+                                   library_ms=None)
+                    flops = 4 * n_live * d
+                    nbytes = (2 * q.numel() + 2 * hkv * kv_rows * d) * q.element_size() + 4 * info.numel()
+                    main = (variant, nbytes, flops)
+                variants.append(variant)
+                log(f"{name}: route={variant['route']} max_abs_err={err:.3e} flip_rows={flips} "
+                    f"device_ms={variant.get('device_ms')}")
+    for key, by_fmt in times.items():
+        log(f"formats flash_star {key} device ms by format (block route at u2 / u3, one-pass "
+            f"at u8): {by_fmt}")
+    variant, nbytes, flops = main
+    results.append(_entry(
+        "flash_star_blocked", "cuda", "src/repro_torch/kernels/flash_star/csrc/flash_star.cu",
+        "src/repro/kernels/flash_star/kernel.py:216", variant, nbytes, flops, H100_BF16_FLOPS,
+        variants, shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] causal, block_k 128, "
+                        f"u3 (2i.1f), bf16; and the Tq = 1 dense decode"))
+    results[-1].update(design=BLOCKED_DESIGN["flash_star_blocked"], device_ms_by_format=times,
+                       device_ms=variant.get("device_ms"))
+
+
+def formats_paged(results):
+    """The paged kernel at the full-width tick's shape (S 4, Hq 32, Hkv 8, D
+    128, bs 16, lens 514/386/258/130, W 34) over float32 and bf16 pages of
+    q's type and int8 / fp8_e4m3 codes (bf16 q), at the 8 swept formats
+    against its plain version.  At 2 to 5 bits it runs the block route,
+    counted as ``paged_attention_blocked``; device times of both routes."""
+    import torch
+
+    from repro_torch.core import kvquant
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.lut import clamp_is_negligible
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    hq, hkv, d, bs = 32, 8, 128, 16
+    lens, w = PAGED_SHAPES["tick"]
+    s = len(lens)
+    n = s * w + 1
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    base = [torch.randn(sh, device=dev, generator=gen) for sh in
+            ((s, hq, d), (n, bs, hkv, d), (n, bs, hkv, d))]
+    tables = (torch.randperm(n - 1, device=dev, generator=gen)[: s * w] + 1)
+    tables = tables.reshape(s, w).to(torch.int32).contiguous()
+    valid = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cols = torch.arange(w * bs, device=dev)
+    live = (cols[None, :] < valid[:, None])[:, None, :].expand(s, hq, w * bs)
+    live_pages = sum(-(-x // bs) for x in lens)
+    pools = {}
+    for pool, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        pools[pool] = (dtype, base[1].to(dtype), base[2].to(dtype), {}, dtype.itemsize, 0)
+    for kv_dtype in ("int8", "fp8_e4m3"):
+        kc, ks = kvquant.quantize_blocks(base[1], kv_dtype)
+        vc, vs = kvquant.quantize_blocks(base[2], kv_dtype)
+        pools[kv_dtype] = (torch.bfloat16, kc, vc, dict(k_scale=ks, v_scale=vs), 1, live_pages)
+    variants, times, main = [], {}, None
+    for pool, (dtype, kp, vp, kw_pages, elem, scaled) in pools.items():
+        q = base[0].to(dtype)
+        kdq = kvquant.decode(kp, kw_pages["k_scale"][:, None, :, None]) if kw_pages else kp
+        k64 = gather_pages(kdq, kdq, tables)[0].double().repeat_interleave(hq // hkv, 2)
+        scores64 = torch.einsum("shd,sthd->sht", q.double(), k64) * d ** -0.5
+        nbytes, flops = _paged_work(q, lens, w, hkv, elem, scaled)
+        for bits in SWEPT_FORMATS:
+            fmt = FixedPointFormat(*bits)
+            blocked = not clamp_is_negligible(fmt, w * bs)
+            name = f"formats paged {pool} pages tick {fmt.short_name()}"
+            kw = dict(fmt=fmt, **kw_pages)
+            counter = (pk.BLOCKED_LAUNCHES if blocked else
+                       pk.LAUNCHES_QUANT if kw_pages else pk.LAUNCHES)
+            before = counter.count
+            call = lambda: pk.paged_flash_attention(q, kp, vp, tables, valid, **kw)  # noqa: E731
+            got = call()
+            check(counter.count == before + 1, f"{name}: expected one {counter.name} launch")
+            ref = pk.paged_attention_ref(q, kp, vp, tables, valid, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+            err, flips = compare_rows(name, got, ref, dtype, scores64, live, fmt.scale)
+            variant = dict(pool=pool, dtype=str(dtype).split(".")[-1], format=fmt.short_name(),
+                           route="block" if blocked else "one-pass", max_abs_err=err,
+                           flip_rows=flips)
+            if bits in ROUTE_TIMED:
+                variant["device_ms"] = _route_device_ms(call, fmt, times.setdefault(pool, {}))
+            if blocked and pool == "bfloat16" and bits == (2, 1):
+                variant.update(ms=time_ms(call), library_ms=None,
+                               plain_ms=time_ms(lambda: pk.paged_attention_ref(
+                                   q, kp, vp, tables, valid, **kw)))
+                main = (variant, nbytes, flops)
+            variants.append(variant)
+            log(f"{name}: route={variant['route']} max_abs_err={err:.3e} flip_rows={flips} "
+                f"device_ms={variant.get('device_ms')}")
+    for pool, by_fmt in times.items():
+        log(f"formats paged {pool} pages device ms by format (block route at u2 / u3, one-pass "
+            f"at u8): {by_fmt}")
+    variant, nbytes, flops = main
+    results.append(_entry(
+        "paged_attention_blocked", "cuda",
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/kernel.py:222", variant, nbytes, flops,
+        H100_FP32_FLOPS, variants,
+        shape=f"S={s} Hq={hq} Hkv={hkv} D={d} bs={bs} lens {lens} W {w}; main: bf16 pages, u3"))
+    results[-1].update(design=BLOCKED_DESIGN["paged_attention_blocked"],
+                       device_ms_by_format=times, device_ms=variant.get("device_ms"))
+
+
+def formats_softmax():
+    """The STAR softmax kernel at [4, 49152] float32 (300 columns at -inf),
+    every mode, at the 8 swept formats: within 1e-5 |plain| + 1e-9 of its
+    plain version (the softmax takes no block schedule: two passes)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.kernels.star_softmax import kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    x = torch.randn(4, 49152, device="cuda", generator=gen) * 4
+    x[:, :300] = -float("inf")
+    worst = {}
+    for mode in ("gather", "onehot", "histogram"):
+        for bits in SWEPT_FORMATS:
+            fmt = FixedPointFormat(*bits)
+            got = sk.star_softmax_kernel(x, fmt, mode=mode)
+            ref = sk.star_softmax_ref(x, fmt, mode=mode)
+            err = (got - ref).abs()
+            check(bool((err <= 1e-5 * ref.abs() + 1e-9).all()),
+                  f"formats star_softmax {mode} {fmt.short_name()}: max err {float(err.max()):.3e}")
+            worst[f"{mode} {fmt.short_name()}"] = float(err.max())
+    log(f"formats star_softmax [4, 49152] every mode at the 8 formats: max errors {worst}")
+    return worst
+
+
+def formats_smoke_serve():
+    """The granite-8b smoke config at 3 bits (2i.1f) on the paged continuous
+    engine, card vs CPU greedy tokens.  Counters zeroed just before and read
+    just after on the card: the block routes only (``flash_star_blocked``
+    once per layer of every prefill, ``paged_attention_blocked`` once per
+    layer of every tick, counted through the replays), never the one-pass
+    kernels."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    cfg, devices = _smoke_pair("granite_8b")
+    cfg = dataclasses.replace(cfg, softmax_int_bits=2, softmax_frac_bits=1)
+    rng = np.random.default_rng(SEED + 43)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32) for n in (19, 10, 27, 6)]
+    gens = [6, 8, 5, 7]
+    outs, counts, card = {}, None, None
+    with ops.use(softmax="pallas"):
+        for dev, params in devices:
+            eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+                num_slots=2, max_len=48, kv_layout="paged", kv_block_size=4), device=dev)
+            reset_launch_counts()
+            outs[dev] = eng.serve(prompts, gens)
+            if dev == "cuda":
+                counts, card = launch_counts(), eng
+    check(outs["cuda"] == outs["cpu"],
+          f"formats smoke u3: greedy tokens differ card vs cpu: {outs['cuda']} vs {outs['cpu']}")
+    nl = cfg.num_layers
+    calls = int(card.metrics.counter("serve.prefill.calls").value())
+    want = {"flash_star_blocked": nl * calls, "paged_attention_blocked": nl * card.ticks,
+            "flash_star": 0, "paged_attention": 0}
+    for name, n in want.items():
+        check(counts.get(name, 0) == n, f"formats smoke u3: {name} launched "
+              f"{counts.get(name, 0)} times, expected {n}")
+    log(f"formats smoke granite u3 paged serve: greedy tokens identical on card and cpu "
+        f"({sum(len(o) for o in outs['cpu'])} tokens); launches {counts}")
+    return counts
+
+
+def formats_sweep():
+    """``examples/torch_precision_sweep.py`` on the card: the reference's
+    table (exact >= 90 %, 7-9 bits within 2 points of exact, 2 bits more
+    than 2 points under) and the sweep's launches (the block route at 2 to
+    5 bits, the one-pass float32 kernel at 6 to 9 and exact)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_precision_sweep.py")],
+                          capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        log(f"  torch_precision_sweep: {line}")
+    check(proc.returncode == 0, f"torch_precision_sweep.py on the card: exit {proc.returncode}; "
+                                f"stderr {proc.stderr[-2000:]}")
+    acc = {}
+    for line in lines:
+        m = re.fullmatch(r"\s*(exact|\d+b \(\d+i\.\d+f\))\s+([\d.]+)%\s+([\d.]+)", line)
+        if m:
+            acc[m.group(1)] = float(m.group(2))
+    check(len(acc) == 9, f"torch_precision_sweep: expected 9 table rows, got {acc}")
+    exact = acc["exact"]
+    check(exact >= SWEEP_CLAIMS["exact_min"], f"torch_precision_sweep: exact {exact} %")
+    for name in ("7b (5i.2f)", "8b (6i.2f)", "9b (6i.3f)"):
+        check(acc[name] >= exact - SWEEP_CLAIMS["near_points"],
+              f"torch_precision_sweep: {name} {acc[name]} % vs exact {exact} %")
+    check(acc["2b (1i.1f)"] < exact - SWEEP_CLAIMS["near_points"],
+          f"torch_precision_sweep: 2b {acc['2b (1i.1f)']} % is not under exact {exact} %")
+    launches = json.loads(lines[-1].split("launches: ", 1)[1])
+    for name in ("flash_star_blocked", "flash_star", "star_softmax"):
+        check(launches.get(name, 0) > 0, f"torch_precision_sweep: no {name} launch ({launches})")
+    log(f"examples/torch_precision_sweep.py on the card: {acc}, launches {launches}, "
+        f"{wall:.1f}s")
+    return {"accuracy_pct": acc, "launches": launches, "wall_s": wall}
+
+
+def formats_phase(results):
+    formats_flash(results)
+    formats_paged(results)
+    softmax = formats_softmax()
+    counts = formats_smoke_serve()
+    for entry in results[-2:]:
+        entry["launches"] = counts.get(entry["name"], 0)
+        entry["launches_by_path"] = {"smoke_u3_paged_serve": entry["launches"]}
+    sweep = formats_sweep()
+    results[-2]["launches_by_path"]["precision_sweep"] = sweep["launches"].get(
+        "flash_star_blocked", 0)
+    return {"softmax_max_err": softmax, "smoke_u3_launches": counts, "sweep": sweep}
+
+
 def main() -> int:
     src = ROOT / "src" / "repro_torch"
     if not src.is_dir():
@@ -5263,6 +5644,8 @@ def main() -> int:
         summary_dryrun = dryrun_phase(results)
     with phase("16 examples"):
         summary_examples = examples_on_card()
+    with phase("17 formats"):
+        summary_formats = formats_phase(results)
     for entry in results:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
@@ -5272,7 +5655,7 @@ def main() -> int:
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
                     "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,
                     "train": summary_train, "mesh": summary_mesh, "dryrun": summary_dryrun,
-                    "examples": summary_examples,
+                    "examples": summary_examples, "formats": summary_formats,
                     "phase_seconds": PHASE_SECONDS, "card": card}))
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

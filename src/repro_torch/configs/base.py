@@ -99,6 +99,22 @@ class ModelConfig:
         return -(-self.vocab_size // 512) * 512
 
     @property
+    def softmax_format(self) -> FixedPointFormat:
+        """The softmax's format: the spec's, or (an exact spec has none) the
+        legacy bit fields'."""
+        fmt = self.softmax_spec.fmt
+        if fmt is not None:
+            return fmt
+        return FixedPointFormat(self.softmax_int_bits, self.softmax_frac_bits)
+
+    @property
+    def softmax_config(self):
+        """Deprecated: the pre-dispatch ``core.attention.SoftmaxConfig``."""
+        from repro_torch.core.attention import SoftmaxConfig  # core imports the ops layer
+
+        return SoftmaxConfig.from_spec(self.softmax_spec)
+
+    @property
     def softmax_spec(self) -> SoftmaxSpec:
         base = self.softmax
         if base is None and self.attention is not None:

@@ -4,7 +4,11 @@
 * :func:`blocked_attention` is the vector-grained pipeline: an online
   softmax over KV blocks.  Under STAR arithmetic the running max is an int32
   grid index and the rescale factor a LUT entry, so it equals the two-pass
-  engine to float32 rounding.
+  engine to float32 rounding while ``lut[a] * lut[b] == lut[a + b]``, i.e.
+  while no rescale and probability index sum past the table's deepest
+  level, where it clamps.  Past it (formats whose last entry is not
+  negligible: 2 to 5 bits, ``lut.clamp_is_negligible``) the result depends
+  on ``block_size``, as the TPU kernels' does on their blocks.
 
 Both are the plain versions behind the ``flash_star`` kernel.  Layout:
 q ``[B, Tq, Hq, D]``, k/v ``[B, Tk, Hkv, D]`` (GQA: head ``h`` reads KV head

@@ -42,6 +42,24 @@ def exp_lut(fmt: FixedPointFormat, device=None, dtype=torch.float32) -> torch.Te
     return _exp_lut_on(fmt.int_bits, fmt.frac_bits, str(dev), dtype)
 
 
+def clamp_is_negligible(fmt: FixedPointFormat, rows: int) -> bool:
+    """Whether an online softmax over ``rows`` keys gives the same result,
+    to float32 rounding, under any block schedule.
+
+    The online form rescales by ``lut[min(shift, top)]`` and takes each p
+    as ``lut[min(m - j, top)]``, with ``top = num_levels - 1``: the product
+    of two entries equals the entry of the summed index only while that sum
+    stays within ``top``, where the table clamps.  Past it a key's weight
+    depends on the schedule, by at most ``lut[top]``, so the output by at
+    most ``rows * lut[top]`` of it (the denominator is at least 1).  True
+    when that is under 2^-24: at 6 bits (5i.1f) and up for any realistic
+    ``rows``, never at 2 to 5 bits, whose last entry is e^-1.5 .. e^-15.5.
+    The kernels choose their block route by it, on the host, from the
+    format and the shapes alone."""
+    top = float(_exp_lut_np(fmt.int_bits, fmt.frac_bits)[-1])
+    return rows * top < 2.0 ** -24
+
+
 def exp_lut_int(fmt: FixedPointFormat, out_bits: int = 8, device=None) -> torch.Tensor:
     """Integer-mantissa LUT of the int8 P.V path:
     ``round(exp(-k / scale) * (2**(out_bits - 1) - 1))`` as int8, rounded in

@@ -28,9 +28,14 @@
 //                                 type: V's codes once per block, then the
 //                                 attention with s8 P.V
 //                                 (flash_star_quantize_v_launch, then
-//                                 flash_star_pv_int8_launch).
-// flash_star_tf32_kernel and flash_star_pv_int8_kernel share one body,
-// tc_attention, a sibling of the bf16 kernel rather than a template of it: their K and V tiles go through a split into
+//                                 flash_star_pv_int8_launch);
+//   flash_star_blocked_kernel     STAR at 2 to 5 bits, either type: the TPU
+//                                 kernel's block_k blocks, each block's max
+//                                 before its P (flash_star_blocked_launch;
+//                                 "The block route" below).
+// flash_star_tf32_kernel, flash_star_pv_int8_kernel and
+// flash_star_blocked_kernel share one body, tc_attention, a sibling of the
+// bf16 kernel rather than a template of it: their K and V tiles go through a split into
 // tf32 planes (float32) or their P.V through a block of int8 codes, so tile
 // sizes, shared memory and the P.V step all differ, while the score tiles'
 // layout and the softmax (block_softmax) are the same in all three.
@@ -730,6 +735,28 @@ __global__ void __launch_bounds__(MT, 1) flash_star_mma_kernel(Params p, int fir
 // of its tf32 bound (one CTA of 4 warps an SM, a split pass and two barriers
 // per 32-row tile); pv_int8 with bf16 q/k ~0.038 ms before its QK^T was
 // done twice (PERF.md).
+//
+// The block route (flash_star_blocked_kernel, STAR, float32 or bf16; body
+// tc_attention with BLK).  The TPU kernel walks KV blocks of block_k rows
+// from row 0, takes each block's P against the running max after the whole
+// block and rescales the running state by lut[min(shift, top)]; the one-pass
+// kernels do the same over their own tiles (32 or 64 rows).  The two agree
+// only while lut[a] * lut[b] == lut[a + b], which fails once a + b passes
+// the deepest level top = L - 1, where the table clamps: a key's weight
+// then depends on the schedule, by at most lut[top] each, so by at most
+// Tk * lut[top] of the output (the denominator is at least 1).  At 6 bits
+// (5i.1f) and up that is under 2^-24, float32 rounding, and the one-pass
+// kernels stand; at 2 to 5 bits (lut[top] = e^-1.5 .. e^-15.5) it is not,
+// and the wrapper routes STAR calls to this kernel, chosen on the host from
+// the format and Tk alone (kernel.py, lut.clamp_is_negligible).  It walks
+// each block of bk rows twice as the int8 P.V variant does, in 32-row
+// sub-tiles: pass 0 forms the scores and keeps their row max, the running
+// max moves once and the running state is rescaled once, pass 1 forms the
+// same scores again, takes p against the new max and runs P.V into O as the
+// one-pass kernel of its type does (pv_tf32: V^T split into tf32 planes,
+// loaded in pass 1 only; pv_bf16: flash_star_mma_kernel's three-piece P and
+// V through ldmatrix.trans), and l = fl(fl(l r) + the block's sum of p).
+// It costs the QK^T twice (PERF.md).
 
 constexpr int V8_GROUP = 32;               // keys of one s8 k-step
 constexpr int V8_PITCH = V8_GROUP + 16;    // bytes per feature row of a sub-tile's codes
@@ -751,7 +778,7 @@ struct TcSmem {
   static constexpr int RG = MQ / 16;             // row groups of 16, one warp each ...
   static constexpr int CG = (MT / 32) / RG;      // ... times CG warps along the columns
   static constexpr int DW = D / CG;              // output columns a warp
-  static constexpr int SUB = PV8 ? V8_GROUP : WIDE ? 16 : 32;  // KV rows a ring stage
+  static constexpr int SUB = PV8 ? V8_GROUP : WIDE && F32 ? 16 : 32;  // KV rows a ring stage
   static constexpr int DK = F32 ? D : kdim(D);  // row width in shared memory (bf16 D 8: 16)
   static constexpr int QP = F32 ? D + 4 : DK + 8;  // elements per row of Q and the ring
   static constexpr int VTP = SUB + 4;             // floats per row of the split V^T
@@ -806,7 +833,96 @@ __device__ __forceinline__ uint32_t pack_p8(float a, float b, float c, float d) 
   return q(a) | q(b) << 8 | q(c) << 16 | q(d) << 24;
 }
 
-template <typename T, int D, bool STAR, bool PV8>
+// O += P V of one sub-tile in the float32 kernel: k-step j is score n-tile
+// j, its registers the A fragment as they are (V^T's key order), split into
+// tf32 hi and lo; vt is this lane's B row of the V^T hi plane (lo D VTP on)
+template <int D, int DW, int NS, int VTP>
+__device__ __forceinline__ void pv_tf32(float (&o)[DW / 8][4], const float (&s)[NS][4],
+                                        const float* vt) {
+  constexpr int VG = DW >= 32 ? 2 : 1;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    uint32_t ph[4], pl[4];
+    split_tf32(s[j][0], ph[0], pl[0]);
+    split_tf32(s[j][2], ph[1], pl[1]);
+    split_tf32(s[j][1], ph[2], pl[2]);
+    split_tf32(s[j][3], ph[3], pl[3]);
+    if constexpr (D < 16) {  // one n8 tile: V^T's 8 feature rows
+      uint32_t vh[2], vl[2];
+      ldsm_x2(vh, vt + 8 * j);
+      ldsm_x2(vl, vt + D * VTP + 8 * j);
+      mma_tf32(o[0], pl, vh[0], vh[1]);
+      mma_tf32(o[0], ph, vl[0], vl[1]);
+      mma_tf32(o[0], ph, vh[0], vh[1]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < DW / 16; dp += VG) {
+      uint32_t vh[VG][4], vl[VG][4];
+#pragma unroll
+      for (int uu = 0; uu < VG; ++uu) {
+        ldsm_x4(vh[uu], vt + 16 * (dp + uu) * VTP + 8 * j);
+        ldsm_x4(vl[uu], vt + D * VTP + 16 * (dp + uu) * VTP + 8 * j);
+      }
+#pragma unroll
+      for (int uu = 0; uu < VG; ++uu) {
+        mma_tf32(o[2 * (dp + uu)], pl, vh[uu][0], vh[uu][1]);
+        mma_tf32(o[2 * (dp + uu) + 1], pl, vh[uu][2], vh[uu][3]);
+      }
+#pragma unroll
+      for (int uu = 0; uu < VG; ++uu) {
+        mma_tf32(o[2 * (dp + uu)], ph, vl[uu][0], vl[uu][1]);
+        mma_tf32(o[2 * (dp + uu) + 1], ph, vl[uu][2], vl[uu][3]);
+      }
+#pragma unroll
+      for (int uu = 0; uu < VG; ++uu) {
+        mma_tf32(o[2 * (dp + uu)], ph, vh[uu][0], vh[uu][1]);
+        mma_tf32(o[2 * (dp + uu) + 1], ph, vh[uu][2], vh[uu][3]);
+      }
+    }
+  }
+}
+
+// O += P V of one sub-tile in the bf16 block route, as flash_star_mma_kernel
+// forms it: 16-key steps, the A fragment of step kk the score n-tiles 2 kk
+// and 2 kk + 1 in three bf16 pieces, V's bf16 rows (pitch QP) through
+// ldmatrix.trans; vs points at the warp's first output column
+template <int D, int DW, int NS, int QP>
+__device__ __forceinline__ void pv_bf16(float (&o)[DW / 8][4], const float (&s)[NS][4],
+                                        const __nv_bfloat16* vs, int lane) {
+  constexpr int VG = DW >= 32 ? 2 : 1;
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    uint32_t pc[3][4];  // hi, mid, lo
+    split3(s[2 * kk][0], s[2 * kk][1], pc[0][0], pc[1][0], pc[2][0]);
+    split3(s[2 * kk][2], s[2 * kk][3], pc[0][1], pc[1][1], pc[2][1]);
+    split3(s[2 * kk + 1][0], s[2 * kk + 1][1], pc[0][2], pc[1][2], pc[2][2]);
+    split3(s[2 * kk + 1][2], s[2 * kk + 1][3], pc[0][3], pc[1][3], pc[2][3]);
+    const __nv_bfloat16* vrow = vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * QP;
+    if constexpr (D < 16) {  // one n8 tile: V's columns 0 .. 7 of the 16 keys
+      uint32_t vb[2];
+      ldsm_x2_trans(vb, vrow);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece) mma_bf16(o[0], pc[piece], vb[0], vb[1]);
+    } else {
+#pragma unroll
+      for (int dp = 0; dp < DW / 16; dp += VG) {
+        uint32_t vb[VG][4];
+#pragma unroll
+        for (int u = 0; u < VG; ++u) ldsm_x4_trans(vb[u], vrow + 16 * (dp + u) + 8 * (lane >> 4));
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+          for (int u = 0; u < VG; ++u) {
+            mma_bf16(o[2 * (dp + u)], pc[piece], vb[u][0], vb[u][1]);
+            mma_bf16(o[2 * (dp + u) + 1], pc[piece], vb[u][2], vb[u][3]);
+          }
+      }
+    }
+  }
+}
+
+// BLK: the block route (STAR only, either type), see "The block route" above.
+template <typename T, int D, bool STAR, bool PV8, bool BLK = false>
 __device__ __forceinline__ void tc_attention(const Params& p, int first_round, const V8Args& w) {
   using S = TcSmem<T, D, PV8>;
   constexpr bool F32 = S::F32;
@@ -814,9 +930,12 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
   constexpr int NS = SUB / 8;                   // score n-tiles of a sub-tile
   constexpr int NO = DW / 8;                    // output n-tiles per warp
   constexpr int CH = DK * (int)sizeof(T) / 16;  // 16-byte chunks per row (past D: zero)
-  constexpr int PASSES = PV8 ? 2 : 1;           // int8 P.V: the block's max, then P
+  constexpr bool TWO = PV8 || BLK;             // each block walked twice: its max, then P
+  constexpr int PASSES = TWO ? 2 : 1;
   static_assert(D % 8 == 0 && (F32 || DK % 16 == 0), "head_dim 8 or a multiple of 16");
   static_assert(DW % 16 == 0 || D < 16, "a warp's columns are whole 16-column groups");
+  static_assert(!BLK || (STAR && !PV8), "the block route is the STAR float P.V's");
+  static_assert(F32 || TWO, "bf16 one-pass attention is flash_star_mma_kernel's");
   constexpr int STAGE = (int)(S::stage / sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);                 // [MQ][QP] (F32: then lo)
@@ -842,12 +961,12 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
 
   // blocks of blk_rows KV rows from `start`, each walked PASSES times in
   // nsub ring sub-tiles
-  const int blk_rows = PV8 ? w.bk : SUB;
+  const int blk_rows = TWO ? w.bk : SUB;
   int kv_end = kv_lim;
   if (p.causal) kv_end = min(kv_end, row0 + MQ_);
   const int start = p.window > 0 ? max(0, row0 - p.window + 1) / blk_rows * blk_rows : 0;
   const int n_blocks = kv_end > start ? (kv_end - start + blk_rows - 1) / blk_rows : 0;
-  const int nsub = PV8 ? (w.bk + SUB - 1) / SUB : 1;
+  const int nsub = TWO ? (w.bk + SUB - 1) / SUB : 1;
   const int per_blk = PASSES * nsub;
   const int n_it = n_blocks * per_blk;
 
@@ -865,8 +984,8 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
       }
     }
   };
-  // one copy group per sub-tile: its K (and V), and in pass 1 of the int8
-  // variant its codes (D rows of 32 bytes)
+  // one copy group per sub-tile: its K, and in pass 1 its V (in the one-pass
+  // kernel at once), or the int8 variant's codes (D rows of 32 bytes)
   auto issue = [&](int it) {
     if (it < n_it) {
       const int blk = it / per_blk, rem = it - blk * per_blk;
@@ -874,7 +993,9 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
       const int r0 = start + blk * blk_rows + SUB * u;
       T* st = ring + (it & 1) * STAGE;
       load_rows(st, kg, p.k_st, r0, p.Tk, Int<SUB>{});
-      if constexpr (!PV8) load_rows(st + SUB * QP, vg, p.v_st, r0, p.Tk, Int<SUB>{});
+      if constexpr (!PV8) {
+        if (!BLK || rem >= nsub) load_rows(st + SUB * QP, vg, p.v_st, r0, p.Tk, Int<SUB>{});
+      }
       if constexpr (PV8) {
         if (rem >= nsub) {
           const int8_t* src = w.codes + (((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk +
@@ -938,7 +1059,10 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
     for (int n = 0; n < (PV8 ? NO : 1); ++n) acc8[n][0] = acc8[n][1] = acc8[n][2] = acc8[n][3] = 0;
 
     for (int pass = 0; pass < PASSES; ++pass) {
-      if (PV8 && pass == 1 && warp_live) running_max<STAR>(mbi, mbf, p, lut, m_i, m_f, r);
+      if (TWO && pass == 1 && warp_live) {
+        running_max<STAR>(mbi, mbf, p, lut, m_i, m_f, r);
+        if constexpr (BLK) rescale(o, r);
+      }
       for (int u = 0; u < nsub; ++u, ++it) {
         cp_async_wait<0>();
         __syncthreads();  // sub-tile it landed for every thread; it - 1 consumed
@@ -947,7 +1071,9 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
         if constexpr (F32) {
           if (it == 0) split_rows<MQ_, D, QP>(Qs, Qs, Qs + MQ_ * QP);
           split_rows<SUB, D, QP>(ks, ks, Klo);
-          if constexpr (!PV8) split_vt<SUB, D, QP, VTP>(ks + SUB * QP, Vtp, Vtp + D * VTP);
+          if constexpr (!PV8) {
+            if (!BLK || pass == 1) split_vt<SUB, D, QP, VTP>(ks + SUB * QP, Vtp, Vtp + D * VTP);
+          }
           __syncthreads();  // the tf32 planes are complete
         }
         // the sub-tile's columns cu .. cu_last; none live for this warp: p = 0
@@ -1003,61 +1129,40 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
                           (p.window <= 0 || cu > wr0 + 15 - p.window);
         const int cb = cu + 2 * tg;
 
-        if constexpr (!PV8) {
+        // P.V reads the split V^T planes (float32) or V's bf16 rows
+        const float* vt = Vtp + (cg * DW + b_row) * VTP + 4 * b_half;
+        const T* vrows = ks + SUB * QP + cg * DW;
+        if constexpr (!TWO) {
           if (full)
             block_softmax<NS, STAR, true>(s, lo, hb, cb, p, lut, m_i, m_f, l, r);
           else
             block_softmax<NS, STAR, false>(s, lo, hb, cb, p, lut, m_i, m_f, l, r);
           rescale(o, r);
-          // O += P V: k-step j is score n-tile j, its registers the A fragment
-          // as they are (V^T's key order), split into tf32 hi and lo
-          constexpr int VG = DW >= 32 ? 2 : 1;
-          const float* vt = Vtp + (cg * DW + b_row) * VTP + 4 * b_half;
-#pragma unroll
-          for (int j = 0; j < NS; ++j) {
-            uint32_t ph[4], pl[4];
-            split_tf32(s[j][0], ph[0], pl[0]);
-            split_tf32(s[j][2], ph[1], pl[1]);
-            split_tf32(s[j][1], ph[2], pl[2]);
-            split_tf32(s[j][3], ph[3], pl[3]);
-            if constexpr (D < 16) {  // one n8 tile: V^T's 8 feature rows
-              uint32_t vh[2], vl[2];
-              ldsm_x2(vh, vt + 8 * j);
-              ldsm_x2(vl, vt + D * VTP + 8 * j);
-              mma_tf32(o[0], pl, vh[0], vh[1]);
-              mma_tf32(o[0], ph, vl[0], vl[1]);
-              mma_tf32(o[0], ph, vh[0], vh[1]);
-            }
-#pragma unroll
-            for (int dp = 0; dp < DW / 16; dp += VG) {
-              uint32_t vh[VG][4], vl[VG][4];
-#pragma unroll
-              for (int uu = 0; uu < VG; ++uu) {
-                ldsm_x4(vh[uu], vt + 16 * (dp + uu) * VTP + 8 * j);
-                ldsm_x4(vl[uu], vt + D * VTP + 16 * (dp + uu) * VTP + 8 * j);
-              }
-#pragma unroll
-              for (int uu = 0; uu < VG; ++uu) {
-                mma_tf32(o[2 * (dp + uu)], pl, vh[uu][0], vh[uu][1]);
-                mma_tf32(o[2 * (dp + uu) + 1], pl, vh[uu][2], vh[uu][3]);
-              }
-#pragma unroll
-              for (int uu = 0; uu < VG; ++uu) {
-                mma_tf32(o[2 * (dp + uu)], ph, vl[uu][0], vl[uu][1]);
-                mma_tf32(o[2 * (dp + uu) + 1], ph, vl[uu][2], vl[uu][3]);
-              }
-#pragma unroll
-              for (int uu = 0; uu < VG; ++uu) {
-                mma_tf32(o[2 * (dp + uu)], ph, vh[uu][0], vh[uu][1]);
-                mma_tf32(o[2 * (dp + uu) + 1], ph, vh[uu][2], vh[uu][3]);
-              }
-            }
-          }
+          if constexpr (F32)
+            pv_tf32<D, DW, NS, VTP>(o, s, vt);
+          else
+            pv_bf16<D, DW, NS, QP>(o, s, vrows, lane);
         } else if (pass == 0) {  // the block's max only
           if (full)
             tile_scores<NS, STAR, true>(s, Live<true>(lo, hb, cb), p, mbi, mbf);
           else
             tile_scores<NS, STAR, false>(s, Live<false>(lo, hb, cb), p, mbi, mbf);
+        } else if constexpr (BLK) {  // p against the block's max, and P.V of the sub-tile
+          int xi[2] = {GRID_SENTINEL, GRID_SENTINEL};
+          float xf[2] = {NEG_BIG, NEG_BIG};
+          if (full) {
+            const Live<true> is_live(lo, hb, cb);
+            tile_scores<NS, STAR, true>(s, is_live, p, xi, xf);
+            tile_probs<NS, STAR, true>(s, is_live, p, lut, m_i, m_f, ps);
+          } else {
+            const Live<false> is_live(lo, hb, cb);
+            tile_scores<NS, STAR, false>(s, is_live, p, xi, xf);
+            tile_probs<NS, STAR, false>(s, is_live, p, lut, m_i, m_f, ps);
+          }
+          if constexpr (F32)
+            pv_tf32<D, DW, NS, VTP>(o, s, vt);
+          else
+            pv_bf16<D, DW, NS, QP>(o, s, vrows, lane);
         } else {  // p against the block's max, p8, and P8.V8 of the sub-tile
           int xi[2] = {GRID_SENTINEL, GRID_SENTINEL};
           float xf[2] = {NEG_BIG, NEG_BIG};
@@ -1095,16 +1200,18 @@ __device__ __forceinline__ void tc_attention(const Params& p, int first_round, c
         }
       }
     }
-    if constexpr (PV8) {
+    if constexpr (TWO) {
       if (warp_live) {  // the block into the running state, as the TPU kernel folds it
-        const float vs =
-            __ldg(w.scales + ((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk);
+        if constexpr (PV8) {
+          const float vs =
+              __ldg(w.scales + ((long long)b * p.Hkv + tl.hk) * w.nblk + start / w.bk + blk);
 #pragma unroll
-        for (int n = 0; n < NO; ++n)
+          for (int n = 0; n < NO; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            o[n][e] = __fadd_rn(__fmul_rn(o[n][e], r[e >> 1]),
-                                __fmul_rn(static_cast<float>(acc8[n][e]), vs));
+            for (int e = 0; e < 4; ++e)
+              o[n][e] = __fadd_rn(__fmul_rn(o[n][e], r[e >> 1]),
+                                  __fmul_rn(static_cast<float>(acc8[n][e]), vs));
+        }
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) l[hr] = __fadd_rn(__fmul_rn(l[hr], r[hr]), ps[hr]);
       }
@@ -1122,6 +1229,13 @@ template <typename T, int D, bool STAR>
 __global__ void __launch_bounds__(MT, 1) flash_star_pv_int8_kernel(Params p, int first_round,
                                                                    V8Args w) {
   tc_attention<T, D, STAR, true>(p, first_round, w);
+}
+
+// the block route: w carries the block's rows (bk) only
+template <typename T, int D>
+__global__ void __launch_bounds__(MT, 1) flash_star_blocked_kernel(Params p, int first_round,
+                                                                   V8Args w) {
+  tc_attention<T, D, true, false, true>(p, first_round, w);
 }
 
 // V's codes and scales for the int8 P.V variant, once per (block, KV head,
@@ -1296,6 +1410,26 @@ cudaError_t launch_d(const Params& p, int d, cudaStream_t s, const V8Args& w = V
   }
 }
 
+template <typename T, int D>
+cudaError_t launch_blocked(const Params& p, cudaStream_t s, const V8Args& w) {
+  static LaunchCache cache;
+  using S = TcSmem<T, D, false>;
+  return launch_rows_first(flash_star_blocked_kernel<T, D>, S::MQ, S::bytes, true, cache, p, s, w);
+}
+
+template <typename T>
+cudaError_t launch_blocked_d(const Params& p, int d, cudaStream_t s, const V8Args& w) {
+  switch (d) {
+    case 8: return launch_blocked<T, 8>(p, s, w);
+    case 16: return launch_blocked<T, 16>(p, s, w);
+    case 32: return launch_blocked<T, 32>(p, s, w);
+    case 64: return launch_blocked<T, 64>(p, s, w);
+    case 128: return launch_blocked<T, 128>(p, s, w);
+    case 256: return launch_blocked<T, 256>(p, s, w);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    const void* info, const void* lut,
                    long long q_sb, long long q_sh, long long q_st,
@@ -1404,6 +1538,30 @@ extern "C" int flash_star_pv_int8_launch(
   w.nblk = (Tk + bk - 1) / bk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? launch_d<2>(p, D, s, w) : launch_d<3>(p, D, s, w);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The block route (STAR only, lut required): KV blocks of bk rows from row
+// 0, each block's max before its P, q/k/v/o float32 (dtype 0) or bfloat16
+// (1): flash_star_blocked_kernel.
+extern "C" int flash_star_blocked_launch(
+    FLASH_STAR_ARGS, int dtype,
+    int causal, int window, float sm_scale, float grid_scale, int num_levels,
+    int bk, void* stream) {
+  const Params p = FLASH_STAR_PARAMS;
+  if (bk < 1 || lut == nullptr || num_levels < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (Tq <= 0 || B <= 0 || Hq <= 0) return (int)cudaGetLastError();
+  V8Args w;
+  w.codes = nullptr;
+  w.scales = nullptr;
+  w.bk = bk;
+  w.kpad = pad32(bk);
+  w.nblk = (Tk + bk - 1) / bk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dtype == 0 ? launch_blocked_d<float>(p, D, s, w)
+                                     : launch_blocked_d<__nv_bfloat16>(p, D, s, w);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -27,13 +27,23 @@ kernels zero-fill Q and K to 16 columns in shared memory, and ``sm_scale``
 keeps the true D, so every score is the 8-term dot (a bf16 row of 8 is one
 16-byte piece).
 
-``block_k`` is the KV block of the plain version's loop; the CUDA kernels
-use their own fixed tiles (64 q rows, 32 at D 256 in the float32 and int8
-P.V kernels; 64 KV rows in bf16, 32 at D 256; 32 in float32, 16 at D 256),
-which changes only the float summation order.  ``pv_int8=True`` runs the
-int8 P.V variant, whose codes depend on the block: there the KV block is
-``min(block_k, Tk)`` rows in the kernel too, of any size (the kernel walks a
-block's K twice: its max, then P).
+``block_k`` is the KV block of the TPU kernel and of the plain version's
+loop.  Under STAR the result depends on it: the online rescale
+``lut[a] * lut[b] == lut[a + b]`` fails once ``a + b`` passes the table's
+deepest level, where it clamps.  Where that can move the output by no more
+than float32 rounding (``core.lut.clamp_is_negligible``: formats of 6 bits
+(5i.1f) and up, and the exact softmax) the one-pass kernels walk their own
+fixed tiles (64 q rows, 32 at D 256 in the float32 and int8 P.V kernels;
+64 KV rows in bf16, 32 at D 256; 32 in float32, 16 at D 256), which
+changes only the float summation order.  At 2 to 5 bits a STAR call takes
+the block route instead, ``flash_star_blocked_launch`` (either type; its
+own count ``flash_star_blocked``): KV blocks of ``min(block_k, Tk)`` rows
+from row 0 as in the TPU kernel, each walked twice, its max first, then P
+against it.  The route is chosen here from the format and Tk alone, never
+from values on the card (a decode tick is a CUDA graph replay): both
+routes are the kernel.  ``pv_int8=True`` runs the int8 P.V variant, whose
+codes depend on the block: there the KV block is ``min(block_k, Tk)`` rows
+at every format, of any size (the same two passes).
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointFormat
-from repro_torch.core.lut import exp_lut
+from repro_torch.core.lut import clamp_is_negligible, exp_lut
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_star.ref import V8_GROUP, flash_star_ref
 
@@ -54,6 +64,7 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _cuda.launch_counter("flash_star")
 PV_INT8_LAUNCHES = _cuda.launch_counter("flash_star_pv_int8")
+BLOCKED_LAUNCHES = _cuda.launch_counter("flash_star_blocked")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -64,8 +75,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_star_tf32_launch.argtypes = args + softmax + [p]
     lib.flash_star_quantize_v_launch.argtypes = [p] + [ll] * 3 + [i] * 6 + [p, p, p]
     lib.flash_star_pv_int8_launch.argtypes = args + [i] + softmax + [i, p, p, p]
+    lib.flash_star_blocked_launch.argtypes = args + [i] + softmax + [i, p]
     for fn in (lib.flash_star_mma_launch, lib.flash_star_tf32_launch,
-               lib.flash_star_quantize_v_launch, lib.flash_star_pv_int8_launch):
+               lib.flash_star_quantize_v_launch, lib.flash_star_pv_int8_launch,
+               lib.flash_star_blocked_launch):
         fn.restype = i
 
 
@@ -132,11 +145,13 @@ def flash_star_attention(
             q, k, v, info, fmt=fmt, causal=causal, sliding_window=sliding_window,
             sm_scale=sm_scale, block_k=block_k, pv_int8=pv_int8,
         )
-    bk = max(1, min(block_k, k.shape[2])) if pv_int8 else 0
-    return _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk)
+    bk = max(1, min(block_k, k.shape[2]))
+    return _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk, pv_int8,
+                   blocked=fmt is not None and not clamp_is_negligible(fmt, k.shape[2]))
 
 
-def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.Tensor:
+def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk, pv_int8,
+            blocked) -> torch.Tensor:
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -175,12 +190,17 @@ def _launch(q, k, v, info, fmt, causal, sliding_window, sm_scale, bk) -> torch.T
         fmt.num_levels if fmt is not None else 0,
     )
     stream = _cuda.stream_handle(dev)
-    if bk:
+    if pv_int8:
         codes, scales = _quantize_v(lib, v, bk, stream)
         rc = lib.flash_star_pv_int8_launch(*args, DTYPES[dtype], *softmax, bk,
                                            codes.data_ptr(), scales.data_ptr(), stream)
         _cuda.check(lib, rc, "flash_star_pv_int8")
         PV_INT8_LAUNCHES.add()
+        return out
+    if blocked:
+        rc = lib.flash_star_blocked_launch(*args, DTYPES[dtype], *softmax, bk, stream)
+        _cuda.check(lib, rc, "flash_star_blocked")
+        BLOCKED_LAUNCHES.add()
         return out
     launch = lib.flash_star_mma_launch if dtype == torch.bfloat16 else lib.flash_star_tf32_launch
     _cuda.check(lib, launch(*args, *softmax, stream), "flash_star")

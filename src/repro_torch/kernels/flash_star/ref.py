@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import SoftmaxConfig, blocked_attention
-from repro_torch.core.fixedpoint import FixedPointFormat
+from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FixedPointFormat
 
 V8_GROUP = 32  # keys per k-group of the int8 variant's codes (one s8 mma step)
 
@@ -54,6 +54,33 @@ def flash_star_ref(
         pv_int8=pv_int8,
     )
     return out.transpose(1, 2)
+
+
+def flash_star_blocked_ref(
+    q: torch.Tensor,  # [B, Tq, Hq, D]
+    k: torch.Tensor,  # [B, Tk, Hkv, D]
+    v: torch.Tensor,
+    *,
+    fmt: Optional[FixedPointFormat] = DEFAULT_FORMAT,
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+    q_offset=0,
+    kv_valid_len=None,
+    sm_scale: Optional[float] = None,
+    block_size: int = 128,
+) -> torch.Tensor:
+    """The online blocked reference in the reference's ``[B, T, H, D]``
+    layout: ``blocked_attention`` over KV blocks of ``block_size`` rows,
+    the TPU kernel's schedule at ``block_k == block_size``."""
+    softmax = (
+        SoftmaxConfig(kind="exact") if fmt is None
+        else SoftmaxConfig(kind="star", fmt=fmt)
+    )
+    return blocked_attention(
+        q, k, v, softmax=softmax, causal=causal, sliding_window=sliding_window,
+        q_offset=q_offset, kv_valid_len=kv_valid_len, scale=sm_scale,
+        block_size=block_size,
+    )
 
 
 def split_bf16x3(p: torch.Tensor):

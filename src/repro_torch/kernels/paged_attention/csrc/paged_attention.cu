@@ -54,14 +54,35 @@
 // result is the same bits run to run: m = max m_i (int32 under STAR),
 // r_i = lut[min(m - m_i, top)] or expf(m_i - m), l = sum r_i * l_i,
 // acc = sum r_i * acc_i, out = acc / (l <= 0 ? 1 : l), a true division,
-// rounded to q's type once.  This is the online rule the TPU kernel applies
-// at every page.  With splits == 1 (decided from shapes) the split kernel
+// rounded to q's type once.  This is the TPU kernel's function, which applies
+// the online rule at every page, only while lut[a] * lut[b] == lut[a + b]:
+// under STAR it fails once a + b passes the deepest level top, where the
+// table clamps, and then a key's weight depends on where the schedule cuts
+// the rows.  The wrapper keeps this one-pass route where that moves the
+// output by less than float32 rounding (formats of 6 bits and up, the exact
+// softmax; kernel.py) and takes the block route below at 2 to 5 bits.  With
+// splits == 1 (decided from shapes) the split kernel
 // divides and writes the output itself: with one live split r_0 is exactly
 // 1 (lut[0], expf(0)), so both routes give the same bits (the card tests
 // and chip_smoke.py hold a short slot alone, one split, bit-equal to the
 // same slot in a batch that goes through the combine).  A second launch
 // was chosen over folding the combine into the last CTA of each head with a
 // counter: it needs no zeroed counters and is a few microseconds.
+//
+// The block route (paged_attention_blocked_launch; STAR at 2 to 5 bits, every
+// pool type): the TPU kernel's weights exactly, keeping split-KV.  With b_p
+// page p's grid max, M_p = max(b_0 .. b_p) the running max after page p and
+// r_p = lut[min(M_p - M_{p-1}, top)] its rescale, the TPU kernel gives row j
+// of page p the weight lut[min(M_p - j, top)] * R_p, R_p = r_{p+1} ... r_last.
+// Three launches before the combine: the split kernel in its scores mode
+// (K only: each live row's grid index per q head into the workspace), a scan
+// (one CTA per (slot, KV head): the page maxima, then per q head a warp's
+// prefix max and suffix product over the pages: M_p and R_p), and the split
+// kernel in its weights mode (V only: p = lut[min(M_p - j, top)] * R_p,
+// the row sums and P.V as above), whose partials all carry m = 0, so the
+// combine's r_i are lut[0] = 1 and it adds them.  The pool's K and V are each
+// read once, as in the one-pass route; the grid indices go to the workspace
+// and back (4 bytes a row and q head).
 //
 // Softmax arithmetic is flash_star's: STAR snaps each score (q.k in
 // float32, times sm_scale, a separate multiply) to the int grid with rint
@@ -202,6 +223,8 @@ struct Params {
   const float* kscale;    // [N, Hkv] (quantized pools only)
   const float* vscale;    // [N, Hkv]
   float* ws;              // acc [S, Hkv, splits, G, D], then m and l [S, Hkv, splits, G]
+  int* jg;                // block route: grid index [S, Hq, splits * L]
+  int* pm;                // block route: M_p [S, Hq, W], then R_p (float) [S, Hq, W]
   int S, Hq, Hkv, W, bs, splits;
   float sm_scale, grid_scale;
   int num_levels;
@@ -250,7 +273,9 @@ __device__ __forceinline__ void issue_rows(unsigned char* dst, const C* pool, co
 
 // T: q / output type; C: pool element type (T, or an 8-bit code type).
 // Grid (splits, Hkv, S): CTA (i, hk, s) owns rows [i*L, (i+1)*L) of slot s.
-template <typename T, typename C, int D, bool STAR>
+// MODE 0: the one-pass split; the block route's 1: scores (K only, grid
+// indices out) and 2: weights (V only, p from the scan's M_p and R_p).
+template <typename T, typename C, int D, bool STAR, int MODE = 0>
 __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   constexpr bool QUANT = is_code<C>::value;
   constexpr int ES = (int)sizeof(C);
@@ -263,6 +288,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   static_assert(NTHREADS / (NC * (MAXG / 4)) >= 1,
                 "P.V: every (column, 4-head) group needs a thread: rg would be 0");
   static_assert(HALF % KCH == 0 && KCH % KV_VEC == 0 && KCH % 4 == 0, "whole K chunks");
+  static_assert(MODE == 0 || STAR, "the block route is STAR's");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int page_sh[SPLIT_ROWS];  // the split's page ids (L of them at bs 1)
   __shared__ int row_sh[SPLIT_ROWS];   // pool row of each local row
@@ -289,6 +315,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   const int kv = min(max(p.valid[s], 0), p.W * bs);
   const int rows = min(SPLIT_ROWS, kv - row0);  // live rows of this split
   if (rows <= 0) {                     // empty split (or free slot): an empty partial
+    if constexpr (MODE == 1) return;   // (the scores mode writes nothing)
     for (int idx = tid; idx < G * D; idx += NTHREADS) {
       if (direct) og[idx] = from_f32<T>(0.f);
       else p.ws[part * D + idx] = 0.f;
@@ -317,10 +344,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   unsigned char* Kst = smem + lay.kv;
   unsigned char* Vst = Kst + SPLIT_ROWS * RS;
 
-  issue_rows<C, D>(Kst, static_cast<const C*>(p.k), row_sh, rows, p.Hkv, hk, tid);
-  cp_async_commit();
-  issue_rows<C, D>(Vst, static_cast<const C*>(p.v), row_sh, rows, p.Hkv, hk, tid);
-  cp_async_commit();
+  if constexpr (MODE != 2) {
+    issue_rows<C, D>(Kst, static_cast<const C*>(p.k), row_sh, rows, p.Hkv, hk, tid);
+    cp_async_commit();
+  }
+  if constexpr (MODE != 1) {
+    issue_rows<C, D>(Vst, static_cast<const C*>(p.v), row_sh, rows, p.Hkv, hk, tid);
+    cp_async_commit();
+  }
 
   // while K and V land: scales, q, the padding heads' p = 0
   if constexpr (QUANT) {
@@ -331,7 +362,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
       vs_sh[tid] = p.vscale[at];
     }
   }
-  {
+  if constexpr (MODE != 2) {
     constexpr int QV = 16 / (int)sizeof(T);
     const T* qg = static_cast<const T*>(p.q) + ((long long)s * p.Hq + hk * G) * D;
     for (int idx = tid * QV; idx < G * D; idx += NTHREADS * QV) {
@@ -343,11 +374,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   }
   for (int idx = tid; idx < SPLIT_ROWS * (GP - G); idx += NTHREADS)
     Ps[(idx / (GP - G)) * GP + G + idx % (GP - G)] = 0.f;
-  cp_async_wait<1>();  // K (V may be in flight)
+  if constexpr (MODE == 0)
+    cp_async_wait<1>();  // K (V may be in flight)
+  else if constexpr (MODE == 1)
+    cp_async_wait<0>();  // K
   __syncthreads();
 
   // QK^T: thread (row r, half h) dots its K half-row with every q row
-  {
+  if constexpr (MODE != 2) {
     const int r = tid & (SPLIT_ROWS - 1), h = tid / SPLIT_ROWS;
     if (r < rows) {
       const C* krow = reinterpret_cast<const C*>(Kst + r * RS) + h * HALF;
@@ -389,11 +423,35 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
     for (int k = 0; k < 2; ++k) {
       const int c = lane + 32 * k;
       live[k] = c < rows;
-      sc[k] = live[k] ? (Sp[g * SPLIT_ROWS + c] + Sp[(G + g) * SPLIT_ROWS + c]) * p.sm_scale
-                      : 0.f;
+      if constexpr (MODE != 2)
+        sc[k] = live[k] ? (Sp[g * SPLIT_ROWS + c] + Sp[(G + g) * SPLIT_ROWS + c]) * p.sm_scale
+                        : 0.f;
     }
     float psum = 0.f;
-    if constexpr (STAR) {
+    const long long hrow = (long long)s * p.Hq + hk * G + g;  // (slot, q head)
+    if constexpr (MODE == 1) {  // the grid indices of the live rows
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (live[k])
+          p.jg[hrow * p.splits * SPLIT_ROWS + row0 + lane + 32 * k] = snap(sc[k], p.grid_scale);
+      continue;
+    } else if constexpr (MODE == 2) {  // the TPU kernel's weights, from the scan
+      const int top = p.num_levels - 1;
+      const float* pr = reinterpret_cast<const float*>(p.pm) + (long long)p.S * p.Hq * p.W;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = lane + 32 * k;
+        float pv = 0.f;
+        if (live[k]) {
+          const long long pg = hrow * p.W + page0 + pidx_sh[c];
+          const int j = p.jg[hrow * p.splits * SPLIT_ROWS + row0 + c];
+          pv = __fmul_rn(__ldg(p.lut + min(max(p.pm[pg] - j, 0), top)), pr[pg]);
+        }
+        Ps[c * GP + g] = pv;
+        psum += pv;
+      }
+      if (lane == 0) m_sh[g] = 0;
+    } else if constexpr (STAR) {
       const int top = p.num_levels - 1;
       int jg[2], m = GRID_SENTINEL;
 #pragma unroll
@@ -429,6 +487,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
     for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
     if (lane == 0) l_sh[g] = psum;
   }
+  if constexpr (MODE == 1) return;
   cp_async_wait<0>();  // V
   __syncthreads();
 
@@ -489,6 +548,61 @@ __global__ void __launch_bounds__(NTHREADS, 1) paged_split_kernel(Params p) {
   }
 }
 
+// The block route's scan, grid (Hkv, S): the live pages' grid maxima b_p
+// from the scores mode's indices, then one warp per q head walks the pages
+// in chunks of 32: M_p = max(b_0 .. b_p) (a prefix max, exact in any order)
+// and R_p = prod over p' > p of lut[min(M_p' - M_p'-1, top)] (a suffix
+// product, in a fixed order).  M_p overwrites b_p in place.
+__global__ void __launch_bounds__(NTHREADS) paged_scan_kernel(Params p) {
+  const int hk = blockIdx.x, s = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.Hq / p.Hkv, bs = p.bs, top = p.num_levels - 1;
+  const int kv = min(max(p.valid[s], 0), p.W * bs);
+  const int np = (kv + bs - 1) / bs;
+  const long long h0 = (long long)s * p.Hq + hk * G;
+  float* pr = reinterpret_cast<float*>(p.pm) + (long long)p.S * p.Hq * p.W;
+  for (int idx = tid; idx < G * np; idx += NTHREADS) {
+    const int g = idx / np, pg = idx - g * np;
+    const int* j = p.jg + (h0 + g) * p.splits * SPLIT_ROWS;
+    int m = GRID_SENTINEL;
+    for (int r = pg * bs; r < min((pg + 1) * bs, kv); ++r) m = max(m, j[r]);
+    p.pm[(h0 + g) * p.W + pg] = m;
+  }
+  __syncthreads();  // every page max written
+  for (int g = warp; g < G; g += NWARPS) {
+    int* M = p.pm + (h0 + g) * p.W;
+    float* R = pr + (h0 + g) * p.W;
+    int carry = GRID_SENTINEL;
+    for (int base = 0; base < np; base += 32) {
+      const int pg = base + lane;
+      int x = pg < np ? M[pg] : GRID_SENTINEL;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x = max(x, y);
+      }
+      x = max(x, carry);
+      if (pg < np) M[pg] = x;
+      carry = __shfl_sync(0xffffffffu, x, 31);
+    }
+    __syncwarp();  // M complete for the warp's lanes
+    float after = 1.f;  // the product of the chunks past this one
+    for (int base = (np - 1) / 32 * 32; base >= 0 && np > 0; base -= 32) {
+      const int pg = base + lane;
+      // the rescale that page pg + 1 applies (1 past the last page)
+      float x = pg + 1 < np ? __ldg(p.lut + min(M[pg + 1] - M[pg], top)) : 1.f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_down_sync(0xffffffffu, x, o);
+        if (lane + o < 32) x = __fmul_rn(x, y);
+      }
+      x = __fmul_rn(x, after);
+      if (pg < np) R[pg] = x;
+      after = __shfl_sync(0xffffffffu, x, 0);
+    }
+  }
+}
+
 // Grid (Hq, S), D threads (up to 256): merge (slot, q head)'s live splits
 // in order.
 template <typename T, bool STAR>
@@ -541,6 +655,38 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaSuccess;
 }
 
+// the block route: scores, scan, weights (and the combine)
+template <typename T, typename C, int D>
+cudaError_t launch_blocked(const Params& p, cudaStream_t stream) {
+  auto scores = paged_split_kernel<T, C, D, true, 1>;
+  auto weights = paged_split_kernel<T, C, D, true, 2>;
+  const Layout lay = layout(p.Hq / p.Hkv, D, (int)sizeof(C));
+  cudaError_t err = cudaFuncSetAttribute(
+      scores, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(weights, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.splits, p.Hkv, p.S);
+  scores<<<grid, NTHREADS, lay.total, stream>>>(p);
+  paged_scan_kernel<<<dim3(p.Hkv, p.S), NTHREADS, 0, stream>>>(p);
+  weights<<<grid, NTHREADS, lay.total, stream>>>(p);
+  if (p.splits > 1) paged_combine_kernel<T, true><<<dim3(p.Hq, p.S), D, 0, stream>>>(p, D);
+  return cudaGetLastError();
+}
+
+template <typename T, typename C>
+cudaError_t launch_blocked_d(const Params& p, int d, cudaStream_t stream) {
+  switch (d) {
+    case 8: return launch_blocked<T, C, 8>(p, stream);
+    case 16: return launch_blocked<T, C, 16>(p, stream);
+    case 32: return launch_blocked<T, C, 32>(p, stream);
+    case 64: return launch_blocked<T, C, 64>(p, stream);
+    case 128: return launch_blocked<T, C, 128>(p, stream);
+    case 256: return launch_blocked<T, C, 256>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, typename C, bool STAR>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
@@ -574,6 +720,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.kscale = static_cast<const float*>(kscale);
   p.vscale = static_cast<const float*>(vscale);
   p.ws = static_cast<float*>(ws);
+  p.jg = nullptr;
+  p.pm = nullptr;
   p.S = S; p.Hq = Hq; p.Hkv = Hkv; p.W = W; p.bs = bs;
   p.splits = splits;
   p.sm_scale = sm_scale; p.grid_scale = grid_scale; p.num_levels = num_levels;
@@ -649,6 +797,47 @@ extern "C" int paged_attention_quant_launch(
     err = launch_s<__nv_bfloat16, int8_t>(p, D, s);
   else if (dtype == 1 && code == 1)
     err = launch_s<__nv_bfloat16, __nv_fp8_e4m3>(p, D, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The block route (STAR, lut required), every pool: code -1 = pools of q's
+// type, 0 = int8 and 1 = fp8 e4m3 codes (kscale / vscale as above).  ws:
+// float32 workspace of S * Hq * (splits * (D + 2 + L) + 2 * W) elements,
+// always (the partials, whose first S * Hq * splits * (D + 2) are unused
+// when splits == 1, then the grid indices, then M_p and R_p).
+extern "C" int paged_attention_blocked_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const void* tables, const void* valid, const void* lut,
+    const void* kscale, const void* vscale,
+    int S, int Hq, int Hkv, int W, int bs, int D, int dtype, int code,
+    float sm_scale, float grid_scale, int num_levels, void* stream,
+    void* ws, int splits) {
+  if (bad_shape(S, Hq, Hkv, W, bs, ws, splits) || ws == nullptr || lut == nullptr ||
+      num_levels < 1 || (code >= 0 && (kscale == nullptr || vscale == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (S == 0) return (int)cudaGetLastError();
+  Params p = make_params(q, k, v, o, tables, valid, lut, kscale, vscale,
+                         S, Hq, Hkv, W, bs, sm_scale, grid_scale, num_levels, ws, splits);
+  const long long parts = (long long)S * Hq * splits * (D + 2);
+  p.jg = reinterpret_cast<int*>(p.ws + parts);
+  p.pm = p.jg + (long long)S * Hq * splits * SPLIT_ROWS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0 && code == -1)
+    err = launch_blocked_d<float, float>(p, D, s);
+  else if (dtype == 1 && code == -1)
+    err = launch_blocked_d<__nv_bfloat16, __nv_bfloat16>(p, D, s);
+  else if (dtype == 0 && code == 0)
+    err = launch_blocked_d<float, int8_t>(p, D, s);
+  else if (dtype == 0 && code == 1)
+    err = launch_blocked_d<float, __nv_fp8_e4m3>(p, D, s);
+  else if (dtype == 1 && code == 0)
+    err = launch_blocked_d<__nv_bfloat16, int8_t>(p, D, s);
+  else if (dtype == 1 && code == 1)
+    err = launch_blocked_d<__nv_bfloat16, __nv_fp8_e4m3>(p, D, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

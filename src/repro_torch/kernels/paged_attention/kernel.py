@@ -25,6 +25,22 @@ wrapper call launches both kernels (the combine only when there is more
 than one split).  Head dims ``HEAD_DIMS``: 8 to 256 (a D-8 row of 1-byte
 codes is copied as one 8-byte piece; D 256 is recurrentgemma-2b's, G 10
 over one KV head), GQA groups up to ``MAX_GROUP``.
+
+Merging splits reproduces the TPU kernel's page-by-page online softmax
+only while ``lut[a] * lut[b] == lut[a + b]``; under STAR that fails once
+``a + b`` passes the table's deepest level, where it clamps.  Where that
+moves the output by no more than float32 rounding
+(``core.lut.clamp_is_negligible`` over the table's ``W * bs`` rows:
+formats of 6 bits and up, and the exact softmax) the one-pass split kernel
+runs; at 2 to 5 bits a STAR call takes the block route,
+``paged_attention_blocked_launch`` (every pool type; its own count
+``paged_attention_blocked``), which gives each row the TPU kernel's weight
+``lut[min(M_p - j, top)] * prod_{p' > p} lut[min(M_p' - M_p'-1, top)]``
+(``M_p`` the running max after page ``p``) from three launches and the
+combine: the grid indices (K only), a scan over the pages, the weighted P.V
+(V only).  Its workspace holds the partials, the indices and ``M_p`` /
+``R_p`` (``blocked_workspace``), sized from the shapes.  The route is
+chosen here from the format and the shapes alone.
 """
 
 from __future__ import annotations
@@ -36,7 +52,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointFormat
-from repro_torch.core.lut import exp_lut
+from repro_torch.core.lut import clamp_is_negligible, exp_lut
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -49,6 +65,7 @@ MAX_BLOCK_SIZE = 128
 SPLIT_ROWS = 64  # L, a split's rows: the kernel's SPLIT_ROWS
 LAUNCHES = _cuda.launch_counter("paged_attention")
 LAUNCHES_QUANT = _cuda.launch_counter("paged_attention_quant")
+BLOCKED_LAUNCHES = _cuda.launch_counter("paged_attention_blocked")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -57,12 +74,22 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.paged_attention_launch.restype = i
     lib.paged_attention_quant_launch.argtypes = [p] * 9 + [i] * 8 + [f, f, i, p] + [p, i]
     lib.paged_attention_quant_launch.restype = i
+    lib.paged_attention_blocked_launch.argtypes = [p] * 9 + [i] * 8 + [f, f, i, p] + [p, i]
+    lib.paged_attention_blocked_launch.restype = i
 
 
 def num_splits(w: int, bs: int) -> int:
     """Splits of ``SPLIT_ROWS`` rows that cover a table of ``w`` blocks of
     ``bs`` (one for an empty table: it writes the zeros of its free slots)."""
     return max(1, -(-(w * bs) // SPLIT_ROWS))
+
+
+def blocked_workspace(s: int, hq: int, w: int, bs: int, d: int) -> int:
+    """float32 elements of the block route's workspace: the splits'
+    partials ``S * Hq * splits * (D + 2)``, the grid indices ``S * Hq *
+    splits * L`` and ``M_p`` / ``R_p`` ``2 * S * Hq * W``."""
+    splits = num_splits(w, bs)
+    return s * hq * (splits * (d + 2 + SPLIT_ROWS) + 2 * w)
 
 
 def paged_flash_attention(
@@ -141,9 +168,13 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
                              f"aligned {name}, got data_ptr % 16 = {t.data_ptr() % 16}; "
                              f"pass a contiguous copy")
     splits = num_splits(w, bs)
+    blocked = fmt is not None and not clamp_is_negligible(fmt, w * bs)
     out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
     ws = None
-    if splits > 1:
+    if blocked:
+        ws = torch.empty(blocked_workspace(s, hq, w, bs, d), dtype=torch.float32,
+                         device=q.device)
+    elif splits > 1:
         ws = torch.empty(s * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
     lut = exp_lut(fmt, device=q.device) if fmt is not None else None
     lib = _cuda.load(SOURCE, _bind)
@@ -157,7 +188,14 @@ def _launch(q, k_pages, v_pages, block_tables, kv_valid, fmt, sm_scale,
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
             block_tables.data_ptr(), kv_valid.data_ptr(),
             lut.data_ptr() if lut is not None else None)
-    if quant:
+    if blocked:
+        rc = lib.paged_attention_blocked_launch(
+            *ptrs, k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+            s, hq, hkv, w, bs, d, DTYPES[q.dtype],
+            CODE_DTYPES[k_pages.dtype] if quant else -1, *common)
+        _cuda.check(lib, rc, "paged_attention_blocked")
+        BLOCKED_LAUNCHES.add()
+    elif quant:
         rc = lib.paged_attention_quant_launch(
             *ptrs, k_scale.data_ptr(), v_scale.data_ptr(),
             s, hq, hkv, w, bs, d, DTYPES[q.dtype], CODE_DTYPES[k_pages.dtype], *common)

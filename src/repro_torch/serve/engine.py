@@ -355,6 +355,11 @@ class ContinuousConfig:
     # accuracy guard on the sampling softmax: sampled comparison against the
     # exact oracle, fallback to a clean backend; counters in stats()["guard"]
     guard: Optional[ops.GuardConfig] = None
+    star_sampling: bool = True  # STAR softmax on the output distribution
+
+    def as_serve_config(self) -> ServeConfig:
+        """The lockstep engine's sampling settings of this config."""
+        return ServeConfig(self.max_len, self.temperature, self.star_sampling)
 
 
 @dataclasses.dataclass
@@ -507,6 +512,7 @@ class ContinuousBatchingEngine:
         # softmax runs eagerly after the graph (as the reference's guard path)
         self._greedy = cb_cfg.temperature <= 0.0
         self._eager_sampling = (not self._greedy and self.guard is not None
+                                and cb_cfg.star_sampling
                                 and model_cfg.softmax_spec.kind != "exact")
         self._temperature = None if self._greedy else torch.full(
             (), cb_cfg.temperature, dtype=torch.float32, device=self.device)
@@ -600,7 +606,8 @@ class ContinuousBatchingEngine:
     def _sample_first(self, slot: Slot, logits: torch.Tensor, events: List[TokenEvent]) -> None:
         checks = self.guard.checks if self.guard is not None else 0
         tok = sample_token(logits[0, -1], [self._generator(slot.request)], self.cfg,
-                           self.cb.temperature, guard=self.guard)
+                           self.cb.temperature, guard=self.guard,
+                           star_sampling=self.cb.star_sampling)
         host = tok.cpu().numpy()  # one token down
         self._m_d2h.inc(4 + 4 * self._guard_checks_since(checks))
         check_drawn(host)
@@ -927,7 +934,8 @@ class ContinuousBatchingEngine:
             return torch.argmax(last, dim=-1).to(torch.int32), last
         if self._eager_sampling:
             return None, last
-        return sampling_probs(last, self._temperature, self.cfg), last
+        return sampling_probs(last, self._temperature, self.cfg,
+                              star_sampling=self.cb.star_sampling), last
 
     def _upload_tick_inputs(self) -> None:
         """The tick's only uploads: the dirty table rows (paged; none in
@@ -968,7 +976,8 @@ class ContinuousBatchingEngine:
         if self._eager_sampling:
             # one batched guarded softmax over the active rows (one check)
             rows = torch.stack([last[s.index] for s in active])
-            drawn = sample_token(rows, gens, self.cfg, self.cb.temperature, guard=self.guard)
+            drawn = sample_token(rows, gens, self.cfg, self.cb.temperature, guard=self.guard,
+                                 star_sampling=self.cb.star_sampling)
         else:
             drawn = draw(torch.stack([sampled[s.index] for s in active]), gens)
         host = drawn.cpu().numpy()

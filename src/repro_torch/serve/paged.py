@@ -106,6 +106,11 @@ class BlockPool:
     def quantized(self) -> bool:
         return self.kv_dtype != "fp32"
 
+    def has_scale_page(self, block: int) -> bool:
+        """True while the block owns a live scale page (quantized pools
+        only; always False at fp32)."""
+        return block in self._scale_pages
+
     def _page_out(self, block: int) -> None:
         if self.quantized:
             self._scale_pages.add(block)

@@ -82,6 +82,9 @@ class SlotScheduler:
         self.pending.append(Request(uid, np.asarray(prompt, np.int32), max_new_tokens))
         return uid
 
+    def free_slots(self) -> List[Slot]:
+        return [s for s in self.slots if s.free]
+
     def admit(self) -> List[Slot]:
         """Bind pending requests to free slots (FIFO)."""
         admitted: List[Slot] = []

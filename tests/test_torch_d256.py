@@ -402,12 +402,14 @@ def test_paged_kernel_at_d256_matches_plain_on_card(cuda, pool, star):
 @pytest.mark.cuda
 def test_d256_instantiations_spill_nothing(cuda):
     """ptxas's lines for every D-256 instantiation of flash_star's float32
-    kernel (2) and int8 P.V kernel (float32 and bf16 q/k: 4), the two V
-    pre-pass instantiations, and the paged split kernel at D 256 (2 q types
-    x 3 pool types x STAR / exact: 12): 0 bytes of spill stores and loads."""
+    kernel (2), int8 P.V kernel (float32 and bf16 q/k: 4) and block route
+    (float32 and bf16: 2), the two V pre-pass instantiations, and the paged
+    split kernel at D 256 (2 q types x 3 pool types x STAR / exact, and the
+    block route's scores and weights modes x the same 6: 24): 0 bytes of
+    spill stores and loads."""
     logs = _cuda.build([flash_mod.SOURCE, paged_mod.SOURCE])
     found = {}
-    for path, pattern in ((flash_mod.SOURCE, r"flash_star_(tf32|pv_int8)_kernel.*Li256E|"
+    for path, pattern in ((flash_mod.SOURCE, r"flash_star_(tf32|pv_int8|blocked)_kernel.*Li256E|"
                                              r"flash_star_quantize_v_kernel"),
                           (paged_mod.SOURCE, r"paged_split_kernel.*Li256E")):
         cur = None
@@ -417,7 +419,7 @@ def test_d256_instantiations_spill_nothing(cuda):
                 cur = m.group(1) if re.search(pattern, m.group(1)) else None
             elif cur and "spill" in line:
                 found[cur] = line
-    assert len(found) == 2 + 4 + 2 + 12, sorted(found)
+    assert len(found) == 2 + 4 + 2 + 2 + 24, sorted(found)
     assert all("0 bytes spill stores, 0 bytes spill loads" in x for x in found.values()), found
 
 
