@@ -155,7 +155,11 @@ Phases (any failure exits non-zero before the result lines):
    its window of 16: the ring wraps) and seamless-m4t-large-v2's (64 stub
    frames a row), card == CPU greedy tokens, flash_star once per attention
    block of the prefill and of each replay (seamless: 6 a prefill, 4 a
-   step);
+   step); and requests that stop at their EOS token: granite-8b's smoke
+   config on the paged engine, greedy, an ``eos_id`` picked from a no-EOS
+   run (a token a request samples for the first time after its first and
+   before its last): card == CPU tokens, each the no-EOS output cut at its
+   first ``eos_id``, one request at least stopped early;
 5. serve: granite-8b at its published widths and all 36 layers, random
    weights drawn on the card from a seed and cast to bf16 once
    (``compute_params``, shared by every engine after it), the
@@ -196,6 +200,17 @@ Phases (any failure exits non-zero before the result lines):
    flash_star once per layer of the prefill and of each of its 31 replays,
    the softmax once per step; tok/s with and without the capture, peak
    memory;
+5c. eos serve: phase 5's and 5b's serves again (the same weights, plan,
+   temperature and seed), each request stopping at ``eos_id``, the token at
+   index 4 of request 0's no-EOS output.  On both pools every output must
+   equal its no-EOS output (from phases 5 and 5b) cut after the first
+   ``eos_id``, bit for bit, though stopped requests free their slots
+   earlier and the later requests meet other co-tenants at other ticks;
+   the graphs captured are the no-EOS run's.  Counters zeroed just before
+   and read just after: flash_star once per layer of every prefill (and of
+   every dense tick), the paged kernel once per layer of every paged tick,
+   the STAR softmax once per admission and per tick; the ticks with and
+   without EOS are printed;
 6. quantized serve: the same weights over an int8 page pool with the
    prefix cache and 128-token prefill chunks, 8 requests of a common
    256-token system prefix plus their own 64-256-token suffix, 16-32 new
@@ -407,7 +422,8 @@ Phases (any failure exits non-zero before the result lines):
    ``examples/torch_precision_sweep.py`` on the card in its own process:
    the reference's table, exact >= 90 %, 7 to 9 bits within 2 points of
    exact, 2 bits more than 2 points under, and its printed launches;
-18. the ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
+18. the summary line (``serve_eos`` among its keys) and the
+   ``{"kernels": [...]}`` line (``launches`` from the phase 5 serve,
    each path's own count under ``launches_by_path``: every serve phase
    (11b's float32 and pv_int8 paths among them), phase 13's eval and serves, phase 14's and 15b's mesh paths and the
    phase 4 smoke paths; the block routes' from phase 17) and, last, the
@@ -508,6 +524,9 @@ def log(msg: str) -> None:
 
 PHASE_SECONDS = {}  # phase -> wall seconds, printed as each phase ends
 CARD = None  # nvidia-smi's name and power limit, set by main
+# phase 5's and 5b's outputs, ticks and captured graphs without EOS, by
+# pool: phase 5c's oracle
+NO_EOS = {}
 
 
 @contextlib.contextmanager
@@ -2236,6 +2255,63 @@ def small_reference_moe():
                 f"({tuple(outs['cpu'].shape)}, cache_len {info['cache_len']})")
 
 
+def cut_at_eos(tokens, eos_id):
+    """``tokens`` up to and including the first ``eos_id``."""
+    return tokens[:tokens.index(eos_id) + 1] if eos_id in tokens else tokens
+
+
+def small_reference_eos():
+    """Phase 4, requests that stop at their EOS token: granite-8b's smoke
+    config on the paged continuous engine, greedy.  The EOS token is the
+    first token of the no-EOS run that a request samples for the first time
+    after its first token and before its last; with it every request stops at its first
+    occurrence (one at least early), and the tokens on the card equal the
+    CPU's and the no-EOS tokens cut there.  Returns the card's counts."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    cfg, devices = _smoke_pair("granite_8b")
+    rng = np.random.default_rng(SEED + 30)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 11, 8, 3, 19)]
+    gens = [8, 6, 9, 7, 5]
+    cb = ContinuousConfig(num_slots=2, max_len=40, kv_layout="paged", kv_block_size=4)
+    full, outs, engines, counts = {}, {}, {}, None
+    with ops.use(softmax="pallas"):
+        for dev, params in devices:
+            full[dev] = ContinuousBatchingEngine(cfg, params, cb, device=dev).serve(
+                prompts, gens)
+        check(full["cuda"] == full["cpu"], f"smoke eos: the no-EOS tokens differ card vs "
+              f"cpu: {full['cuda']} vs {full['cpu']}")
+        eos = next((t for o in full["cpu"] for i, t in enumerate(o[:-1])
+                    if i >= 1 and t not in o[:i]), None)
+        check(eos is not None, f"smoke eos: no token to stop a request early in {full['cpu']}")
+        for dev, params in devices:
+            eng = engines[dev] = ContinuousBatchingEngine(cfg, params, cb, device=dev)
+            reset_launch_counts()
+            outs[dev] = eng.serve(prompts, gens, eos_id=eos)
+            check_graphs(eng, f"smoke eos serve on {dev}")
+            if dev == "cuda":
+                counts = launch_counts()
+    want = [cut_at_eos(o, eos) for o in full["cpu"]]
+    check(outs["cuda"] == outs["cpu"] == want,
+          f"smoke eos {eos}: tokens card {outs['cuda']}, cpu {outs['cpu']}, the no-EOS tokens "
+          f"cut at it {want}")
+    stopped = sum(len(o) < g for o, g in zip(want, gens))
+    check(stopped >= 1, f"smoke eos {eos}: no request stopped early")
+    eng = engines["cuda"]
+    check(counts.get("paged_attention", 0) == cfg.num_layers * eng.ticks,
+          f"smoke eos: paged_attention launched {counts.get('paged_attention', 0)} times for "
+          f"{eng.ticks} ticks of {cfg.num_layers} layers")
+    log(f"small reference eos: eos_id {eos} stops {stopped} of {len(prompts)} requests early; "
+        f"greedy tokens identical on card and cpu and equal to the no-EOS tokens cut at it "
+        f"({sum(map(len, want))} of {sum(gens)} tokens, {eng.ticks} ticks against "
+        f"{engines['cpu'].ticks} on the cpu); launches {counts}")
+    return counts
+
+
 def _smoke_pair(arch):
     """A smoke config on the kernels' route (``attn_impl="pallas"``) with
     weights drawn on the CPU from the seed and copied to the card."""
@@ -2428,17 +2504,19 @@ def small_reference_hybrid_encdec():
 # phase 5: serve granite-8b at full width and depth
 
 
-def serve_requests(eng, prompts, gens, frontends=None):
-    """``eng.serve(prompts, gens)``, keeping each request: returns the
-    outputs and the exact TTFT p50 over the requests (nearest rank; the
-    ``serve.ttft_s`` histogram's p50 follows the reference's bucket rule, 5
-    buckets a decade, and reads a bucket edge).  ``frontends``: per request
-    the keyword arguments of its frontend (a VLM's ``patch_embeds``)."""
+def serve_requests(eng, prompts, gens, frontends=None, eos_id=None):
+    """``eng.serve(prompts, gens, eos_id=eos_id)``, keeping each request:
+    returns the outputs and the exact TTFT p50 over the requests (nearest
+    rank; the ``serve.ttft_s`` histogram's p50 follows the reference's
+    bucket rule, 5 buckets a decade, and reads a bucket edge).
+    ``frontends``: per request the keyword arguments of its frontend (a
+    VLM's ``patch_embeds``)."""
     import math
 
     uids, reqs = [], []
     for i, (prompt, gen) in enumerate(zip(prompts, gens)):
-        uids.append(eng.submit(prompt, int(gen), **(frontends[i] if frontends else {})))
+        uids.append(eng.submit(prompt, int(gen), eos_id=eos_id,
+                               **(frontends[i] if frontends else {})))
         reqs.append(eng.scheduler.pending[-1])
     done = eng.run()
     ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
@@ -2567,6 +2645,7 @@ def serve(results):
     for entry in results:
         entry["launches"] = counts.get(entry["name"], 0)
         entry["launches_by_path"] = {"serve_fp": entry["launches"]}
+    NO_EOS["paged"] = {"outputs": out, "ticks": eng.ticks, "graphs": eng.graph_entries()}
     trace_path = ROOT / "build" / "serve_fp_trace.json"
     trace_path.parent.mkdir(exist_ok=True)
     tracer.export_chrome(str(trace_path))
@@ -2665,6 +2744,7 @@ def serve_dense(results, cparams):
         f"{eng.graphs.warmup_launches()})")
     for entry in results:
         entry["launches_by_path"]["serve_dense"] = counts.get(entry["name"], 0)
+    NO_EOS["dense"] = {"outputs": out, "ticks": eng.ticks, "graphs": eng.graph_entries()}
     tick = profile_tick(cfg, cparams, kv_layout="dense")
     check(tick["logits_bit_equal"], "dense tick: the replay is not bit-equal to the eager tick")
 
@@ -2703,6 +2783,80 @@ def serve_dense(results, cparams):
             "lockstep": {"tokens": 4 * n, "wall_s": lwall, "tok_per_s": 4 * n / lwall,
                          "capture_s": lcap, "tok_per_s_without_capture": 4 * n / (lwall - lcap),
                          "max_memory_allocated": lpeak, "launches": lcounts}}
+
+
+def serve_eos(results, cparams):
+    """Phase 5c: phase 5's and 5b's serves again, each request stopping at
+    an EOS token: the token at index 4 of request 0's no-EOS output.  The
+    oracle: every output equals its no-EOS output cut after the first
+    ``eos_id``, bit for bit, though a stopped request's slot is refilled
+    earlier and later requests meet other co-tenants at other ticks (a
+    request's tokens depend on neither: its prefill runs alone, the tick's
+    shapes are fixed and it samples from its own generator).  The graphs
+    captured are those of the no-EOS run.  Counters zeroed just before and
+    read just after: flash_star once per layer of every prefill (and of
+    every dense tick), the paged kernel once per layer of every paged tick,
+    the STAR softmax once per admission and per tick."""
+    import torch
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    cfg = dataclasses.replace(get_config("granite_8b"), attn_impl="pallas")
+    prompts, gens = serve_plan(cfg.vocab_size)
+    nl, summary = cfg.num_layers, {}
+    for layout, kw in (("paged", dict(kv_layout="paged", kv_block_size=16)),
+                       ("dense", dict(kv_layout="dense"))):
+        base = NO_EOS[layout]
+        full = base["outputs"]
+        eos = full[0][4]
+        cb = ContinuousConfig(num_slots=4, max_len=512 + 32, temperature=0.8, **kw)
+        with ops.use(softmax="pallas"):
+            eng = ContinuousBatchingEngine(cfg, cparams, cb, device="cuda", seed=SEED)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out, ttft_p50 = serve_requests(eng, prompts, gens, eos_id=eos)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        want = [cut_at_eos(o, eos) for o in full]
+        differ = [i for i, (o, w) in enumerate(zip(out, want)) if o != w]
+        for i in differ:
+            at = next((j for j, (a, b) in enumerate(zip(out[i], want[i])) if a != b),
+                      min(len(out[i]), len(want[i])))
+            log(f"eos serve {layout}: request {i} parts from the cut no-EOS output at index "
+                f"{at}: got {out[i]}, want {want[i]}")
+        check(not differ, f"eos serve {layout}: requests {differ} differ from their no-EOS "
+              f"outputs cut at eos_id {eos}")
+        check(eng.graph_entries() == base["graphs"],
+              f"eos serve {layout}: {eng.graph_entries()} graphs captured, "
+              f"{base['graphs']} without EOS")
+        check_graphs(eng, f"eos serve {layout}")
+        stopped = [i for i, (o, g) in enumerate(zip(out, gens)) if len(o) < g]
+        check(0 in stopped, f"eos serve {layout}: request 0 did not stop at eos_id {eos}")
+        want_counts = {"flash_star": nl * (len(prompts) + (eng.ticks if layout == "dense" else 0)),
+                       "paged_attention": nl * eng.ticks if layout == "paged" else 0,
+                       "star_softmax": len(prompts) + eng.ticks}
+        for name, n in want_counts.items():
+            check(counts.get(name, 0) == n,
+                  f"eos serve {layout}: {name} launched {counts.get(name, 0)} times, expected "
+                  f"{n} ({len(prompts)} prefills, {eng.ticks} ticks of {nl} layers)")
+        toks = sum(map(len, out))
+        log(f"eos serve {layout}: eos_id {eos} stops requests {stopped} early; {toks} of "
+            f"{sum(gens)} tokens in {wall:.3f}s, {eng.ticks} ticks against {base['ticks']} "
+            f"without EOS, {eng.graph_entries()} capture(s) as without, every output the "
+            f"no-EOS output cut at eos_id; ttft p50={1e3 * ttft_p50:.1f}ms; launches {counts}")
+        for entry in results:
+            entry["launches_by_path"][f"serve_eos_{layout}"] = counts.get(entry["name"], 0)
+        summary[layout] = {"eos_id": eos, "stopped": stopped, "tokens": toks,
+                           "tokens_without_eos": sum(gens), "ticks": eng.ticks,
+                           "ticks_without_eos": base["ticks"],
+                           "graph_entries": eng.graph_entries(), "wall_s": wall,
+                           "launches": {k: counts.get(k, 0) for k in want_counts}}
+    return summary
 
 
 def prefill_pv_int8(results, cfg, params, prompt):
@@ -5610,7 +5764,7 @@ def main() -> int:
         small_reference_mamba()
         small_reference_moe()
         smoke_paths = {**small_reference_vlm(), **small_reference_archs(),
-                       **small_reference_hybrid_encdec()}
+                       **small_reference_hybrid_encdec(), "eos": small_reference_eos()}
     with phase("5 serve"):
         summary, params, cparams = serve(results)
     for entry in results:
@@ -5618,6 +5772,8 @@ def main() -> int:
             {f"smoke {k}": v.get(entry["name"], 0) for k, v in smoke_paths.items()})
     with phase("5b dense serve"):
         summary_dense = serve_dense(results, cparams)
+    with phase("5c eos serve"):
+        summary_eos = serve_eos(results, cparams)
     with phase("6 int8 serve"):
         summary_quant = serve_quant(results, cparams)
     with phase("7 degraded serve"):
@@ -5650,7 +5806,8 @@ def main() -> int:
         check(entry["launches"] > 0, f"{entry['name']} never launched on the main path")
     log(f"profiler: {len(PROFILES_RETAKEN)} windows profiled again for lost records: "
         f"{PROFILES_RETAKEN}")
-    log(json.dumps({"serve": summary, "serve_dense": summary_dense, "serve_int8": summary_quant,
+    log(json.dumps({"serve": summary, "serve_dense": summary_dense, "serve_eos": summary_eos,
+                    "serve_int8": summary_quant,
                     "serve_degraded": summary_degraded, "serve_mamba2": summary_mamba,
                     "serve_moe": summary_moe, "serve_vlm": summary_vlm,
                     "serve_hybrid": summary_hybrid, "serve_encdec": summary_encdec,

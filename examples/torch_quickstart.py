@@ -19,12 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import ops
-from repro_torch.core.attention import STAR_SOFTMAX, SoftmaxConfig, attention, blocked_attention
+from repro_torch.core.attention import EXACT_SOFTMAX, STAR_SOFTMAX, attention, blocked_attention
 from repro_torch.core.fixedpoint import DEFAULT_FORMAT, FORMAT_MRPC
 from repro_torch.core.star_softmax import exact_softmax, star_softmax
 from repro_torch.kernels import launch_counts, reset_launch_counts
-
-EXACT_SOFTMAX = SoftmaxConfig(kind="exact")
 
 
 def err(a, b) -> float:

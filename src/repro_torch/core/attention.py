@@ -74,6 +74,7 @@ class SoftmaxConfig:
                             fault=self.fault, across=across)
 
 
+EXACT_SOFTMAX = SoftmaxConfig(kind="exact")
 STAR_SOFTMAX = SoftmaxConfig(kind="star")
 
 

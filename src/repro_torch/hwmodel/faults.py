@@ -25,12 +25,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import zlib
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
-from repro_torch.core.fixedpoint import FixedPointFormat
 from repro_torch.hwmodel import prng
+
+if TYPE_CHECKING:  # core imports this module
+    from repro_torch.core.fixedpoint import FixedPointFormat
 
 _CACHE = 64
 

@@ -65,6 +65,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _cuda.launch_counter("flash_star")
 PV_INT8_LAUNCHES = _cuda.launch_counter("flash_star_pv_int8")
 BLOCKED_LAUNCHES = _cuda.launch_counter("flash_star_blocked")
+DEFAULT_BLOCK_K = 128  # the TPU kernel's KV block, and the plain version's
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -130,7 +131,7 @@ def flash_star_attention(
     causal: bool = True,
     sliding_window: Optional[int] = None,
     sm_scale: Optional[float] = None,
-    block_k: int = 128,
+    block_k: int = DEFAULT_BLOCK_K,
     pv_int8: bool = False,
 ) -> torch.Tensor:
     """Fused attention.  Returns ``[B, Hq, Tq, D]`` in q's dtype.  Raises

@@ -145,7 +145,6 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.param import materialize
     from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
 
     device = ops.resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -162,31 +161,39 @@ def main(argv=None) -> int:
         max_len = args.max_len or (args.prompt_len + args.gen + cfg.num_patches + 8)
         if args.engine == "lockstep":
             return run_lockstep(args, cfg, params, device, max_len)
-        eng = ContinuousBatchingEngine(
-            cfg, params,
-            ContinuousConfig(num_slots=args.slots, max_len=max_len,
-                             temperature=args.temperature, kv_layout=args.kv_layout,
-                             kv_block_size=args.kv_block_size,
-                             kv_pool_blocks=args.kv_pool_blocks,
-                             kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
-                             prefill_chunk_tokens=args.prefill_chunk_tokens),
-            device=device, seed=args.seed,
-        )
-        rng = np.random.default_rng(args.seed)
-        total = 0
-        for _ in range(args.requests):
-            plen = max(1, int(rng.integers(args.prompt_len // 2, args.prompt_len + 1)))
-            gen = max(1, int(rng.integers(args.gen // 2, args.gen + 1)))
-            prompt = rng.integers(0, cfg.vocab_size, (plen,))
-            eng.submit(prompt, gen, **_frontend_kwargs(cfg, rng, 1))  # per-request patches
-            total += gen
-        t0 = time.perf_counter()
-        done = eng.run()
-        if device.type == "cuda":
-            import torch
+        return run_continuous(args, cfg, params, device, max_len)
 
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
+
+def run_continuous(args, cfg, params, device, max_len) -> int:
+    """Serve ``args.requests`` mixed-length requests on the continuous
+    engine and print its throughput and KV-pool summary."""
+    import torch
+
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ContinuousConfig
+
+    eng = ContinuousBatchingEngine(
+        cfg, params,
+        ContinuousConfig(num_slots=args.slots, max_len=max_len,
+                         temperature=args.temperature, kv_layout=args.kv_layout,
+                         kv_block_size=args.kv_block_size,
+                         kv_pool_blocks=args.kv_pool_blocks,
+                         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
+                         prefill_chunk_tokens=args.prefill_chunk_tokens),
+        device=device, seed=args.seed,
+    )
+    rng = np.random.default_rng(args.seed)
+    total = 0
+    for _ in range(args.requests):
+        plen = max(1, int(rng.integers(args.prompt_len // 2, args.prompt_len + 1)))
+        gen = max(1, int(rng.integers(args.gen // 2, args.gen + 1)))
+        prompt = rng.integers(0, cfg.vocab_size, (plen,))
+        eng.submit(prompt, gen, **_frontend_kwargs(cfg, rng, 1))  # per-request patches
+        total += gen
+    t0 = time.perf_counter()
+    done = eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
     st = eng.kv_stats()
     layout = (f"kv=paged bs={args.kv_block_size}" if st["layout"] == "paged"
               else "kv=dense")

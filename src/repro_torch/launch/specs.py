@@ -16,9 +16,9 @@ import torch
 
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import shape_tree
 from repro_torch.models.registry import build_model
-from repro_torch.train.state import state_specs
+from repro_torch.train.state import state_shapes
 
 # decode-time encoder memory length for enc-dec (30 s of audio at 50 frames
 # a second is ~1500; rounded up to a shardable 4096)
@@ -30,11 +30,6 @@ ENCDEC_PREFILL_SELF_CACHE = 1024
 def abstract(shape, dtype: torch.dtype) -> torch.Tensor:
     """A ``meta`` tensor: the shape and dtype of an input, no storage."""
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
-
-
-def shape_tree(specs):
-    """A tree of :class:`ParamSpec` as ``meta`` tensors."""
-    return tree_map(lambda s: abstract(s.shape, s.dtype), specs)
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
@@ -76,7 +71,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[str, Dict[str, An
     b, s = shape.global_batch, shape.seq_len
 
     if shape.kind == "train":
-        return "train", {"state": shape_tree(state_specs(pspecs)),
+        return "train", {"state": state_shapes(pspecs),
                          "batch": batch_specs(cfg, shape)}
 
     params = shape_tree(pspecs)

@@ -60,8 +60,8 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 # norms, embedding
 
 
-def spec_rmsnorm(cfg: ModelConfig) -> Params:
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), pdtype(cfg), "ones")}
+def spec_rmsnorm(cfg: ModelConfig, dim: Optional[int] = None) -> Params:
+    return {"scale": ParamSpec((dim or cfg.d_model,), ("embed",), pdtype(cfg), "ones")}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,9 +70,10 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
 
 
-def spec_layernorm(cfg: ModelConfig) -> Params:
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), pdtype(cfg), "ones"),
-            "bias": ParamSpec((cfg.d_model,), ("embed",), pdtype(cfg), "zeros")}
+def spec_layernorm(cfg: ModelConfig, dim: Optional[int] = None) -> Params:
+    d = dim or cfg.d_model
+    return {"scale": ParamSpec((d,), ("embed",), pdtype(cfg), "ones"),
+            "bias": ParamSpec((d,), ("embed",), pdtype(cfg), "zeros")}
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -301,6 +302,7 @@ def attention_block(
     causal: bool = True,
     sliding_window: Any = CONFIG_WINDOW,
     xkv: Optional[torch.Tensor] = None,
+    kv_valid_len: Optional[torch.Tensor] = None,
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Params], Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention (causal unless ``causal=False``, as an encoder's) or,
@@ -312,7 +314,9 @@ def attention_block(
     ``positions`` default to ``len + arange(T)`` of a scalar cache, else
     ``arange(T)``.  The cache comes in these forms:
 
-    * ``cache=None`` — dense prefill;
+    * ``cache=None`` — dense prefill (and cross-attention), keys past a
+      row's ``kv_valid_len`` ``[B]`` masked (a ragged batch); a cache
+      brings its own valid lengths and ignores it;
     * a *scalar-``len``* cache ``{"k", "v", "len"}`` (``[B, T, Hkv, D]``):
       the ``tq`` fresh rows land at ``[len, len + tq)`` and the queries
       attend at ``q_offset = len``, causally, over ``len + tq`` valid rows.
@@ -343,7 +347,8 @@ def attention_block(
         if cache is not None:
             raise ValueError("cross-attention (xkv) takes no cache")
         q, k, v = _project_qkv(p, x, xkv, cfg)
-        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=False, sliding_window=window)
+        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=False, sliding_window=window,
+                            kv_valid_len=kv_valid_len)
         return merge_heads(ctx), None, (k, v)
     q, k, v = _project_qkv(p, x, x, cfg)
     if use_rope:
@@ -358,7 +363,8 @@ def attention_block(
         q = wlc(q, ("batch", "seq", "heads", None))
 
     if cache is None:
-        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=causal, sliding_window=window)
+        ctx = ops.attention(q, k, v, cfg.attention_spec, causal=causal, sliding_window=window,
+                            kv_valid_len=kv_valid_len)
         return merge_heads(ctx), None, (k, v)
     if "tables" in cache:
         return _paged_decode(q, k, v, cfg, cache, paged_cache_t, window)
@@ -542,8 +548,8 @@ def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 # MLP
 
 
-def spec_mlp(cfg: ModelConfig) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def spec_mlp(cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     pd = pdtype(cfg)
     if cfg.mlp_type == "swiglu":
         return {"wi": ParamSpec((d, f), ("embed", "mlp"), pd),

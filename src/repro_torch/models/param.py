@@ -171,5 +171,17 @@ def compute_params(params: Params, cfg) -> Params:
     return cast(params)
 
 
+def shape_tree(specs):
+    """A tree of :class:`ParamSpec` as ``meta`` tensors: shapes and dtypes,
+    no storage (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    return tree_map(lambda s: torch.empty(tuple(s.shape), dtype=s.dtype, device="meta"), specs)
+
+
+def cast_tree(params, dtype: torch.dtype):
+    """``params`` with every floating leaf cast to ``dtype``; integer
+    leaves unchanged."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+
+
 def count_params(specs) -> int:
     return int(sum(int(np.prod(s.shape)) for _, s in _leaves(specs)))

@@ -32,6 +32,7 @@ from repro_torch.core import kvquant
 from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.distributed.sharding import replicated_value, zeros_placed
 from repro_torch.models import layers as L
+from repro_torch.models.layers import cross_entropy
 from repro_torch.models.param import ParamSpec, layer, stack_specs
 from repro_torch.ops.platform import Device, resolve_device
 
@@ -156,7 +157,7 @@ class DecoderLM:
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, logits.shape[1] - labels.shape[1]:]
-        return L.cross_entropy(logits, labels)
+        return cross_entropy(logits, labels)
 
     def cache_len(self, max_len: int) -> int:
         if self.cfg.sliding_window is not None:

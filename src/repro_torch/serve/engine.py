@@ -83,7 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -372,9 +372,12 @@ class TokenEvent:
 
 class ContinuousBatchingEngine:
     """Slot-pool serving over a dense or paged KV cache on ``device`` (the
-    card unless ``device="cpu"``); ``params`` must live there.  ``tracer``
+    card unless ``device="cpu"``); ``params`` must live there.  ``on_token``
+    is called with every emitted :class:`TokenEvent` (streaming).  ``tracer``
     defaults to the global one at construction (``obs.get_tracer()``: the
-    no-op tracer unless ``obs.enable_tracing()`` ran first)."""
+    no-op tracer unless ``obs.enable_tracing()`` ran first); ``metrics``
+    defaults to a registry of the engine's own, and ``clock`` (the request
+    lifecycle's timestamps) to ``time.perf_counter``."""
 
     def __init__(
         self,
@@ -384,7 +387,10 @@ class ContinuousBatchingEngine:
         *,
         device: Device = None,
         seed: int = 0,
+        on_token: Optional[Callable[[TokenEvent], None]] = None,
         tracer: Optional[Tracer | NullTracer] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        clock: Optional[Callable[[], float]] = None,
     ):
         refuse_mesh_serving(params, "ContinuousBatchingEngine")
         self.device = resolve_device(device)
@@ -404,7 +410,9 @@ class ContinuousBatchingEngine:
                 f"attention-family models implement (got {model_cfg.family!r})")
         self.params = compute_params(params, model_cfg)
         self.tracer = tracer if tracer is not None else get_tracer()
-        self.metrics = MetricsRegistry()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._clock = clock if clock is not None else time.perf_counter
+        self._on_token = on_token
         reg = self.metrics
         self._m_submitted = reg.counter("serve.requests.submitted")
         self._m_admitted = reg.counter(
@@ -533,11 +541,15 @@ class ContinuousBatchingEngine:
 
     # -- submission -------------------------------------------------------------
 
-    def submit(self, prompt: Sequence[int] | np.ndarray, max_new_tokens: int,
+    def submit(self, prompt: Sequence[int] | np.ndarray, max_new_tokens: int, *,
+               eos_id: Optional[int] = None, arrival_time: float = 0.0,
                **frontend) -> int:
-        """Queue a request (never blocks); returns its uid.  ``frontend``: a
-        VLM's ``patch_embeds`` ``[1, P, frontend_dim]``, prepended as ``P``
-        KV rows (such a request never shares through the prefix trie)."""
+        """Queue a request (never blocks); returns its uid.  The request ends
+        after ``max_new_tokens`` tokens or on ``eos_id``, which it emits
+        (``finished=True``); ``arrival_time`` is kept on the request and never
+        read by admission.  ``frontend``: a VLM's ``patch_embeds``
+        ``[1, P, frontend_dim]``, prepended as ``P`` KV rows (such a request
+        never shares through the prefix trie)."""
         prefix = prefix_rows(self.cfg, frontend)
         need = prefix + len(prompt) + max_new_tokens - 1
         # decode writes prompt + (max_new_tokens - 1) rows; a ring wraps
@@ -554,14 +566,15 @@ class ContinuousBatchingEngine:
                 # larger than the whole pool: no preemption could ever fit it
                 raise ValueError(f"request needs {blocks} KV blocks but the pool only has "
                                  f"{bp.usable_blocks}; raise kv_pool_blocks")
-        uid = self.scheduler.submit(prompt, max_new_tokens)
+        uid = self.scheduler.submit(prompt, max_new_tokens, eos_id=eos_id,
+                                    arrival_time=arrival_time)
         if frontend:
             fe = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
                   for k, v in frontend.items()}
             self._m_h2d.inc(sum(t.numel() * 4 for t in fe.values()))
             self._frontend[uid] = fe
         req = self.scheduler.pending[-1]
-        req.submit_time = req.enqueued_at = time.perf_counter()
+        req.submit_time = req.enqueued_at = self._clock()
         self._m_submitted.inc()
         self._g_queue.set(len(self.scheduler.pending))
         if self.tracer.enabled:
@@ -586,7 +599,7 @@ class ContinuousBatchingEngine:
         req = slot.request
         index = len(req.generated_prefix) + len(slot.generated) - 1
         ev = TokenEvent(req.uid, token, index, finished)
-        now = time.perf_counter()
+        now = self._clock()
         if req.first_token_time is None:
             self._h_ttft.observe(now - req.submit_time)
             req.first_token_time = now
@@ -594,6 +607,8 @@ class ContinuousBatchingEngine:
             self._h_itl.observe(now - req.last_token_time)
         req.last_token_time = now
         self._m_tokens.inc()
+        if self._on_token is not None:
+            self._on_token(ev)
         return ev
 
     def _record(self, slot: Slot, tok: int, events: List[TokenEvent]) -> None:
@@ -621,7 +636,7 @@ class ContinuousBatchingEngine:
     def _observe_queue_wait(self, req: Request) -> None:
         # consume the stamp: a later preemption opens a new stint
         if req.enqueued_at is not None:
-            self._h_queue.observe(time.perf_counter() - req.enqueued_at)
+            self._h_queue.observe(self._clock() - req.enqueued_at)
             req.enqueued_at = None
 
     def _set_table(self, idx: int, blocks: Sequence[int] = ()) -> None:
@@ -677,7 +692,7 @@ class ContinuousBatchingEngine:
         self.preemptions += 1
         self._m_preempted.inc()
         if req.enqueued_at is None:  # the previous stint was observed
-            req.enqueued_at = time.perf_counter()
+            req.enqueued_at = self._clock()
         self.tracer.instant("serve.preempt", uid=req.uid,
                             generated=len(req.generated_prefix))
 
@@ -913,7 +928,7 @@ class ContinuousBatchingEngine:
         req = st["req"]
         if req.uid in self.block_pool.owners():
             self.block_pool.release(req.uid)  # return adopted prefix blocks
-        req.enqueued_at = time.perf_counter()  # admission observed: new stint
+        req.enqueued_at = self._clock()  # admission observed: new stint
         self.scheduler.pending.appendleft(slot.release())
         self._clear_slot(slot)
 
@@ -1052,11 +1067,13 @@ class ContinuousBatchingEngine:
                 raise RuntimeError(f"engine did not drain within {max_ticks} ticks")
         return dict(self.scheduler.finished)
 
-    def serve(self, prompts, max_new_tokens) -> List[List[int]]:
-        """Submit all prompts, drain, return the outputs in order."""
+    def serve(self, prompts, max_new_tokens, *, eos_id: Optional[int] = None
+              ) -> List[List[int]]:
+        """Submit all prompts (each stopping at ``eos_id``, if given), drain,
+        return the outputs in order."""
         if isinstance(max_new_tokens, int):
             max_new_tokens = [max_new_tokens] * len(prompts)
-        uids = [self.submit(p, int(m)) for p, m in zip(prompts, max_new_tokens)]
+        uids = [self.submit(p, int(m), eos_id=eos_id) for p, m in zip(prompts, max_new_tokens)]
         done = self.run()
         return [done[u] for u in uids]
 

@@ -4,10 +4,11 @@
 A fixed set of slots; each walks FREE -> [PREFILLING ->] ACTIVE -> FREE
 (PREFILLING only under chunked prefill: bound and holding blocks, not yet
 decoding).  ``submit`` appends to a FIFO pending queue (never blocks);
-``admit`` binds pending requests to free slots; ``retire`` frees a slot for
-immediate reuse; ``preempt`` evicts an unfinished request, keeps what it
-generated (``Request.generated_prefix``) and requeues it at the *front*, so
-it keeps its FIFO priority.  Pure host-side bookkeeping.
+``admit`` binds pending requests to free slots; a request finishes on its
+budget or on its ``eos_id``; ``retire`` frees a slot for immediate reuse;
+``preempt`` evicts an unfinished request, keeps what it generated
+(``Request.generated_prefix``) and requeues it at the *front*, so it keeps
+its FIFO priority.  Pure host-side bookkeeping.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ class Request:
     uid: int
     prompt: np.ndarray
     max_new_tokens: int
+    # ``eos_id`` (optional) stops the request early; ``arrival_time`` is
+    # recorded for traces and benchmarks, never read by admission (the
+    # scheduler is clockless and admits in submission order)
+    eos_id: Optional[int] = None
+    arrival_time: float = 0.0
     # tokens generated before a preemption: re-admission re-prefills
     # prompt + generated_prefix and resumes; the budget counts them
     generated_prefix: List[int] = dataclasses.field(default_factory=list)
@@ -76,10 +82,20 @@ class SlotScheduler:
         self.finished: Dict[int, List[int]] = {}
         self._next_uid = 0
 
-    def submit(self, prompt: Sequence[int] | np.ndarray, max_new_tokens: int) -> int:
+    def submit(
+        self,
+        prompt: Sequence[int] | np.ndarray,
+        max_new_tokens: int,
+        *,
+        eos_id: Optional[int] = None,
+        arrival_time: float = 0.0,
+    ) -> int:
         uid = self._next_uid
         self._next_uid += 1
-        self.pending.append(Request(uid, np.asarray(prompt, np.int32), max_new_tokens))
+        self.pending.append(
+            Request(uid, np.asarray(prompt, np.int32), max_new_tokens,
+                    eos_id=eos_id, arrival_time=arrival_time)
+        )
         return uid
 
     def free_slots(self) -> List[Slot]:
@@ -97,10 +113,13 @@ class SlotScheduler:
         return admitted
 
     def record_token(self, slot: Slot, token: int) -> bool:
-        """Append a token; True when the request just finished its budget
-        (tokens generated before a preemption count)."""
+        """Append a token; True when the request just finished: EOS sampled
+        (before the budget check) or its budget spent (tokens generated
+        before a preemption count)."""
         req = slot.request
         slot.generated.append(int(token))
+        if req.eos_id is not None and int(token) == req.eos_id:
+            return True
         return len(req.generated_prefix) + len(slot.generated) >= req.max_new_tokens
 
     def retire(self, slot: Slot) -> Request:

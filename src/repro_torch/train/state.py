@@ -9,7 +9,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.param import ParamSpec, materialize
+from repro_torch.models.param import ParamSpec, materialize, shape_tree
 from repro_torch.ops.platform import Device, resolve_device
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, opt_state_specs
 
@@ -37,3 +37,8 @@ def init_state(param_specs: Params, seed: int = 0, adamw: AdamWConfig = AdamWCon
         "opt": init_opt_state(params, adamw),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def state_shapes(param_specs: Params, adamw: AdamWConfig = AdamWConfig()) -> Params:
+    """The whole train state as ``meta`` tensors (no storage)."""
+    return shape_tree(state_specs(param_specs, adamw))
