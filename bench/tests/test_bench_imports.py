@@ -1,0 +1,63 @@
+"""What the harness loads: after a whole run of a cell (at toy widths on the
+CPU), no module whose top-level name is ``jax``, ``jaxlib``, ``flax`` or the
+JAX package's ``repro`` is loaded (names compared whole: ``repro_torch`` is
+the port); and the reference loads nothing of the port."""
+
+import ast
+import subprocess
+import sys
+
+from _tiny import BENCH, ROOT
+
+RUN = """
+import sys, time
+sys.path[:0] = [{tests!r}]
+from _tiny import tiny_cell
+import torch
+from harness.runner import execute, loaded_forbidden
+execute(tiny_cell(), 3, 0.2, False, torch.device("cpu"), time.perf_counter())
+tops = sorted({{m.split(".")[0] for m in sys.modules}})
+print("FORBIDDEN", loaded_forbidden())
+print("PORT", "repro_torch" in tops)
+"""
+
+REF = """
+import sys
+sys.path[:0] = [{bench!r}]
+import reference.model, reference.star, torch
+tops = {{m.split(".")[0] for m in sys.modules}}
+print("LOADED", sorted(tops & {{"repro_torch", "repro", "jax", "jaxlib", "flax", "harness"}}))
+"""
+
+
+def _run(code):
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+def test_a_run_loads_no_jax_and_no_reference_package():
+    out = _run(RUN.format(tests=str(BENCH / "tests")))
+    assert "FORBIDDEN []" in out
+    assert "PORT True" in out  # the check compares whole names: the port passes
+
+
+def test_the_reference_loads_nothing_of_the_port():
+    assert "LOADED []" in _run(REF.format(bench=str(BENCH)))
+
+
+def test_no_source_under_bench_imports_jax_or_the_reference_package():
+    for path in sorted(BENCH.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "flax", "repro"), f"{path}: {name}"
+                if path.parent.name == "reference":
+                    assert top not in ("repro_torch", "harness"), f"{path}: {name}"
