@@ -1,9 +1,19 @@
 """``repro_torch.obs`` — the observability subsystem (the port of
-``repro.obs``, DESIGN.md §10), pure stdlib.
+``repro.obs``, DESIGN.md §10), stdlib at import (a recording tracer
+imports torch at its first profiler range).
 
 * **Tracing** (:mod:`repro_torch.obs.trace`): spans and explicit
   begin/end events into a bounded ring buffer; a process-global no-op
-  tracer when disabled; Chrome trace-event JSON export.
+  tracer when disabled; Chrome trace-event JSON export.  While a
+  :class:`Tracer` records, every span and begin/end pair is also a
+  ``torch.profiler`` range of its name, so the program's spans sit on a
+  profiled window's host timeline; ``Tracer.complete(name, start_s, end_s)``
+  records a span after the fact from two readings of ``Tracer.now()``.
+  The continuous engine's spans: the reference's (``serve.prefill``,
+  ``serve.decode``, ...) and the port's own, ``serve.tick.upload`` /
+  ``graph`` / ``sample`` / ``record`` inside ``serve.decode``, and the
+  deferred ``serve.tick.device`` and ``serve.prefill.device`` (``device_ms``
+  from CUDA events) and ``serve.queue_wait``.
 * **Metrics** (:mod:`repro_torch.obs.metrics`): ``Counter`` / ``Gauge`` /
   ``Histogram`` behind a labeled :class:`MetricsRegistry` with
   ``snapshot() -> dict``.

@@ -1,7 +1,7 @@
 """Tracing: spans + events into a bounded ring buffer, Chrome-trace export
 (the port's own copy of the reference's ``repro.obs.trace``, DESIGN.md §10:
-the port imports nothing of ``repro``, so it keeps this stdlib module as
-its own; the events it writes are the reference's, field for field).
+the port imports nothing of ``repro``, so it keeps this module as its own;
+the events it writes are the reference's, field for field).
 
 The serving stack needs stage-level visibility — where a request's time
 goes between enqueue, admission, prefill, decode ticks, and finish —
@@ -35,8 +35,20 @@ Event vocabulary (Chrome trace-event ``ph`` codes):
 * ``instant(name, **args)`` — an ``"i"`` marker (preemption, guard trip).
 * ``counter(name, **values)`` — a ``"C"`` sample (queue depth, block
   occupancy) rendered as a stacked counter track.
+* ``complete(name, start_s, end_s, **args)`` — an ``"X"`` event recorded
+  after the fact, from two readings of the tracer's own clock (``now()``):
+  a span whose length is known only later (a device time read from CUDA
+  events, a queue wait measured at admission).
 
-Pure stdlib: the host-side scheduler and block pool depend on it freely.
+The profiler bridge: while a :class:`Tracer` records, every ``span`` and
+every ``begin`` / ``end`` pair also opens a ``torch.profiler`` range of the
+same name (``record_function``'s fast form), so a profiled window shows
+the program's spans on the host timeline beside the kernels they launched.
+``complete`` opens none: its region is over when it is recorded.
+
+Stdlib at import: torch is imported at a recording tracer's first range,
+so the host-side scheduler and block pool depend on this module freely and
+the :class:`NullTracer` never touches torch.
 """
 
 from __future__ import annotations
@@ -47,6 +59,26 @@ import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
+
+_RANGE = None  # the profiler range's type, once torch is imported
+
+
+def _open_range(name: str):
+    """Open a ``torch.profiler`` range named ``name``; returns it, for
+    :func:`_close_range`.  The range is torch's fast record-function, a C++
+    object: about a microsecond a range against tens for ``record_function``."""
+    global _RANGE
+    if _RANGE is None:
+        import torch
+
+        _RANGE = torch._C._profiler._RecordFunctionFast
+    r = _RANGE(name)
+    r.__enter__()
+    return r
+
+
+def _close_range(r) -> None:
+    r.__exit__(None, None, None)
 
 
 @dataclasses.dataclass
@@ -81,9 +113,10 @@ class TraceEvent:
 
 
 class _Span:
-    """Context manager recording one complete ("X") event on exit."""
+    """Context manager recording one complete ("X") event on exit, inside a
+    profiler range of the same name."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: Dict[str, Any]):
         self._tracer = tracer
@@ -92,11 +125,13 @@ class _Span:
         self._args = args
 
     def __enter__(self) -> "_Span":
+        self._range = _open_range(self._name)
         self._t0 = self._tracer._now_us()
         return self
 
     def __exit__(self, *exc: Any) -> bool:
         t1 = self._tracer._now_us()
+        _close_range(self._range)
         self._tracer._append(TraceEvent(
             self._name, "X", self._t0, dur=t1 - self._t0,
             tid=threading.get_ident() & 0xFFFFFF, cat=self._cat,
@@ -130,11 +165,16 @@ class Tracer:
         self._epoch = clock()
         self._buf: deque[TraceEvent] = deque(maxlen=capacity)
         self.dropped = 0
+        self._ranges: Dict[str, List[Any]] = {}  # begin()'s open profiler ranges by name
 
     # -- recording -----------------------------------------------------------
 
     def _now_us(self) -> float:
         return (self._clock() - self._epoch) * 1e6
+
+    def now(self) -> float:
+        """The tracer's clock, in seconds: the readings ``complete`` takes."""
+        return self._clock()
 
     def _append(self, event: TraceEvent) -> None:
         if len(self._buf) == self.capacity:
@@ -145,6 +185,7 @@ class Tracer:
         return _Span(self, name, cat, args)
 
     def begin(self, name: str, *, cat: str = "repro", **args: Any) -> None:
+        self._ranges.setdefault(name, []).append(_open_range(name))
         self._append(TraceEvent(
             name, "B", self._now_us(),
             tid=threading.get_ident() & 0xFFFFFF, cat=cat, args=args or None,
@@ -154,6 +195,19 @@ class Tracer:
         self._append(TraceEvent(
             name, "E", self._now_us(),
             tid=threading.get_ident() & 0xFFFFFF, cat=cat,
+        ))
+        open_ = self._ranges.get(name)
+        if open_:
+            _close_range(open_.pop())
+
+    def complete(self, name: str, start_s: float, end_s: float, *, cat: str = "repro",
+                 **args: Any) -> None:
+        """A complete ("X") event from ``start_s`` to ``end_s``, two readings
+        of :meth:`now`, recorded after the fact (no profiler range)."""
+        t0, t1 = (start_s - self._epoch) * 1e6, (end_s - self._epoch) * 1e6
+        self._append(TraceEvent(
+            name, "X", t0, dur=t1 - t0,
+            tid=threading.get_ident() & 0xFFFFFF, cat=cat, args=args or None,
         ))
 
     def async_begin(self, name: str, id: int, *, cat: str = "request",
@@ -220,8 +274,9 @@ class NullTracer:
 
     ``span()`` returns one preallocated context manager, so an
     instrumented hot loop with tracing disabled pays a method call and
-    nothing else — no event objects, no clock reads, no buffer traffic
-    (tests/test_obs.py pins this: zero events after a full serve run).
+    nothing else — no event objects, no clock reads, no buffer traffic, no
+    profiler range (tests/test_obs.py pins this: zero events after a full
+    serve run).
     """
 
     enabled = False
@@ -248,6 +303,13 @@ class NullTracer:
         pass
 
     def counter(self, name: str, *, cat: str = "repro", **values: float) -> None:
+        pass
+
+    def now(self) -> float:
+        return 0.0  # no clock is read
+
+    def complete(self, name: str, start_s: float, end_s: float, *, cat: str = "repro",
+                 **args: Any) -> None:
         pass
 
     def clear(self) -> None:

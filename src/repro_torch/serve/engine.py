@@ -75,8 +75,31 @@ under its names (``serve.submit`` / ``admit`` / ``prefill`` /
 ``request`` track per uid), and its transfer counters: ``serve.bytes.h2d``
 and ``serve.bytes.d2h`` (the bytes the engine moves across the host-device
 boundary) and, paged only, ``kv.gather.bytes`` (``ops.paged_gather_bytes``,
-a traffic model).  The engines compute with ``models.param.compute_params``:
-weights cast to the compute dtype once.
+a traffic model).  The port's own spans, recorded only while the tracer
+records:
+
+* inside ``serve.decode``, one span a phase of the tick:
+  ``serve.tick.upload`` (dirty table rows and the ``[S, 1]`` inputs),
+  ``serve.tick.graph`` (the replay, a capture included),
+  ``serve.tick.sample`` (the draws and the tokens' transfer down: the host
+  waits for the device here) and ``serve.tick.record`` (the traffic count,
+  then ``_record`` over the active slots: ``on_token``, retire, release);
+* ``serve.tick.device`` (args ``tick``, ``device_ms``): the replay's device
+  time from a pair of CUDA events recorded around it on its stream, read
+  after the tokens' transfer, which already waited for them (a capturing
+  tick's includes its warm-up);
+* ``serve.prefill.device`` (args ``uid``, ``rows``, ``device_ms``): the same
+  events around a monolithic admission's prefill and pool write, read after
+  its first token's transfer;
+* ``serve.queue_wait`` (arg ``uid``): a stint in the pending queue, on the
+  engine's clock, ending at the tracer's reading of the admission.
+
+The three last are recorded after the fact (``Tracer.complete``); on the
+CPU there are no events and ``device_ms`` is left out.  Every span and
+``begin`` / ``end`` pair is also a ``torch.profiler`` range of its name
+(the tracer's bridge).  Under the no-op tracer none of this runs: no range,
+no event, no clock read.  The engines compute with
+``models.param.compute_params``: weights cast to the compute dtype once.
 """
 
 from __future__ import annotations
@@ -530,6 +553,12 @@ class ContinuousBatchingEngine:
                        model_cfg.paged_attention_spec.impl, model_cfg.softmax_spec.impl,
                        layout, self._cache_t, model_cfg.attention_spec.impl)
         self.graphs = StepGraphs(self.device)
+        # the device-timed regions' pair of CUDA events (the tick's replay, a
+        # monolithic admission), made once and only while the tracer records
+        self._timing = None
+        if self.tracer.enabled and self.device.type == "cuda":
+            self._timing = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
         self.ticks = 0
         self.preemptions = 0
         self.peak_used_blocks = 0
@@ -636,8 +665,32 @@ class ContinuousBatchingEngine:
     def _observe_queue_wait(self, req: Request) -> None:
         # consume the stamp: a later preemption opens a new stint
         if req.enqueued_at is not None:
-            self._h_queue.observe(self._clock() - req.enqueued_at)
+            wait = self._clock() - req.enqueued_at
+            self._h_queue.observe(wait)
+            if self.tracer.enabled:
+                end = self.tracer.now()
+                self.tracer.complete("serve.queue_wait", end - wait, end, uid=req.uid)
             req.enqueued_at = None
+
+    def _device_begin(self) -> float:
+        """Open a device-timed region (tracing only): the tracer's reading,
+        then, on the card, the start event on the current stream."""
+        t0 = self.tracer.now()
+        if self._timing is not None:
+            self._timing[0].record()
+        return t0
+
+    def _device_end(self) -> None:
+        if self._timing is not None:
+            self._timing[1].record()
+
+    def _device_span(self, name: str, t0: float, **args: Any) -> None:
+        """The complete span ``name`` from ``t0`` to now, with the region's
+        device time in ms (on the card).  Called after a transfer that
+        waited for the end event: reading it adds no synchronisation."""
+        if self._timing is not None:
+            args["device_ms"] = self._timing[0].elapsed_time(self._timing[1])
+        self.tracer.complete(name, t0, self.tracer.now(), **args)
 
     def _set_table(self, idx: int, blocks: Sequence[int] = ()) -> None:
         """The slot's host table row: ``blocks`` then scratch; marks it dirty."""
@@ -772,9 +825,12 @@ class ContinuousBatchingEngine:
                 prefill_len = width * self.block_pool.block_size
         self._observe_queue_wait(req)
         self._m_admitted.inc()
-        if self.tracer.enabled:
+        traced = self.tracer.enabled
+        if traced:
             self.tracer.instant("serve.admit", uid=req.uid, slot=slot.index, rows=rows)
         with self.tracer.span("serve.prefill", uid=req.uid, rows=rows):
+            if traced:
+                t0 = self._device_begin()
             logits, cache1 = self.model.prefill(self.params, self._upload(tokens)[None],
                                                 prefill_len, **fe)
             self._m_prefills.inc()
@@ -783,8 +839,12 @@ class ContinuousBatchingEngine:
                 self.model.write_slot_paged(self.pool, cache1, slot.index, table)
             else:
                 self.model.write_slot(self.pool, cache1, slot.index)
+            if traced:
+                self._device_end()
         self._rows[slot.index] = rows
         self._sample_first(slot, logits, events)
+        if traced:
+            self._device_span("serve.prefill.device", t0, uid=req.uid, rows=rows)
 
     # -- chunked prefill and the prefix cache -------------------------------------
 
@@ -1031,19 +1091,30 @@ class ContinuousBatchingEngine:
                     self._ensure_decode_block(slot)
         active = self.scheduler.active_slots
         if active:
-            if self.tracer.enabled:
+            traced = self.tracer.enabled
+            if traced:
                 self.tracer.begin("serve.decode", tick=self.ticks,
                                   uids=[s.request.uid for s in active])
-            self._upload_tick_inputs()
-            out = self._decode()
+            with self.tracer.span("serve.tick.upload"):
+                self._upload_tick_inputs()
+            with self.tracer.span("serve.tick.graph"):
+                if traced:
+                    t0 = self._device_begin()
+                out = self._decode()
+                if traced:
+                    self._device_end()
             for slot in active:
                 self._rows[slot.index] += 1
-            toks = self._sample_tick(out, active)
-            if self._paged:
-                self._count_gather()
-            for slot in active:
-                self._record(slot, toks[slot.index], events)
-            if self.tracer.enabled:
+            with self.tracer.span("serve.tick.sample"):
+                toks = self._sample_tick(out, active)
+            if traced:
+                self._device_span("serve.tick.device", t0, tick=self.ticks)
+            with self.tracer.span("serve.tick.record"):
+                if self._paged:
+                    self._count_gather()
+                for slot in active:
+                    self._record(slot, toks[slot.index], events)
+            if traced:
                 self.tracer.end("serve.decode")
             self.ticks += 1
         self._g_queue.set(len(self.scheduler.pending))

@@ -95,6 +95,57 @@ def test_tracer_export_loads_and_null_tracer_allocates_nothing(tmp_path):
         obs.Tracer(capacity=0)
 
 
+@pytest.mark.parametrize("args", [{}, {"uid": 3, "device_ms": 1.25}])
+def test_complete_writes_the_references_span_row_on_a_fake_clock(args):
+    """``complete`` from two readings of ``now()`` gives the row the
+    reference's ``span`` gives over the same readings, field for field; the
+    no-op tracer's ``complete`` records nothing and reads no clock."""
+    rows = []
+    for pkg in (obs, jobs):
+        clk = FakeClock(2.0)
+        tr = pkg.Tracer(clock=clk)
+        clk.advance(0.5)
+        if pkg is obs:
+            start = tr.now()
+            clk.advance(0.0125)
+            tr.complete("serve.queue_wait", start, tr.now(), **args)
+        else:
+            with tr.span("serve.queue_wait", **args):
+                clk.advance(0.0125)
+        rows.append(tr.chrome_trace()["traceEvents"])
+    assert rows[0] == rows[1]
+    assert rows[0][0]["ts"] == pytest.approx(500_000) and rows[0][0]["dur"] == pytest.approx(12_500)
+    null = obs.NULL_TRACER
+    null.complete("serve.queue_wait", null.now(), null.now(), uid=1)
+    assert null.now() == 0.0 and null.events == []
+
+
+def test_spans_are_profiler_ranges_of_their_names():
+    """Under ``torch.profiler.profile`` on the CPU the profiler's host events
+    carry the program's span names, nested as the spans are; ``complete``
+    opens no range and the events the tracer records are unchanged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    clk = FakeClock()
+    tr = obs.Tracer(clock=clk)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.begin("serve.decode", tick=0)
+        with tr.span("serve.tick.graph"):
+            torch.ones(4).sum()
+        tr.end("serve.decode")
+        tr.complete("serve.tick.device", 0.0, 0.0, tick=0)
+    ranges = {e.name: e.time_range for e in prof.events() if e.name.startswith("serve.")}
+    assert set(ranges) == {"serve.decode", "serve.tick.graph"}
+    outer, inner = ranges["serve.decode"], ranges["serve.tick.graph"]
+    assert outer.start <= inner.start and inner.end <= outer.end
+    sums = [e.time_range for e in prof.events() if e.name == "aten::sum"]
+    assert sums and inner.start <= sums[0].start and sums[0].end <= inner.end
+    assert [(e.name, e.ph) for e in tr.events] == [
+        ("serve.decode", "B"), ("serve.tick.graph", "X"), ("serve.decode", "E"),
+        ("serve.tick.device", "X")]
+    assert tr._ranges == {"serve.decode": []}  # every range closed
+
+
 # ---------------------------------------------------------------------------
 # metrics: the reference's cases, through both packages
 

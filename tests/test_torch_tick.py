@@ -151,8 +151,9 @@ PLANS = {
 def test_counters_trace_and_tokens_match_the_jax_engine(pair, plan):
     """One greedy paged workload on the gather-free route in both packages
     (``pallas_paged``): the same tokens, the same ``serve.bytes.h2d`` /
-    ``serve.bytes.d2h`` / ``kv.gather.bytes``, and the same Chrome events
-    (names, phases, ids, args) — timestamps aside."""
+    ``serve.bytes.d2h`` / ``kv.gather.bytes``, and, restricted to the
+    reference's names, the same Chrome events (names, phases, ids, args) —
+    timestamps aside; the port's own spans are checked on their own."""
     cfg_j, params_j, cfg_t, params_t = pair
     prompts, gens = _prompts() if plan == "monolithic" else _shared_prefix_prompts()
     kw = PLANS[plan]
@@ -177,12 +178,82 @@ def test_counters_trace_and_tokens_match_the_jax_engine(pair, plan):
         return [(e["name"], e["ph"], e.get("id"), e.get("args"))
                 for e in tracer.chrome_trace()["traceEvents"]]
 
-    assert rows(tt) == rows(tj)
+    ref_names = {r[0] for r in rows(tj)}
+    assert [r for r in rows(tt) if r[0] in ref_names] == rows(tj)
+    own = {r[0] for r in rows(tt)} - ref_names
+    assert own == set(PORT_SPANS) - ({"serve.prefill.device"} if plan != "monolithic" else set())
+    _check_port_spans(tt, et.ticks, et.metrics.counter("serve.requests.admitted").value(),
+                      monolithic=plan == "monolithic")
     if plan != "monolithic":
         assert et.preemptions >= 1 and et.kv_stats()["prefix"]["hits"] >= 1
         assert any(name == "serve.preempt" for name, *_ in rows(tt))
     # one capture for the engine's one route; one replay per tick
     assert et.graph_entries() == 1 and et.graphs.replays == et.ticks
+
+
+PORT_SPANS = ("serve.tick.upload", "serve.tick.graph", "serve.tick.sample",
+              "serve.tick.record", "serve.tick.device", "serve.prefill.device",
+              "serve.queue_wait")
+TICK_PHASES = PORT_SPANS[:4]
+
+
+def _check_port_spans(tracer, ticks, admissions, monolithic, device_ms=False):
+    """The port's own spans: one of each tick phase a tick, in order and
+    inside its ``serve.decode``; one ``serve.tick.device`` a tick (arg
+    ``tick``) covering the replay through the tokens' transfer; one
+    ``serve.queue_wait`` an admission; one ``serve.prefill.device`` a
+    monolithic admission inside its ``serve.prefill`` through the first
+    token's transfer; ``device_ms`` only where there are CUDA events."""
+    ev = tracer.chrome_trace()["traceEvents"]
+    decode_b = [e for e in ev if e["name"] == "serve.decode" and e["ph"] == "B"]
+    decode_e = [e for e in ev if e["name"] == "serve.decode" and e["ph"] == "E"]
+    assert len(decode_b) == len(decode_e) == ticks
+    for b, e in zip(decode_b, decode_e):
+        inside = [x for x in ev if x["ph"] == "X" and b["ts"] <= x["ts"]
+                  and x["ts"] + x["dur"] <= e["ts"]]
+        assert [x["name"] for x in inside if x["name"] in TICK_PHASES] == list(TICK_PHASES)
+        graph = next(x for x in inside if x["name"] == "serve.tick.graph")
+        sample = next(x for x in inside if x["name"] == "serve.tick.sample")
+        dev = next(x for x in ev if x["name"] == "serve.tick.device"
+                   and x["args"]["tick"] == b["args"]["tick"])
+        assert dev["ts"] >= graph["ts"] and dev["ts"] + dev["dur"] >= sample["ts"] + sample["dur"]
+        assert dev["ts"] + dev["dur"] <= e["ts"]
+        assert ("device_ms" in dev["args"]) == device_ms
+        if device_ms:
+            assert 0 < dev["args"]["device_ms"] <= dev["dur"] * 1e-3
+    waits = [x for x in ev if x["name"] == "serve.queue_wait"]
+    assert len(waits) == admissions
+    assert all(x["ph"] == "X" and x["dur"] >= 0 and set(x["args"]) == {"uid"} for x in waits)
+    admits = [x for x in ev if x["name"] == "serve.admit"]
+    for w in waits:  # ends at the admission's reading, before its instant
+        admit = next(a for a in admits if a["args"]["uid"] == w["args"]["uid"]
+                     and a["ts"] >= w["ts"] + w["dur"])
+        assert admit["ts"] - (w["ts"] + w["dur"]) < 1e5
+    prefills = [x for x in ev if x["name"] == "serve.prefill"]
+    devices = [x for x in ev if x["name"] == "serve.prefill.device"]
+    assert len(devices) == (len(prefills) if monolithic else 0)
+    for p, d in zip(prefills, devices):
+        assert {k: d["args"][k] for k in ("uid", "rows")} == p["args"]
+        assert p["ts"] <= d["ts"] <= p["ts"] + p["dur"] <= d["ts"] + d["dur"]
+        assert ("device_ms" in d["args"]) == device_ms
+        if device_ms:
+            assert 0 < d["args"]["device_ms"] <= d["dur"] * 1e-3
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_port_spans_nest_in_the_tick_on_cpu(layout, temperature):
+    """The tick's phases nest inside ``serve.decode`` and the deferred spans
+    carry their args, on either pool, greedy or sampled."""
+    cfg = get_smoke_config("granite_8b")
+    params = materialize(build_model(cfg).param_specs(), 0, "cpu")
+    tracer = obs.Tracer()
+    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+        num_slots=2, max_len=MAX_LEN, kv_layout=layout, temperature=temperature),
+        device="cpu", tracer=tracer)
+    prompts, gens = _prompts()
+    assert all(len(o) == n for o, n in zip(eng.serve(prompts, gens), gens))
+    _check_port_spans(tracer, eng.ticks, len(prompts), monolithic=True)
 
 
 def test_steady_decode_uploads_only_the_token_inputs():
@@ -224,6 +295,41 @@ def test_disabled_tracer_records_nothing_during_serve():
     assert all(len(o) == 3 for o in eng.serve([np.arange(4), np.arange(6)], 3))
     assert obs.NULL_TRACER.events == [] and obs.NULL_TRACER.chrome_trace()["traceEvents"] == []
     assert eng.metrics.counter("serve.requests.finished").value() == 2
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("opened under the no-op tracer")
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_null_tracer_opens_no_range_makes_no_event_and_reads_no_clock(device, monkeypatch):
+    """Under the no-op tracer a serve opens no profiler range, makes no CUDA
+    event and reads the engine's clock only where the reference's engine
+    does: once at each submit, admission and token."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs CUDA")
+    from repro_torch.obs import trace
+
+    monkeypatch.setattr(trace, "_open_range", _refuse)
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _refuse)
+    reads = []
+
+    def clock():
+        reads.append(1)
+        return float(len(reads))
+
+    cfg = get_smoke_config("granite_8b")
+    params = materialize(build_model(cfg).param_specs(), 0, device)
+    for layout in ("paged", "dense"):
+        reads.clear()
+        eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+            num_slots=2, max_len=MAX_LEN, kv_layout=layout, temperature=0.8),
+            device=device, clock=clock)
+        prompts, gens = _prompts()
+        eng.serve(prompts, gens)
+        assert len(reads) == 2 * len(prompts) + sum(gens)
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +619,25 @@ def test_graph_tick_equals_the_eager_tick_on_card(cuda, kv_dtype, fault):
             leaf, ref = leaf.view(torch.uint8), ref.view(torch.uint8)
         assert torch.equal(leaf, ref), name
     assert torch.equal(eng.pool["len"], state[0]["len"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_device_ms_is_positive_and_inside_its_span_on_card(cuda, layout):
+    """On the card the tick's and the admissions' device-timed spans carry
+    ``device_ms`` from their CUDA events, above 0 and below the span's wall;
+    the spans nest as on the CPU."""
+    cfg = dataclasses.replace(get_smoke_config("granite_8b"), attn_impl="pallas")
+    params = materialize(build_model(cfg).param_specs(), 0, "cuda")
+    tracer = obs.Tracer()
+    eng = ContinuousBatchingEngine(cfg, params, ContinuousConfig(
+        num_slots=2, max_len=MAX_LEN, kv_layout=layout, temperature=0.8),
+        device="cuda", tracer=tracer)
+    prompts, gens = _prompts()
+    with ops.use(softmax="pallas"):
+        assert all(len(o) == n for o, n in zip(eng.serve(prompts, gens), gens))
+    assert eng.graph_entries() == 1
+    _check_port_spans(tracer, eng.ticks, len(prompts), monolithic=True, device_ms=True)
 
 
 @pytest.mark.cuda
