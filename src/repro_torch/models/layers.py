@@ -44,6 +44,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.models.param import ParamSpec
+from repro_torch.obs.metrics import default_registry
 
 Params = Dict[str, Any]
 
@@ -611,11 +612,36 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """float32 one-hot of ``idx`` over ``n`` classes by comparison with an
-    ``arange``: an index outside ``[0, n)`` is a zero row (as
-    ``jax.nn.one_hot``), with no range check read back to the host."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+def _queue_positions(idx: torch.Tensor, e: int, state: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, choice)'s place in its expert's queue: the count of
+    earlier choices of the same expert in ``(token, choice)`` order, plus
+    the expert's ``state`` (the counts of earlier chunks) where given.
+    ``idx`` ``[g, t, k]``; returns ``(pos, counts)``, ``pos`` ``[g, t, k]``
+    and ``counts`` ``[g, e]`` (this call's choices), both int32.  One scan
+    of the flattened one-hot ``[g, e, t·k]`` runs along its contiguous axis
+    (a single 1-D scan on the card) and counts on across rows, so each
+    row's start is taken off."""
+    g = idx.shape[0]
+    flat = idx.reshape(g, -1)
+    hit = flat[:, None, :] == torch.arange(e, device=idx.device)[:, None]  # [g, e, t·k]
+    counts = hit.sum(-1, dtype=torch.int32)
+    upto = hit.reshape(-1).cumsum(0, dtype=torch.int32).reshape(hit.shape)
+    start = upto[..., -1] - counts  # the choices of the rows before each
+    if state is not None:
+        start = start - state
+    pos = upto.gather(1, flat[:, None])[:, 0] - start.gather(1, flat) - 1
+    return pos.reshape(idx.shape), counts
+
+
+def _experts(p: Params, xin: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The experts' SwiGLU FFN on their queues: ``xin`` ``[e, g, cap, d]``."""
+    h = torch.einsum("egcd,edf->egcf", xin, p["wi"].to(dt))
+    g_ = torch.einsum("egcd,edf->egcf", xin, p["wg"].to(dt))
+    h = torch.nn.functional.silu(g_) * h
+    h = wlc(h, ("expert", "batch", None, "mlp"))
+    out = torch.einsum("egcf,efd->egcd", h, p["wo"].to(dt))
+    return wlc(out, ("expert", "batch", None, "embed"))
 
 
 def moe(
@@ -626,9 +652,9 @@ def moe(
     state: Optional[torch.Tensor] = None,
     capacity: Optional[int] = None,
 ):
-    """Grouped one-hot dispatch MoE (GShard-style, capacity-dropped); one
-    group per batch row.  The router softmax goes through ``ops.softmax``
-    with ``router_spec(cfg)``: the STAR engine (the kernel under
+    """Grouped MoE (GShard-style, capacity-dropped); one group per batch
+    row.  The router softmax goes through ``ops.softmax`` with
+    ``router_spec(cfg)``: the STAR engine (the kernel under
     ``impl="pallas"``).
 
     ``state`` (``[groups, experts]`` int32: the per-expert counts of earlier
@@ -637,9 +663,16 @@ def moe(
     queue position.  Given either, the call returns ``(y, new_state)``,
     whose counts include dropped choices; the bare form returns ``y``.
 
-    The dense products (dispatch, the experts, combine) are the reference's
-    einsums.  Every step stays on the device: the one-hots compare against
-    an ``arange`` and nothing is read back, so a CUDA graph captures it.
+    Dispatch and combine go by index, with work linear in the tokens: each
+    kept choice's row of ``x`` is copied into its expert's queue
+    ``[experts, groups, capacity, d]`` (a dropped one into a scratch row),
+    the experts run the reference's einsums on their queues, and each token
+    takes the gate-weighted sum of its ``k`` rows back.  The result is the
+    reference's one-hot einsums' (the queues bit for bit; ``y`` up to the
+    order of the ``k`` additions).  Every step stays on the device with
+    shapes from the config alone, so a CUDA graph captures it.  Each call
+    counts ``moe.dispatch.rows{kind}`` in the process registry: ``routed``
+    (the choices) and ``slots`` (the queue rows the experts compute).
 
     Under a mesh (``x`` a DTensor) the block runs expert-parallel on each
     rank's shard (:func:`_moe_on_shards`), the bare form only."""
@@ -657,13 +690,12 @@ def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, state=None, capacity=N
     are experts ``[e0, e0 + n)`` of the router's, and the result is their
     part of the output (a partial sum over the experts' shards)."""
     dt = cdtype(cfg)
-    b, t, d = x.shape
+    g, t, d = x.shape  # one group a batch row
     e, k = cfg.num_experts, cfg.top_k
-    groups, tg = b, t
-    xg = x.reshape(groups, tg, d)
+    e0, n = span if span is not None else (0, e)
     stateful = state is not None or capacity is not None
 
-    logits = (xg @ p["router"].to(dt)).float()
+    logits = (x @ p["router"].to(dt)).float()
     probs = ops.softmax(logits, router_spec(cfg))
     gate_vals, gate_idx = top_k(probs, k)  # [g, t, k]
     total = gate_vals[..., 0]
@@ -671,38 +703,34 @@ def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, state=None, capacity=N
         total = total + gate_vals[..., i]
     gate_vals = gate_vals / torch.clamp(total, min=1e-9)[..., None]
 
-    cap = capacity if capacity is not None else moe_capacity(cfg, tg)
-    # each (token, choice)'s position in its expert's queue
-    onehot = _one_hot(gate_idx, e)  # [g, t, k, e]
-    flat = onehot.reshape(groups, tg * k, e)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(groups, tg, k, e)
-    if state is not None:  # offset by the earlier chunks' counts: global positions
-        pos = pos + state.float()[:, None, None, :]
-    pos = (pos * onehot).sum(dim=-1)  # [g, t, k]
+    cap = capacity if capacity is not None else moe_capacity(cfg, t)
+    pos, counts = _queue_positions(gate_idx, e, state)
     keep = pos < cap
+    local = gate_idx
+    if span is not None:  # kept, and one of this call's experts
+        local = gate_idx - e0
+        keep = keep & (local >= 0) & (local < n)
     gate_vals = gate_vals * keep
+    slots = n * g * cap
+    # a kept choice's queue row: expert-major, then group, then position
+    row = local * (g * cap) + pos + torch.arange(0, g * cap, cap, device=x.device)[:, None, None]
+    dispatched = default_registry().counter("moe.dispatch.rows")
+    dispatched.inc(g * t * k, kind="routed")
+    dispatched.inc(slots, kind="slots")
 
-    pos_oh = _one_hot(pos.long(), cap)  # [g, t, k, cap]: a dropped choice is a zero row
-    dispatch = torch.einsum("gtke,gtkc->gtec", onehot * keep[..., None], pos_oh)
-    combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gate_vals)
-    if span is not None:  # this rank's experts
-        dispatch = dispatch[:, :, span[0]:span[0] + span[1]]
-        combine = combine[:, :, span[0]:span[0] + span[1]]
+    # dispatch: every kept row copied to its slot, a dropped one to the scratch row
+    queue = x.new_zeros(slots + 1, d, dtype=dt)
+    queue.index_put_((torch.where(keep, row, slots),), x.to(dt)[:, :, None, :])
+    xin = wlc(queue[:slots].view(n, g, cap, d), ("expert", "batch", None, "embed"))
+    out = _experts(p, xin, dt).reshape(slots, d)
 
-    xin = torch.einsum("gtec,gtd->egcd", dispatch, xg.float()).to(dt)
-    xin = wlc(xin, ("expert", "batch", None, "embed"))
-    h = torch.einsum("egcd,edf->egcf", xin, p["wi"].to(dt))
-    g_ = torch.einsum("egcd,edf->egcf", xin, p["wg"].to(dt))
-    h = torch.nn.functional.silu(g_) * h
-    h = wlc(h, ("expert", "batch", None, "mlp"))
-    out = torch.einsum("egcf,efd->egcd", h, p["wo"].to(dt))
-    out = wlc(out, ("expert", "batch", None, "embed"))
-    y = torch.einsum("gtec,egcd->gtd", combine.to(dt), out)
-    y = wlc(y.reshape(b, t, d), ("batch", "seq", "embed"))
+    # combine: each token's k rows back (a dropped choice reads row 0 at weight 0)
+    picked = out.index_select(0, torch.where(keep, row, 0).reshape(-1)).reshape(g * t, k, d)
+    w = gate_vals.to(dt).reshape(g * t, 1, k)
+    y = wlc(torch.bmm(w, picked).reshape(g, t, d), ("batch", "seq", "embed"))
     if not stateful:
         return y
-    counts = onehot.sum(dim=(1, 2)).to(torch.int32)  # [g, e], dropped choices included
-    return y, counts if state is None else state + counts
+    return y, counts if state is None else state + counts  # dropped choices included
 
 
 def _moe_on_shards(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -10,8 +10,14 @@ MoE outputs within 1e-5 of the largest output (float32 sums in another
 order; the router's STAR snap is exact); logits at ``atol=1e-4``; expert
 counts, expert choices and greedy tokens identical.
 
+The block dispatches by index; ``moe_one_hot`` keeps the one-hot einsum
+form it replaced as its oracle, without JAX: the experts' queues and the
+counts bit-equal, outputs within MOE_RTOL, gradients within float32
+rounding, and no intermediate that grows as the prompt's square.
+
 The ``cuda`` tests hold the STAR softmax kernel bit-equal to its plain
-version at the router's shapes, and the granite-moe smoke tick's replay
+version at the router's shapes, the index route to the one-hot form at
+granite-moe's width in bfloat16, and the granite-moe smoke tick's replay
 bit-equal to its eager tick; they skip where there is no card.
 """
 
@@ -263,6 +269,191 @@ def test_an_exact_router_takes_the_reference_route(how, pairs, monkeypatch):
     with ops.use(softmax="pallas"):
         L.moe(pt, torch.as_tensor(x), star)
     assert calls == [1]
+
+
+# ---------------------------------------------------------------------------
+# dispatch by index against the one-hot form it replaced
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe_one_hot(p, x, cfg, *, state=None, capacity=None, span=None):
+    """The MoE block by one-hot dispatch and combine (the reference's
+    einsums, float32 dispatch over ``[g, t, e, cap]``): the oracle of the
+    index route.  Returns ``(y, counts, xin)``."""
+    dt = L.cdtype(cfg)
+    g, t, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    logits = (x @ p["router"].to(dt)).float()
+    probs = ops.softmax(logits, L.router_spec(cfg))
+    gate_vals, gate_idx = L.top_k(probs, k)
+    total = gate_vals[..., 0]
+    for i in range(1, k):
+        total = total + gate_vals[..., i]
+    gate_vals = gate_vals / torch.clamp(total, min=1e-9)[..., None]
+    cap = capacity if capacity is not None else L.moe_capacity(cfg, t)
+    onehot = _one_hot(gate_idx, e)
+    flat = onehot.reshape(g, t * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, t, k, e)
+    if state is not None:
+        pos = pos + state.float()[:, None, None, :]
+    pos = (pos * onehot).sum(dim=-1)
+    keep = pos < cap
+    gate_vals = gate_vals * keep
+    pos_oh = _one_hot(pos.long(), cap)
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot * keep[..., None], pos_oh)
+    combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gate_vals)
+    if span is not None:
+        dispatch = dispatch[:, :, span[0]:span[0] + span[1]]
+        combine = combine[:, :, span[0]:span[0] + span[1]]
+    xin = torch.einsum("gtec,gtd->egcd", dispatch, x.float()).to(dt)
+    h = torch.einsum("egcd,edf->egcf", xin, p["wi"].to(dt))
+    g_ = torch.einsum("egcd,edf->egcf", xin, p["wg"].to(dt))
+    out = torch.einsum("egcf,efd->egcd", torch.nn.functional.silu(g_) * h, p["wo"].to(dt))
+    y = torch.einsum("gtec,egcd->gtd", combine.to(dt), out)
+    counts = onehot.sum(dim=(1, 2)).to(torch.int32)
+    return y, counts if state is None else state + counts, xin
+
+
+def _routed(p, x, cfg, monkeypatch, **kw):
+    """``L._moe`` with the queues its experts read: ``(y, counts, xin)``
+    (``counts`` None from the bare form)."""
+    seen = []
+    real = L._experts
+    monkeypatch.setattr(L, "_experts", lambda p_, xin, dt: seen.append(xin) or real(p_, xin, dt))
+    out = L._moe(p, x, cfg, **kw)
+    monkeypatch.setattr(L, "_experts", real)
+    y, counts = out if isinstance(out, tuple) else (out, None)
+    (xin,) = seen
+    return y, counts, xin
+
+
+def _moe_case(case):
+    """The smoke granite-moe block (8 experts, top-2) with an exact router
+    (the STAR router passes no gradient to its logits) and the call's
+    keywords for one oracle case."""
+    cfg = dataclasses.replace(get_smoke_config("granite_moe_1b_a400m"), star_router=False)
+    p = materialize(L.spec_moe(cfg), 21, "cpu")
+    x = torch.as_tensor(_x(22, 3, 24, cfg.d_model))
+    kw = {}
+    if case == "stateful":  # prior counts, capacity 2: most choices drop
+        kw = dict(state=torch.randint(0, 4, (3, cfg.num_experts), dtype=torch.int32,
+                                      generator=torch.Generator().manual_seed(23)),
+                  capacity=2)
+    elif case.startswith("span"):  # one rank's half of the experts
+        n = cfg.num_experts // 2
+        e0 = 0 if case == "span_low" else n
+        p = dict(p, **{w: p[w][e0:e0 + n] for w in ("wi", "wg", "wo")})
+        kw = dict(span=(e0, n))
+    elif case == "tie":  # experts 3 and 5 tie; at k = 2 the tie straddles the k-th place
+        router = p["router"].clone()
+        router[:, 5] = router[:, 3]
+        p = dict(p, router=router)
+        kw = dict(capacity=64)
+    return cfg, p, x, kw
+
+
+@pytest.mark.parametrize("case", ["bare", "stateful", "span_low", "span_high", "tie"])
+def test_the_index_route_matches_the_one_hot_oracle(case, monkeypatch):
+    """The experts' queues and the counts bit-equal to the one-hot form's,
+    the output within MOE_RTOL, and the gradients with respect to ``x``,
+    the router and the experts within float32 rounding of the oracle's."""
+    cfg, p, x, kw = _moe_case(case)
+    names = ("router", "wi", "wg", "wo")
+    runs = []
+    for route in ("index", "one_hot"):
+        leaves = {w: p[w].clone().requires_grad_() for w in names}
+        xr = x.clone().requires_grad_()
+        if route == "index":
+            y, counts, xin = _routed(leaves, xr, cfg, monkeypatch, **kw)
+        else:
+            y, counts, xin = moe_one_hot(leaves, xr, cfg, **kw)
+        cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(24))
+        grads = torch.autograd.grad((y * cot).sum(), [xr] + [leaves[w] for w in names])
+        runs.append((y.detach(), counts, xin.detach(), grads))
+    (y, counts, xin, grads), (y_o, counts_o, xin_o, grads_o) = runs
+    assert torch.equal(xin, xin_o)
+    if "state" in kw or "capacity" in kw:
+        assert counts.dtype == torch.int32 and torch.equal(counts, counts_o)
+    if case == "stateful":
+        assert int(counts.max()) > 2  # choices past the queue's end were dropped
+    if case == "tie":
+        probs = ops.softmax((x @ p["router"]).float(), L.router_spec(cfg))
+        straddle = (((probs > probs[..., 3:4]).sum(-1) == cfg.top_k - 1)
+                    & ((probs == probs[..., 3:4]).sum(-1) == 2))
+        assert int(straddle.sum()) > 0
+    _moe_close(y, y_o.numpy())
+    for name, got, want in zip(("x",) + names, grads, grads_o):
+        assert float(want.abs().max()) > 0, name
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=MOE_RTOL * float(want.abs().max()), err_msg=name)
+
+
+def test_the_experts_halves_sum_to_the_whole_block(monkeypatch):
+    """Under ``span`` each half of the experts returns its part of the
+    output; the two parts sum to the bare block's output."""
+    cfg, p, x, _ = _moe_case("bare")
+    whole = L._moe(p, x, cfg)
+    parts = [L._moe(q, x, cfg, **kw) for q, x, kw in
+             (_moe_case(c)[1:] for c in ("span_low", "span_high"))]
+    _moe_close(parts[0] + parts[1], whole.numpy())
+
+
+class _Sizes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The element count of every op's outputs."""
+
+    def __init__(self):
+        super().__init__()
+        self.numels = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for leaf in torch.utils._pytree.tree_leaves(out):
+            if isinstance(leaf, torch.Tensor):
+                self.numels.append(leaf.numel())
+        return out
+
+
+def _largest_intermediate(block, t):
+    cfg = get_smoke_config("granite_moe_1b_a400m")
+    p = materialize(L.spec_moe(cfg), 25, "cpu")
+    x = torch.as_tensor(_x(26, 1, t, cfg.d_model))
+    with _Sizes() as sizes:
+        block(p, x, cfg, capacity=L.moe_capacity(cfg, t))
+    return max(sizes.numels)
+
+
+def test_no_tensor_of_the_block_grows_with_the_square_of_the_prompt():
+    """A prefill's capacity grows with the prompt, so a ``[t, e, cap]``
+    tensor grows as t²: from 256 to 1024 tokens the one-hot form's largest
+    intermediate grows 16x, the index route's as the tokens (4x)."""
+    grow = _largest_intermediate(L.moe, 1024) / _largest_intermediate(L.moe, 256)
+    assert grow <= 4.5
+    assert _largest_intermediate(moe_one_hot, 1024) / _largest_intermediate(moe_one_hot, 256) > 15
+
+
+def test_the_dispatch_counter_counts_choices_and_slots():
+    """``moe.dispatch.rows``: ``routed`` the ``g·t·k`` choices, ``slots``
+    the ``e·g·cap`` queue rows the experts compute, for a bare and a
+    stateful call (whose capacity is the caller's)."""
+    from repro_torch import obs
+
+    cfg, p, x, _ = _moe_case("bare")
+    g, t = x.shape[:2]
+    e, k = cfg.num_experts, cfg.top_k
+    for kw, cap in (({}, L.moe_capacity(cfg, t)),
+                    (dict(state=torch.zeros(g, e, dtype=torch.int32), capacity=9), 9)):
+        mine = obs.MetricsRegistry()
+        prev = obs.set_default_registry(mine)
+        try:
+            L.moe(p, x, cfg, **kw)
+        finally:
+            obs.set_default_registry(prev)
+        rows = mine.counter("moe.dispatch.rows")
+        assert rows.value(kind="routed") == g * t * k
+        assert rows.value(kind="slots") == e * g * cap
 
 
 # ---------------------------------------------------------------------------
@@ -650,3 +841,26 @@ def test_moe_tick_replay_equals_the_eager_tick_on_card(cuda):
                     assert launch_counts()["star_softmax"] == cfg.num_layers * (
                         len(prompts) + e.ticks)
         assert outs["cuda"] == outs["cpu"], layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,t", [(1, 2048), (64, 1)])  # a monolithic prefill, the decode tick
+def test_the_index_route_matches_the_one_hot_oracle_on_card(cuda, g, t, monkeypatch):
+    """granite-moe-1b-a400m's block at full width in bfloat16, the STAR
+    router on the kernel: the experts' queues and the counts bit-equal to
+    the one-hot form's, and the output within one bfloat16 step of it on
+    at least 99.9 % of entries (the k rows are added in another order)."""
+    cfg = get_config("granite_moe_1b_a400m")
+    p = materialize(L.spec_moe(cfg), 27, cuda)
+    x = torch.randn(g, t, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(28)).to(torch.bfloat16)
+    cap = L.moe_capacity(cfg, t)
+    with torch.no_grad(), ops.use(softmax="pallas"):
+        y, counts, xin = _routed(p, x, cfg, monkeypatch, capacity=cap)
+        y_o, counts_o, xin_o = moe_one_hot(p, x, cfg, capacity=cap)
+    assert y.dtype == y_o.dtype == torch.bfloat16
+    assert torch.equal(xin, xin_o) and torch.equal(counts, counts_o)
+    step = torch.ldexp(torch.ones_like(y_o, dtype=torch.float32),
+                       torch.frexp(y_o.float()).exponent - 8)  # one bfloat16 step at y_o
+    within = (y.float() - y_o.float()).abs() <= step
+    assert float(within.float().mean()) >= 0.999
