@@ -2,8 +2,9 @@
 
 Once the window has closed, a sample of the requests that finished in it,
 drawn from the seed with the longest among them, is run through the
-reference (``bench/reference``) over its prompt and served tokens.  The
-traffic samples at a temperature, so a served token is judged as a draw:
+reference its configuration names (``bench/reference/<name>.py``) over its
+prompt and served tokens.  The traffic samples at a temperature, so a
+served token is judged as a draw:
 the engine draws token ``argmax_j p_j / q_j`` with ``p`` the STAR softmax of
 ``logits / T`` and ``q ~ Exp(1)`` from the request's own generator
 (``torch.Generator`` seeded ``engine_seed * 1_000_003 + uid``, one
@@ -18,8 +19,9 @@ share of them whose gap passes a level, which the control has to fail, and
 the widest gap, which a token altered where it is produced fails.
 
 The control is the same reference with its products in float8 e4m3 and its
-activations in bfloat16 (:data:`reference.model.FLOAT8`), the precision
-below the configuration's bfloat16 where the program computes: at every
+activations in bfloat16 (:data:`reference.common.FLOAT8`, one control for
+every architecture), the precision below the configuration's bfloat16 where
+the program computes: at every
 position of the same sequences, the token it ranks first, scored by the
 float32 reference.  Its readings are judged by :func:`judge` like a run's.
 """
@@ -30,7 +32,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from reference import model as ref_model
+from reference.common import FLOAT8
 from reference.star import grid_index
 
 SEED_STRIDE = 1_000_003  # the engine's per-request generator: seed * stride + uid
@@ -122,12 +124,13 @@ def readings(gaps, bad: int, limits: Dict[str, dict]) -> Dict[str, Optional[floa
     return out
 
 
-def token_gaps(requests: list, weights: dict, conf: dict, temperature: float,
+def token_gaps(requests: list, weights: dict, conf: dict, arch, temperature: float,
                engine_seed: int, device, control: bool = False) -> Dict[str, object]:
     """The gaps of the served tokens of ``requests``, one float64 tensor
     over all their tokens, and with ``control`` those of the float8
     control's first choices and of a planted fault: each request's middle
-    token altered (``+ 1`` modulo the vocabulary)."""
+    token altered (``+ 1`` modulo the vocabulary).  ``arch`` is the
+    configuration's reference module; only its ``logits`` is called."""
     import torch
 
     model, sm = conf["model"], conf["softmax"]
@@ -139,7 +142,7 @@ def token_gaps(requests: list, weights: dict, conf: dict, temperature: float,
         tokens = torch.as_tensor(seq, device=device)
         rows = torch.arange(r.prompt_len - 1, r.prompt_len - 1 + n, device=device)
         served = torch.as_tensor(r.tokens, dtype=torch.int64, device=device)
-        logits = ref_model.logits(weights, model, fmt, tokens, r.prompt_len, rows)
+        logits = arch.logits(weights, model, fmt, tokens, r.prompt_len, rows)
         q = exponentials(engine_seed, r.uid, n, logits.shape[-1], device)
         ref_s = scores(logits, q, temperature, fmt)
         del logits
@@ -149,8 +152,7 @@ def token_gaps(requests: list, weights: dict, conf: dict, temperature: float,
             altered = served.clone()
             altered[mid] = (altered[mid] + 1) % model["vocab_size"]
             altered_gaps.append(_gaps(ref_s, altered))
-            ctrl = ref_model.logits(weights, model, fmt, tokens, r.prompt_len, rows,
-                                    prec=ref_model.FLOAT8)
+            ctrl = arch.logits(weights, model, fmt, tokens, r.prompt_len, rows, prec=FLOAT8)
             pick = scores(ctrl, q, temperature, fmt).argmax(dim=-1)
             control_gaps.append(_gaps(ref_s, pick))
             del ctrl

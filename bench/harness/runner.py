@@ -21,6 +21,7 @@ import gc
 import json
 import sys
 import time
+from types import ModuleType
 from typing import List, Optional
 
 from harness import check as check_lib
@@ -38,6 +39,7 @@ class Run:
     """What the metric readers read."""
 
     model: dict
+    arch: ModuleType  # the configuration's reference module: its work counts
     setup_s: float
     t_open: float
     t_close: float
@@ -139,7 +141,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start:
         if trace:
             obs.disable_tracing()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    run = Run(conf["model"], setup_s, t_open, t_close, loop, peak, spans, prof)
+    run = Run(conf["model"], cell.arch, setup_s, t_open, t_close, loop, peak, spans, prof)
 
     # the program's state goes before the reference runs
     loop.engine = None
@@ -153,8 +155,8 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start:
     bad = check_lib.bad_answers(done, cfg.vocab_size)
     gaps = None
     if picked:
-        gaps = check_lib.token_gaps(picked, weights, conf, cb.temperature, engine_seed, device,
-                                    control=control)
+        gaps = check_lib.token_gaps(picked, weights, conf, cell.arch, cb.temperature,
+                                    engine_seed, device, control=control)
         print("gaps: " + ", ".join(f"{k} {check_lib.summary(g)}" for k, g in gaps.items()
                                    if g is not None), file=sys.stderr)
     rows = check_lib.judge(check_lib.readings(gaps["served"] if gaps else None, bad, cell.limits),

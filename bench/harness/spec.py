@@ -1,9 +1,11 @@
 """What a run measures, found by name: the cell in ``BENCHMARK.json``, its
-configuration file (``configs/<config>.json``), its traffic mix
+configuration file (``configs/<config>.json``), the plain reference and work
+counts that file names under ``"reference"`` (``reference/<name>.py``, the
+contract of :mod:`reference.common`), its traffic mix
 (``traffic/<traffic>.json``), the limits of its comparison
 (``checks/<cell>.json``) and one reader per metric (``metrics/<metric>.py``,
-a function ``read(run)``).  A later cell or metric is a new file and a new
-entry; nothing here names one."""
+a function ``read(run)``).  A later cell, metric or architecture is a new
+file and a new entry; nothing here names one."""
 
 from __future__ import annotations
 
@@ -11,11 +13,14 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 REPO_ROOT = BENCH_DIR.parent
 BENCHMARK = REPO_ROOT / "BENCHMARK.json"
+# what a configuration's reference module provides (reference.common)
+REFERENCE_NAMES = ("logits", "prefill_flops", "decode_flops", "paged_least_s", "flash_least_s")
 
 
 @dataclasses.dataclass
@@ -30,6 +35,7 @@ class Cell:
     name: str
     chips: int
     config: dict
+    arch: ModuleType  # the configuration's reference module
     traffic: dict
     limits: dict
     end_to_end: List[Metric]
@@ -47,6 +53,27 @@ def traffic_file(name: str) -> Path:
 
 def checks_file(cell: str) -> Path:
     return BENCH_DIR / "checks" / f"{cell}.json"
+
+
+def reference_file(name: str) -> Path:
+    return BENCH_DIR / "reference" / f"{name}.py"
+
+
+def reference_module(name: str) -> ModuleType:
+    """``reference.<name>``, the module a configuration names, with every
+    name of the contract."""
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"a configuration's reference is a module name, got {name!r}")
+    try:
+        mod = importlib.import_module(f"reference.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"reference.{name}":
+            raise
+        raise FileNotFoundError(f"no reference module {name!r} at {reference_file(name)}") from None
+    missing = [n for n in REFERENCE_NAMES if not callable(getattr(mod, n, None))]
+    if missing:
+        raise AttributeError(f"reference module {name!r} lacks {missing}")
+    return mod
 
 
 def metric_file(name: str) -> Path:
@@ -86,11 +113,12 @@ def load_cell(name: str) -> Cell:
     w = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     config = load_json(REPO_ROOT / configs[w["config"]]["file"])
+    arch = reference_module(config.get("reference"))
     traffic = load_json(traffic_file(w["traffic"]))
     limits = load_json(checks_file(name))
     e2e = metrics_of(bench["end_to_end"], name, False)
     per_layer = metrics_of(bench["per_layer"], name, True)
-    return Cell(name, int(w["chips"]), config, traffic, limits, e2e, per_layer)
+    return Cell(name, int(w["chips"]), config, arch, traffic, limits, e2e, per_layer)
 
 
 def all_files() -> Dict[str, Path]:
@@ -99,6 +127,8 @@ def all_files() -> Dict[str, Path]:
     files = {}
     for c in bench["configs"]:
         files[f"config {c['name']}"] = REPO_ROOT / c["file"]
+        ref = load_json(REPO_ROOT / c["file"])["reference"]
+        files[f"reference {ref}"] = reference_file(ref)
     for w in bench["workloads"]:
         files[f"traffic {w['traffic']}"] = traffic_file(w["traffic"])
         files[f"checks {w['name']}"] = checks_file(w["name"])

@@ -2,6 +2,11 @@
 the served work needs, counted from the configuration and the lengths of
 the traffic the harness generated, never from what a kernel does.
 
+The counts are those of a decoder whose every layer is attention (holding
+K/V) plus an MLP or a mixture of experts: the reference module of such
+configurations re-exports them.  The readers take a configuration's counts
+from the reference module it names (``run.arch``), never from here.
+
 Peaks: one NVIDIA H100 SXM, dense rates (NVIDIA's data sheet): 989 TFLOP/s
 in bf16 and 3.35 TB/s of HBM3.
 """

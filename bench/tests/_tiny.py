@@ -11,7 +11,7 @@ for p in (str(ROOT / "src"), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from harness.spec import Cell, Metric, load_json, reader  # noqa: E402
+from harness.spec import Cell, Metric, load_json, reader, reference_module  # noqa: E402
 
 TINY = {"num_layers": 2, "d_model": 64, "num_heads": 4, "num_kv_heads": 2, "d_ff": 128,
         "vocab_size": 300}
@@ -39,7 +39,8 @@ def tiny_cell(moe: bool = False, compute_dtype: str = "float32", limit: float = 
     """``limit`` holds both gaps: a float32 program draws the reference's
     tokens exactly."""
     e2e = ("output_tok_s", "itl_p95_ms", "ttft_p90_ms", "setup_s")
-    return Cell("tiny", 1, tiny_config(moe, compute_dtype), tiny_traffic(clients),
+    conf = tiny_config(moe, compute_dtype)
+    return Cell("tiny", 1, conf, reference_module(conf["reference"]), tiny_traffic(clients),
                 {"mean_gap": {"limit": limit}, "widest_gap": {"limit": limit},
                  "bad_answers": {"limit": 0}},
                 [Metric(n, "", reader(n)) for n in e2e], [])

@@ -123,7 +123,7 @@ def test_log_uniform_quantiles():
 
 
 def window_run(loop, t_open, t_close, peak=0):
-    return Run({}, 1.0, t_open, t_close, loop, peak)
+    return Run({}, None, 1.0, t_open, t_close, loop, peak)
 
 
 def reader(name):

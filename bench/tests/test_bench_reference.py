@@ -6,6 +6,7 @@ import torch
 
 from _tiny import tiny_config  # noqa: F401  (puts src/ and bench/ on the path)
 from harness.driver import draw_weights, model_config
+from reference import common
 from reference import model as ref_model
 from reference.star import star_softmax
 
@@ -59,13 +60,13 @@ def test_reference_generated_rows_drop_nothing():
 def test_float8_control_rounds():
     x = torch.randn(5, 7)
     w = torch.randn(7, 3)
-    assert torch.equal(ref_model.FLOAT32.mm(x, w), x @ w)
-    got = ref_model.FLOAT8.mm(x, w)
+    assert torch.equal(common.FLOAT32.mm(x, w), x @ w)
+    got = common.FLOAT8.mm(x, w)
     assert not torch.equal(got, x @ w)
     assert torch.allclose(got, x @ w, atol=0.5)
     # a product's operand holds at most 2**8 distinct magnitudes; what the
     # program holds is bfloat16
-    assert ref_model.FLOAT8.operand(torch.randn(10000)).abs().unique().numel() <= 256
-    held = ref_model.FLOAT8.held(torch.randn(10000))
+    assert common.FLOAT8.operand(torch.randn(10000)).abs().unique().numel() <= 256
+    held = common.FLOAT8.held(torch.randn(10000))
     assert torch.equal(held, held.bfloat16().float())
     assert held.abs().unique().numel() > 256

@@ -19,7 +19,7 @@ def reader(name):
 
 
 def run_of(spans, t_open=1.0, t_close=2.0):
-    return Run({}, 1.0, t_open, t_close, None, 0, spans)
+    return Run({}, None, 1.0, t_open, t_close, None, 0, spans)
 
 
 def tick(n, start, wall_ms, device_ms):
@@ -93,7 +93,7 @@ def test_engine_spans_on_the_cpu_reach_the_readers():
     for _ in range(12):
         loop.step()
     spans = spans_of(tracer)
-    run = Run(conf["model"], 1.0, t_open, loop.clock(), loop, 0, spans)
+    run = Run(conf["model"], None, 1.0, t_open, loop.clock(), loop, 0, spans)
     waits = [end - start for name, start, end, _ in spans if name == "serve.queue_wait"]
     assert len(waits) == loop.engine.metrics.counter("serve.requests.admitted").value()
     assert reader("queue_wait_p90_ms")(run) == pytest.approx(1e3 * np.percentile(waits, 90))
